@@ -1,0 +1,238 @@
+"""The port's flash attention held against the JAX package's.
+
+The same inputs, made from a seed with numpy, go through the JAX
+``flash_attention`` — the Pallas kernels in interpret mode with 16-wide
+blocks, as tests/test_ops.py runs them — and through the port's
+``flash_attention``, which on CPU tensors runs its plain versions.  The
+forward output and the gradients of ``sum(sin(out))`` (``jax.vjp`` against
+``torch.autograd``) are compared.  Tolerances are those of the JAX suite:
+float32 1e-5 (the same math, summed in another order), bfloat16 3e-2
+times max(1, |JAX value|) — both frameworks compute in float32 and round
+the result to bfloat16 once, so a value of magnitude above 1 may differ
+by its own rounding step.  Rows that see no key are zero in both.
+
+The kernel-vs-plain tests on the card are marked ``cuda``.
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from torchdistx_tpu.ops import flash_attention as jax_flash_attention
+from torchdistx_tpu_torch.ops import flash_attention, make_flash_attention
+from torchdistx_tpu_torch.ops.flash_attention import (
+    flash_backward,
+    flash_backward_reference,
+    flash_forward,
+    flash_forward_reference,
+    launches,
+)
+
+TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+def _segments(kind, B):
+    """The packings of tests/test_ops.py as numpy ([B, S], [B, T]) ids."""
+    def ids(*runs):
+        row = np.concatenate([np.full(n, i, np.int32)
+                              for i, n in enumerate(runs)])
+        return np.tile(row, (B, 1))
+
+    if kind == "three":  # 3 documents packed into S=50
+        return ids(20, 18, 12), None
+    if kind == "halves":
+        return ids(16, 16), None
+    return ids(12, 12), ids(25, 15)  # cross-attention pair, S=24, T=40
+
+
+CASES = {  # shape, causal, segments, dtype
+    "mha-ragged-50-causal": (dict(B=2, S=50, H=4, D=16), True, None,
+                             "float32"),
+    "mha-ragged-50-full": (dict(B=2, S=50, H=4, D=16), False, None,
+                           "float32"),
+    "gqa": (dict(B=1, S=32, H=8, KV=2, D=16), True, None, "float32"),
+    "mqa": (dict(B=1, S=32, H=8, KV=1, D=16), True, None, "float32"),
+    "cross-24x64-causal": (dict(B=1, S=24, T=64, H=2, D=16), True, None,
+                           "float32"),
+    "cross-64x24-empty-rows": (dict(B=1, S=64, T=24, H=2, D=16), True, None,
+                               "float32"),
+    "bfloat16": (dict(B=1, S=32, H=2, D=16), True, None, "bfloat16"),
+    "bfloat16-gqa-ragged": (dict(B=1, S=50, H=4, KV=2, D=16), False, None,
+                            "bfloat16"),
+    "segments-causal": (dict(B=2, S=50, H=4, D=16), True, "three", "float32"),
+    "segments-cross-pair": (dict(B=1, S=24, T=40, H=2, D=16), False, "pair",
+                            "float32"),
+}
+
+
+def _inputs(seed, *, B, S, H, D, T=None, KV=None):
+    T = S if T is None else T
+    KV = H if KV is None else KV
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, S, H, D).astype(np.float32),
+            rng.randn(B, T, KV, D).astype(np.float32),
+            rng.randn(B, T, KV, D).astype(np.float32))
+
+
+def _close(got, want, dtype, what):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, what
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= ATOL[dtype], f"{what}: {err.max()}"
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_forward_and_grads_match_jax(name):
+    shape, causal, segs, dtype = CASES[name]
+    q, k, v = _inputs(0, **shape)
+    seg = None
+    if segs is not None:
+        qs, ks = _segments(segs, shape["B"])
+        seg = qs if ks is None else (qs, ks)
+
+    def jax_fn(q, k, v):
+        jseg = None if seg is None else jax.tree.map(jnp.asarray, seg)
+        return jax_flash_attention(q, k, v, causal=causal, segment_ids=jseg,
+                                   block_q=16, block_k=16)
+
+    @jax.jit  # one compile of forward and backward: faster than eager
+    def jax_fwd_bwd(q, k, v):
+        out, vjp = jax.vjp(jax_fn, q, k, v)
+        return out, vjp(jnp.cos(out))  # d sum(sin(out))
+
+    jx = [jnp.asarray(a, JAX_DTYPE[dtype]) for a in (q, k, v)]
+    want, want_grads = jax_fwd_bwd(*jx)
+
+    tx = [torch.from_numpy(a).to(TORCH_DTYPE[dtype]).requires_grad_()
+          for a in (q, k, v)]
+    tseg = None if seg is None else (
+        torch.from_numpy(seg) if ks is None
+        else tuple(torch.from_numpy(s) for s in seg))
+    before = dict(launches)
+    got = flash_attention(*tx, causal=causal, segment_ids=tseg)
+    assert got.dtype == TORCH_DTYPE[dtype] and got.shape == tx[0].shape
+    torch.sin(got).sum().backward()
+    assert launches == before  # CPU tensors run the plain versions
+
+    _close(got.detach().float(), jnp.asarray(want, jnp.float32), dtype, "out")
+    for what, t, w in zip(("dq", "dk", "dv"), tx, want_grads):
+        _close(t.grad.float(), jnp.asarray(w, jnp.float32), dtype, what)
+
+
+def test_rows_without_keys_are_zero():
+    """Causal with S > T: the first S - T queries see no key; output,
+    lse and gradients there are those of the TPU kernel (0, -1e30, 0)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(3, B=1, S=40, T=16, H=2,
+                                                     D=16))
+    qh = q.transpose(1, 2).reshape(2, 40, 16)
+    kh = k.transpose(1, 2).reshape(2, 16, 16)
+    vh = v.transpose(1, 2).reshape(2, 16, 16)
+    out, lse = flash_forward_reference(qh, kh, vh, causal=True)
+    assert torch.all(out[:, :24] == 0) and torch.all(lse[:, :24] == -1e30)
+    assert torch.all(out[:, 24:].abs().sum(-1) > 0)
+    do = torch.ones_like(out)
+    delta = (do * out).sum(-1)
+    dq, dk, dv = flash_backward_reference(qh, kh, vh, do, lse, delta, True)
+    assert torch.all(dq[:, :24] == 0) and torch.isfinite(dk).all()
+
+
+def test_raw_entry_points_are_the_plain_versions_on_cpu():
+    """flash_forward / flash_backward at the [B*H, S, D] layout on CPU
+    tensors equal the plain versions, GQA rows routed bh -> bh // G."""
+    rng = np.random.RandomState(5)
+    q, do = (torch.from_numpy(rng.randn(8, 24, 32).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(2, 24, 32).astype(np.float32))
+            for _ in range(2))
+    out, lse = flash_forward(q, k, v, causal=True)
+    r_out, r_lse = flash_forward_reference(q, k, v, True)
+    assert torch.equal(out, r_out) and torch.equal(lse, r_lse)
+    delta = (do * out).sum(-1)
+    for a, b in zip(flash_backward(q, k, v, do, lse, delta, causal=True),
+                    flash_backward_reference(q, k, v, do, lse, delta, True)):
+        assert torch.equal(a, b)
+    # The group sum: kv head 0 serves query rows 0..3.
+    dk = flash_backward_reference(q, k, v, do, lse, delta, True)[1]
+    solo = [flash_backward_reference(q[g:g + 1], k[:1], v[:1], do[g:g + 1],
+                                     lse[g:g + 1], delta[g:g + 1], True)[1]
+            for g in range(4)]
+    np.testing.assert_allclose(dk[0].numpy(), sum(solo)[0].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (lambda q, kv: flash_attention(q, kv[:, :, :3], kv[:, :, :3]),
+     ValueError, "multiple of KV heads"),
+    (lambda q, kv: flash_attention(q, kv, kv, bias=torch.zeros(8, 16, 16)),
+     NotImplementedError, "A9"),
+    (lambda q, kv: flash_attention(q, kv, kv,
+                                   segment_ids=torch.zeros(1, 17, dtype=torch.int32)),
+     ValueError, "segment_ids must be"),
+    (lambda q, kv: flash_attention(q[..., :8], kv[..., :8], kv[..., :8]),
+     ValueError, "head_dim"),
+], ids=["heads", "bias", "segments", "head-dim"])
+def test_validation_raises(call, exc, match):
+    q = torch.zeros(1, 16, 8, 16)
+    kv = torch.zeros(1, 16, 4, 16)
+    with pytest.raises(exc, match=match):
+        call(q, kv)
+
+
+def test_model_attn_fn_signature():
+    """make_flash_attention() is an AttnFn: keyword causal and optional
+    segment ids, block sizes accepted for the JAX signature's sake."""
+    attn = make_flash_attention(block_q=16, block_k=16)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, B=1, S=20, H=2, D=16))
+    ref = flash_attention(q, k, v, causal=False)
+    assert torch.equal(attn(q, k, v, causal=False), ref)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CASES))
+def test_cuda_kernels_match_plain(cuda_device, name):
+    """The hand-written kernels against the plain versions on the card,
+    each launch counted: forward, then both backward kernels from the
+    plain forward's lse."""
+    shape, causal, segs, dtype = CASES[name]
+    B, S, H, D = shape["B"], shape["S"], shape["H"], shape["D"]
+    T, KV = shape.get("T", S), shape.get("KV", H)
+    rng = np.random.RandomState(2)
+    td = TORCH_DTYPE[dtype]
+    q, do = (torch.from_numpy(rng.randn(B * H, S, D).astype(np.float32))
+             .to(cuda_device, td) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(B * KV, T, D).astype(np.float32))
+            .to(cuda_device, td) for _ in range(2))
+    seg = None
+    if segs is not None:
+        qs, ks = _segments(segs, B)
+        seg = (torch.from_numpy(qs).to(cuda_device),
+               torch.from_numpy(qs if ks is None else ks).to(cuda_device))
+    before = dict(launches)
+    out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg)
+    r_out, r_lse = flash_forward_reference(q, k, v, causal, seg)
+    delta = (do.float() * r_out.float()).sum(-1)
+    grads = flash_backward(q, k, v, do, r_lse, delta, causal=causal,
+                           segment_ids=seg)
+    r_grads = flash_backward_reference(q, k, v, do, r_lse, delta, causal, seg)
+    torch.cuda.synchronize()
+    assert {n: launches[n] - before[n] for n in launches} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    live = (r_lse > -1e29).cpu()
+    assert torch.all(out.cpu()[~live] == 0)
+    _close(out.cpu()[live].float(), r_out.cpu()[live].float(), dtype, "out")
+    # lse is float32 in both dtypes: the same scores, summed in f32.
+    _close(lse.cpu()[live], r_lse.cpu()[live], "float32", "lse")
+    for what, a, b in zip(("dq", "dk", "dv"), grads, r_grads):
+        _close(a.cpu().float(), b.cpu().float(), dtype, what)

@@ -2,9 +2,11 @@
 
 Fake tensors and deferred module initialization (record a model's
 construction with no storage, then materialize its parameters straight
-into GPU memory), the GPT-2/Llama model families, and the paged-decode
-serving runtime, whose decode attention is a hand-written CUDA kernel
-for Hopper (``ops/csrc/paged_decode.cu``).
+into GPU memory), the GPT-2/Llama model families, single-device training
+(``parallel.make_train_step``) through flash attention whose forward and
+backward are hand-written CUDA kernels for Hopper
+(``ops/csrc/flash_attention.cu``), and the paged-decode serving runtime,
+whose decode attention is another (``ops/csrc/paged_decode.cu``).
 
 The port imports nothing of the JAX package ``torchdistx_tpu``; it keeps
 its own copies of what it needs.  Entry points run on the GPU

@@ -11,8 +11,8 @@ from .configs import (
 )
 from .convert import from_flax_params
 from .decomposition import DecodeDecomposition
-from .gpt2 import GPT2Model
-from .llama import LlamaModel
+from .gpt2 import GPT2Model, make_gpt2
+from .llama import LlamaModel, make_llama
 
 __all__ = [
     "GPT2_125M",
@@ -26,4 +26,6 @@ __all__ = [
     "LlamaModel",
     "TransformerConfig",
     "from_flax_params",
+    "make_gpt2",
+    "make_llama",
 ]

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -13,11 +15,19 @@ from .decomposition import (
     decoder_head_logits,
     positional_token_embed,
 )
-from .layers import Block, Embed, Linear, make_norm
+from .layers import (
+    AttnFn,
+    Block,
+    Embed,
+    Linear,
+    default_attention,
+    make_norm,
+)
 
 
 class GPT2Model(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 attn_fn: AttnFn = default_attention):
         super().__init__()
         self.cfg = cfg
         self.wte = Embed(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
@@ -25,20 +35,24 @@ class GPT2Model(nn.Module):
         self.wpe = Embed(cfg.max_seq_len, cfg.d_model, dtype=cfg.dtype,
                          param_dtype=cfg.param_dtype, device=device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.n_layers))
+            Block(cfg, device, attn_fn) for _ in range(cfg.n_layers))
         self.final_norm = make_norm(cfg, device)
         self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, False, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] int → logits [B, S, vocab] in f32."""
+    def forward(self, tokens: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] int → logits [B, S, vocab] in f32.
+
+        ``segment_ids`` [B, S] (optional) mask cross-document attention
+        for packed-sequence training."""
         cfg = self.cfg
         S = tokens.shape[1]
         pos = torch.arange(S, device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, segment_ids=segment_ids)
         x = self.final_norm(x)
         if self.lm_head is None:
             logits = self.wte.attend(x.to(cfg.param_dtype))
@@ -63,3 +77,8 @@ class GPT2Model(nn.Module):
             return decoder_head_logits(cfg, x, self.wte.weight, self.lm_head)
 
         return DecodeDecomposition(embed, self.blocks, angles_at, head)
+
+
+def make_gpt2(cfg: TransformerConfig, attn_fn: AttnFn = default_attention,
+              device=None) -> GPT2Model:
+    return GPT2Model(cfg, device=device, attn_fn=attn_fn)

@@ -25,7 +25,7 @@ device it will be materialized on.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -97,6 +97,12 @@ def default_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, vf)
     return out.reshape(B, S, H, D).to(q.dtype)
+
+
+# The attention signature every model layer calls (the JAX package's
+# ``AttnFn``): q [B, S, H, D], k / v [B, T, KV, D], keyword ``causal`` and
+# optional ``bias`` / ``segment_ids`` -> [B, S, H, D].
+AttnFn = Callable[..., torch.Tensor]
 
 
 class Linear(nn.Linear):
@@ -216,9 +222,16 @@ def _dense(cfg: TransformerConfig, n_in: int, n_out: int, device,
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    """Self-attention; ``attn_fn`` computes the attention itself (plain
+    :func:`default_attention` unless a model is built with, e.g., the
+    flash kernels' ``make_flash_attention()``).  Serving's prefill and
+    decode call ``qkv``/``out`` around their own attention."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 attn_fn: AttnFn = default_attention):
         super().__init__()
         self.cfg = cfg
+        self.attn_fn = attn_fn
         hd = cfg.head_size
         self.wq = _dense(cfg, cfg.d_model, cfg.n_heads * hd, device)
         self.wk = _dense(cfg, cfg.d_model, cfg.kv_heads * hd, device)
@@ -245,7 +258,10 @@ class Attention(nn.Module):
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
-        o = default_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+        # Optional operands only when present, so segment-less AttnFns
+        # stay valid.
+        kw = {} if segment_ids is None else {"segment_ids": segment_ids}
+        o = self.attn_fn(q, k, v, causal=causal, **kw)
         return self.out(o)
 
 
@@ -267,7 +283,8 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 attn_fn: AttnFn = default_attention):
         super().__init__()
         if cfg.moe is not None:
             raise NotImplementedError(
@@ -275,7 +292,7 @@ class Block(nn.Module):
                 "Queue A: attention flavors and the remaining families)"
             )
         self.norm_0 = make_norm(cfg, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, attn_fn)
         self.norm_1 = make_norm(cfg, device)
         self.mlp = MLP(cfg, device)
 

@@ -7,6 +7,8 @@ unstacks its weights onto this layout).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -17,30 +19,43 @@ from .decomposition import (
     decoder_head_logits,
     token_embed,
 )
-from .layers import Block, Embed, Linear, make_norm, rope_frequencies
+from .layers import (
+    AttnFn,
+    Block,
+    Embed,
+    Linear,
+    default_attention,
+    make_norm,
+    rope_frequencies,
+)
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 attn_fn: AttnFn = default_attention):
         super().__init__()
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
                            param_dtype=cfg.param_dtype, device=device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.n_layers))
+            Block(cfg, device, attn_fn) for _ in range(cfg.n_layers))
         self.final_norm = make_norm(cfg, device)
         self.lm_head = None if cfg.tie_embeddings else Linear(
             cfg.d_model, cfg.vocab_size, False, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, S] int → logits [B, S, vocab] in f32."""
+    def forward(self, tokens: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B, S] int → logits [B, S, vocab] in f32.
+
+        ``segment_ids`` [B, S] (optional) mask cross-document attention
+        for packed-sequence training."""
         cfg = self.cfg
         x = self.embed(tokens)
         angles = rope_frequencies(cfg.head_size, tokens.shape[1],
                                   cfg.rope_theta, device=tokens.device)
         for blk in self.blocks:
-            x = blk(x, angles=angles)
+            x = blk(x, angles=angles, segment_ids=segment_ids)
         x = self.final_norm(x)
         if self.lm_head is None:
             logits = self.embed.attend(x.to(cfg.param_dtype))
@@ -70,3 +85,8 @@ class LlamaModel(nn.Module):
             return decoder_head_logits(cfg, x, self.embed.weight, self.lm_head)
 
         return DecodeDecomposition(embed, self.blocks, angles_at, head)
+
+
+def make_llama(cfg: TransformerConfig, attn_fn: AttnFn = default_attention,
+               device=None) -> LlamaModel:
+    return LlamaModel(cfg, device=device, attn_fn=attn_fn)

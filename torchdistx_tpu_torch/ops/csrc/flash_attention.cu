@@ -1,0 +1,751 @@
+// Flash attention forward and backward for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes (torchdistx_tpu_torch/ops/flash_attention.py).
+//
+// Replaces three Pallas TPU kernels of torchdistx_tpu/ops/flash_attention.py:
+//   * _fwd_kernel (l.91, launched by _fwd_call l.446)     -> flash_fwd_kernel
+//   * _bwd_dq_kernel (l.206, via _bwd_call l.499)         -> flash_dq_kernel
+//   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_kernel
+// It computes the same functions, not the same blocks.  Layout [B*H, S, D]
+// for q/o/do/dq, [B*KV, T, D] for k/v/dk/dv, lse and delta [B*H, S] f32.
+// Query head row bh reads kv row bh / G (G = H / KV).  Key j is visible to
+// query i iff j < T, j <= i + T - S when causal (the last query aligned with
+// the last key), and, with segment ids, qseg[b, i] == kseg[b, j].  A row
+// that sees no key gets a zero output, lse = -1e30 and zero gradients, as
+// in the TPU kernel.  The additive bias operand (and _dbias_kernel) is not
+// here: no path of the port passes a bias yet.
+//
+// What bounds it on the H100: operations.  At the training shapes
+// (S = T = 1024..2048, D = 64..128) attention does ~S*D/2 flops per byte
+// of q/k/v/o, far above the ~295 flops/byte where bf16 tensor cores stop
+// waiting for memory; the least time is the causal-halved matmul flops
+// over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32, CUDA cores, no TF32).
+// What the design does about it, as a first, simple kernel:
+//   * no [S, T] matrix ever reaches device memory: each CTA keeps its
+//     q (or k) tile in shared memory, streams the other side's tiles
+//     through shared memory and carries the online softmax (forward) or
+//     the dq / dk,dv sums (backward) in shared memory in f32;
+//   * tiles wholly past the causal diagonal are never loaded;
+//   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
+//     accumulate), with P and dS rounded to bf16 to feed the P*V, dS*K,
+//     P^T*dO and dS^T*Q products; f32 products stay IEEE f32 (FMA on the
+//     CUDA cores, no TF32);
+//   * the dk/dv kernel walks every (group head, q tile) of its kv head
+//     inside the CTA and writes dk and dv once: no atomics, no GQA
+//     broadcast of K/V and no reduction over the group afterwards.
+// Every product is staged through shared memory (scores, probabilities
+// and accumulators all live there), which keeps one code path for both
+// dtypes and makes the kernel shared-memory-bandwidth bound well below
+// the tensor-core rate.  Keeping the accumulators in registers,
+// ldmatrix, cp.async/TMA pipelining and wgmma are the later steps.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNeg = -1e30f;  // the TPU kernel's masked logit
+
+// Tile sizes per dtype: f32 tiles take twice the shared memory, so the
+// f32 dk/dv kernel walks q in tiles of 32 rows to stay under 227 KB.
+template <typename T>
+struct Tiles {
+  static constexpr int kFwdQ = 64, kFwdK = 64;
+  static constexpr int kDqQ = 64, kDqK = 64;
+  static constexpr int kDkvQ = std::is_same<T, float>::value ? 32 : 64;
+  static constexpr int kDkvK = 64;
+  // Row padding of a T tile: 16 bytes, which keeps rows 16-byte aligned
+  // and moves consecutive rows to other banks.
+  static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
+};
+constexpr int kPadF = 4;  // the same for f32 score / accumulator tiles
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// shared-memory layout
+// ---------------------------------------------------------------------------
+
+// Bump allocator over the dynamic shared memory, 16-byte aligned pieces.
+struct Carve {
+  size_t off = 0;
+  __host__ __device__ size_t take(size_t bytes) {
+    const size_t at = off;
+    off += (bytes + 15) & ~static_cast<size_t>(15);
+    return at;
+  }
+};
+
+// Tiles of one kernel: `rows_a` rows of the side the CTA owns, `rows_b`
+// rows of the side it streams.  Byte offsets, computed identically on the
+// host (for the launch's shared-memory size) and on the device.
+template <typename T>
+struct Layout {
+  int ldt, lds, ldp, ldo;  // row strides: T tiles, f32 scores, T probs, f32 accs
+  size_t a0, a1, b0, b1;   // T tiles: two of the owned side, two streamed
+  size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP)
+  size_t p0, p1;           // T [q rows, k cols] tiles (P, dS); alias s0/s1 in f32
+  size_t acc0, acc1;       // f32 [owned rows, D] accumulators
+  size_t r0, r1, r2;       // f32 per-q-row vectors
+  size_t qseg, kseg;       // int per-row segment ids
+  size_t bytes;
+
+  __host__ __device__ Layout(int D, int rows_a, int rows_b, int bq, int bk,
+                             int n_a, int n_acc) {
+    constexpr bool f32 = std::is_same<T, float>::value;
+    ldt = D + Tiles<T>::kPad;
+    lds = bk + kPadF;
+    ldp = f32 ? lds : bk + Tiles<T>::kPad;
+    ldo = D + kPadF;
+    Carve c;
+    const size_t ta = static_cast<size_t>(rows_a) * ldt * sizeof(T);
+    const size_t tb = static_cast<size_t>(rows_b) * ldt * sizeof(T);
+    a0 = c.take(ta);
+    a1 = n_a > 1 ? c.take(ta) : a0;
+    b0 = c.take(tb);
+    b1 = c.take(tb);
+    const size_t sf = static_cast<size_t>(bq) * lds * sizeof(float);
+    s0 = c.take(sf);
+    s1 = c.take(sf);
+    const size_t pt = static_cast<size_t>(bq) * ldp * sizeof(T);
+    p0 = f32 ? s0 : c.take(pt);
+    p1 = f32 ? s1 : c.take(pt);
+    const size_t af = static_cast<size_t>(rows_a) * ldo * sizeof(float);
+    acc0 = c.take(af);
+    acc1 = n_acc > 1 ? c.take(af) : acc0;
+    r0 = c.take(bq * sizeof(float));
+    r1 = c.take(bq * sizeof(float));
+    r2 = c.take(bq * sizeof(float));
+    qseg = c.take(bq * sizeof(int));
+    kseg = c.take(bk * sizeof(int));
+    bytes = c.off;
+  }
+};
+
+// Forward: owns q (one tile: q), streams k and v; S and P; O; m, l, corr.
+template <typename T>
+__host__ __device__ Layout<T> fwd_layout(int D) {
+  return Layout<T>(D, Tiles<T>::kFwdQ, Tiles<T>::kFwdK, Tiles<T>::kFwdQ,
+                   Tiles<T>::kFwdK, 1, 1);
+}
+// dq: owns q and do, streams k and v; S, dP (P unused, dS); dQ; lse, delta.
+template <typename T>
+__host__ __device__ Layout<T> dq_layout(int D) {
+  return Layout<T>(D, Tiles<T>::kDqQ, Tiles<T>::kDqK, Tiles<T>::kDqQ,
+                   Tiles<T>::kDqK, 2, 1);
+}
+// dk/dv: owns k and v, streams q and do; S, dP, P, dS; dK, dV; lse, delta.
+template <typename T>
+__host__ __device__ Layout<T> dkv_layout(int D) {
+  return Layout<T>(D, Tiles<T>::kDkvK, Tiles<T>::kDkvQ, Tiles<T>::kDkvQ,
+                   Tiles<T>::kDkvK, 2, 2);
+}
+
+// rows [row0, row0 + rows) of a [total, D] matrix into a tile of stride
+// ld, rows past `total` as zeros; 16-byte vectors (D * sizeof(T) is a
+// multiple of 16 for every supported D).
+template <typename T>
+__device__ void load_tile(T* dst, int ld, const T* __restrict__ src, int row0,
+                          int total, int rows, int D) {
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = D / V;
+  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+    const int r = i / vpr;
+    const int c = (i % vpr) * V;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < total)
+      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
+  }
+}
+
+__device__ void load_rows(float* dst, const float* __restrict__ src, int row0,
+                          int total, int rows) {
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    dst[r] = row0 + r < total ? src[row0 + r] : 0.f;
+}
+
+__device__ void load_seg(int* dst, const int* __restrict__ seg, int row0,
+                         int total, int rows) {
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    dst[r] = (seg != nullptr && row0 + r < total) ? seg[row0 + r] : 0;
+}
+
+__device__ void zero_f32(float* dst, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// block matrix products: C[M, N] = (acc ? rowscale * C : 0) + A[M, K] B[K, N]
+// ---------------------------------------------------------------------------
+// A(m, k) is A[m*lda + k] when A_K (k contiguous), else A[k*lda + m];
+// B(k, n) is B[n*ldb + k] when B_K, else B[k*ldb + n].  C is f32, stride
+// ldc; each element is owned by one thread, so no barrier is needed inside.
+// M, N, K are multiples of 16 (bf16) or 4 (f32).
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Elements (k, k+1) of an operand whose k-step in memory is `step`.
+template <bool CONTIG>
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p, int step) {
+  if (CONTIG) return *reinterpret_cast<const uint32_t*>(p);
+  return pack_bf16(p[0], p[step]);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Tensor cores: each warp takes 16 x (8*NT) output tiles in turn, loading
+// each A fragment once for its NT products.  Fragment layouts of
+// mma.m16n8k16 (PTX ISA): lane = 4*g + t holds A rows g, g+8 at k = 2t,
+// 2t+1, 2t+8, 2t+9; B column g at k = 2t, 2t+1, 2t+8, 2t+9; C rows g, g+8
+// at columns 2t, 2t+1.
+template <bool A_K, bool B_K, int NT>
+__device__ void gemm_tiles(const bf16* A, int lda, const bf16* B, int ldb,
+                           float* C, int ldc, int M, int N, int K, bool acc,
+                           const float* rowscale) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int a_step = A_K ? 1 : lda;  // memory step of k in A
+  const int b_step = B_K ? 1 : ldb;
+  const int tiles_n = N / (8 * NT);
+  const int tiles = (M / 16) * tiles_n;
+  for (int tile = warp; tile < tiles; tile += kWarps) {
+    const int m0 = (tile / tiles_n) * 16;
+    const int n0 = (tile % tiles_n) * 8 * NT;
+    float c[NT][4];
+    const float s0 = acc ? (rowscale ? rowscale[m0 + g] : 1.f) : 0.f;
+    const float s1 = acc ? (rowscale ? rowscale[m0 + g + 8] : 1.f) : 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* c0 = C + (m0 + g) * ldc + n0 + 8 * j + 2 * t;
+      const float* c1 = c0 + 8 * ldc;
+      c[j][0] = acc ? c0[0] * s0 : 0.f;
+      c[j][1] = acc ? c0[1] * s0 : 0.f;
+      c[j][2] = acc ? c1[0] * s1 : 0.f;
+      c[j][3] = acc ? c1[1] * s1 : 0.f;
+    }
+    // A(m, k) at A + m*(A_K ? lda : 1) + k*a_step; B(k, n) likewise.
+    const bf16* ar0 = A + (m0 + g) * (A_K ? lda : 1);
+    const bf16* ar1 = A + (m0 + g + 8) * (A_K ? lda : 1);
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      const int ka = k0 + 2 * t;
+      uint32_t a[4];
+      a[0] = ld_pair<A_K>(ar0 + ka * a_step, a_step);
+      a[1] = ld_pair<A_K>(ar1 + ka * a_step, a_step);
+      a[2] = ld_pair<A_K>(ar0 + (ka + 8) * a_step, a_step);
+      a[3] = ld_pair<A_K>(ar1 + (ka + 8) * a_step, a_step);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const bf16* bc = B + (n0 + 8 * j + g) * (B_K ? ldb : 1);
+        uint32_t b[2];
+        b[0] = ld_pair<B_K>(bc + ka * b_step, b_step);
+        b[1] = ld_pair<B_K>(bc + (ka + 8) * b_step, b_step);
+        mma_bf16(c[j], a, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float* c0 = C + (m0 + g) * ldc + n0 + 8 * j + 2 * t;
+      float* c1 = c0 + 8 * ldc;
+      c0[0] = c[j][0];
+      c0[1] = c[j][1];
+      c1[0] = c[j][2];
+      c1[1] = c[j][3];
+    }
+  }
+}
+
+template <bool A_K, bool B_K>
+__device__ void gemm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
+                     int ldc, int M, int N, int K, bool acc,
+                     const float* rowscale) {
+  if (N % 32 == 0)
+    gemm_tiles<A_K, B_K, 4>(A, lda, B, ldb, C, ldc, M, N, K, acc, rowscale);
+  else
+    gemm_tiles<A_K, B_K, 2>(A, lda, B, ldb, C, ldc, M, N, K, acc, rowscale);
+}
+
+// CUDA cores, IEEE f32 FMA: each thread takes 4x4 output elements in
+// turn, rows m + i*M/4 and columns n + j*N/4, so neighbouring threads read
+// neighbouring columns.
+template <bool A_K, bool B_K>
+__device__ void gemm(const float* A, int lda, const float* B, int ldb,
+                     float* C, int ldc, int M, int N, int K, bool acc,
+                     const float* rowscale) {
+  const int a_m = A_K ? lda : 1, a_k = A_K ? 1 : lda;
+  const int b_n = B_K ? ldb : 1, b_k = B_K ? 1 : ldb;
+  const int sm = M / 4, sn = N / 4;  // strides between a thread's rows, columns
+  for (int tile = threadIdx.x; tile < sm * sn; tile += kThreads) {
+    const int m0 = tile / sn;
+    const int n0 = tile % sn;
+    float c[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+    const float* ap = A + m0 * a_m;
+    const float* bp = B + n0 * b_n;
+    for (int k = 0; k < K; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ap[i * sm * a_m + k * a_k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bp[j * sn * b_n + k * b_k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + i * sm;
+      const float s = acc ? (rowscale ? rowscale[m] : 1.f) : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* out = C + m * ldc + n0 + j * sn;
+        *out = (acc ? *out * s : 0.f) + c[i][j];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernels
+// ---------------------------------------------------------------------------
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse_in;
+  const float* delta;
+  const int* qseg;  // [B, S] or null
+  const int* kseg;  // [B, T] or null
+  void* out;        // o (fwd), dq (dq kernel), dk (dkv kernel)
+  void* out2;       // dv (dkv kernel)
+  float* lse;       // [B*H, S] (fwd)
+  int H, KV, S, T, D, causal;
+  float scale;
+};
+
+// Is key kpos visible to query qpos?  (Rows past S are padding: nothing.)
+__device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos,
+                                        int qs, int ks) {
+  return qpos < p.S && kpos < p.T && (!p.causal || kpos <= qpos + p.T - p.S) &&
+         (p.qseg == nullptr || qs == ks);
+}
+
+// Number of k tiles a q tile starting at q0 needs: all of them, or up to
+// the causal diagonal (the TPU kernel's _block_needed).
+__device__ __forceinline__ int k_tiles_needed(const Params& p, int q0, int bq,
+                                              int bk) {
+  const int nk = (p.T + bk - 1) / bk;
+  if (!p.causal) return nk;
+  const int last = q0 + bq - 1 + p.T - p.S;  // last key any row may see
+  return last < 0 ? 0 : min(nk, last / bk + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  constexpr int BQ = Tiles<T>::kFwdQ, BK = Tiles<T>::kFwdK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<T> L = fwd_layout<T>(p.D);
+  T* qs = reinterpret_cast<T*>(smem + L.a0);
+  T* ks = reinterpret_cast<T*>(smem + L.b0);
+  T* vs = reinterpret_cast<T*>(smem + L.b1);
+  float* ss = reinterpret_cast<float*>(smem + L.s0);
+  T* ps = reinterpret_cast<T*>(smem + L.p0);
+  float* os = reinterpret_cast<float*>(smem + L.acc0);
+  float* m_s = reinterpret_cast<float*>(smem + L.r0);
+  float* l_s = reinterpret_cast<float*>(smem + L.r1);
+  float* c_s = reinterpret_cast<float*>(smem + L.r2);
+  int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
+  int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
+
+  const int D = p.D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int b = bh / p.H;
+  const int kvh = bh / (p.H / p.KV);
+  const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.S * D;
+  const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * p.T * D;
+  const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * p.T * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  load_tile(qs, L.ldt, q, q0, p.S, BQ, D);
+  load_seg(qseg_s, p.qseg ? p.qseg + static_cast<size_t>(b) * p.S : nullptr,
+           q0, p.S, BQ);
+  zero_f32(os, BQ * L.ldo);
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    m_s[r] = kNeg;
+    l_s[r] = 0.f;
+  }
+  const int nk = k_tiles_needed(p, q0, BQ, BK);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile(ks, L.ldt, k, k0, p.T, BK, D);
+    load_tile(vs, L.ldt, v, k0, p.T, BK, D);
+    load_seg(kseg_s, p.kseg ? p.kseg + static_cast<size_t>(b) * p.T : nullptr,
+             k0, p.T, BK);
+    __syncthreads();
+    gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
+    __syncthreads();
+    // Online softmax, one warp per row, BK / 32 columns per lane.
+    for (int r = warp; r < BQ; r += kWarps) {
+      float s[BK / 32];
+      float mx = kNeg;
+#pragma unroll
+      for (int c = 0; c < BK / 32; ++c) {
+        const int j = lane + 32 * c;
+        s[c] = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
+                   ? ss[r * L.lds + j] * p.scale
+                   : kNeg;
+        mx = fmaxf(mx, s[c]);
+      }
+      mx = warp_max(mx);
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < BK / 32; ++c) {
+        const int j = lane + 32 * c;
+        const float pr = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
+                             ? expf(s[c] - m_new)
+                             : 0.f;
+        ps[r * L.ldp + j] = from_f32<T>(pr);
+        psum += pr;
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        m_s[r] = m_new;
+        l_s[r] = l_s[r] * corr + psum;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+    gemm<true, false>(ps, L.ldp, vs, L.ldt, os, L.ldo, BQ, D, BK, true, c_s);
+  }
+  __syncthreads();
+  T* o = static_cast<T*>(p.out) + static_cast<size_t>(bh) * p.S * D;
+  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    if (q0 + r < p.S)
+      o[static_cast<size_t>(q0 + r) * D + d] =
+          from_f32<T>(os[r * L.ldo + d] / fmaxf(l_s[r], 1e-30f));
+  }
+  for (int r = threadIdx.x; r < BQ; r += kThreads)
+    if (q0 + r < p.S)
+      p.lse[static_cast<size_t>(bh) * p.S + q0 + r] =
+          m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
+}
+
+// p = exp(s*scale - lse) where visible, else 0; ds = p*(dp - delta)*scale
+// (the TPU kernel's _block_p_ds), for a [bq, bk] tile.
+template <typename T, int BQ, int BK>
+__device__ void block_p_ds(const Params& p, int q0, int k0, const float* ss,
+                           const float* dps, T* ps, T* dss, int lds, int ldp,
+                           const float* lse_s, const float* delta_s,
+                           const int* qseg_s, const int* kseg_s) {
+  for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
+    const int r = i / BK, j = i % BK;
+    const float s = ss[r * lds + j];
+    const float dp = dps[r * lds + j];
+    const float pr = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
+                         ? expf(s * p.scale - lse_s[r])
+                         : 0.f;
+    if (ps != nullptr) ps[r * ldp + j] = from_f32<T>(pr);
+    dss[r * ldp + j] = from_f32<T>(pr * (dp - delta_s[r]) * p.scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
+  constexpr int BQ = Tiles<T>::kDqQ, BK = Tiles<T>::kDqK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<T> L = dq_layout<T>(p.D);
+  T* qs = reinterpret_cast<T*>(smem + L.a0);
+  T* dos = reinterpret_cast<T*>(smem + L.a1);
+  T* ks = reinterpret_cast<T*>(smem + L.b0);
+  T* vs = reinterpret_cast<T*>(smem + L.b1);
+  float* ss = reinterpret_cast<float*>(smem + L.s0);
+  float* dps = reinterpret_cast<float*>(smem + L.s1);
+  T* dss = reinterpret_cast<T*>(smem + L.p1);
+  float* dqs = reinterpret_cast<float*>(smem + L.acc0);
+  float* lse_s = reinterpret_cast<float*>(smem + L.r0);
+  float* delta_s = reinterpret_cast<float*>(smem + L.r1);
+  int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
+  int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
+
+  const int D = p.D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = bh / p.H;
+  const int kvh = bh / (p.H / p.KV);
+  const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+  const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * p.T * D;
+  const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * p.T * D;
+
+  load_tile(qs, L.ldt, static_cast<const T*>(p.q) + qoff, q0, p.S, BQ, D);
+  load_tile(dos, L.ldt, static_cast<const T*>(p.dout) + qoff, q0, p.S, BQ, D);
+  load_rows(lse_s, p.lse_in + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+  load_rows(delta_s, p.delta + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+  load_seg(qseg_s, p.qseg ? p.qseg + static_cast<size_t>(b) * p.S : nullptr,
+           q0, p.S, BQ);
+  zero_f32(dqs, BQ * L.ldo);
+  const int nk = k_tiles_needed(p, q0, BQ, BK);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();
+    load_tile(ks, L.ldt, k, k0, p.T, BK, D);
+    load_tile(vs, L.ldt, v, k0, p.T, BK, D);
+    load_seg(kseg_s, p.kseg ? p.kseg + static_cast<size_t>(b) * p.T : nullptr,
+             k0, p.T, BK);
+    __syncthreads();
+    gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
+    gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
+    __syncthreads();
+    block_p_ds<T, BQ, BK>(p, q0, k0, ss, dps, static_cast<T*>(nullptr), dss,
+                          L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
+    __syncthreads();
+    gemm<true, false>(dss, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true, nullptr);
+  }
+  __syncthreads();
+  T* dq = static_cast<T*>(p.out) + qoff;
+  for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    if (q0 + r < p.S)
+      dq[static_cast<size_t>(q0 + r) * D + d] = from_f32<T>(dqs[r * L.ldo + d]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
+  constexpr int BQ = Tiles<T>::kDkvQ, BK = Tiles<T>::kDkvK;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<T> L = dkv_layout<T>(p.D);
+  T* ks = reinterpret_cast<T*>(smem + L.a0);
+  T* vs = reinterpret_cast<T*>(smem + L.a1);
+  T* qs = reinterpret_cast<T*>(smem + L.b0);
+  T* dos = reinterpret_cast<T*>(smem + L.b1);
+  float* ss = reinterpret_cast<float*>(smem + L.s0);
+  float* dps = reinterpret_cast<float*>(smem + L.s1);
+  T* ps = reinterpret_cast<T*>(smem + L.p0);
+  T* dss = reinterpret_cast<T*>(smem + L.p1);
+  float* dks = reinterpret_cast<float*>(smem + L.acc0);
+  float* dvs = reinterpret_cast<float*>(smem + L.acc1);
+  float* lse_s = reinterpret_cast<float*>(smem + L.r0);
+  float* delta_s = reinterpret_cast<float*>(smem + L.r1);
+  int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
+  int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
+
+  const int D = p.D;
+  const int G = p.H / p.KV;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int b = bkv / p.KV;
+  const size_t koff = static_cast<size_t>(bkv) * p.T * D;
+
+  load_tile(ks, L.ldt, static_cast<const T*>(p.k) + koff, k0, p.T, BK, D);
+  load_tile(vs, L.ldt, static_cast<const T*>(p.v) + koff, k0, p.T, BK, D);
+  load_seg(kseg_s, p.kseg ? p.kseg + static_cast<size_t>(b) * p.T : nullptr,
+           k0, p.T, BK);
+  zero_f32(dks, BK * L.ldo);
+  zero_f32(dvs, BK * L.ldo);
+  const int nq = (p.S + BQ - 1) / BQ;
+  // First q tile with a row that may see key k0 (causal): the row i with
+  // k0 <= i + T - S, i.e. i >= k0 - (T - S).
+  int qt0 = 0;
+  if (p.causal) {
+    const int first_row = k0 - (p.T - p.S);
+    qt0 = first_row <= 0 ? 0 : first_row / BQ;
+  }
+  for (int g = 0; g < G; ++g) {
+    const int bh = bkv * G + g;  // query head (b, kv*G + g)
+    const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+    for (int qt = qt0; qt < nq; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();
+      load_tile(qs, L.ldt, static_cast<const T*>(p.q) + qoff, q0, p.S, BQ, D);
+      load_tile(dos, L.ldt, static_cast<const T*>(p.dout) + qoff, q0, p.S, BQ, D);
+      load_rows(lse_s, p.lse_in + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+      load_rows(delta_s, p.delta + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+      load_seg(qseg_s, p.qseg ? p.qseg + static_cast<size_t>(b) * p.S : nullptr,
+               q0, p.S, BQ);
+      __syncthreads();
+      gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
+      gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
+      __syncthreads();
+      block_p_ds<T, BQ, BK>(p, q0, k0, ss, dps, ps, dss, L.lds, L.ldp, lse_s,
+                            delta_s, qseg_s, kseg_s);
+      __syncthreads();
+      // dV += P^T dO and dK += dS^T Q: A(m = key, k = query row) = P[k][m].
+      gemm<false, false>(ps, L.ldp, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
+      gemm<false, false>(dss, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true, nullptr);
+    }
+  }
+  __syncthreads();
+  T* dk = static_cast<T*>(p.out) + koff;
+  T* dv = static_cast<T*>(p.out2) + koff;
+  for (int i = threadIdx.x; i < BK * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    if (k0 + r < p.T) {
+      dk[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dks[r * L.ldo + d]);
+      dv[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dvs[r * L.ldo + d]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
+           cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run(int which, const Params& p, int B, cudaStream_t stream) {
+  const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
+  const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
+  const int nk_d = (p.T + Tiles<T>::kDkvK - 1) / Tiles<T>::kDkvK;
+  if (which == 0)
+    return launch(flash_fwd_kernel<T>, dim3(B * p.H, nq_f),
+                  fwd_layout<T>(p.D).bytes, p, stream);
+  if (which == 1)
+    return launch(flash_dq_kernel<T>, dim3(B * p.H, nq_d),
+                  dq_layout<T>(p.D).bytes, p, stream);
+  return launch(flash_dkv_kernel<T>, dim3(B * p.KV, nk_d),
+                dkv_layout<T>(p.D).bytes, p, stream);
+}
+
+int dispatch(int which, Params p, int B, int dtype, void* stream) {
+  if (B <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.S <= 0 || p.T <= 0 ||
+      !(p.D == 16 || p.D == 32 || p.D == 64 || p.D == 128) ||
+      (p.qseg == nullptr) != (p.kseg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return run<float>(which, p, B, s);
+  if (dtype == 1) return run<bf16>(which, p, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+Params make_params(const void* q, const void* k, const void* v, int H, int KV,
+                   int S, int T, int D, int causal, float scale) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.H = H;
+  p.KV = KV;
+  p.S = S;
+  p.T = T;
+  p.D = D;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16; qseg / kseg both null or both given.
+// Each returns the cudaError_t of its launch (0 on success).
+
+int tdx_flash_fwd(const void* q, const void* k, const void* v, const int* qseg,
+                  const int* kseg, void* out, float* lse, int B, int H, int KV,
+                  int S, int T, int D, int causal, int dtype, float scale,
+                  void* stream) {
+  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
+  p.qseg = qseg;
+  p.kseg = kseg;
+  p.out = out;
+  p.lse = lse;
+  return dispatch(0, p, B, dtype, stream);
+}
+
+int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* delta,
+                     const int* qseg, const int* kseg, void* dq, int B, int H,
+                     int KV, int S, int T, int D, int causal, int dtype,
+                     float scale, void* stream) {
+  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.qseg = qseg;
+  p.kseg = kseg;
+  p.out = dq;
+  return dispatch(1, p, B, dtype, stream);
+}
+
+int tdx_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      const int* qseg, const int* kseg, void* dk, void* dv,
+                      int B, int H, int KV, int S, int T, int D, int causal,
+                      int dtype, float scale, void* stream) {
+  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.qseg = qseg;
+  p.kseg = kseg;
+  p.out = dk;
+  p.out2 = dv;
+  return dispatch(2, p, B, dtype, stream);
+}
+
+const char* tdx_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
