@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU.
+NVIDIA GPU: decoder LMs and the T5 encoder-decoder.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,11 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together), holds each against its plain
 PyTorch version on the card, then drives the serving path — deferred-init
 replica bring-up straight onto the GPU, continuous batching with paged
-decode — and the training path — deferred init, materialization on the
-card and ``make_train_step`` with the flash attention kernels — through
-the entry points a user calls, and checks what comes out.  One JSON
-object per line:
+decode — the training path — deferred init, materialization on the
+card and ``make_train_step`` with the flash attention kernels — and T5's
+forward and backward from deferred init on the flash kernels with their
+additive-bias operand and the d(bias) kernel, through the entry points a
+user calls, and checks what comes out.  One JSON object per line:
 
 1. the device: name and power limit as nvidia-smi gives them, torch,
    CUDA and nvcc versions;
@@ -53,9 +54,38 @@ object per line:
    the same model on ``default_attention`` (loss, gradient norm and each
    gradient leaf), and one step's device time by kernel under
    ``torch.profiler``;
-8. the kernels line: per kernel its launches on the main path, its error
-   against the plain version and its times at the main path's shapes;
-9. last: ``{"ok": true, "device": {...}}``.
+8. the flash kernels with a bias, and the d(bias) kernel, against the
+   plain versions on the card: the bias cases of ``tests/test_ops.py``
+   in both dtypes (float32 against an f64 evaluation within 1e-5 x max(1,
+   |plain|), d(bias) included; bfloat16 within 3e-2), a TINY T5 on the
+   kernels against ``default_attention``, the relative-position bucket
+   map on the card equal to the CPU's, and T5-11B's attention shapes
+   (encoder self-attention with the bias, decoder self-attention with
+   the bias, cross-attention without) in both dtypes (bfloat16 within
+   1e-2 normwise) with their times: kernel, plain version, a library
+   yardstick (``scaled_dot_product_attention(attn_mask=bias)`` forward
+   and its autograd backward with the bias's gradient, backend named)
+   and the bound;
+9. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
+   flash kernels against ``default_attention`` on the same weights and
+   batch, logits within 1e-4 and each gradient leaf within 1e-4
+   normwise, the relative-position tables (whose only gradient is
+   d(bias)) named;
+10. the T5 main path: T5-11B width with 2 + 2 layers, bf16 compute, B = 8,
+    enc 512, dec 114, deferred_init -> materialize on the card -> 4
+    steps of ``lm_cross_entropy`` and ``default_optimizer``: first-step
+    latency in a fresh process, host RSS growth, step ms, tokens/s, MFU,
+    peak device memory, the launches per step (forward 6, of them 4 with
+    the bias; dq and dk/dv 6; d(bias) 4), one step against
+    ``default_attention`` and one profiled step;
+11. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
+    process — seconds and host RSS growth — and one forward at B = 1 on
+    the flash kernels with finite logits;
+12. the kernels line: per kernel its launches on the main path, its error
+    against the plain version and its times at the main path's shapes
+    (the forward, dq and dk/dv also at the T5 encoder's shape with the
+    bias);
+13. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -81,15 +111,20 @@ from torchdistx_tpu_torch import deferred_init, materialize_module
 from torchdistx_tpu_torch.models import (
     LLAMA3_8B,
     PRESETS,
+    T5_11B,
     make_gpt2,
     make_llama,
+    make_t5,
 )
-from torchdistx_tpu_torch.models.layers import default_attention
+from torchdistx_tpu_torch.models.layers import Linear, default_attention
+from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
 from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops import paged_attention, paged_attention_reference
 from torchdistx_tpu_torch.ops.flash_attention import (
+    bias_launches as flash_bias_launches,
     flash_backward,
+    flash_backward_dbias,
     flash_backward_dkv,
     flash_backward_dq,
     flash_backward_reference,
@@ -101,6 +136,8 @@ from torchdistx_tpu_torch.ops.flash_attention import (
 from torchdistx_tpu_torch.parallel import make_train_step
 from torchdistx_tpu_torch.parallel.train import (
     H100_PEAK_FLOPS,
+    default_optimizer,
+    lm_cross_entropy,
     train_step_flops,
 )
 from torchdistx_tpu_torch.serve import (
@@ -132,10 +169,18 @@ FLASH_REPLACES = {
     "flash_bwd_dq": "torchdistx_tpu/ops/flash_attention.py:206 (_bwd_dq_kernel)",
     "flash_bwd_dkv": "torchdistx_tpu/ops/flash_attention.py:257 (_bwd_dkv_kernel)",
 }
+DBIAS_REPLACES = "torchdistx_tpu/ops/flash_attention.py:318 (_dbias_kernel)"
 # The training main path: llama3-8b width, depth cut to 2 layers, bf16
 # compute on f32 parameters, a [2, 2048] batch.
 TRAIN_CFG = LLAMA3_8B.replace(n_layers=2)
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+# The T5 main path: T5-11B width (d_model 1024, 128 heads of 128, d_ff
+# 65536, vocab 32128), depth cut to 2 encoder and 2 decoder layers, bf16
+# compute on f32 parameters; B = 8, 512 encoder and 114 decoder tokens
+# (T5 pre-training's input and target lengths).
+T5_CFG = T5_11B.replace(encoder=T5_11B.encoder.replace(n_layers=2),
+                        decoder=T5_11B.decoder.replace(n_layers=2))
+T5_BATCH, T5_ENC, T5_DEC = 8, 512, 114
 
 
 def emit(obj) -> None:
@@ -440,7 +485,8 @@ def flash_case(seed, *, B, S, H, D, dtype, dev, T=None, KV=None):
 
 
 def check_flash(args, name: str, *, causal: bool, atol: float,
-                seg=None, normwise: bool = False) -> dict:
+                seg=None, normwise: bool = False, bias=None,
+                heads=None) -> dict:
     """The three kernels against the plain versions on the same card
     inputs; the backward kernels get the plain forward's lse and delta, so
     each kernel is held on its own (the kernel's own lse is held to the
@@ -457,17 +503,30 @@ def check_flash(args, name: str, *, causal: bool, atol: float,
     |plain|), absolute up to magnitude 1 and relative above it (the
     tests/test_ops.py band).  Rows that see no key must be exactly zero
     in the kernels (output and dq) with lse <= -1e29; they are left out
-    of the error.  Returns max |kernel - plain| per output, the largest
-    scaled error and the normwise error per output."""
+    of the error.  With a ``bias`` (f32 [H or 1, S, T]) the d(bias)
+    kernel is held too, like dk and dv but in the units of dS, the
+    logits' gradient the other outputs are built from: d(bias) = dS *
+    sqrt(D) carries no 1/sqrt(D), so its float32 rounding is sqrt(D)
+    times theirs, and its absolute floor is sqrt(D), not 1 (|kernel -
+    plain| <= atol * max(sqrt(D), |plain|); measured 2.0e-5 at D = 128
+    with a normwise error of 4.5e-7).  Returns max |kernel - plain| per
+    output, the largest scaled error and the normwise error per output."""
     q, k, v, do = args
-    ref = [t.double() for t in args] if q.dtype == torch.float32 else args
-    out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg)
-    r_out, r_lse = flash_forward_reference(*ref[:3], causal, seg)
+    f32 = q.dtype == torch.float32
+    ref = [t.double() for t in args] if f32 else args
+    r_bias = bias.double() if f32 and bias is not None else bias
+    out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg,
+                             bias=bias, heads=heads)
+    r_out, r_lse = flash_forward_reference(*ref[:3], causal, seg, r_bias,
+                                           heads)
     delta = (ref[3].to(r_lse.dtype) * r_out.to(r_lse.dtype)).sum(-1)
-    dq, dk, dv = flash_backward(q, k, v, do, r_lse.float(), delta.float(),
-                                causal=causal, segment_ids=seg)
-    r_dq, r_dk, r_dv = flash_backward_reference(*ref, r_lse, delta, causal,
-                                                seg)
+    grads = flash_backward(q, k, v, do, r_lse.float(), delta.float(),
+                           causal=causal, segment_ids=seg, bias=bias,
+                           heads=heads, want_dbias=bias is not None)
+    r_grads = flash_backward_reference(*ref, r_lse, delta, causal, seg, r_bias,
+                                       heads)
+    dq, dk, dv = grads[:3]
+    r_dq, r_dk, r_dv = r_grads[:3]
     torch.cuda.synchronize()
     if out.dtype != q.dtype or out.shape != q.shape or lse.shape != q.shape[:2]:
         raise AssertionError(f"{name}: output {out.dtype} {tuple(out.shape)}")
@@ -476,15 +535,17 @@ def check_flash(args, name: str, *, causal: bool, atol: float,
             and bool(torch.all(lse[~live] <= -1e29))):
         raise AssertionError(f"{name}: rows that see no key are not zero")
     errs, scaled, norm = {}, 0.0, {}
-    for what, a, b in (("out", out[live], r_out[live]),
-                       ("lse", lse[live], r_lse[live]),
-                       ("dq", dq[live], r_dq[live]), ("dk", dk, r_dk),
-                       ("dv", dv, r_dv)):
+    outputs = [("out", out[live], r_out[live]), ("lse", lse[live], r_lse[live]),
+               ("dq", dq[live], r_dq[live]), ("dk", dk, r_dk), ("dv", dv, r_dv)]
+    if bias is not None:
+        outputs.append(("dbias", grads[3], r_grads[3]))
+    for what, a, b in outputs:
         if not a.numel():
             errs[what] = 0.0
             continue
         diff = (a.double() - b.double()).abs()
-        rel = (diff / b.double().abs().clamp_min(1.0)).max().item()
+        floor = math.sqrt(q.shape[-1]) if what == "dbias" else 1.0
+        rel = (diff / b.double().abs().clamp_min(floor)).max().item()
         b_norm = b.double().norm().item()
         nrm = (diff.norm().item() / b_norm if b_norm
                else (0.0 if not diff.any() else math.inf))
@@ -500,7 +561,7 @@ def check_flash(args, name: str, *, causal: bool, atol: float,
                 f"> {BF16_NORM_RTOL}")
         if what != "lse" and not normwise and not rel <= atol:
             raise AssertionError(
-                f"{name}: |kernel - plain| of {what} is {rel} x max(1, "
+                f"{name}: |kernel - plain| of {what} is {rel} x max({floor:g}, "
                 f"|plain|) > {atol}")
         errs[what] = diff.max().item()
         if what != "lse":
@@ -586,8 +647,10 @@ def flash_cases(dev) -> dict:
         (lambda: attn(q, kv, kv), ValueError, "multiple of KV heads"),
         (lambda: attn(q, q, q, segment_ids=torch.zeros(1, 17, **z)),
          ValueError, "segment_ids must be"),
-        (lambda: attn(q, q, q, bias=torch.zeros(8, 16, 16, **z)),
-         NotImplementedError, "A9"),
+        (lambda: attn(q, q, q, bias=torch.zeros(3, 16, 16, **z)),
+         ValueError, "bias must be"),
+        (lambda: flash_forward(q[0], q[0], q[0], bias=torch.zeros(
+            1, 8, 8, dtype=torch.bfloat16, **z)), TypeError, "float32"),
         (lambda: attn(q[..., :8], q[..., :8], q[..., :8]), ValueError,
          "head_dim"),
     ):
@@ -608,19 +671,33 @@ FLASH_WIDTHS = {  # the training shapes: batch, sequence, heads, head dim
 }
 
 
-def flash_bound(name: str, *, B, S, H, KV, D, dtype) -> dict:
-    """The least time of kernel ``name`` at a causal S x S shape: its own
-    matrix-product flops over the visible (query, key) pairs over the
-    dtype's peak, or the bytes it must move (each input read once, each
-    output written once) over 3.35 TB/s, whichever is larger."""
-    pairs = S * (S + 1) // 2
+def visible_pairs(S: int, T: int, causal: bool) -> int:
+    """(query, key) pairs that attend: all, or up to the causal diagonal
+    (query i sees keys j <= i + T - S)."""
+    if not causal:
+        return S * T
+    return sum(min(T, max(0, i + T - S + 1)) for i in range(S))
+
+
+def flash_bound(name: str, *, B, S, H, KV, D, dtype, T=None, causal=True,
+                Hb=0) -> dict:
+    """The least time of kernel ``name``: its own matrix-product flops over
+    the visible (query, key) pairs over the dtype's peak, or the bytes it
+    must move (each input read once, each output written once; an f32
+    [Hb, S, T] bias once, and d(bias) once) over 3.35 TB/s, whichever is
+    larger."""
+    T = S if T is None else T
+    pairs = visible_pairs(S, T, causal)
     esz = torch.empty((), dtype=dtype).element_size()
-    qb, kb, rb = B * H * S * D * esz, B * KV * S * D * esz, B * H * S * 4
-    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}[name]
+    qb, kb, rb = B * H * S * D * esz, B * KV * T * D * esz, B * H * S * 4
+    bb = Hb * S * T * 4
+    products = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4,
+                "flash_dbias": 2}[name]
     flops = 2 * products * B * H * D * pairs
-    nbytes = {"flash_fwd": 2 * qb + 2 * kb + rb,  # q, k, v -> o, lse
-              "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rb,  # +do, delta -> dq
-              "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rb}[name]  # -> dk, dv
+    nbytes = {"flash_fwd": 2 * qb + 2 * kb + rb + bb,  # q, k, v -> o, lse
+              "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rb + bb,  # +do, delta
+              "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rb + bb,  # -> dk, dv
+              "flash_dbias": 2 * qb + 2 * kb + 2 * rb + 2 * bb}[name]
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -651,20 +728,10 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
     plain_fwd = time_ms(lambda: flash_forward_reference(q, k, v), flush, 5)
     plain_bwd = time_ms(
         lambda: flash_backward_reference(q, k, v, do, lse, delta), flush, 5)
-    # Library yardstick: SDPA on [B, H, S, D] views (GQA by enable_gqa),
-    # forward, and its autograd backward (dq, dk and dv in one call).
-    q4, do4 = q.view(B, H, S, D), do.view(B, H, S, D)
-    k4, v4 = k.view(B, KV, S, D), v.view(B, KV, S, D)
-
-    def sdpa(a, b, c):
-        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
-                                              enable_gqa=True)
-
-    lib_fwd = time_ms(lambda: sdpa(q4, k4, v4), flush, 10)
-    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
-    o4 = sdpa(*leaves)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(o4, leaves, do4,
-                                                  retain_graph=True), flush, 10)
+    lib = sdpa_yardstick(q.view(B, H, S, D), k.view(B, KV, S, D),
+                         v.view(B, KV, S, D), do.view(B, H, S, D), None, True,
+                         flush)
+    lib_fwd, lib_bwd = lib["fwd_ms"], lib["bwd_ms"]
     err = {"flash_fwd": max(errs["out"], errs["lse"]),  # absolute
            "flash_bwd_dq": errs["dq"],
            "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
@@ -687,6 +754,7 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
             "library": "F.scaled_dot_product_attention(is_causal=True, "
                        "enable_gqa=True) forward / its autograd backward "
                        "(a yardstick the port never calls)",
+            "library_backend": lib["backend"],
             "kernels": kernels}
 
 
@@ -699,6 +767,241 @@ def phase_flash_kernel(dev, flush, build: dict) -> dict:
             row = measure_flash(dev, flush, model, dtype)
             emit(row)
             rows[(model, row["dtype"])] = row
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the flash kernels with a bias, and the d(bias) kernel
+# ---------------------------------------------------------------------------
+
+BIAS_CASES = (  # name, shape, causal, bias planes (H or 1), segments
+    # test_bias_kernel_matches_xla and test_bias_gradients_match_xla (S=50)
+    ("bias-50-causal-full", dict(B=2, S=50, H=4, D=16), True, "H", None),
+    ("bias-50-causal-broadcast", dict(B=2, S=50, H=4, D=16), True, "1", None),
+    ("bias-50-noncausal-full", dict(B=2, S=50, H=4, D=16), False, "H", None),
+    ("bias-50-noncausal-broadcast", dict(B=2, S=50, H=4, D=16), False, "1",
+     None),
+    # test_bias_gradients_match_xla (S=48)
+    ("bias-48-causal-full", dict(B=2, S=48, H=4, D=16), True, "H", None),
+    ("bias-48-causal-broadcast", dict(B=2, S=48, H=4, D=16), True, "1", None),
+    ("bias-gqa-cross-24x64", dict(B=1, S=24, T=64, H=8, KV=2, D=16), True, "H",
+     None),
+    ("bias-segments-gqa", dict(B=2, S=32, H=4, KV=2, D=16), True, "H",
+     "halves"),
+)
+# T5-11B's attention at the T5 main path's batch: 128 heads of 128 (MHA).
+T5_SHAPES = {
+    "t5-encoder-self": dict(B=T5_BATCH, S=T5_ENC, T=T5_ENC, causal=False,
+                            bias=True),
+    "t5-decoder-self": dict(B=T5_BATCH, S=T5_DEC, T=T5_DEC, causal=True,
+                            bias=True),
+    "t5-cross": dict(B=T5_BATCH, S=T5_DEC, T=T5_ENC, causal=False, bias=False),
+}
+
+
+def bias_plane(seed, Hb, S, T, dev) -> torch.Tensor:
+    """An f32 [Hb, S, T] bias from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randn(Hb, S, T).astype(np.float32)).to(dev)
+
+
+def flash_bias_cases(dev) -> dict:
+    """The bias cases of tests/test_ops.py in both dtypes (every case runs
+    the forward, dq, dk/dv and d(bias) kernels), a TINY T5 on the flash
+    kernels against default_attention, and the relative-position bucket
+    maps on the card against the CPU's."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, causal, planes, segs in BIAS_CASES:
+            args = flash_case(0, dtype=dtype, dev=dev, **shape)
+            H, S = shape["H"], shape["S"]
+            bias = bias_plane(3, H if planes == "H" else 1, S,
+                              shape.get("T", S), dev)
+            seg = None if segs is None else _segments(segs, shape["B"], dev)
+            tag = f"{name}-{str(dtype)[6:]}"
+            errs[tag] = check_flash(args, tag, causal=causal, seg=seg,
+                                    atol=ATOL[dtype], bias=bias, heads=H)
+    # A whole T5 on the kernels by constructor argument, f32, also packed.
+    cfg = PRESETS["tiny-t5"]
+    torch.manual_seed(0)
+    flash_model = make_t5(cfg, attn_fn=make_flash_attention(), device=dev)
+    plain_model = make_t5(cfg, device=dev)
+    plain_model.load_state_dict(flash_model.state_dict())
+    rng = np.random.RandomState(1)
+    enc = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40))).to(dev)
+    dec = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 23))).to(dev)
+    segs = ((torch.arange(40, device=dev) >= 25).int().expand(2, 40),
+            (torch.arange(23, device=dev) >= 9).int().expand(2, 23))
+    with torch.no_grad():
+        for packed in (None, segs):
+            err = (flash_model(enc, dec, packed)
+                   - plain_model(enc, dec, packed)).abs().max().item()
+            if not err <= 1e-4:
+                raise AssertionError(f"TINY T5 on the flash kernels: {err}")
+            errs["tiny-t5-logits" + ("-packed" if packed else "")] = err
+    # The bucket map on the card equals the CPU's, integer for integer.
+    t5 = T5_CFG.encoder
+    for L in (T5_ENC, T5_DEC):
+        rel = torch.arange(L)[None, :] - torch.arange(L)[:, None]
+        for bidirectional in (True, False):
+            kw = dict(bidirectional=bidirectional,
+                      num_buckets=t5.relative_pos_buckets,
+                      max_distance=t5.relative_pos_max_distance)
+            if not torch.equal(_relative_buckets(rel.to(dev), **kw).cpu(),
+                               _relative_buckets(rel, **kw)):
+                raise AssertionError(
+                    f"relative buckets at {L} (bidirectional="
+                    f"{bidirectional}) differ between the card and the CPU")
+    errs["relative-buckets-512-114"] = 0
+    return errs
+
+
+def sdpa_yardstick(q4, k4, v4, do4, bias, causal, flush) -> dict:
+    """Forward and backward times of ``F.scaled_dot_product_attention`` on
+    [B, H, S, D] views (k and v [B, KV, T, D], GQA by ``enable_gqa``), a
+    bias as a float ``attn_mask`` (in q's dtype, expanded to [B, H, S, T],
+    the causal mask folded in as -inf) whose gradient the backward
+    computes too: the fastest (forward + backward) of the fused backends
+    that take it, by name, or the math backend if none does.  A
+    yardstick the port never calls."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, H, S, _ = q4.shape
+    T = k4.shape[2]
+    gqa = k4.shape[1] != H
+    mask, is_causal = None, causal
+    if bias is not None:
+        m = bias.float()
+        if causal:
+            keep = torch.ones(S, T, dtype=torch.bool, device=m.device).tril(T - S)
+            m = m.masked_fill(~keep, float("-inf"))
+        mask = m.to(q4.dtype)[None].expand(B, H, S, T).contiguous()
+        is_causal = False
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+    ins = (q4, k4, v4) + (() if mask is None else (mask,))
+
+    def fwd(*t):
+        return F.scaled_dot_product_attention(
+            *t[:3], attn_mask=t[3] if len(t) > 3 else None, is_causal=is_causal,
+            enable_gqa=gqa)
+
+    refused, ran = {}, {}
+    for backend in backends:
+        if backend == SDPBackend.MATH and ran:
+            break
+        try:
+            with sdpa_kernel([backend]):
+                fwd_ms = time_ms(lambda: fwd(*ins), flush, 10)
+                leaves = [t.detach().clone().requires_grad_() for t in ins]
+                o4 = fwd(*leaves)
+                bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    o4, leaves, do4, retain_graph=True), flush, 10)
+            ran[backend.name] = (fwd_ms, bwd_ms)
+            del leaves, o4
+        except RuntimeError as e:
+            refused[backend.name] = str(e).splitlines()[0][:160]
+    if not ran:
+        raise AssertionError(f"no SDPA backend ran: {refused}")
+    best = min(ran, key=lambda name: sum(ran[name]))
+    return {"backend": best, "fwd_ms": ran[best][0], "bwd_ms": ran[best][1],
+            "ran": ran, "refused": refused}
+
+
+def measure_flash_t5(dev, flush, shape_name: str, dtype) -> dict:
+    """Kernel, plain and library times and the bound of each flash kernel
+    at one of T5-11B's attention shapes, after holding the kernels against
+    the plain versions there (bfloat16 normwise)."""
+    shape = T5_SHAPES[shape_name]
+    cfg = T5_CFG.encoder
+    H, D = cfg.n_heads, cfg.head_size
+    B, S, T, causal = shape["B"], shape["S"], shape["T"], shape["causal"]
+    args = flash_case(17, B=B, S=S, T=T, H=H, D=D, dtype=dtype, dev=dev)
+    bias = bias_plane(19, H, S, T, dev) if shape["bias"] else None
+    bf16 = dtype == torch.bfloat16
+    errs = check_flash(args, f"{shape_name}-{str(dtype)[6:]}", causal=causal,
+                       atol=ATOL[dtype], normwise=bf16, bias=bias, heads=H)
+    torch.cuda.empty_cache()
+    q, k, v, do = args
+    kw = dict(causal=causal, bias=bias, heads=H)
+    out, lse = flash_forward(q, k, v, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    timed = {
+        "flash_fwd": lambda: flash_forward(q, k, v, **kw),
+        "flash_bwd_dq": lambda: flash_backward_dq(q, k, v, do, lse, delta, **kw),
+        "flash_bwd_dkv": lambda: flash_backward_dkv(q, k, v, do, lse, delta,
+                                                    **kw),
+    }
+    if bias is not None:
+        timed["flash_dbias"] = lambda: flash_backward_dbias(
+            q, k, v, do, lse, delta, bias, causal=causal, heads=H)
+    kernel_ms = {name: time_ms(fn, flush) for name, fn in timed.items()}
+    # The same kernels without the bias operand, for what reading it costs.
+    no_bias = {}
+    if bias is not None:
+        nb = dict(causal=causal)
+        no_bias = {
+            "flash_fwd": time_ms(lambda: flash_forward(q, k, v, **nb), flush),
+            "flash_bwd_dq": time_ms(lambda: flash_backward_dq(
+                q, k, v, do, lse, delta, **nb), flush),
+            "flash_bwd_dkv": time_ms(lambda: flash_backward_dkv(
+                q, k, v, do, lse, delta, **nb), flush)}
+    plain_fwd = time_ms(lambda: flash_forward_reference(
+        q, k, v, causal, None, bias, H), flush, 5)
+    plain_bwd = time_ms(lambda: flash_backward_reference(
+        q, k, v, do, lse, delta, causal, None, bias, H), flush, 5)
+    lib = sdpa_yardstick(q.view(B, H, S, D), k.view(B, H, T, D),
+                         v.view(B, H, T, D), do.view(B, H, S, D), bias, causal,
+                         flush)
+    err = {"flash_fwd": max(errs["out"], errs["lse"]),
+           "flash_bwd_dq": errs["dq"],
+           "flash_bwd_dkv": max(errs["dk"], errs["dv"]),
+           "flash_dbias": errs.get("dbias")}
+    Hb = 0 if bias is None else H
+    kernels = {}
+    for name in timed:
+        row = {"max_abs_err": err[name], "kernel_ms": kernel_ms[name],
+               "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
+               "library_ms": lib["fwd_ms"] if name == "flash_fwd"
+               else lib["bwd_ms"],
+               **flash_bound(name, B=B, S=S, T=T, H=H, KV=H, D=D, dtype=dtype,
+                             causal=causal, Hb=Hb)}
+        if bias is not None and name != "flash_dbias":
+            # This design reads the plane once per (batch, head) row.
+            row["bias_stream_ms"] = B * H * S * T * 4 / HBM_BYTES_PER_S * 1e3
+            row["kernel_ms_without_bias"] = no_bias[name]
+        kernels[name] = row
+    return {"phase": "flash_bias_full_width", "shape_name": shape_name,
+            "dtype": str(dtype)[6:],
+            "shape": {"B": B, "S": S, "T": T, "H": H, "KV": H, "D": D,
+                      "causal": causal,
+                      "bias": None if bias is None else list(bias.shape)},
+            "limit": (f"||kernel - plain|| / ||plain|| <= {BF16_NORM_RTOL}"
+                      if bf16 else f"{ATOL[dtype]} x max(1, |plain|)")
+            + f"; lse {LSE_RTOL} x max(1, |plain|)",
+            "max_abs_err": errs,
+            "plain": "flash_forward_reference / flash_backward_reference "
+                     "(the backward's plain version computes dq, dk, dv and "
+                     "d(bias) in one call; its time stands for each of them)",
+            "library": "F.scaled_dot_product_attention(attn_mask=bias) "
+                       "forward / its autograd backward with the mask's "
+                       "gradient (a yardstick the port never calls)",
+            "library_backend": lib["backend"],
+            "library_backends_ms": lib["ran"],
+            "library_refused": lib["refused"],
+            "kernels": kernels}
+
+
+def phase_flash_bias_kernel(dev, flush) -> dict:
+    emit({"phase": "flash_bias_kernel_cases", "kernel": "flash_attention",
+          "max_abs_err": flash_bias_cases(dev)})
+    rows = {}
+    for shape_name in T5_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            row = measure_flash_t5(dev, flush, shape_name, dtype)
+            emit(row)
+            rows[(shape_name, row["dtype"])] = row
             torch.cuda.empty_cache()
     return rows
 
@@ -768,6 +1071,7 @@ def phase_exact_f32(dev) -> list:
 def _rss_bytes() -> int:
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
 
 
 class RssSampler:
@@ -859,17 +1163,18 @@ def cold_bring_up() -> None:
     emit(stats)
 
 
-def run_cold_bring_up() -> dict:
-    """``cold_bring_up`` in a child process: bring-up there pays the CUDA
-    context and library loads that a new replica pays.  The kernel's
-    library is already built on disk by then."""
+def run_child(func: str) -> dict:
+    """``chip_smoke.<func>()`` in a child process, which prints its figures
+    as its last JSON line: work there pays the CUDA context and library
+    loads that a new replica or trainer pays.  The kernel libraries are
+    already built on disk by then."""
     here = os.path.dirname(os.path.abspath(__file__))
-    code = "import chip_smoke; chip_smoke.cold_bring_up()"
+    code = f"import chip_smoke; chip_smoke.{func}()"
     proc = subprocess.run([sys.executable, "-c", code], cwd=here,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"cold bring-up exited {proc.returncode}: {proc.stderr[-2000:]}")
+            f"{func} exited {proc.returncode}: {proc.stderr[-2000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -878,7 +1183,7 @@ def phase_bf16_full(dev):
     and in this one (warm: CUDA context, cuBLAS and the kernel library
     already loaded by the earlier phases), then 4 requests of 16 new
     tokens each through the warm replica."""
-    cold = run_cold_bring_up()
+    cold = run_child("cold_bring_up")
     eng, warm = bring_up_bf16(dev)
     scfg = BF16_SERVE
     cfg = eng.cfg
@@ -1025,7 +1330,8 @@ def phase_train_f32_exact(dev) -> dict:
         for run in runs for n in key_bias)
     loss_diff = max(abs(a - b) for a, b in zip(flash["losses"],
                                                plain["losses"]))
-    want = {k: cfg.n_layers * steps for k in flash_launches}
+    want = {k: cfg.n_layers * steps for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
     if not all(math.isfinite(x) for x in flash["losses"] + plain["losses"]):
         raise AssertionError(f"non-finite loss: {flash['losses']} "
                              f"{plain['losses']}")
@@ -1113,27 +1419,14 @@ def cold_first_step() -> None:
     emit(stats)
 
 
-def run_cold_first_step() -> dict:
-    """``cold_first_step`` in a child process (the kernel libraries are
-    already built on disk by then)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = "import chip_smoke; chip_smoke.cold_first_step()"
-    proc = subprocess.run([sys.executable, "-c", code], cwd=here,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"cold first step exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
-def profile_train_step(state, train_step, batch) -> dict:
-    """One more step under ``torch.profiler``: device time by kernel, and
-    the flash kernels' share of it."""
+def profile_step(model: str, step) -> dict:
+    """One more training step (``step()``) under ``torch.profiler``:
+    device time by kernel, and the flash kernels' share of it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_step(state, batch)
+        step()
         torch.cuda.synchronize()
     kernels = []
     for evt in prof.key_averages():
@@ -1153,9 +1446,15 @@ def profile_train_step(state, train_step, batch) -> dict:
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
     flash = by_kind.get("flash", 0.0)
-    return {"phase": "train_step_profile", "device_ms": total,
+    flash_by_kernel: dict = {}
+    for ms, _, name in kernels:
+        if _kernel_kind(name) == "flash":
+            key = name.split("<")[0].split("(")[0]
+            flash_by_kernel[key] = flash_by_kernel.get(key, 0.0) + ms
+    return {"phase": "train_step_profile", "model": model, "device_ms": total,
             "kernel_launches": sum(k[1] for k in kernels),
             "flash_ms": flash, "flash_share": flash / total if total else None,
+            "flash_ms_by_kernel": flash_by_kernel,
             "device_ms_by_kind": by_kind,
             "top_kernels": [{"name": k[2][:90], "ms": k[0], "launches": k[1]}
                             for k in kernels[:12]]}
@@ -1207,13 +1506,22 @@ def compare_plain_bf16(state, train_step, shard_batch, dev) -> dict:
     del p_state
     state, metrics = train_step(state, batch)
     grads = [p.grad for p in state["params"]]
-    loss, p_loss = float(metrics["loss"]), float(p_metrics["loss"])
-    gn, p_gn = float(metrics["grad_norm"]), float(p_metrics["grad_norm"])
+    row = vs_plain(names, (float(metrics["loss"]), float(p_metrics["loss"])),
+                   (float(metrics["grad_norm"]), float(p_metrics["grad_norm"])),
+                   grads, p_grads)
+    del plain, p_grads, grads
+    torch.cuda.empty_cache()
+    return row
+
+
+def vs_plain(names, losses, grad_norms, grads, p_grads) -> dict:
+    """The bf16 comparison with ``default_attention``'s step: (flash,
+    plain) loss and gradient norm relative, each gradient leaf normwise;
+    raises past the limits."""
+    (loss, p_loss), (gn, p_gn) = losses, grad_norms
     errs = leaf_errors(names, grads, p_grads)
     worst = max(errs, key=errs.get)
     worst_attn = max((n for n in errs if ".attn." in n), key=errs.get)
-    del plain, p_grads, grads
-    torch.cuda.empty_cache()
     loss_rel, gn_rel = abs(loss - p_loss) / abs(p_loss), abs(gn - p_gn) / p_gn
     if not loss_rel <= BF16_LOSS_RTOL:
         raise AssertionError(f"loss {loss} vs plain attention {p_loss}")
@@ -1242,7 +1550,7 @@ def phase_train_bf16_full(dev) -> dict:
     kernels' launches (2 layers x 1 per step each), then one step against
     ``default_attention`` on the same weights and one profiled step."""
     torch.cuda.empty_cache()
-    cold = run_cold_first_step()
+    cold = run_child("cold_first_step")
     torch.cuda.reset_peak_memory_stats()
     reset_flash_launches()
     state, train_step, shard_batch, warm = first_step(dev)
@@ -1257,7 +1565,8 @@ def phase_train_bf16_full(dev) -> dict:
     launches = dict(flash_launches)
     peak = torch.cuda.max_memory_allocated()
     grad_norm = float(metrics["grad_norm"])
-    want = {k: TRAIN_CFG.n_layers * len(losses) for k in flash_launches}
+    want = {k: TRAIN_CFG.n_layers * len(losses) for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
     # Falling: every later step ends below the first.  The repeated batch
@@ -1291,9 +1600,362 @@ def phase_train_bf16_full(dev) -> dict:
            "max_memory_allocated_bytes": peak, "flash_launches": launches,
            "vs_default_attention": vs_plain}
     emit(row)
-    emit(profile_train_step(state, train_step, batch))
+    emit(profile_step("llama3-8b", lambda: train_step(state, batch)))
     del state
     torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 9 to 11: T5 forward and backward from deferred init
+# ---------------------------------------------------------------------------
+
+
+def t5_batch(seed: int, B: int, cfg=None, dev=None):
+    """(enc [B, 512], dec [B, 114]) token batches from a numpy seed, below
+    ``cfg``'s vocabulary (default: the main path's)."""
+    cfg = cfg or T5_CFG
+    rng = np.random.RandomState(seed)
+    enc = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T5_ENC)))
+    dec = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, T5_DEC)))
+    return enc.to(dev), dec.to(dev)
+
+
+def t5_loss(model, enc, dec) -> torch.Tensor:
+    """The decoder's next-token cross-entropy (the JAX package has no T5
+    trainer; this is its ``lm_cross_entropy`` on the decoder tokens)."""
+    return lm_cross_entropy(model(enc, dec), dec)
+
+
+def t5_train_step(model, opt, enc, dec):
+    """One step: forward, loss, backward, the global gradient norm and
+    the optimizer's update; (loss, grad norm) as device scalars."""
+    opt.zero_grad(set_to_none=True)
+    loss = t5_loss(model, enc, dec)
+    loss.backward()
+    grad_norm = torch.nn.utils.get_total_norm(
+        [p.grad for p in model.parameters() if p.grad is not None])
+    opt.step()
+    return loss.detach(), grad_norm
+
+
+def t5_launches_per_step(cfg) -> tuple:
+    """(launches, launches with the bias) of one forward and backward:
+    each encoder layer's self-attention and each decoder layer's self- and
+    cross-attention run the forward, dq and dk/dv kernels; every
+    self-attention carries the bias, so runs d(bias) too."""
+    L_e, L_d = cfg.encoder.n_layers, cfg.decoder.n_layers
+    fwd, biased = L_e + 2 * L_d, L_e + L_d
+    return ({"flash_fwd": fwd, "flash_bwd_dq": fwd, "flash_bwd_dkv": fwd,
+             "flash_dbias": biased}, {k: biased for k in flash_launches})
+
+
+def t5_step_flops(model, cfg, B: int) -> float:
+    """Model FLOPs of one step: 6 per weight of every matrix product per
+    token of its stack (the tied head per decoder token), plus attention's
+    QKᵀ and PV, forward and backward: 12·B·H·D per visible (query, key)
+    pair of the encoder's and the cross-attention's full squares and of
+    the decoder's causal half (6·S² per head, as ``train_step_flops``)."""
+    def weights(blocks):
+        return sum(m.weight.numel() for m in blocks.modules()
+                   if isinstance(m, Linear))
+
+    e, d = cfg.encoder, cfg.decoder
+    head = cfg.vocab_size * d.d_model if cfg.tie_embeddings else 0
+    matmul = 6.0 * (weights(model.enc_blocks) * B * T5_ENC
+                    + (weights(model.dec_blocks) + head) * B * T5_DEC)
+    attn = 6.0 * B * e.n_heads * e.head_size * (
+        2 * e.n_layers * T5_ENC ** 2 + d.n_layers * T5_DEC ** 2
+        + 2 * d.n_layers * T5_DEC * T5_ENC)
+    return matmul + attn
+
+
+# T5 at full width in f32, flash against plain attention: the same sums
+# as the gpt2 check, in another order; a wrong d(bias) moves the relative
+# tables' gradient by order 1.
+T5_F32_LOGIT_ATOL = 1e-4
+
+
+def phase_t5_f32_exact(dev) -> dict:
+    """T5-11B width with 2 + 2 layers at f32 compute: one forward and
+    backward of the decoder loss with the flash kernels and one with
+    ``default_attention``, from the same materialized weights and batch."""
+    cfg = T5_CFG.replace(encoder=T5_CFG.encoder.replace(dtype=torch.float32),
+                         decoder=T5_CFG.decoder.replace(dtype=torch.float32))
+    B = 2
+    torch.manual_seed(0)
+    flash_model = materialize_module(
+        deferred_init(make_t5, cfg, attn_fn=make_flash_attention(),
+                      device=dev), device=dev)
+    plain_model = make_t5(cfg, device=dev)
+    plain_model.load_state_dict(flash_model.state_dict())
+    enc, dec = t5_batch(41, B, cfg, dev)
+    runs = {}
+    for name, model in (("flash", flash_model), ("plain", plain_model)):
+        reset_flash_launches()
+        logits = model(enc, dec)
+        loss = lm_cross_entropy(logits, dec)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = {"logits": logits.detach(), "loss": loss.item(),
+                      "grads": [p.grad for p in model.parameters()],
+                      "launches": dict(flash_launches),
+                      "bias_launches": dict(flash_bias_launches)}
+    flash, plain = runs["flash"], runs["plain"]
+    names = [n for n, _ in flash_model.named_parameters()]
+    errs = leaf_errors(names, flash["grads"], plain["grads"])
+    worst = max(errs, key=errs.get)
+    logit_err = (flash["logits"] - plain["logits"]).abs().max().item()
+    want, want_bias = t5_launches_per_step(cfg)
+    tables = ("enc_relpos.embedding", "dec_relpos.embedding")
+    if not all(math.isfinite(r["loss"]) for r in runs.values()):
+        raise AssertionError(f"non-finite loss: {flash['loss']} {plain['loss']}")
+    if not logit_err <= T5_F32_LOGIT_ATOL:
+        raise AssertionError(f"logits differ by {logit_err}")
+    if not errs[worst] <= F32_GRAD_RTOL:
+        raise AssertionError(
+            f"gradient of {worst} differs by {errs[worst]} (normwise) > "
+            f"{F32_GRAD_RTOL}")
+    if flash["launches"] != want or flash["bias_launches"] != want_bias \
+            or any(plain["launches"].values()):
+        raise AssertionError(
+            f"launches flash {flash['launches']} (with the bias "
+            f"{flash['bias_launches']}) != {want} ({want_bias}), plain "
+            f"{plain['launches']}")
+    row = {"phase": "t5_f32_exact", "model": "t5-11b@2+2-layers",
+           "dtype": "float32", "batch": [B, T5_ENC, T5_DEC],
+           "loss_flash": flash["loss"], "loss_plain": plain["loss"],
+           "max_logit_err": logit_err, "logit_limit": T5_F32_LOGIT_ATOL,
+           "grad_worst_leaf": [worst, errs[worst]],
+           "grad_relative_tables": {t: errs[t] for t in tables},
+           "grad_by_leaf": {n: errs[n] for n in names if ".1." not in n},
+           "grad_limit": f"||flash - plain|| / ||plain|| <= {F32_GRAD_RTOL} "
+                         f"per leaf",
+           "flash_launches": flash["launches"],
+           "flash_launches_with_bias": flash["bias_launches"]}
+    emit(row)
+    del flash_model, plain_model, runs, flash, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def t5_first_step(dev):
+    """The T5 main path from nothing: deferred_init of T5_CFG with the
+    flash kernels, materialize on the card, ``default_optimizer``, one
+    step; the clock runs from before ``deferred_init`` to the first loss
+    on the host, and the host RSS is sampled throughout."""
+    enc, dec = t5_batch(51, T5_BATCH)
+    rss0 = _rss_bytes()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        model = deferred_init(make_t5, T5_CFG, attn_fn=make_flash_attention(),
+                              device=dev)
+        torch.manual_seed(0)
+        materialize_module(model, device=dev)
+        opt = default_optimizer(model.parameters())
+        torch.cuda.synchronize()
+        bring_up = time.perf_counter() - t0
+        loss, _ = t5_train_step(model, opt, enc.to(dev), dec.to(dev))
+        loss = float(loss)
+        seconds = time.perf_counter() - t0
+    params = list(model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    growth = rss.peak - rss0
+    if not growth < param_bytes / 4:
+        raise AssertionError(
+            f"host RSS grew {growth} bytes bringing up {param_bytes} bytes "
+            f"of parameters")
+    stats = {"first_step_s": seconds, "bring_up_s": bring_up,
+             "first_loss": loss, "n_params": sum(p.numel() for p in params),
+             "param_bytes": param_bytes, "host_rss_peak_bytes": rss.peak,
+             "host_rss_growth_bytes": growth}
+    return model, opt, stats
+
+
+def cuda_context(dev) -> dict:
+    """Create the CUDA context and load cuBLAS with one small product: the
+    seconds and host RSS that any process pays before its first model
+    byte (a fixed cost, about 1 GB of RSS, whatever the model's size)."""
+    rss0, t0 = _rss_bytes(), time.perf_counter()
+    x = torch.ones(64, 64, dtype=torch.bfloat16, device=dev)
+    (x @ x).float().sum().item()
+    return {"cuda_context_s": time.perf_counter() - t0,
+            "cuda_context_rss_bytes": _rss_bytes() - rss0}
+
+
+def cold_t5_first_step() -> None:
+    """``t5_first_step`` in a fresh process, after its CUDA context.  The
+    RSS limit holds what bring-up and the step add: at 3.89 GB of
+    parameters a quarter is 0.97 GB, and the context alone takes 0.38 GB
+    of it on an H100 (the rest of a cold step's growth, 0.7–0.9 GB, is a
+    once-per-process cost: the same step adds ~1 MB when warm)."""
+    dev = torch.device("cuda", 0)
+    ctx = cuda_context(dev)
+    *_, stats = t5_first_step(dev)
+    emit({**ctx, **stats})
+
+
+def compare_plain_t5(model, opt, dev) -> dict:
+    """One forward and backward of the main path's model (flash kernels)
+    and of the same model built with ``default_attention``, from the same
+    weights on a fresh batch: the loss relative, the global gradient norm
+    and each gradient leaf normwise (the limits of the llama check)."""
+    names = [n for n, _ in model.named_parameters()]
+    opt.zero_grad(set_to_none=True)  # room for the plain model
+    enc, dec = t5_batch(52, T5_BATCH, dev=dev)
+    plain = make_t5(T5_CFG, device=dev)
+    plain.load_state_dict(model.state_dict())
+    p_loss = t5_loss(plain, enc, dec)
+    p_loss.backward()
+    p_grads = [p.grad for p in plain.parameters()]
+    del plain
+    torch.cuda.empty_cache()
+    loss = t5_loss(model, enc, dec)
+    loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    norm = torch.nn.utils.get_total_norm
+    row = vs_plain(names, (loss.item(), p_loss.item()),
+                   (norm(grads).item(), norm(p_grads).item()), grads, p_grads)
+    del p_grads, grads
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    tables = ("enc_relpos.embedding", "dec_relpos.embedding")
+    return {**row,
+            "grad_relative_tables": {t: row["grad_by_leaf"][t] for t in tables}}
+
+
+def phase_t5_train_bf16(dev) -> dict:
+    """The T5 main path: the first step cold (a fresh process) and warm
+    (this one), 3 more steps on the same batch — losses finite, the last
+    below the first — with the step time, throughput, MFU, peak device
+    memory and the flash kernels' launches per step, then one step
+    against ``default_attention`` on the same weights and one profiled
+    step."""
+    torch.cuda.empty_cache()
+    cold = run_child("cold_t5_first_step")
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_launches()
+    model, opt, warm = t5_first_step(dev)
+    enc, dec = t5_batch(51, T5_BATCH, dev=dev)
+    losses, step_s = [warm["first_loss"]], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, grad_norm = t5_train_step(model, opt, enc, dec)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t)
+    launches, with_bias = dict(flash_launches), dict(flash_bias_launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_step, per_step_bias = t5_launches_per_step(T5_CFG)
+    want = {k: n * len(losses) for k, n in per_step.items()}
+    want_bias = {k: n * len(losses) for k, n in per_step_bias.items()}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"losses do not fall: {losses}")
+    if launches != want or with_bias != want_bias:
+        raise AssertionError(f"flash launches {launches} (with the bias "
+                             f"{with_bias}) != {want} ({want_bias})")
+    vs_plain = compare_plain_t5(model, opt, dev)
+    step = float(np.median(step_s))
+    flops = t5_step_flops(model, T5_CFG, T5_BATCH)
+    tokens = T5_BATCH * (T5_ENC + T5_DEC)
+    row = {"phase": "t5_train_bf16", "model": "t5-11b",
+           "n_layers": [T5_CFG.encoder.n_layers, T5_CFG.decoder.n_layers],
+           "dtype": "bfloat16 compute, float32 parameters",
+           "batch": [T5_BATCH, T5_ENC, T5_DEC],
+           "n_params": warm["n_params"], "param_bytes": warm["param_bytes"],
+           "cuda_context_s_cold": cold["cuda_context_s"],
+           "cuda_context_rss_bytes_cold": cold["cuda_context_rss_bytes"],
+           "first_step_s_cold": cold["first_step_s"],
+           "bring_up_s_cold": cold["bring_up_s"],
+           "host_rss_growth_bytes_cold": cold["host_rss_growth_bytes"],
+           "host_rss_peak_bytes_cold": cold["host_rss_peak_bytes"],
+           "host_rss_limit_bytes": cold["param_bytes"] / 4,
+           "first_step_s_warm": warm["first_step_s"],
+           "bring_up_s_warm": warm["bring_up_s"],
+           "host_rss_growth_bytes_warm": warm["host_rss_growth_bytes"],
+           "losses": losses, "last_grad_norm": float(grad_norm),
+           "step_ms": step * 1e3, "step_ms_samples": [x * 1e3 for x in step_s],
+           "tokens_per_s": tokens / step,
+           "decoder_tokens_per_s": T5_BATCH * T5_DEC / step,
+           "flops_per_step": flops,
+           "flops_formula": "6 x matmul weights x their stack's tokens + "
+                            "12 x B x H x D x attended pairs (encoder and "
+                            "cross full, decoder causal half)",
+           "mfu": flops / step / PEAK_FLOPS[torch.bfloat16],
+           "max_memory_allocated_bytes": peak, "flash_launches": launches,
+           "flash_launches_with_bias": with_bias,
+           "flash_launches_per_step": per_step,
+           "vs_default_attention": vs_plain}
+    emit(row)
+    emit(profile_step("t5-11b@2+2-layers",
+                      lambda: t5_train_step(model, opt, enc, dec)))
+    del model, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def t5_11b_full_depth() -> None:
+    """Full-depth T5-11B with bf16 parameters in a fresh process, after its
+    CUDA context: deferred_init -> materialize on the card (seconds, host
+    RSS growth below a quarter of the parameter bytes), then one forward
+    at B = 1 on the flash kernels with finite logits; prints its figures
+    as one JSON line."""
+    dev = torch.device("cuda", 0)
+    cfg = T5_11B.replace(
+        encoder=T5_11B.encoder.replace(param_dtype=torch.bfloat16),
+        decoder=T5_11B.decoder.replace(param_dtype=torch.bfloat16))
+    enc, dec = t5_batch(61, 1, cfg)
+    ctx = cuda_context(dev)
+    rss0 = _rss_bytes()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        model = deferred_init(make_t5, cfg, attn_fn=make_flash_attention(),
+                              device=dev)
+        torch.manual_seed(0)
+        materialize_module(model, device=dev)
+        torch.cuda.synchronize()
+        bring_up = time.perf_counter() - t0
+    params = list(model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    growth = rss.peak - rss0
+    if not growth < param_bytes / 4:
+        raise AssertionError(
+            f"host RSS grew {growth} bytes materializing {param_bytes} bytes")
+    reset_flash_launches()
+    t = time.perf_counter()
+    with torch.no_grad():
+        logits = model(enc.to(dev), dec.to(dev))
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t
+    want = {k: n for k, n in t5_launches_per_step(cfg)[0].items()
+            if k != "flash_dbias"}
+    launches = {k: flash_launches[k] for k in want}
+    if tuple(logits.shape) != (1, T5_DEC, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite")
+    if launches["flash_fwd"] != want["flash_fwd"] \
+            or flash_bias_launches["flash_fwd"] != cfg.encoder.n_layers \
+            + cfg.decoder.n_layers:
+        raise AssertionError(f"forward launches {launches}")
+    emit({"phase": "t5_11b_full_depth", "model": "t5-11b",
+          "n_layers": [cfg.encoder.n_layers, cfg.decoder.n_layers],
+          "dtype": "bfloat16 parameters and compute", **ctx,
+          "n_params": sum(p.numel() for p in params),
+          "param_bytes": param_bytes, "bring_up_s": bring_up,
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth,
+          "forward_batch": [1, T5_ENC, T5_DEC], "forward_s": forward_s,
+          "logits_finite": True,
+          "flash_fwd_launches": launches["flash_fwd"],
+          "flash_fwd_launches_with_bias": flash_bias_launches["flash_fwd"],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+
+
+def phase_t5_11b_full_depth() -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("t5_11b_full_depth")
+    emit(row)
     return row
 
 
@@ -1331,12 +1993,16 @@ def main() -> int:
     run("kernel", phase_kernel, dev, flush, builds.get("paged_decode.cu", {}))
     flash_rows = run("flash_kernel", phase_flash_kernel, dev, flush,
                      builds.get("flash_attention.cu", {}))
+    bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
     run("serve_f32_exact", phase_exact_f32, dev)
     res = run("serve_bf16_full", phase_bf16_full, dev)
     if res is not None:
         main_row, main_args = res
     run("train_f32_exact", phase_train_f32_exact, dev)
     train_row = run("train_bf16_full", phase_train_bf16_full, dev)
+    run("t5_f32_exact", phase_t5_f32_exact, dev)
+    t5_row = run("t5_train_bf16", phase_t5_train_bf16, dev)
+    run("t5_11b_full_depth", phase_t5_11b_full_depth)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -1355,20 +2021,42 @@ def main() -> int:
                                          "live_tokens")},
     }]
     # The flash kernels at the training main path's shape (llama3-8b
-    # width, [2, 2048], bf16), launches from its 5-step run.
+    # width, [2, 2048], bf16), launches from its 5-step run; beside them
+    # the same kernels with the bias at the T5 main path's encoder shape
+    # ([8, 512], 128 heads, bf16), launches from its 4-step run, where
+    # d(bias) runs.
     main_flash = flash_rows[("llama3-8b", "bfloat16")]
+    t5_flash = bias_rows[("t5-encoder-self", "bfloat16")]
+    t5_shape = {**t5_flash["shape"], "dtype": t5_flash["dtype"]}
+
+    def numbers(k: dict) -> dict:
+        return {"max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
+                "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"]}
+
     for name, replaces in FLASH_REPLACES.items():
-        k = main_flash["kernels"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": train_row["flash_launches"][name],
-            "max_abs_err": k["max_abs_err"], "ms": k["kernel_ms"],
-            "kernel_ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},
+            "with_bias": {
+                "launches": t5_row["flash_launches_with_bias"][name],
+                "launches_t5_path": t5_row["flash_launches"][name],
+                **numbers(t5_flash["kernels"][name]),
+                "bias_stream_ms": t5_flash["kernels"][name]["bias_stream_ms"],
+                "library_backend": t5_flash["library_backend"],
+                "shape": t5_shape},
         })
+    kernels.append({
+        "name": "flash_dbias", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": DBIAS_REPLACES,
+        "launches": t5_row["flash_launches"]["flash_dbias"],
+        **numbers(t5_flash["kernels"]["flash_dbias"]),
+        "library_backend": t5_flash["library_backend"], "shape": t5_shape,
+    })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from torchdistx_tpu.ops import flash_attention as jax_flash_attention
+from torchdistx_tpu_torch.models.layers import default_attention
 from torchdistx_tpu_torch.ops import flash_attention, make_flash_attention
 from torchdistx_tpu_torch.ops.flash_attention import (
     flash_backward,
@@ -168,8 +169,8 @@ def test_raw_entry_points_are_the_plain_versions_on_cpu():
 @pytest.mark.parametrize("call,exc,match", [
     (lambda q, kv: flash_attention(q, kv[:, :, :3], kv[:, :, :3]),
      ValueError, "multiple of KV heads"),
-    (lambda q, kv: flash_attention(q, kv, kv, bias=torch.zeros(8, 16, 16)),
-     NotImplementedError, "A9"),
+    (lambda q, kv: flash_attention(q, kv, kv, bias=torch.zeros(3, 16, 16)),
+     ValueError, "bias must be"),
     (lambda q, kv: flash_attention(q, kv, kv,
                                    segment_ids=torch.zeros(1, 17, dtype=torch.int32)),
      ValueError, "segment_ids must be"),
@@ -190,6 +191,37 @@ def test_model_attn_fn_signature():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, B=1, S=20, H=2, D=16))
     ref = flash_attention(q, k, v, causal=False)
     assert torch.equal(attn(q, k, v, causal=False), ref)
+
+
+def test_bf16_delta_from_the_unrounded_output():
+    """The backward takes delta = rowsum(do * o) from the forward's output
+    before its rounding to bf16.  With a large key component shared by
+    every position and near-uniform attention, the true dq is small
+    (sum_j dS_ij = 0 cancels the shared part) and a delta off by the
+    output's rounding swamps it; the flash dq then still matches plain
+    attention's, while the rounded-output delta does not."""
+    B, S, T, H, D = 1, 16, 256, 2, 16
+    rng = np.random.RandomState(0)
+    q = rng.randn(B, S, H, D).astype(np.float32) * 0.3
+    k = (rng.randn(B, T, H, D) + 64 * rng.randn(1, 1, H, D)).astype(np.float32)
+    v = rng.randn(B, T, H, D).astype(np.float32)
+    do = torch.from_numpy(rng.randn(B, S, H, D).astype(np.float32)).bfloat16()
+    flash = [torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    plain = [torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v)]
+    flash_attention(*flash, causal=False).backward(do)
+    default_attention(*plain, causal=False).backward(do)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    assert rel(flash[0].grad, plain[0].grad) < 1e-3
+    qh, kh, vh, doh = (t.detach().transpose(1, 2).reshape(B * H, -1, D)
+                       for t in (flash[0], flash[1], flash[2], do))
+    out, lse = flash_forward(qh, kh, vh, causal=False)
+    rounded = (doh.float() * out.float()).sum(-1)
+    dq = flash_backward_reference(qh, kh, vh, doh, lse, rounded, False)[0]
+    dq = dq.view(B, H, S, D).transpose(1, 2)
+    assert rel(dq, plain[0].grad) > 1e-2
 
 
 @pytest.fixture
@@ -228,7 +260,8 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     r_grads = flash_backward_reference(q, k, v, do, r_lse, delta, causal, seg)
     torch.cuda.synchronize()
     assert {n: launches[n] - before[n] for n in launches} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+        "flash_dbias": 0}
     live = (r_lse > -1e29).cpu()
     assert torch.all(out.cpu()[~live] == 0)
     _close(out.cpu()[live].float(), r_out.cpu()[live].float(), dtype, "out")

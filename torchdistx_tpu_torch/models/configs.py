@@ -1,9 +1,9 @@
-"""Decoder-LM configurations (counterpart of ``torchdistx_tpu/models/configs.py``).
+"""Model configurations (counterpart of ``torchdistx_tpu/models/configs.py``).
 
 The same fields and presets as the JAX package, with ``dtype`` (compute)
-and ``param_dtype`` (storage) as torch dtypes.  Only the decoder-LM
-families the port serves so far are here; a config with ``moe`` set is
-refused by the models.
+and ``param_dtype`` (storage) as torch dtypes.  Only the families the
+port runs so far are here (the decoder LMs and T5); a config with
+``moe`` set is refused by the models.
 """
 
 from __future__ import annotations
@@ -29,10 +29,12 @@ class TransformerConfig:
     use_bias: bool = False
     activation: str = "silu"  # "silu" (SwiGLU) | "gelu" (plain MLP)
     norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
-    positions: str = "rope"  # "rope" | "learned"
+    positions: str = "rope"  # "rope" | "learned" | "relative"
     tie_embeddings: bool = False
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
+    relative_pos_buckets: int = 32  # t5-style
+    relative_pos_max_distance: int = 128
 
     moe: Optional[Any] = None  # mixture-of-experts: not ported yet
 
@@ -48,6 +50,19 @@ class TransformerConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def replace(self, **kw) -> "TransformerConfig":
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """T5-style encoder-decoder: one TransformerConfig per stack."""
+
+    encoder: TransformerConfig
+    decoder: TransformerConfig
+    vocab_size: int
+    tie_embeddings: bool = True
+
+    def replace(self, **kw) -> "EncDecConfig":
         return replace(self, **kw)
 
 
@@ -92,6 +107,27 @@ LLAMA3_70B = TransformerConfig(
     rope_theta=500000.0,
 )
 
+_T5_STACK = TransformerConfig(
+    vocab_size=32128,
+    d_model=1024,
+    n_layers=24,
+    n_heads=128,
+    head_dim=128,
+    d_ff=65536,
+    max_seq_len=512,
+    activation="gelu",
+    norm="rmsnorm",
+    positions="relative",
+    norm_eps=1e-6,
+)
+
+T5_11B = EncDecConfig(
+    encoder=_T5_STACK,
+    decoder=_T5_STACK,
+    vocab_size=32128,
+    tie_embeddings=True,
+)
+
 # -- tiny variants for tests -------------------------------------------------
 
 TINY = TransformerConfig(
@@ -110,10 +146,23 @@ TINY_GPT2 = GPT2_125M.replace(
     dtype=torch.float32,
 )
 
+_TINY_T5_STACK = _T5_STACK.replace(
+    vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128,
+    max_seq_len=64, dtype=torch.float32,
+)
+
+TINY_T5 = EncDecConfig(
+    encoder=_TINY_T5_STACK,
+    decoder=_TINY_T5_STACK,
+    vocab_size=256,
+)
+
 PRESETS = {
     "gpt2-125m": GPT2_125M,
     "llama3-8b": LLAMA3_8B,
     "llama3-70b": LLAMA3_70B,
+    "t5-11b": T5_11B,
     "tiny": TINY,
     "tiny-gpt2": TINY_GPT2,
+    "tiny-t5": TINY_T5,
 }

@@ -9,7 +9,9 @@ Takes numpy and imports nothing of the JAX package.  The mapping:
   to 2-D and transposed into ``nn.Linear``'s ``[out, in]`` layout, their
   biases flattened;
 * flax's auto-named norms (``RMSNorm_0``/``LayerNorm_0`` …) map to
-  ``norm_0``/``norm_1``;
+  ``norm_0``/``norm_1``/``norm_2`` in a block; T5's top-level
+  ``RMSNorm_0``/``RMSNorm_1`` are the encoder's and the decoder's final
+  norms;
 * a tied model has no head weight on either side: its head reads the
   token embedding, so the tie holds by construction.
 """
@@ -21,7 +23,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .configs import TransformerConfig
+from .configs import EncDecConfig, TransformerConfig
 
 __all__ = ["from_flax_params"]
 
@@ -49,32 +51,58 @@ def _norm(sd: Dict[str, torch.Tensor], name: str, leaf: Mapping, i=None):
             sd[f"{name}.{k}"] = _t(a[i] if i is not None else a)
 
 
-def from_flax_params(family: str, cfg: TransformerConfig,
-                     params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for ``family`` (``"llama"`` | ``"gpt2"``)
-    from the JAX model's parameters (``{"params": ...}`` or the inner
-    tree), leaves as numpy arrays.  Load it with
-    ``model.load_state_dict(sd)``, which casts to the model's dtypes."""
+def _norm_base(cfg: TransformerConfig) -> str:
+    return "RMSNorm" if cfg.norm == "rmsnorm" else "LayerNorm"
+
+
+def _block(sd: Dict[str, torch.Tensor], pre: str, blk: Mapping, i: int,
+           cfg: TransformerConfig, n_norms: int, attns=("attn",)) -> None:
+    """Layer ``i`` of an ``nn.scan``-stacked block tree onto ``pre``."""
+    for n in range(n_norms):
+        _norm(sd, f"{pre}.norm_{n}", blk[f"{_norm_base(cfg)}_{n}"], i)
+    for mod in attns:
+        for name in ("wq", "wk", "wv"):
+            _dense(sd, f"{pre}.{mod}.{name}", blk[mod][name], 1, i)
+        _dense(sd, f"{pre}.{mod}.wo", blk[mod]["wo"], 2, i)
+    for name, leaf in blk["mlp"].items():
+        _dense(sd, f"{pre}.mlp.{name}", leaf, 1, i)
+
+
+def _t5(cfg: EncDecConfig, p: Mapping) -> Dict[str, torch.Tensor]:
+    sd = {"shared_embed.weight": _t(p["shared_embed"]["embedding"]),
+          "enc_relpos.embedding": _t(p["enc_relpos"]["embedding"]),
+          "dec_relpos.embedding": _t(p["dec_relpos"]["embedding"])}
+    for i in range(cfg.encoder.n_layers):
+        _block(sd, f"enc_blocks.{i}", p["enc_blocks"], i, cfg.encoder, 2)
+    for i in range(cfg.decoder.n_layers):
+        _block(sd, f"dec_blocks.{i}", p["dec_blocks"], i, cfg.decoder, 3,
+               ("attn", "cross"))
+    _norm(sd, "enc_norm", p[f"{_norm_base(cfg.encoder)}_0"])
+    _norm(sd, "dec_norm", p[f"{_norm_base(cfg.decoder)}_1"])
+    if not cfg.tie_embeddings:
+        _dense(sd, "lm_head", p["lm_head"], 1)
+    return sd
+
+
+def from_flax_params(family: str, cfg, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for ``family`` (``"llama"`` | ``"gpt2"``
+    with a ``TransformerConfig``, ``"t5"`` with an ``EncDecConfig``) from
+    the JAX model's parameters (``{"params": ...}`` or the inner tree),
+    leaves as numpy arrays.  Load it with ``model.load_state_dict(sd)``,
+    which casts to the model's dtypes."""
     p = params.get("params", params)
+    if family == "t5":
+        return _t5(cfg, p)
     if family not in ("llama", "gpt2"):
-        raise ValueError(f"unknown decode family {family!r} (gpt2 | llama)")
+        raise ValueError(f"unknown family {family!r} (gpt2 | llama | t5)")
     sd: Dict[str, torch.Tensor] = {}
     if family == "llama":
         sd["embed.weight"] = _t(p["embed"]["embedding"])
     else:
         sd["wte.weight"] = _t(p["wte"]["embedding"])
         sd["wpe.weight"] = _t(p["wpe"]["embedding"])
-    blk = p["blocks"]["block"]
-    base = "RMSNorm" if cfg.norm == "rmsnorm" else "LayerNorm"
     for i in range(cfg.n_layers):
-        pre = f"blocks.{i}"
-        _norm(sd, f"{pre}.norm_0", blk[f"{base}_0"], i)
-        _norm(sd, f"{pre}.norm_1", blk[f"{base}_1"], i)
-        for name in ("wq", "wk", "wv"):
-            _dense(sd, f"{pre}.attn.{name}", blk["attn"][name], 1, i)
-        _dense(sd, f"{pre}.attn.wo", blk["attn"]["wo"], 2, i)
-        for name, leaf in blk["mlp"].items():
-            _dense(sd, f"{pre}.mlp.{name}", leaf, 1, i)
+        _block(sd, f"blocks.{i}", p["blocks"]["block"], i, cfg, 2)
     _norm(sd, "final_norm", p["final_norm"])
     if not cfg.tie_embeddings:
         _dense(sd, "lm_head", p["lm_head"], 1)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.segments import normalize_segment_ids
 from .configs import TransformerConfig
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax's
@@ -60,12 +61,13 @@ def default_attention(
     *,
     causal: bool = True,
     bias: Optional[torch.Tensor] = None,  # [H or 1, S, T]
-    segment_ids: Optional[torch.Tensor] = None,  # [B, S] (self-attention)
+    segment_ids=None,  # [B, S] or ([B, S], [B, T]): packed sequences
 ) -> torch.Tensor:
     """Plain attention with GQA head-group broadcasting, f32 softmax.
 
     ``segment_ids`` masks cross-segment pairs: query i attends key j only
-    when their segment ids are equal."""
+    when their segment ids are equal ([B, S] for self-attention, a
+    ``(q_seg, kv_seg)`` pair for cross-attention)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     KV = k.shape[2]
@@ -85,12 +87,8 @@ def default_attention(
         mask = torch.ones(S, T, dtype=torch.bool, device=q.device).tril(T - S)
         mask = mask[None, None, None]
     if segment_ids is not None:
-        if tuple(segment_ids.shape) != (B, S) or S != T:
-            raise ValueError(
-                f"segment_ids must be [B, S]=[{B}, {S}] for self-attention, "
-                f"got {tuple(segment_ids.shape)}"
-            )
-        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None, None]
+        q_seg, kv_seg = normalize_segment_ids(segment_ids, B, S, T)
+        seg = (q_seg[:, :, None] == kv_seg[:, None, :])[:, None, None]
         mask = seg if mask is None else mask & seg
     if mask is not None:
         logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
@@ -221,6 +219,17 @@ def _dense(cfg: TransformerConfig, n_in: int, n_out: int, device,
                   dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
 
 
+def _optional_attn_kwargs(bias, segment_ids) -> dict:
+    """Optional operands only when present, so bias- and segment-less
+    AttnFns stay valid."""
+    kwargs = {}
+    if bias is not None:
+        kwargs["bias"] = bias
+    if segment_ids is not None:
+        kwargs["segment_ids"] = segment_ids
+    return kwargs
+
+
 class Attention(nn.Module):
     """Self-attention; ``attn_fn`` computes the attention itself (plain
     :func:`default_attention` unless a model is built with, e.g., the
@@ -253,16 +262,45 @@ class Attention(nn.Module):
         B, S = o.shape[:2]
         return self.wo(o.reshape(B, S, -1))
 
-    def forward(self, x, *, angles=None, causal=True, segment_ids=None):
+    def forward(self, x, *, angles=None, bias=None, causal=True,
+                segment_ids=None):
         q, k, v = self.qkv(x)
         if angles is not None:
             q = apply_rope(q, angles)
             k = apply_rope(k, angles)
-        # Optional operands only when present, so segment-less AttnFns
-        # stay valid.
-        kw = {} if segment_ids is None else {"segment_ids": segment_ids}
-        o = self.attn_fn(q, k, v, causal=causal, **kw)
+        o = self.attn_fn(q, k, v, causal=causal,
+                         **_optional_attn_kwargs(bias, segment_ids))
         return self.out(o)
+
+
+class CrossAttention(nn.Module):
+    """Attention of ``x`` (queries) over ``kv`` (an encoder's output),
+    never causal; ``segment_ids`` is a ``([B, S_q], [B, S_kv])`` pair for
+    packed encoder-decoder batches, so each decoder position attends only
+    its own document's encoder span.  No biases on its projections, as in
+    the JAX module."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 attn_fn: AttnFn = default_attention):
+        super().__init__()
+        self.cfg = cfg
+        self.attn_fn = attn_fn
+        hd = cfg.head_size
+        self.wq = _dense(cfg, cfg.d_model, cfg.n_heads * hd, device, False)
+        self.wk = _dense(cfg, cfg.d_model, cfg.kv_heads * hd, device, False)
+        self.wv = _dense(cfg, cfg.d_model, cfg.kv_heads * hd, device, False)
+        self.wo = _dense(cfg, cfg.n_heads * hd, cfg.d_model, device, False)
+
+    def forward(self, x, kv, *, bias=None, segment_ids=None):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        T, hd = kv.shape[1], cfg.head_size
+        q = self.wq(x).view(B, S, cfg.n_heads, hd)
+        k = self.wk(kv).view(B, T, cfg.kv_heads, hd)
+        v = self.wv(kv).view(B, T, cfg.kv_heads, hd)
+        o = self.attn_fn(q, k, v, causal=False,
+                         **_optional_attn_kwargs(bias, segment_ids))
+        return self.wo(o.reshape(B, S, -1))
 
 
 class MLP(nn.Module):

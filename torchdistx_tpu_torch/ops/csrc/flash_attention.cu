@@ -1,24 +1,47 @@
 // Flash attention forward and backward for Hopper (sm_90a), with a plain C
 // interface loaded through ctypes (torchdistx_tpu_torch/ops/flash_attention.py).
 //
-// Replaces three Pallas TPU kernels of torchdistx_tpu/ops/flash_attention.py:
+// Replaces four Pallas TPU kernels of torchdistx_tpu/ops/flash_attention.py:
 //   * _fwd_kernel (l.91, launched by _fwd_call l.446)     -> flash_fwd_kernel
 //   * _bwd_dq_kernel (l.206, via _bwd_call l.499)         -> flash_dq_kernel
 //   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_kernel
+//   * _dbias_kernel (l.318, via _dbias_call l.619)        -> flash_dbias_kernel
 // It computes the same functions, not the same blocks.  Layout [B*H, S, D]
 // for q/o/do/dq, [B*KV, T, D] for k/v/dk/dv, lse and delta [B*H, S] f32.
 // Query head row bh reads kv row bh / G (G = H / KV).  Key j is visible to
 // query i iff j < T, j <= i + T - S when causal (the last query aligned with
 // the last key), and, with segment ids, qseg[b, i] == kseg[b, j].  A row
 // that sees no key gets a zero output, lse = -1e30 and zero gradients, as
-// in the TPU kernel.  The additive bias operand (and _dbias_kernel) is not
-// here: no path of the port passes a bias yet.
+// in the TPU kernel.  On request the forward also writes O in f32 before
+// its rounding to q's dtype: the backward's delta = rowsum(dO * O) is
+// taken from it (ops/flash_attention.py says why).
 //
-// What bounds it on the H100: operations.  At the training shapes
-// (S = T = 1024..2048, D = 64..128) attention does ~S*D/2 flops per byte
-// of q/k/v/o, far above the ~295 flops/byte where bf16 tensor cores stop
-// waiting for memory; the least time is the causal-halved matmul flops
-// over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32, CUDA cores, no TF32).
+// The additive bias is f32 [Hb, S, T] whatever q's dtype, Hb = H or 1:
+// the score of row bh is s = (q k^T) * scale + bias[(bh % H) % Hb, i, j],
+// added before the mask in the one elementwise pass each kernel has, read
+// straight from device memory there (lanes walk consecutive j, so the
+// reads coalesce; every read is checked against i < S and j < T).  d(bias)
+// = sum over the rows of one bias plane of p * (dp - delta): one CTA per
+// (bias plane, q tile, k tile) loops over those rows (the B batch items,
+// or all B*H rows when Hb = 1), recomputing S = Q K^T and dP = dO V^T, and
+// writes its tile once, from registers, with no atomics; tiles wholly past
+// the causal diagonal are written as zeros.
+//
+// What bounds it on the H100.  Without a bias: operations.  At the
+// training shapes (S = T = 1024..2048, D = 64..128) attention does ~S*D/2
+// flops per byte of q/k/v/o, far above the ~295 flops/byte where bf16
+// tensor cores stop waiting for memory; the least time is the
+// causal-halved matmul flops over 989 TFLOP/s (bf16) or 67 TFLOP/s (f32,
+// CUDA cores, no TF32).  With a bias, at T5's encoder shape (B 8, H 128,
+// S = T = 512, D 128, bf16) the f32 [H, S, T] plane (134 MB) and q, k, v,
+// o move 0.67 GB, 0.20 ms at 3.35 TB/s, against 0.14 ms of bf16 matmul:
+// bytes bound the forward, dq and dk/dv kernels there.  This design reads
+// the plane once per (batch, head) row, B*H*S*T*4 = 1.07 GB (0.32 ms),
+// unless L2 serves the re-reads of the other batch items.  The dbias
+// kernel reads q, k, v, do and the bias once and writes d(bias) once
+// (0.81 GB in bf16, 0.24 ms) but recomputes two products per row
+// (137 GFLOP: 0.14 ms in bf16, 2.05 ms in f32): bytes bound it in bf16,
+// operations in f32.
 // What the design does about it, as a first, simple kernel:
 //   * no [S, T] matrix ever reaches device memory: each CTA keeps its
 //     q (or k) tile in shared memory, streams the other side's tiles
@@ -26,9 +49,17 @@
 //     the dq / dk,dv sums (backward) in shared memory in f32;
 //   * tiles wholly past the causal diagonal are never loaded;
 //   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate), with P and dS rounded to bf16 to feed the P*V, dS*K,
-//     P^T*dO and dS^T*Q products; f32 products stay IEEE f32 (FMA on the
-//     CUDA cores, no TF32);
+//     accumulate), with P rounded to bf16 to feed the P*V and P^T*dO
+//     products (O normalized by the sum of the rounded P, see the
+//     forward's epilogue), and dS split into two bf16 parts (hi + lo, ~2^-17
+//     relative) to feed dS*K and dS^T*Q: each row of dS sums to zero in
+//     exact arithmetic, which cancels the component shared by all keys
+//     from dq and by all positions' inputs from the key projection's
+//     gradient; dS rounded once breaks those sums by 2^-9 of its size,
+//     and that leaked 16 % (normwise) into a T5 decoder's key-projection
+//     gradient at T5-11B width.  f32 products stay IEEE f32 (FMA on the
+//     CUDA cores, no TF32); d(bias) rounds nothing, since no product
+//     follows it;
 //   * the dk/dv kernel walks every (group head, q tile) of its kv head
 //     inside the CTA and writes dk and dv once: no atomics, no GQA
 //     broadcast of K/V and no reduction over the group afterwards.
@@ -36,7 +67,9 @@
 // and accumulators all live there), which keeps one code path for both
 // dtypes and makes the kernel shared-memory-bandwidth bound well below
 // the tensor-core rate.  Keeping the accumulators in registers,
-// ldmatrix, cp.async/TMA pipelining and wgmma are the later steps.
+// ldmatrix, cp.async/TMA pipelining and wgmma are the later steps; so is
+// ordering the grid so that CTAs of one bias plane run together and L2
+// serves the bias re-reads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +93,7 @@ struct Tiles {
   static constexpr int kDqQ = 64, kDqK = 64;
   static constexpr int kDkvQ = std::is_same<T, float>::value ? 32 : 64;
   static constexpr int kDkvK = 64;
+  static constexpr int kDbQ = 64, kDbK = 64;
   // Row padding of a T tile: 16 bytes, which keeps rows 16-byte aligned
   // and moves consecutive rows to other banks.
   static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
@@ -74,6 +108,8 @@ template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -108,9 +144,10 @@ struct Layout {
   int ldt, lds, ldp, ldo;  // row strides: T tiles, f32 scores, T probs, f32 accs
   size_t a0, a1, b0, b1;   // T tiles: two of the owned side, two streamed
   size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP)
-  size_t p0, p1;           // T [q rows, k cols] tiles (P, dS); alias s0/s1 in f32
-  size_t acc0, acc1;       // f32 [owned rows, D] accumulators
-  size_t r0, r1, r2;       // f32 per-q-row vectors
+  size_t p0, p1, p2;       // T [q rows, k cols] tiles (P, dS, dS's low part);
+                           // alias s0/s1 in f32, which needs no low part
+  size_t acc0, acc1;       // f32 [owned rows, D] accumulators (n_acc of them)
+  size_t r0, r1, r2, r3;   // f32 per-q-row vectors
   size_t qseg, kseg;       // int per-row segment ids
   size_t bytes;
 
@@ -134,12 +171,14 @@ struct Layout {
     const size_t pt = static_cast<size_t>(bq) * ldp * sizeof(T);
     p0 = f32 ? s0 : c.take(pt);
     p1 = f32 ? s1 : c.take(pt);
+    p2 = f32 ? s0 : c.take(pt);
     const size_t af = static_cast<size_t>(rows_a) * ldo * sizeof(float);
-    acc0 = c.take(af);
+    acc0 = n_acc > 0 ? c.take(af) : 0;
     acc1 = n_acc > 1 ? c.take(af) : acc0;
     r0 = c.take(bq * sizeof(float));
     r1 = c.take(bq * sizeof(float));
     r2 = c.take(bq * sizeof(float));
+    r3 = c.take(bq * sizeof(float));
     qseg = c.take(bq * sizeof(int));
     kseg = c.take(bk * sizeof(int));
     bytes = c.off;
@@ -163,6 +202,14 @@ template <typename T>
 __host__ __device__ Layout<T> dkv_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDkvK, Tiles<T>::kDkvQ, Tiles<T>::kDkvQ,
                    Tiles<T>::kDkvK, 2, 2);
+}
+
+// d(bias): owns q and do, streams k and v; S, dP; no accumulator tile (the
+// [bq, bk] sum lives in registers); lse, delta.
+template <typename T>
+__host__ __device__ Layout<T> dbias_layout(int D) {
+  return Layout<T>(D, Tiles<T>::kDbQ, Tiles<T>::kDbK, Tiles<T>::kDbQ,
+                   Tiles<T>::kDbK, 2, 0);
 }
 
 // rows [row0, row0 + rows) of a [total, D] matrix into a tile of stride
@@ -357,12 +404,14 @@ struct Params {
   const void* dout;
   const float* lse_in;
   const float* delta;
-  const int* qseg;  // [B, S] or null
-  const int* kseg;  // [B, T] or null
-  void* out;        // o (fwd), dq (dq kernel), dk (dkv kernel)
-  void* out2;       // dv (dkv kernel)
-  float* lse;       // [B*H, S] (fwd)
-  int H, KV, S, T, D, causal;
+  const float* bias;  // [Hb, S, T] f32 or null
+  const int* qseg;    // [B, S] or null
+  const int* kseg;    // [B, T] or null
+  void* out;          // o (fwd), dq (dq kernel), dk (dkv kernel), dbias
+  void* out2;         // dv (dkv kernel)
+  float* lse;         // [B*H, S] (fwd)
+  float* o32;         // [B*H, S, D] f32 copy of o (fwd), or null
+  int B, H, KV, Hb, S, T, D, causal;
   float scale;
 };
 
@@ -371,6 +420,23 @@ __device__ __forceinline__ bool visible(const Params& p, int qpos, int kpos,
                                         int qs, int ks) {
   return qpos < p.S && kpos < p.T && (!p.causal || kpos <= qpos + p.T - p.S) &&
          (p.qseg == nullptr || qs == ks);
+}
+
+// The bias plane of query row bh: head bh % H of its batch item, or the
+// one plane of a head-broadcast bias; null without a bias.
+__device__ __forceinline__ const float* bias_plane(const Params& p, int bh) {
+  if (p.bias == nullptr) return nullptr;
+  const int hb = p.Hb == 1 ? 0 : bh % p.H;
+  return p.bias + static_cast<size_t>(hb) * p.S * p.T;
+}
+
+// The scaled score s plus the bias at (qpos, kpos); callers read it only
+// for a visible pair, so qpos < S and kpos < T.
+__device__ __forceinline__ float biased(const Params& p, const float* plane,
+                                        float s, int qpos, int kpos) {
+  return plane == nullptr
+             ? s
+             : s + plane[static_cast<size_t>(qpos) * p.T + kpos];
 }
 
 // Number of k tiles a q tile starting at q0 needs: all of them, or up to
@@ -397,6 +463,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   float* m_s = reinterpret_cast<float*>(smem + L.r0);
   float* l_s = reinterpret_cast<float*>(smem + L.r1);
   float* c_s = reinterpret_cast<float*>(smem + L.r2);
+  float* lp_s = reinterpret_cast<float*>(smem + L.r3);
   int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
   int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
 
@@ -408,6 +475,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const T* q = static_cast<const T*>(p.q) + static_cast<size_t>(bh) * p.S * D;
   const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * p.T * D;
   const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * p.T * D;
+  const float* bplane = bias_plane(p, bh);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   load_tile(qs, L.ldt, q, q0, p.S, BQ, D);
@@ -417,6 +485,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
+    lp_s[r] = 0.f;
   }
   const int nk = k_tiles_needed(p, q0, BQ, BK);
   for (int kt = 0; kt < nk; ++kt) {
@@ -437,28 +506,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       for (int c = 0; c < BK / 32; ++c) {
         const int j = lane + 32 * c;
         s[c] = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
-                   ? ss[r * L.lds + j] * p.scale
+                   ? biased(p, bplane, ss[r * L.lds + j] * p.scale, q0 + r,
+                            k0 + j)
                    : kNeg;
         mx = fmaxf(mx, s[c]);
       }
       mx = warp_max(mx);
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
+      float psum = 0.f, pt_sum = 0.f;
 #pragma unroll
       for (int c = 0; c < BK / 32; ++c) {
         const int j = lane + 32 * c;
         const float pr = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
                              ? expf(s[c] - m_new)
                              : 0.f;
-        ps[r * L.ldp + j] = from_f32<T>(pr);
+        const T pt = from_f32<T>(pr);
+        ps[r * L.ldp + j] = pt;
         psum += pr;
+        pt_sum += to_f32(pt);
       }
       psum = warp_sum(psum);
+      pt_sum = warp_sum(pt_sum);
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
         m_s[r] = m_new;
         l_s[r] = l_s[r] * corr + psum;
+        lp_s[r] = lp_s[r] * corr + pt_sum;
         c_s[r] = corr;
       }
     }
@@ -466,12 +540,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     gemm<true, false>(ps, L.ldp, vs, L.ldt, os, L.ldo, BQ, D, BK, true, c_s);
   }
   __syncthreads();
-  T* o = static_cast<T*>(p.out) + static_cast<size_t>(bh) * p.S * D;
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    if (q0 + r < p.S)
-      o[static_cast<size_t>(q0 + r) * D + d] =
-          from_f32<T>(os[r * L.ldo + d] / fmaxf(l_s[r], 1e-30f));
+    if (q0 + r < p.S) {
+      const size_t at = static_cast<size_t>(bh) * p.S * D +
+                        static_cast<size_t>(q0 + r) * D + d;
+      // O is normalized by the sum of the P it multiplied (rounded to
+      // bf16 for the tensor cores), so it stays a convex combination of
+      // the values: the component they share passes through exactly, and
+      // so cancels from dP - delta in the backward.  lse keeps the exact
+      // sum, so the backward's recomputed P sums to one.
+      const float val = os[r * L.ldo + d] / fmaxf(lp_s[r], 1e-30f);
+      static_cast<T*>(p.out)[at] = from_f32<T>(val);
+      if (p.o32 != nullptr) p.o32[at] = val;
+    }
   }
   for (int r = threadIdx.x; r < BQ; r += kThreads)
     if (q0 + r < p.S)
@@ -479,22 +561,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
           m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
-// p = exp(s*scale - lse) where visible, else 0; ds = p*(dp - delta)*scale
-// (the TPU kernel's _block_p_ds), for a [bq, bk] tile.
+// p = exp(s*scale [+ bias] - lse) where visible, else 0;
+// ds = p*(dp - delta)*scale (the TPU kernel's _block_p_ds), for a [bq, bk]
+// tile of query row with bias plane `bplane` (or null).  In bf16, ds is
+// stored as dss + dss_lo, its rounding and the rounding of the rest.
 template <typename T, int BQ, int BK>
-__device__ void block_p_ds(const Params& p, int q0, int k0, const float* ss,
-                           const float* dps, T* ps, T* dss, int lds, int ldp,
+__device__ void block_p_ds(const Params& p, const float* bplane, int q0,
+                           int k0, const float* ss, const float* dps, T* ps,
+                           T* dss, T* dss_lo, int lds, int ldp,
                            const float* lse_s, const float* delta_s,
                            const int* qseg_s, const int* kseg_s) {
   for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
     const int r = i / BK, j = i % BK;
     const float s = ss[r * lds + j];
     const float dp = dps[r * lds + j];
-    const float pr = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
-                         ? expf(s * p.scale - lse_s[r])
-                         : 0.f;
+    const float pr =
+        visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
+            ? expf(biased(p, bplane, s * p.scale, q0 + r, k0 + j) - lse_s[r])
+            : 0.f;
     if (ps != nullptr) ps[r * ldp + j] = from_f32<T>(pr);
-    dss[r * ldp + j] = from_f32<T>(pr * (dp - delta_s[r]) * p.scale);
+    const float ds = pr * (dp - delta_s[r]) * p.scale;
+    const T hi = from_f32<T>(ds);
+    dss[r * ldp + j] = hi;
+    if constexpr (!std::is_same<T, float>::value)
+      dss_lo[r * ldp + j] = from_f32<T>(ds - to_f32(hi));
   }
 }
 
@@ -510,6 +600,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   float* ss = reinterpret_cast<float*>(smem + L.s0);
   float* dps = reinterpret_cast<float*>(smem + L.s1);
   T* dss = reinterpret_cast<T*>(smem + L.p1);
+  T* dss_lo = reinterpret_cast<T*>(smem + L.p2);
   float* dqs = reinterpret_cast<float*>(smem + L.acc0);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
   float* delta_s = reinterpret_cast<float*>(smem + L.r1);
@@ -524,6 +615,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   const size_t qoff = static_cast<size_t>(bh) * p.S * D;
   const T* k = static_cast<const T*>(p.k) + static_cast<size_t>(kvh) * p.T * D;
   const T* v = static_cast<const T*>(p.v) + static_cast<size_t>(kvh) * p.T * D;
+  const float* bplane = bias_plane(p, bh);
 
   load_tile(qs, L.ldt, static_cast<const T*>(p.q) + qoff, q0, p.S, BQ, D);
   load_tile(dos, L.ldt, static_cast<const T*>(p.dout) + qoff, q0, p.S, BQ, D);
@@ -544,10 +636,15 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
     gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
     __syncthreads();
-    block_p_ds<T, BQ, BK>(p, q0, k0, ss, dps, static_cast<T*>(nullptr), dss,
-                          L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
+    block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, static_cast<T*>(nullptr),
+                          dss, dss_lo, L.lds, L.ldp, lse_s, delta_s, qseg_s,
+                          kseg_s);
     __syncthreads();
+    // The same thread owns each dQ element in both products: no barrier.
     gemm<true, false>(dss, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true, nullptr);
+    if constexpr (!std::is_same<T, float>::value)
+      gemm<true, false>(dss_lo, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true,
+                        nullptr);
   }
   __syncthreads();
   T* dq = static_cast<T*>(p.out) + qoff;
@@ -571,6 +668,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   float* dps = reinterpret_cast<float*>(smem + L.s1);
   T* ps = reinterpret_cast<T*>(smem + L.p0);
   T* dss = reinterpret_cast<T*>(smem + L.p1);
+  T* dss_lo = reinterpret_cast<T*>(smem + L.p2);
   float* dks = reinterpret_cast<float*>(smem + L.acc0);
   float* dvs = reinterpret_cast<float*>(smem + L.acc1);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
@@ -602,6 +700,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   for (int g = 0; g < G; ++g) {
     const int bh = bkv * G + g;  // query head (b, kv*G + g)
     const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+    const float* bplane = bias_plane(p, bh);  // that query head's plane
     for (int qt = qt0; qt < nq; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
@@ -615,12 +714,15 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
       gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
       gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
       __syncthreads();
-      block_p_ds<T, BQ, BK>(p, q0, k0, ss, dps, ps, dss, L.lds, L.ldp, lse_s,
-                            delta_s, qseg_s, kseg_s);
+      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, dss_lo, L.lds,
+                            L.ldp, lse_s, delta_s, qseg_s, kseg_s);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q: A(m = key, k = query row) = P[k][m].
       gemm<false, false>(ps, L.ldp, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
       gemm<false, false>(dss, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true, nullptr);
+      if constexpr (!std::is_same<T, float>::value)
+        gemm<false, false>(dss_lo, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true,
+                           nullptr);
     }
   }
   __syncthreads();
@@ -632,6 +734,89 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
       dk[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dks[r * L.ldo + d]);
       dv[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dvs[r * L.ldo + d]);
     }
+  }
+}
+
+// d(bias) for one (bias plane hb, q tile, k tile): the sum of p * (dp -
+// delta) over the rows of that plane (b*H + hb for every b, or all B*H
+// rows when Hb = 1), in registers: thread t owns elements t + e*kThreads
+// of the tile in every iteration.  The tile is written once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dbias_kernel(Params p) {
+  constexpr int BQ = Tiles<T>::kDbQ, BK = Tiles<T>::kDbK;
+  constexpr int kPer = BQ * BK / kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<T> L = dbias_layout<T>(p.D);
+  T* qs = reinterpret_cast<T*>(smem + L.a0);
+  T* dos = reinterpret_cast<T*>(smem + L.a1);
+  T* ks = reinterpret_cast<T*>(smem + L.b0);
+  T* vs = reinterpret_cast<T*>(smem + L.b1);
+  float* ss = reinterpret_cast<float*>(smem + L.s0);
+  float* dps = reinterpret_cast<float*>(smem + L.s1);
+  float* lse_s = reinterpret_cast<float*>(smem + L.r0);
+  float* delta_s = reinterpret_cast<float*>(smem + L.r1);
+  int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
+  int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
+
+  const int D = p.D;
+  const int G = p.H / p.KV;
+  const int hb = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const int k0 = blockIdx.z * BK;
+  const size_t plane = static_cast<size_t>(hb) * p.S * p.T;
+  float acc[kPer], bias_r[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int i = threadIdx.x + e * kThreads;
+    const int r = i / BK, j = i % BK;
+    acc[e] = 0.f;
+    bias_r[e] = (q0 + r < p.S && k0 + j < p.T)
+                    ? p.bias[plane + static_cast<size_t>(q0 + r) * p.T + k0 + j]
+                    : 0.f;
+  }
+  // A tile wholly past the causal diagonal has no visible pair: it keeps
+  // its zeros (and is still written: the output is not pre-zeroed).
+  const bool needed = !p.causal || k0 <= q0 + BQ - 1 + p.T - p.S;
+  const int n_rows = needed ? (p.Hb == 1 ? p.B * p.H : p.B) : 0;
+  for (int it = 0; it < n_rows; ++it) {
+    const int bh = p.Hb == 1 ? it : it * p.H + hb;
+    const int b = bh / p.H;
+    const int kvh = bh / G;
+    const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+    const size_t koff = static_cast<size_t>(kvh) * p.T * D;
+    __syncthreads();  // the previous row's readers are done
+    load_tile(qs, L.ldt, static_cast<const T*>(p.q) + qoff, q0, p.S, BQ, D);
+    load_tile(dos, L.ldt, static_cast<const T*>(p.dout) + qoff, q0, p.S, BQ, D);
+    load_tile(ks, L.ldt, static_cast<const T*>(p.k) + koff, k0, p.T, BK, D);
+    load_tile(vs, L.ldt, static_cast<const T*>(p.v) + koff, k0, p.T, BK, D);
+    load_rows(lse_s, p.lse_in + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+    load_rows(delta_s, p.delta + static_cast<size_t>(bh) * p.S, q0, p.S, BQ);
+    load_seg(qseg_s, p.qseg ? p.qseg + static_cast<size_t>(b) * p.S : nullptr,
+             q0, p.S, BQ);
+    load_seg(kseg_s, p.kseg ? p.kseg + static_cast<size_t>(b) * p.T : nullptr,
+             k0, p.T, BK);
+    __syncthreads();
+    gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
+    gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + e * kThreads;
+      const int r = i / BK, j = i % BK;
+      if (visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])) {
+        const float pr =
+            expf(ss[r * L.lds + j] * p.scale + bias_r[e] - lse_s[r]);
+        acc[e] += pr * (dps[r * L.lds + j] - delta_s[r]);
+      }
+    }
+  }
+  float* out = static_cast<float*>(p.out) + plane;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) {
+    const int i = threadIdx.x + e * kThreads;
+    const int r = i / BK, j = i % BK;
+    if (q0 + r < p.S && k0 + j < p.T)
+      out[static_cast<size_t>(q0 + r) * p.T + k0 + j] = acc[e];
   }
 }
 
@@ -653,39 +838,53 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
 }
 
 template <typename T>
-int run(int which, const Params& p, int B, cudaStream_t stream) {
+int run(int which, const Params& p, cudaStream_t stream) {
   const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
   const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
   const int nk_d = (p.T + Tiles<T>::kDkvK - 1) / Tiles<T>::kDkvK;
   if (which == 0)
-    return launch(flash_fwd_kernel<T>, dim3(B * p.H, nq_f),
+    return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f),
                   fwd_layout<T>(p.D).bytes, p, stream);
   if (which == 1)
-    return launch(flash_dq_kernel<T>, dim3(B * p.H, nq_d),
+    return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d),
                   dq_layout<T>(p.D).bytes, p, stream);
-  return launch(flash_dkv_kernel<T>, dim3(B * p.KV, nk_d),
-                dkv_layout<T>(p.D).bytes, p, stream);
+  if (which == 2)
+    return launch(flash_dkv_kernel<T>, dim3(p.B * p.KV, nk_d),
+                  dkv_layout<T>(p.D).bytes, p, stream);
+  const int nq_b = (p.S + Tiles<T>::kDbQ - 1) / Tiles<T>::kDbQ;
+  const int nk_b = (p.T + Tiles<T>::kDbK - 1) / Tiles<T>::kDbK;
+  return launch(flash_dbias_kernel<T>, dim3(p.Hb, nq_b, nk_b),
+                dbias_layout<T>(p.D).bytes, p, stream);
 }
 
-int dispatch(int which, Params p, int B, int dtype, void* stream) {
-  if (B <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.S <= 0 || p.T <= 0 ||
+int dispatch(int which, Params p, int dtype, void* stream) {
+  if (p.B <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.S <= 0 || p.T <= 0 ||
       !(p.D == 16 || p.D == 32 || p.D == 64 || p.D == 128) ||
-      (p.qseg == nullptr) != (p.kseg == nullptr))
+      (p.qseg == nullptr) != (p.kseg == nullptr) ||
+      (p.bias != nullptr && !(p.Hb == 1 || p.Hb == p.H)) ||
+      (which == 3 && p.bias == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(which, p, B, s);
-  if (dtype == 1) return run<bf16>(which, p, B, s);
+  if (dtype == 0) return run<float>(which, p, s);
+  if (dtype == 1) return run<bf16>(which, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-Params make_params(const void* q, const void* k, const void* v, int H, int KV,
-                   int S, int T, int D, int causal, float scale) {
+Params make_params(const void* q, const void* k, const void* v,
+                   const float* bias, const int* qseg, const int* kseg, int B,
+                   int H, int KV, int Hb, int S, int T, int D, int causal,
+                   float scale) {
   Params p{};
   p.q = q;
   p.k = k;
   p.v = v;
+  p.bias = bias;
+  p.qseg = qseg;
+  p.kseg = kseg;
+  p.B = B;
   p.H = H;
   p.KV = KV;
+  p.Hb = Hb;
   p.S = S;
   p.T = T;
   p.D = D;
@@ -698,50 +897,69 @@ Params make_params(const void* q, const void* k, const void* v, int H, int KV,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; qseg / kseg both null or both given.
-// Each returns the cudaError_t of its launch (0 on success).
+// dtype: 0 = float32, 1 = bfloat16; qseg / kseg both null or both given;
+// bias null (Hb ignored) or f32 [Hb, S, T] with Hb = 1 or H.  Each returns
+// the cudaError_t of its launch (0 on success).
 
-int tdx_flash_fwd(const void* q, const void* k, const void* v, const int* qseg,
-                  const int* kseg, void* out, float* lse, int B, int H, int KV,
-                  int S, int T, int D, int causal, int dtype, float scale,
-                  void* stream) {
-  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
-  p.qseg = qseg;
-  p.kseg = kseg;
+// out_f32: null, or an f32 [B*H, S, D] copy of the output before its
+// rounding to q's dtype (the backward's delta = rowsum(do * o) is taken
+// from it: see ops/flash_attention.py).
+int tdx_flash_fwd(const void* q, const void* k, const void* v,
+                  const float* bias, const int* qseg, const int* kseg,
+                  void* out, float* lse, float* out_f32, int B, int H, int KV,
+                  int Hb, int S, int T, int D, int causal, int dtype,
+                  float scale, void* stream) {
+  Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
+                         causal, scale);
   p.out = out;
   p.lse = lse;
-  return dispatch(0, p, B, dtype, stream);
+  p.o32 = out_f32;
+  return dispatch(0, p, dtype, stream);
 }
 
 int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
-                     const int* qseg, const int* kseg, void* dq, int B, int H,
-                     int KV, int S, int T, int D, int causal, int dtype,
-                     float scale, void* stream) {
-  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
+                     const float* bias, const int* qseg, const int* kseg,
+                     void* dq, int B, int H, int KV, int Hb, int S, int T,
+                     int D, int causal, int dtype, float scale, void* stream) {
+  Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
+                         causal, scale);
   p.dout = dout;
   p.lse_in = lse;
   p.delta = delta;
-  p.qseg = qseg;
-  p.kseg = kseg;
   p.out = dq;
-  return dispatch(1, p, B, dtype, stream);
+  return dispatch(1, p, dtype, stream);
 }
 
 int tdx_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      const int* qseg, const int* kseg, void* dk, void* dv,
-                      int B, int H, int KV, int S, int T, int D, int causal,
-                      int dtype, float scale, void* stream) {
-  Params p = make_params(q, k, v, H, KV, S, T, D, causal, scale);
+                      const float* bias, const int* qseg, const int* kseg,
+                      void* dk, void* dv, int B, int H, int KV, int Hb, int S,
+                      int T, int D, int causal, int dtype, float scale,
+                      void* stream) {
+  Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
+                         causal, scale);
   p.dout = dout;
   p.lse_in = lse;
   p.delta = delta;
-  p.qseg = qseg;
-  p.kseg = kseg;
   p.out = dk;
   p.out2 = dv;
-  return dispatch(2, p, B, dtype, stream);
+  return dispatch(2, p, dtype, stream);
+}
+
+// dbias: f32 [Hb, S, T], every element written.
+int tdx_flash_dbias(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* delta,
+                    const float* bias, const int* qseg, const int* kseg,
+                    float* dbias, int B, int H, int KV, int Hb, int S, int T,
+                    int D, int causal, int dtype, float scale, void* stream) {
+  Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
+                         causal, scale);
+  p.dout = dout;
+  p.lse_in = lse;
+  p.delta = delta;
+  p.out = dbias;
+  return dispatch(3, p, dtype, stream);
 }
 
 const char* tdx_cuda_error_string(int err) {

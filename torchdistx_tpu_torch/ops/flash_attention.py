@@ -8,10 +8,15 @@ Layout contract (the JAX package's, unchanged):
   q, o, do, dq as [B·H, S, D] and k, v, dk, dv as [B·KV, T, D] (query head
   row ``bh`` reads kv row ``bh // G``, G = H / KV), with ``lse`` and
   ``delta`` as [B·H, S] float32;
+* an additive ``bias`` is f32 [Hb, S, T], Hb = H or 1: row ``bh`` adds
+  plane ``(bh % H) % Hb`` to its scaled scores, so the raw entry points
+  take ``heads`` = H (the query heads of one batch item) beside it, and
+  :func:`flash_backward_dbias` computes its gradient, the sum of
+  ``p * (dp - delta)`` over the rows of each plane;
 * :func:`flash_attention` has the model ``AttnFn`` signature, q
   [B, S, H, D] and k, v [B, T, KV, D], and is differentiable through a
-  ``torch.autograd.Function`` whose backward runs the dq and dk/dv
-  kernels.
+  ``torch.autograd.Function`` whose backward runs the dq, dk/dv and (with
+  a bias) d(bias) kernels.
 
 Masks follow ``default_attention``'s convention: causal query i sees key
 j <= i + T - S (the last query aligned with the last key), and with
@@ -20,14 +25,22 @@ gets a zero output row, lse = -1e30 and zero gradients — in the kernels
 and in the plain versions alike (``default_attention`` softmaxes uniform
 masked logits there instead; don't build packings with empty segments).
 
+The backward's ``delta = rowsum(do * o)`` is taken from the forward's
+output before its rounding to q's dtype (the forward kernel writes an f32
+copy on request), not from the rounded output as the JAX package's
+``_delta_carrier`` does.  In exact arithmetic ``sum_j dS_ij = 0``, so the
+component of the keys shared by every position drops out of dq; with
+delta off by the output's bf16 rounding it does not, and when attention
+is near-uniform over keys with a large shared component (T5-11B's
+cross-attention after one training step: shared / deviation ~ 18) that
+error is larger than dq itself.
+
 CUDA tensors launch the hand-written kernels (``csrc/flash_attention.cu``)
 on the current stream, or raise; CPU tensors run the plain versions
 :func:`flash_forward_reference` / :func:`flash_backward_reference`,
 because they lie on the CPU.  Nothing falls back from one to the other.
-Each kernel launch adds one to its entry of :data:`launches`.
-
-The additive ``bias`` operand and its gradient kernel are not ported yet
-(ROADMAP A9 / B5): passing one raises.
+Each kernel launch adds one to its entry of :data:`launches`, and a
+launch with a bias also to its entry of :data:`bias_launches`.
 """
 
 from __future__ import annotations
@@ -47,7 +60,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention.cu"
 
 #: Kernel launches since the last reset, by kernel.
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_dbias": 0}
+#: The same, counting only launches with a bias operand.
+bias_launches = dict(launches)
 
 Segments = Optional[Tuple[torch.Tensor, torch.Tensor]]  # ([B, S], [B, T])
 
@@ -55,6 +71,7 @@ Segments = Optional[Tuple[torch.Tensor, torch.Tensor]]  # ([B, S], [B, T])
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        bias_launches[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -80,48 +97,84 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _dense_probs(q, k, causal, seg: Segments):
+def _heads(bias, heads):
+    """H for the bias planes: ``heads`` if given, else a per-head bias's
+    plane count (a head-broadcast bias reads plane 0 whatever H is)."""
+    if heads is None and bias is not None and bias.shape[0] > 1:
+        return bias.shape[0]
+    return heads
+
+
+def _per_plane(x: torch.Tensor, Hb: int, heads) -> torch.Tensor:
+    """[BH, S, T] rows as [BH / Hb', Hb', S, T] groups of bias planes (Hb'
+    = Hb = H, or 1 with every row reading the one plane)."""
+    BH, S, T = x.shape
+    n = heads if Hb > 1 else 1
+    return x.view(BH // n, n, S, T)
+
+
+def _dense_probs(q, k, causal, seg: Segments, bias=None, heads=None):
     """Masked logits [BH, S, T], the mask, and k broadcast to q heads."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     kf = _wide(k).repeat_interleave(BH // BKV, dim=0)
     s = torch.bmm(_wide(q) * (1.0 / math.sqrt(D)), kf.transpose(1, 2))
+    if bias is not None:
+        s = (_per_plane(s, bias.shape[0], _heads(bias, heads))
+             + bias.to(s.dtype)).view(BH, S, T)
     mask = _visible(BH, S, T, causal, seg, q.device)
     return s.masked_fill(~mask, _NEG), mask, kf
 
 
-def flash_forward_reference(q, k, v, causal: bool = True, seg: Segments = None):
+def flash_forward_reference(q, k, v, causal: bool = True, seg: Segments = None,
+                            bias=None, heads=None):
     """The forward kernel's function, dense in f32: ``(out [BH, S, D] in
-    q's dtype, lse [BH, S] f32)``."""
+    q's dtype, lse [BH, S] f32)``; ``bias`` [Hb, S, T] is added to the
+    scaled scores of each row's plane."""
+    out, lse = _forward_wide(q, k, v, causal, seg, bias, heads)
+    return out.to(q.dtype), lse
+
+
+def _forward_wide(q, k, v, causal, seg, bias, heads):
+    """The forward's output before its rounding to q's dtype (f32, or f64
+    for f64 inputs), and lse."""
     BH, BKV = q.shape[0], k.shape[0]
-    s, mask, _ = _dense_probs(q, k, causal, seg)
+    s, mask, _ = _dense_probs(q, k, causal, seg, bias, heads)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     vf = _wide(v).repeat_interleave(BH // BKV, dim=0)
     out = torch.bmm(p, vf) / l
     lse = (m + torch.log(l)).squeeze(-1)
-    return out.to(q.dtype), lse
+    return out, lse
 
 
 def flash_backward_reference(q, k, v, do, lse, delta, causal: bool = True,
-                             seg: Segments = None):
-    """The dq and dk/dv kernels' function, dense in f32 (the TPU kernels'
-    ``_block_p_ds``): p = exp(s - lse), ds = p (do vᵀ - delta) / sqrt(D);
-    dk and dv summed over each kv head's group of query heads."""
+                             seg: Segments = None, bias=None, heads=None):
+    """The dq, dk/dv and d(bias) kernels' function, dense in f32 (the TPU
+    kernels' ``_block_p_ds``): p = exp(s [+ bias] - lse), ds = p (do vᵀ -
+    delta) / sqrt(D); dk and dv summed over each kv head's group of query
+    heads.  ``(dq, dk, dv)``, and with a bias also d(bias) [Hb, S, T] =
+    p (do vᵀ - delta) summed over the rows of each plane, in f32 (f64 for
+    f64 inputs)."""
     BH, S, D = q.shape
     BKV, T, _ = k.shape
     G = BH // BKV
-    s, mask, kf = _dense_probs(q, k, causal, seg)
+    s, mask, kf = _dense_probs(q, k, causal, seg, bias, heads)
     p = torch.where(mask, torch.exp(s - lse[:, :, None]), 0.0)
     vf = _wide(v).repeat_interleave(G, dim=0)
     dof = _wide(do)
     dp = torch.bmm(dof, vf.transpose(1, 2))
-    ds = p * (dp - delta[:, :, None]) * (1.0 / math.sqrt(D))
+    dlogits = p * (dp - delta[:, :, None])
+    ds = dlogits * (1.0 / math.sqrt(D))
     dq = torch.bmm(ds, kf)
     dk = torch.bmm(ds.transpose(1, 2), _wide(q)).view(BKV, G, T, D).sum(1)
     dv = torch.bmm(p.transpose(1, 2), dof).view(BKV, G, T, D).sum(1)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if bias is None:
+        return grads
+    Hb = bias.shape[0]
+    return (*grads, _per_plane(dlogits, Hb, _heads(bias, heads)).sum(0))
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +182,7 @@ def flash_backward_reference(q, k, v, do, lse, delta, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
-def _check_shapes(q, k, v, seg: Segments) -> None:
+def _check_shapes(q, k, v, seg: Segments, bias=None, heads=None) -> None:
     BH, S, D = q.shape
     BKV, T, Dk = k.shape
     if tuple(v.shape) != tuple(k.shape):
@@ -150,6 +203,18 @@ def _check_shapes(q, k, v, seg: Segments) -> None:
             raise ValueError(
                 f"segment ids {tuple(seg[0].shape)} / {tuple(seg[1].shape)} "
                 f"do not fit q rows {BH} x {S} and kv rows {BKV} x {T}")
+    heads = _heads(bias, heads)
+    if heads is not None:
+        B = BH // heads if BH % heads == 0 else 0
+        if not B or BKV % B or (seg is not None and seg[0].shape[0] != B):
+            raise ValueError(
+                f"heads={heads} does not divide q rows {BH} into batch items "
+                f"that also split kv rows {BKV} and the segment ids")
+    if bias is not None and (bias.dim() != 3 or tuple(bias.shape[1:]) != (S, T)
+                             or bias.shape[0] not in (1, heads)):
+        raise ValueError(
+            f"bias must be [H or 1, S, T] = [{heads} or 1, {S}, {T}] at the "
+            f"raw layout, got {tuple(bias.shape)}")
 
 
 def _check_cuda(operands, rows=(), seg: Segments = None) -> None:
@@ -175,10 +240,15 @@ def _check_cuda(operands, rows=(), seg: Segments = None) -> None:
                     "q/k/v/do 16-byte aligned")
 
 
-def _dims(q, k, seg: Segments):
-    """(B, H, KV) for the kernels: without segment ids the batch split is
-    irrelevant, so rows count as heads of one batch item."""
-    B = 1 if seg is None else seg[0].shape[0]
+def _dims(q, k, seg: Segments, heads):
+    """(B, H, KV) for the kernels: the true split when ``heads`` is known
+    (a per-head bias indexes its plane by the head, bh % H) or segment ids
+    give B; otherwise the split is irrelevant, so rows count as heads of
+    one batch item."""
+    if heads is not None:
+        B = q.shape[0] // heads
+    else:
+        B = 1 if seg is None else seg[0].shape[0]
     return B, q.shape[0] // B, k.shape[0] // B
 
 
@@ -190,8 +260,9 @@ def _kernel(name: str):
     if fn is None:
         lib = _build.load(_SOURCE)
         fn = getattr(lib, f"tdx_{name}")
-        n_ptr = {"flash_fwd": 7, "flash_bwd_dq": 9, "flash_bwd_dkv": 10}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
+        n_ptr = {"flash_fwd": 9, "flash_bwd_dq": 10, "flash_bwd_dkv": 11,
+                 "flash_dbias": 10}[name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tdx_cuda_error_string.argtypes = [ctypes.c_int]
@@ -200,27 +271,33 @@ def _kernel(name: str):
     return fn
 
 
-def _seg_ptrs(seg: Segments):
-    return [None, None] if seg is None else [s.data_ptr() for s in seg]
+def _extra_ptrs(bias, seg: Segments):
+    """The bias and segment-id pointers (null where absent)."""
+    segs = [None, None] if seg is None else [s.data_ptr() for s in seg]
+    return [_opt_ptr(bias), *segs]
 
 
-def _launch(name: str, ptrs, q, k, seg: Segments, causal: bool) -> None:
+def _launch(name: str, ptrs, q, k, seg: Segments, causal: bool, bias,
+            heads) -> None:
     """Launch kernel ``name`` on the current stream with its operand
     pointers ``ptrs`` (in the C signature's order) and raise on a refused
     launch."""
-    B, H, KV = _dims(q, k, seg)
+    B, H, KV = _dims(q, k, seg, _heads(bias, heads))
     S, D = q.shape[1], q.shape[2]
     T = k.shape[1]
+    Hb = 0 if bias is None else bias.shape[0]
     fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, B, H, KV, S, T, D, int(causal), _DTYPE_CODE[q.dtype],
-                 1.0 / math.sqrt(D), stream)
+        err = fn(*ptrs, B, H, KV, Hb, S, T, D, int(causal),
+                 _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), stream)
     if err != 0:
         msg = _build.load(_SOURCE).tdx_cuda_error_string(err)
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} ({msg.decode()})")
     launches[name] += 1
+    if bias is not None:
+        bias_launches[name] += 1
 
 
 def _cuda_segments(seg: Segments) -> Segments:
@@ -229,99 +306,153 @@ def _cuda_segments(seg: Segments) -> Segments:
     return tuple(s.to(torch.int32).contiguous() for s in seg)
 
 
-def flash_forward(q, k, v, *, causal: bool = True, segment_ids: Segments = None):
+def flash_forward(q, k, v, *, causal: bool = True, segment_ids: Segments = None,
+                  bias=None, heads=None, f32_out: bool = False):
     """``(out [BH, S, D], lse [BH, S] f32)`` at the raw layout;
     ``segment_ids`` is ``None`` or a ``(q_seg [B, S], kv_seg [B, T])``
-    pair."""
-    _check_shapes(q, k, v, segment_ids)
+    pair; ``bias`` is ``None`` or f32 [H or 1, S, T] with ``heads`` = H
+    (taken from a per-head bias when omitted).  With ``f32_out`` also the
+    output before its rounding to q's dtype (``out`` itself for f32 q)."""
+    _check_shapes(q, k, v, segment_ids, bias, heads)
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, causal, segment_ids)
+        wide, lse = _forward_wide(q, k, v, causal, segment_ids, bias, heads)
+        out = wide.to(q.dtype)
+        return (out, lse, wide) if f32_out else (out, lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     seg = _cuda_segments(segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _check_cuda((q, k, v, out), (lse,), seg)
+    out32 = None
+    if f32_out and q.dtype != torch.float32:
+        out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _check_cuda((q, k, v, out), (lse,) + _opt(bias) + _opt(out32), seg)
     _launch("flash_fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          *_seg_ptrs(seg), out.data_ptr(), lse.data_ptr()],
-            q, k, seg, causal)
-    return out, lse
+                          *_extra_ptrs(bias, seg), out.data_ptr(),
+                          lse.data_ptr(), _opt_ptr(out32)],
+            q, k, seg, causal, bias, heads)
+    if not f32_out:
+        return out, lse
+    return out, lse, out if out32 is None else out32
 
 
-def _backward_operands(q, k, v, do, lse, delta, segment_ids: Segments):
+def _opt_ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _opt(t) -> tuple:
+    return () if t is None else (t,)
+
+
+def _backward_operands(q, k, v, do, lse, delta, segment_ids: Segments, bias,
+                       heads):
     """Checks for the backward kernels; the segment ids as int32."""
-    _check_shapes(q, k, v, segment_ids)
+    _check_shapes(q, k, v, segment_ids, bias, heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention kernels run on cuda, not {q.device}")
     if do.shape != q.shape or lse.shape != q.shape[:2] \
             or delta.shape != q.shape[:2]:
         raise ValueError("do, lse or delta do not match q")
     seg = _cuda_segments(segment_ids)
-    _check_cuda((q, k, v, do), (lse, delta), seg)
+    _check_cuda((q, k, v, do), (lse, delta) + _opt(bias), seg)
     return seg
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-                      segment_ids: Segments = None):
+                      segment_ids: Segments = None, bias=None, heads=None):
     """The dq kernel alone, on CUDA tensors."""
-    seg = _backward_operands(q, k, v, do, lse, delta, segment_ids)
+    seg = _backward_operands(q, k, v, do, lse, delta, segment_ids, bias, heads)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(seg), dq.data_ptr()],
-            q, k, seg, causal)
+             lse.data_ptr(), delta.data_ptr(), *_extra_ptrs(bias, seg),
+             dq.data_ptr()],
+            q, k, seg, causal, bias, heads)
     return dq
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
-                       segment_ids: Segments = None):
+                       segment_ids: Segments = None, bias=None, heads=None):
     """The dk/dv kernel alone, on CUDA tensors: ``(dk, dv)``."""
-    seg = _backward_operands(q, k, v, do, lse, delta, segment_ids)
+    seg = _backward_operands(q, k, v, do, lse, delta, segment_ids, bias, heads)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_bwd_dkv",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), *_seg_ptrs(seg), dk.data_ptr(),
-             dv.data_ptr()],
-            q, k, seg, causal)
+             lse.data_ptr(), delta.data_ptr(), *_extra_ptrs(bias, seg),
+             dk.data_ptr(), dv.data_ptr()],
+            q, k, seg, causal, bias, heads)
     return dk, dv
 
 
+def flash_backward_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = True,
+                         segment_ids: Segments = None, heads=None):
+    """The d(bias) kernel alone, on CUDA tensors: f32 [Hb, S, T], the sum
+    of p * (do vᵀ - delta) over the rows that read each bias plane."""
+    seg = _backward_operands(q, k, v, do, lse, delta, segment_ids, bias, heads)
+    dbias = torch.empty_like(bias)
+    _launch("flash_dbias",
+            [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), *_extra_ptrs(bias, seg),
+             dbias.data_ptr()],
+            q, k, seg, causal, bias, heads)
+    return dbias
+
+
 def flash_backward(q, k, v, do, lse, delta, *, causal: bool = True,
-                   segment_ids: Segments = None):
+                   segment_ids: Segments = None, bias=None, heads=None,
+                   want_dbias: bool = False):
     """``(dq, dk, dv)`` at the raw layout from the forward's ``lse`` and
-    ``delta = rowsum(do * out)`` (both [BH, S] f32)."""
+    ``delta = rowsum(do * out)`` (both [BH, S] f32), recomputing the
+    probabilities with ``bias`` when one is given; with ``want_dbias``
+    also the bias's gradient, f32 [Hb, S, T]."""
+    if want_dbias and bias is None:
+        raise ValueError("want_dbias needs the bias")
     if q.device.type == "cpu":
-        _check_shapes(q, k, v, segment_ids)
-        return flash_backward_reference(q, k, v, do, lse, delta, causal,
-                                        segment_ids)
-    kw = dict(causal=causal, segment_ids=segment_ids)
-    dq = flash_backward_dq(q, k, v, do, lse, delta, **kw)
-    return (dq, *flash_backward_dkv(q, k, v, do, lse, delta, **kw))
+        _check_shapes(q, k, v, segment_ids, bias, heads)
+        grads = flash_backward_reference(q, k, v, do, lse, delta, causal,
+                                         segment_ids, bias, heads)
+        return grads if want_dbias else grads[:3]
+    kw = dict(causal=causal, segment_ids=segment_ids, bias=bias, heads=heads)
+    grads = (flash_backward_dq(q, k, v, do, lse, delta, **kw),
+             *flash_backward_dkv(q, k, v, do, lse, delta, **kw))
+    if not want_dbias:
+        return grads
+    kw.pop("bias")
+    return (*grads, flash_backward_dbias(q, k, v, do, lse, delta, bias, **kw))
 
 
 class _FlashCore(torch.autograd.Function):
     """The custom VJP of the JAX ``_flash_core``: the forward kernel saves
-    (out, lse); the backward computes delta = rowsum(do * out) (plain
-    torch, outside the kernels as in the JAX package) and runs the dq and
-    dk/dv kernels."""
+    (its f32 output, lse); the backward computes delta = rowsum(do * out)
+    from the f32 output (plain torch, outside the kernels as in the JAX
+    package; why f32: the module docstring) and runs the dq and dk/dv
+    kernels, and the d(bias) kernel when the bias needs a gradient
+    (returned in the bias's dtype).  The kernels read the bias in f32."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, causal, q_seg, kv_seg):
+    def forward(ctx, qh, kh, vh, bias, causal, heads, q_seg, kv_seg):
         seg = None if q_seg is None else (q_seg, kv_seg)
-        out, lse = flash_forward(qh, kh, vh, causal=causal, segment_ids=seg)
-        ctx.save_for_backward(qh, kh, vh, out, lse, q_seg, kv_seg)
-        ctx.causal = causal
+        b32 = None if bias is None else bias.float().contiguous()
+        out, lse, out32 = flash_forward(qh, kh, vh, causal=causal,
+                                        segment_ids=seg, bias=b32,
+                                        heads=heads, f32_out=True)
+        ctx.save_for_backward(qh, kh, vh, b32, out32, lse, q_seg, kv_seg)
+        ctx.causal, ctx.heads = causal, heads
+        ctx.bias_dtype = None if bias is None else bias.dtype
         return out
 
     @staticmethod
     def backward(ctx, do):
-        qh, kh, vh, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        qh, kh, vh, b32, out32, lse, q_seg, kv_seg = ctx.saved_tensors
         seg = None if q_seg is None else (q_seg, kv_seg)
-        delta = (do.float() * out.float()).sum(-1)
-        dq, dk, dv = flash_backward(qh, kh, vh, do.contiguous(), lse, delta,
-                                    causal=ctx.causal, segment_ids=seg)
-        return dq, dk, dv, None, None, None
+        delta = (do.float() * out32.float()).sum(-1)
+        want_dbias = b32 is not None and ctx.needs_input_grad[3]
+        grads = flash_backward(qh, kh, vh, do.contiguous(), lse, delta,
+                               causal=ctx.causal, segment_ids=seg, bias=b32,
+                               heads=ctx.heads, want_dbias=want_dbias)
+        dbias = grads[3].to(ctx.bias_dtype) if want_dbias else None
+        return (*grads[:3], dbias, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +474,13 @@ def flash_attention(
     """Flash attention with the model ``AttnFn`` signature (GQA-aware,
     differentiable through the backward kernels).
 
+    ``bias`` is additive on the scaled logits in ``default_attention``'s
+    convention, ``[H or 1, S or 1, T or 1]``, and runs in the kernels
+    (forward, the dq and dk/dv recompute, and the d(bias) kernel).  A row-
+    or column-broadcast bias is expanded to a full contiguous [Hb, S, T]
+    plane before the kernels (autograd sums its gradient back), which
+    costs that plane in device memory; T5 passes the full plane.
+
     ``block_q`` / ``block_k`` are accepted for the JAX signature's sake;
     the CUDA kernels choose their own tiles."""
     del block_q, block_k
@@ -353,17 +491,20 @@ def flash_attention(
             f"Query heads ({H}) must be a multiple of KV heads ({KV})."
         )
     if bias is not None:
-        raise NotImplementedError(
-            "flash_attention's additive bias (the bias operand of the "
-            "forward and backward kernels and the d(bias) kernel) is not "
-            "ported yet: ROADMAP A9 / B5")
+        if (bias.dim() != 3 or bias.shape[0] not in (1, H)
+                or bias.shape[1] not in (1, S) or bias.shape[2] not in (1, T)):
+            raise ValueError(
+                f"bias must be [H or 1, S or 1, T or 1] broadcastable to "
+                f"[{H}, {S}, {T}], got {tuple(bias.shape)}.")
+        if tuple(bias.shape[1:]) != (S, T):
+            bias = bias.expand(bias.shape[0], S, T)
     q_seg = kv_seg = None
     if segment_ids is not None:
         q_seg, kv_seg = normalize_segment_ids(segment_ids, B, S, T)
     qh = q.transpose(1, 2).reshape(B * H, S, D).contiguous()
     kh = k.transpose(1, 2).reshape(B * KV, T, D).contiguous()
     vh = v.transpose(1, 2).reshape(B * KV, T, D).contiguous()
-    out = _FlashCore.apply(qh, kh, vh, causal, q_seg, kv_seg)
+    out = _FlashCore.apply(qh, kh, vh, bias, causal, H, q_seg, kv_seg)
     return out.reshape(B, H, S, D).transpose(1, 2)
 
 
