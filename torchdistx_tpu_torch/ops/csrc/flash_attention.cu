@@ -62,7 +62,10 @@
 //     follows it;
 //   * the dk/dv kernel walks every (group head, q tile) of its kv head
 //     inside the CTA and writes dk and dv once: no atomics, no GQA
-//     broadcast of K/V and no reduction over the group afterwards.
+//     broadcast of K/V and no reduction over the group afterwards;
+//   * each kernel carves only the shared-memory tiles it uses, so the
+//     bf16 forward (112 KB at D = 128) and d(bias) (104 KB, registers
+//     held to 128 a thread) run two CTAs per SM.
 // Every product is staged through shared memory (scores, probabilities
 // and accumulators all live there), which keeps one code path for both
 // dtypes and makes the kernel shared-memory-bandwidth bound well below
@@ -94,6 +97,9 @@ struct Tiles {
   static constexpr int kDkvQ = std::is_same<T, float>::value ? 32 : 64;
   static constexpr int kDkvK = 64;
   static constexpr int kDbQ = 64, kDbK = 64;
+  // CTAs per SM the d(bias) kernel is built for: its bf16 tiles leave room
+  // for two, if its registers stay within 128 a thread.
+  static constexpr int kDbBlocks = std::is_same<T, float>::value ? 1 : 2;
   // Row padding of a T tile: 16 bytes, which keeps rows 16-byte aligned
   // and moves consecutive rows to other banks.
   static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
@@ -137,22 +143,25 @@ struct Carve {
 };
 
 // Tiles of one kernel: `rows_a` rows of the side the CTA owns, `rows_b`
-// rows of the side it streams.  Byte offsets, computed identically on the
-// host (for the launch's shared-memory size) and on the device.
+// rows of the side it streams; `n_s` f32 and `n_p` T tiles of [q rows,
+// k cols] and `n_acc` f32 accumulators, only as many as the kernel uses
+// (shared memory decides how many CTAs share an SM).  Byte offsets,
+// computed identically on the host (for the launch's shared-memory size)
+// and on the device.
 template <typename T>
 struct Layout {
   int ldt, lds, ldp, ldo;  // row strides: T tiles, f32 scores, T probs, f32 accs
   size_t a0, a1, b0, b1;   // T tiles: two of the owned side, two streamed
-  size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP)
-  size_t p0, p1, p2;       // T [q rows, k cols] tiles (P, dS, dS's low part);
-                           // alias s0/s1 in f32, which needs no low part
+  size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP; n_s)
+  size_t p0, p1, p2;       // T [q rows, k cols] tiles (n_p of them); alias
+                           // s0/s1 in f32, which needs no low part of dS
   size_t acc0, acc1;       // f32 [owned rows, D] accumulators (n_acc of them)
   size_t r0, r1, r2, r3;   // f32 per-q-row vectors
   size_t qseg, kseg;       // int per-row segment ids
   size_t bytes;
 
   __host__ __device__ Layout(int D, int rows_a, int rows_b, int bq, int bk,
-                             int n_a, int n_acc) {
+                             int n_a, int n_s, int n_p, int n_acc) {
     constexpr bool f32 = std::is_same<T, float>::value;
     ldt = D + Tiles<T>::kPad;
     lds = bk + kPadF;
@@ -167,11 +176,11 @@ struct Layout {
     b1 = c.take(tb);
     const size_t sf = static_cast<size_t>(bq) * lds * sizeof(float);
     s0 = c.take(sf);
-    s1 = c.take(sf);
+    s1 = n_s > 1 ? c.take(sf) : s0;
     const size_t pt = static_cast<size_t>(bq) * ldp * sizeof(T);
-    p0 = f32 ? s0 : c.take(pt);
-    p1 = f32 ? s1 : c.take(pt);
-    p2 = f32 ? s0 : c.take(pt);
+    p0 = f32 ? s0 : (n_p > 0 ? c.take(pt) : 0);
+    p1 = f32 ? s1 : (n_p > 1 ? c.take(pt) : p0);
+    p2 = f32 ? s0 : (n_p > 2 ? c.take(pt) : p1);
     const size_t af = static_cast<size_t>(rows_a) * ldo * sizeof(float);
     acc0 = n_acc > 0 ? c.take(af) : 0;
     acc1 = n_acc > 1 ? c.take(af) : acc0;
@@ -185,31 +194,34 @@ struct Layout {
   }
 };
 
-// Forward: owns q (one tile: q), streams k and v; S and P; O; m, l, corr.
+// Forward: owns q (one tile: q), streams k and v; S, P; O; m, l, corr
+// (112 KB in bf16 at D = 128, so two CTAs share an SM).
 template <typename T>
 __host__ __device__ Layout<T> fwd_layout(int D) {
   return Layout<T>(D, Tiles<T>::kFwdQ, Tiles<T>::kFwdK, Tiles<T>::kFwdQ,
-                   Tiles<T>::kFwdK, 1, 1);
+                   Tiles<T>::kFwdK, 1, 1, 1, 1);
 }
-// dq: owns q and do, streams k and v; S, dP (P unused, dS); dQ; lse, delta.
+// dq: owns q and do, streams k and v; S, dP, dS (two parts); dQ; lse, delta.
 template <typename T>
 __host__ __device__ Layout<T> dq_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDqQ, Tiles<T>::kDqK, Tiles<T>::kDqQ,
-                   Tiles<T>::kDqK, 2, 1);
+                   Tiles<T>::kDqK, 2, 2, 2, 1);
 }
-// dk/dv: owns k and v, streams q and do; S, dP, P, dS; dK, dV; lse, delta.
+// dk/dv: owns k and v, streams q and do; S, dP, P, dS (two parts); dK, dV;
+// lse, delta.
 template <typename T>
 __host__ __device__ Layout<T> dkv_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDkvK, Tiles<T>::kDkvQ, Tiles<T>::kDkvQ,
-                   Tiles<T>::kDkvK, 2, 2);
+                   Tiles<T>::kDkvK, 2, 2, 3, 2);
 }
 
-// d(bias): owns q and do, streams k and v; S, dP; no accumulator tile (the
-// [bq, bk] sum lives in registers); lse, delta.
+// d(bias): owns q and do, streams k and v; S, dP; no T tile and no
+// accumulator tile (the [bq, bk] sum lives in registers); lse, delta
+// (104 KB in bf16 at D = 128, so two CTAs share an SM).
 template <typename T>
 __host__ __device__ Layout<T> dbias_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDbQ, Tiles<T>::kDbK, Tiles<T>::kDbQ,
-                   Tiles<T>::kDbK, 2, 0);
+                   Tiles<T>::kDbK, 2, 2, 0, 0);
 }
 
 // rows [row0, row0 + rows) of a [total, D] matrix into a tile of stride
@@ -599,8 +611,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   T* vs = reinterpret_cast<T*>(smem + L.b1);
   float* ss = reinterpret_cast<float*>(smem + L.s0);
   float* dps = reinterpret_cast<float*>(smem + L.s1);
-  T* dss = reinterpret_cast<T*>(smem + L.p1);
-  T* dss_lo = reinterpret_cast<T*>(smem + L.p2);
+  T* dss = reinterpret_cast<T*>(smem + L.p0);
+  T* dss_lo = reinterpret_cast<T*>(smem + L.p1);
   float* dqs = reinterpret_cast<float*>(smem + L.acc0);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
   float* delta_s = reinterpret_cast<float*>(smem + L.r1);
@@ -740,9 +752,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
 // d(bias) for one (bias plane hb, q tile, k tile): the sum of p * (dp -
 // delta) over the rows of that plane (b*H + hb for every b, or all B*H
 // rows when Hb = 1), in registers: thread t owns elements t + e*kThreads
-// of the tile in every iteration.  The tile is written once.
+// of the tile in every iteration.  The bias tile is read in every
+// iteration (from L2 after the first), which keeps the registers within
+// the 128 a thread that two CTAs per SM allow.  The tile is written once.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dbias_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, Tiles<T>::kDbBlocks)
+    flash_dbias_kernel(Params p) {
   constexpr int BQ = Tiles<T>::kDbQ, BK = Tiles<T>::kDbK;
   constexpr int kPer = BQ * BK / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -764,16 +779,10 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_kernel(Params p) {
   const int q0 = blockIdx.y * BQ;
   const int k0 = blockIdx.z * BK;
   const size_t plane = static_cast<size_t>(hb) * p.S * p.T;
-  float acc[kPer], bias_r[kPer];
+  const float* bplane = p.bias + plane;
+  float acc[kPer];
 #pragma unroll
-  for (int e = 0; e < kPer; ++e) {
-    const int i = threadIdx.x + e * kThreads;
-    const int r = i / BK, j = i % BK;
-    acc[e] = 0.f;
-    bias_r[e] = (q0 + r < p.S && k0 + j < p.T)
-                    ? p.bias[plane + static_cast<size_t>(q0 + r) * p.T + k0 + j]
-                    : 0.f;
-  }
+  for (int e = 0; e < kPer; ++e) acc[e] = 0.f;
   // A tile wholly past the causal diagonal has no visible pair: it keeps
   // its zeros (and is still written: the output is not pre-zeroed).
   const bool needed = !p.causal || k0 <= q0 + BQ - 1 + p.T - p.S;
@@ -804,8 +813,9 @@ __global__ void __launch_bounds__(kThreads) flash_dbias_kernel(Params p) {
       const int i = threadIdx.x + e * kThreads;
       const int r = i / BK, j = i % BK;
       if (visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])) {
-        const float pr =
-            expf(ss[r * L.lds + j] * p.scale + bias_r[e] - lse_s[r]);
+        const float pr = expf(
+            biased(p, bplane, ss[r * L.lds + j] * p.scale, q0 + r, k0 + j) -
+            lse_s[r]);
         acc[e] += pr * (dps[r * L.lds + j] - delta_s[r]);
       }
     }
@@ -828,9 +838,15 @@ template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
+    // All of the SM's unified memory as shared memory, so that as many
+    // CTAs as fit (two for the bf16 forward and d(bias)) share an SM.
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<grid, kThreads, smem, stream>>>(p);

@@ -307,32 +307,40 @@ def _cuda_segments(seg: Segments) -> Segments:
 
 
 def flash_forward(q, k, v, *, causal: bool = True, segment_ids: Segments = None,
-                  bias=None, heads=None, f32_out: bool = False):
+                  bias=None, heads=None):
     """``(out [BH, S, D], lse [BH, S] f32)`` at the raw layout;
     ``segment_ids`` is ``None`` or a ``(q_seg [B, S], kv_seg [B, T])``
     pair; ``bias`` is ``None`` or f32 [H or 1, S, T] with ``heads`` = H
-    (taken from a per-head bias when omitted).  With ``f32_out`` also the
-    output before its rounding to q's dtype (``out`` itself for f32 q)."""
+    (taken from a per-head bias when omitted)."""
+    out, lse, _ = _flash_forward(q, k, v, causal, segment_ids, bias, heads,
+                                 False)
+    return out, lse
+
+
+def _flash_forward(q, k, v, causal, segment_ids: Segments, bias, heads,
+                   want_f32: bool):
+    """:func:`flash_forward`'s ``(out, lse)`` and, with ``want_f32``, the
+    output before its rounding to q's dtype (``out`` itself for f32 q),
+    else ``None``: the backward's delta is taken from it."""
     _check_shapes(q, k, v, segment_ids, bias, heads)
     if q.device.type == "cpu":
         wide, lse = _forward_wide(q, k, v, causal, segment_ids, bias, heads)
-        out = wide.to(q.dtype)
-        return (out, lse, wide) if f32_out else (out, lse)
+        return wide.to(q.dtype), lse, wide if want_f32 else None
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     seg = _cuda_segments(segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     out32 = None
-    if f32_out and q.dtype != torch.float32:
+    if want_f32 and q.dtype != torch.float32:
         out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _check_cuda((q, k, v, out), (lse,) + _opt(bias) + _opt(out32), seg)
     _launch("flash_fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           *_extra_ptrs(bias, seg), out.data_ptr(),
                           lse.data_ptr(), _opt_ptr(out32)],
             q, k, seg, causal, bias, heads)
-    if not f32_out:
-        return out, lse
+    if not want_f32:
+        return out, lse, None
     return out, lse, out if out32 is None else out32
 
 
@@ -434,9 +442,8 @@ class _FlashCore(torch.autograd.Function):
     def forward(ctx, qh, kh, vh, bias, causal, heads, q_seg, kv_seg):
         seg = None if q_seg is None else (q_seg, kv_seg)
         b32 = None if bias is None else bias.float().contiguous()
-        out, lse, out32 = flash_forward(qh, kh, vh, causal=causal,
-                                        segment_ids=seg, bias=b32,
-                                        heads=heads, f32_out=True)
+        out, lse, out32 = _flash_forward(qh, kh, vh, causal, seg, b32, heads,
+                                         True)
         ctx.save_for_backward(qh, kh, vh, b32, out32, lse, q_seg, kv_seg)
         ctx.causal, ctx.heads = causal, heads
         ctx.bias_dtype = None if bias is None else bias.dtype
