@@ -32,9 +32,13 @@ user calls, and checks what comes out.  One JSON object per line:
    tokens/s, and the kernel's launch count (32 per decode step);
 5. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
-   card: every bias-free case of ``tests/test_ops.py`` (float32 within
+   card: every bias-free case of ``tests/test_ops.py`` and ragged cases
+   at head dims 32, 64 and 128 (float32 within
    1e-5, bfloat16 within 3e-2, relative above magnitude 1; rows that see
-   no key exactly zero) and the
+   no key exactly zero); the bf16 dk/dv kernel's registers, spills (it
+   fails on any), CTAs per SM and shared memory, and its hi/lo split of
+   dS (||sum_j dK_j|| / ||dK|| within 2x of the exact dK rounded once to
+   bf16, on a case where dS rounded once misses by 30x); and the
    llama3-8b and gpt2-125m training shapes in both dtypes (float32
    within 1e-5, bfloat16 within 1e-2 normwise) with their
    times: kernel, plain version, a library yardstick
@@ -93,9 +97,11 @@ from a directory without the port, or when any phase fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -632,6 +638,17 @@ FLASH_CASES = (  # name, shape, causal, segments
     ("head-dim-32", dict(B=1, S=80, H=2, KV=1, D=32), True, None),
     ("head-dim-64", dict(B=1, S=80, H=2, KV=1, D=64), True, None),
     ("head-dim-128", dict(B=1, S=80, H=2, KV=1, D=128), True, None),
+    # The bf16 dk/dv kernel's tiles (64 keys; 64 queries, 32 at D = 128)
+    # at every head dim it is built for beyond 16, S and T multiples of
+    # neither: ragged q tiles, ragged k tiles and warps past T.
+    ("dkv-ragged-d32-causal-gqa", dict(B=2, S=100, T=150, H=4, KV=2, D=32),
+     True, None),
+    ("dkv-ragged-d64-full-mqa", dict(B=2, S=150, T=100, H=4, KV=1, D=64),
+     False, None),
+    ("dkv-ragged-d128-causal-gqa", dict(B=1, S=114, T=178, H=4, KV=2, D=128),
+     True, None),
+    ("dkv-ragged-d128-full", dict(B=1, S=114, T=114, H=2, D=128), False, None),
+    ("dkv-d128-segments-causal", dict(B=2, S=50, H=4, D=128), True, "three"),
 )
 
 
@@ -781,9 +798,116 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
             "kernels": kernels}
 
 
+def launch_shape(which: int, D: int, dtype) -> dict:
+    """CTAs per SM, threads and dynamic shared memory of flash kernel
+    ``which`` (0 forward, 1 dq, 2 dk/dv, 3 d(bias)), as the CUDA runtime's
+    occupancy calculator gives them for the launch the wrappers make."""
+    fn = _build.load("flash_attention.cu").tdx_flash_launch_shape
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    shape = (ctypes.c_int * 3)()
+    err = fn(which, D, {torch.float32: 0, torch.bfloat16: 1}[dtype], shape)
+    if err:
+        raise RuntimeError(f"tdx_flash_launch_shape({which}, {D}): error {err}")
+    return {"ctas_per_sm": shape[0], "threads": shape[1],
+            "smem_bytes": shape[2]}
+
+
+def dkv_bf16_build(build: dict) -> dict:
+    """Registers and spills (ptxas's lines of the build) and the launch
+    shape of the bf16 dk/dv kernel at each head dim.  Fails on any spill:
+    the design keeps dK, dV, S^T and dP^T in registers, and a spill moves
+    them to local memory."""
+    rows, fn = {}, None
+    for ln in build.get("ptxas", []):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = fn and re.search(r"flash_dkv_bf16_kernelILi(\d+)E", fn)
+        if not m:
+            continue
+        row = rows.setdefault(int(m.group(1)), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            row["spill_stores"], row["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            row["registers"] = int(m[1])
+    if sorted(rows) != [16, 32, 64, 128]:
+        raise AssertionError(f"no ptxas lines for flash_dkv_bf16_kernel<D> at "
+                             f"every D: {sorted(rows)}")
+    for D, row in rows.items():
+        if row.get("spill_stores", 1) or row.get("spill_loads", 1):
+            raise AssertionError(f"flash_dkv_bf16_kernel<{D}> spills: {row}")
+        row.update(launch_shape(2, D, torch.bfloat16))
+    return {str(D): rows[D] for D in sorted(rows)}
+
+
+# The hi/lo split of dS in the bf16 dk/dv kernel, held on the card.  Each
+# row of dS sums to zero, so sum_j dK_j = sum_i (sum_j dS_ij) q_i = 0
+# exactly.  A query component c shared by every row (in head dims that
+# every key leaves at zero, so the scores do not see it) turns an error
+# e_i in row i's sum into e_i * c, while the true dK stays small:
+# near-uniform attention and dO rows in +/- pairs leave the columns of dS
+# summing to ~0 too.  dS rounded once to bf16 (2**-9 relative) then
+# leaves ||sum_j dK_j|| / ||dK|| at 0.054 and dK 2.2e-2 off normwise,
+# where the exact dK rounded once to bf16 gives 1.8e-3 (both computed on
+# the CPU by tests/test_torch_flash_attention.py).  The kernel is held to
+# twice the latter, and normwise to BF16_NORM_RTOL.
+DK_SUM_SHAPE = dict(BH=2, S=256, D=128, shared=64.0)
+
+
+def dk_sum_case(seed, *, BH, S, D, shared):
+    """q, k, v, do as float64 numpy arrays [BH, S, D] (S = T)."""
+    rng = np.random.RandomState(seed)
+    h = D // 2
+    q = rng.randn(BH, S, D) * 0.1
+    q[:, :, :h] = shared * rng.randn(BH, 1, h) + rng.randn(BH, S, h)
+    k = rng.randn(BH, S, D)
+    k[:, :, :h] = 0.0
+    v = rng.randn(BH, S, D)
+    do = rng.randn(BH, S // 2, D)
+    return q, k, v, np.concatenate([do, -do], 1)
+
+
+def check_dk_sum(dev) -> dict:
+    """||sum_j dK_j|| / ||dK|| of the bf16 kernel against that of the exact
+    dK rounded once to bf16 (see DK_SUM_SHAPE)."""
+    q, k, v, do = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in dk_sum_case(0, **DK_SUM_SHAPE))
+    ref = [t.double() for t in (q, k, v, do)]
+    r_out, r_lse = flash_forward_reference(*ref[:3], False)
+    delta = (ref[3] * r_out).sum(-1)
+    dk = flash_backward_dkv(q, k, v, do, r_lse.float(), delta.float(),
+                            causal=False)[0]
+    r_dk = flash_backward_reference(*ref, r_lse, delta, False)[1]
+    torch.cuda.synchronize()
+
+    def sum_ratio(x):
+        x = x.double()
+        return (x.sum(1).norm() / x.norm()).item()
+
+    got, exact = sum_ratio(dk), sum_ratio(r_dk.to(torch.bfloat16))
+    normwise = ((dk.double() - r_dk).norm() / r_dk.norm()).item()
+    if not got <= 2 * exact:
+        raise AssertionError(
+            f"bf16 dk/dv: ||sum_j dK_j|| / ||dK|| = {got} > 2 x {exact}, the "
+            f"exact dK rounded to bf16 once: the hi/lo split of dS is lost")
+    if not normwise <= BF16_NORM_RTOL:
+        raise AssertionError(f"bf16 dk/dv on the dK-sum case: dK {normwise} "
+                             f"off normwise > {BF16_NORM_RTOL}")
+    return {"dk_sum_ratio": got, "exact_rounded_sum_ratio": exact,
+            "limit": f"<= 2 x exact_rounded_sum_ratio; dK normwise <= "
+                     f"{BF16_NORM_RTOL}", "dk_normwise": normwise}
+
+
 def phase_flash_kernel(dev, flush, build: dict) -> dict:
     emit({"phase": "flash_kernel_cases", "kernel": "flash_attention", **build,
+          "dkv_bf16_build": dkv_bf16_build(build),
           "max_abs_err": flash_cases(dev)})
+    emit({"phase": "flash_dkv_bf16_dk_sum", "shape": DK_SUM_SHAPE,
+          **check_dk_sum(dev)})
     rows = {}
     for model in FLASH_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -812,6 +936,12 @@ BIAS_CASES = (  # name, shape, causal, bias planes (H or 1), segments
      None),
     ("bias-segments-gqa", dict(B=2, S=32, H=4, KV=2, D=16), True, "H",
      "halves"),
+    # The bf16 dk/dv kernel's bias tile: 16-byte copies (T a multiple of
+    # 4) with ragged q and k tiles, and 4-byte copies (T = 114) at D = 128.
+    ("bias-dkv-ragged-d64-broadcast", dict(B=2, S=70, T=100, H=4, D=64),
+     False, "1", None),
+    ("bias-dkv-ragged-d128-causal", dict(B=1, S=114, T=114, H=2, D=128), True,
+     "H", None),
 )
 # T5-11B's attention at the T5 main path's batch: 128 heads of 128 (MHA).
 T5_SHAPES = {
@@ -1474,7 +1604,7 @@ def profile_step(model: str, step) -> dict:
     flash_by_kernel: dict = {}
     for ms, _, name in kernels:
         if _kernel_kind(name) == "flash":
-            key = name.split("<")[0].split("(")[0]
+            key = re.search(r"flash_\w+", name).group(0)
             flash_by_kernel[key] = flash_by_kernel.get(key, 0.0) + ms
     return {"phase": "train_step_profile", "model": model, "device_ms": total,
             "kernel_launches": sum(k[1] for k in kernels),

@@ -14,6 +14,8 @@ by its own rounding step.  Rows that see no key are zero in both.
 The kernel-vs-plain tests on the card are marked ``cuda``.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -25,7 +27,9 @@ from torchdistx_tpu.ops import flash_attention as jax_flash_attention
 from torchdistx_tpu_torch.models.layers import default_attention
 from torchdistx_tpu_torch.ops import flash_attention, make_flash_attention
 from torchdistx_tpu_torch.ops.flash_attention import (
+    _dense_probs,
     flash_backward,
+    flash_backward_dkv,
     flash_backward_reference,
     flash_forward,
     flash_forward_reference,
@@ -68,6 +72,21 @@ CASES = {  # shape, causal, segments, dtype
     "segments-causal": (dict(B=2, S=50, H=4, D=16), True, "three", "float32"),
     "segments-cross-pair": (dict(B=1, S=24, T=40, H=2, D=16), False, "pair",
                             "float32"),
+}
+
+
+# On the card only: the bf16 dk/dv kernel's tiles (64 keys; 64 queries,
+# 32 at D = 128) at head dims 32, 64 and 128, S and T multiples of
+# neither.
+DKV_CASES = {
+    "dkv-ragged-d32-causal-gqa": (dict(B=2, S=100, T=150, H=4, KV=2, D=32),
+                                  True, None, "bfloat16"),
+    "dkv-ragged-d64-full-mqa": (dict(B=2, S=150, T=100, H=4, KV=1, D=64),
+                                False, None, "bfloat16"),
+    "dkv-ragged-d128-causal-gqa": (dict(B=1, S=114, T=178, H=4, KV=2,
+                                        D=128), True, None, "bfloat16"),
+    "dkv-ragged-d128-segments": (dict(B=2, S=50, H=4, D=128), True, "three",
+                                 "bfloat16"),
 }
 
 
@@ -232,12 +251,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(DKV_CASES))
 def test_cuda_kernels_match_plain(cuda_device, name):
     """The hand-written kernels against the plain versions on the card,
     each launch counted: forward, then both backward kernels from the
     plain forward's lse."""
-    shape, causal, segs, dtype = CASES[name]
+    shape, causal, segs, dtype = {**CASES, **DKV_CASES}[name]
     B, S, H, D = shape["B"], shape["S"], shape["H"], shape["D"]
     T, KV = shape.get("T", S), shape.get("KV", H)
     rng = np.random.RandomState(2)
@@ -269,3 +288,76 @@ def test_cuda_kernels_match_plain(cuda_device, name):
     _close(lse.cpu()[live], r_lse.cpu()[live], "float32", "lse")
     for what, a, b in zip(("dq", "dk", "dv"), grads, r_grads):
         _close(a.cpu().float(), b.cpu().float(), dtype, what)
+
+
+# The hi/lo split of dS in the bf16 dk/dv kernel.  Each row of dS sums to
+# zero, so sum_j dK_j = sum_i (sum_j dS_ij) q_i = 0 exactly.  A query
+# component shared by every row (in head dims that every key leaves at
+# zero, so the scores do not see it) turns an error in a row's sum into
+# that error times the shared component, while near-uniform attention and
+# dO rows in +/- pairs keep the true dK small.  dK itself is rounded to
+# bf16, which puts ||sum_j dK_j|| / ||dK|| near 2**-9 whatever came
+# before; dS rounded once adds its own 2**-9 of every row sum, times the
+# shared component.  (chip_smoke.py holds the kernel to the same limit.)
+
+
+def _dk_sum_case(seed, BH=2, S=256, D=128, shared=64.0):
+    rng = np.random.RandomState(seed)
+    h = D // 2
+    q = rng.randn(BH, S, D) * 0.1
+    q[:, :, :h] = shared * rng.randn(BH, 1, h) + rng.randn(BH, S, h)
+    k = rng.randn(BH, S, D)
+    k[:, :, :h] = 0.0
+    v = rng.randn(BH, S, D)
+    do = rng.randn(BH, S // 2, D)
+    return [torch.from_numpy(a).bfloat16().double()
+            for a in (q, k, v, np.concatenate([do, -do], 1))]
+
+
+def _sum_ratio(dk):
+    dk = dk.double()
+    return (dk.sum(1).norm() / dk.norm()).item()
+
+
+def test_dk_sum_case_separates_the_split():
+    """On the plain version: dK from dS split into two bf16 parts sums to
+    zero as well as the exact dK rounded once to bf16 does (within 2x, the
+    limit the kernel is held to on the card), while dK from dS rounded
+    once misses it by more than 10x and is off by more than the 1e-2
+    normwise limit of the card's bf16 checks."""
+    q, k, v, do = _dk_sum_case(0)
+    out, lse = flash_forward_reference(q, k, v, False)
+    delta = (do * out).sum(-1)
+    dk = flash_backward_reference(q, k, v, do, lse, delta, False)[1]
+    s, _, _ = _dense_probs(q, k, False, None)
+    dp = torch.bmm(do, v.transpose(1, 2))
+    ds = torch.exp(s - lse[..., None]) * (dp - delta[..., None]) / math.sqrt(128)
+    hi = ds.bfloat16().double()
+    lo = (ds - hi).bfloat16().double()
+
+    def dk_from(parts):
+        return sum(torch.bmm(p.transpose(1, 2), q) for p in parts).bfloat16()
+
+    exact = _sum_ratio(dk.bfloat16())
+    assert _sum_ratio(dk) < 1e-12
+    assert _sum_ratio(dk_from([hi, lo])) <= 2 * exact
+    once = dk_from([hi])
+    assert _sum_ratio(once) > 10 * exact
+    assert ((once.double() - dk).norm() / dk.norm()).item() > 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_dk_sums_to_zero(cuda_device):
+    """The bf16 dk/dv kernel on the case above: ||sum_j dK_j|| / ||dK||
+    within 2x of the exact dK rounded once to bf16, and dK within 1e-2
+    normwise of the exact one."""
+    ref = _dk_sum_case(0)
+    q, k, v, do = (t.to(cuda_device, torch.bfloat16) for t in ref)
+    out, lse = flash_forward_reference(*ref[:3], False)
+    delta = (ref[3] * out).sum(-1)
+    dk = flash_backward_dkv(q, k, v, do, lse.float().to(cuda_device),
+                            delta.float().to(cuda_device), causal=False)[0]
+    r_dk = flash_backward_reference(*ref, lse, delta, False)[1]
+    dk = dk.cpu().double()
+    assert _sum_ratio(dk) <= 2 * _sum_ratio(r_dk.bfloat16())
+    assert ((dk - r_dk).norm() / r_dk.norm()).item() <= 1e-2

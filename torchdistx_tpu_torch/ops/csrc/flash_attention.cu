@@ -4,7 +4,8 @@
 // Replaces four Pallas TPU kernels of torchdistx_tpu/ops/flash_attention.py:
 //   * _fwd_kernel (l.91, launched by _fwd_call l.446)     -> flash_fwd_kernel
 //   * _bwd_dq_kernel (l.206, via _bwd_call l.499)         -> flash_dq_kernel
-//   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_kernel
+//   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_bf16_kernel,
+//                                                           flash_dkv_f32_kernel
 //   * _dbias_kernel (l.318, via _dbias_call l.619)        -> flash_dbias_kernel
 // It computes the same functions, not the same blocks.  Layout [B*H, S, D]
 // for q/o/do/dq, [B*KV, T, D] for k/v/dk/dv, lse and delta [B*H, S] f32.
@@ -20,7 +21,9 @@
 // the score of row bh is s = (q k^T) * scale + bias[(bh % H) % Hb, i, j],
 // added before the mask in the one elementwise pass each kernel has, read
 // straight from device memory there (lanes walk consecutive j, so the
-// reads coalesce; every read is checked against i < S and j < T).  d(bias)
+// reads coalesce; every read is checked against i < S and j < T), except
+// in the bf16 dk/dv kernel, which brings each bias tile into shared
+// memory one step ahead (below).  d(bias)
 // = sum over the rows of one bias plane of p * (dp - delta): one CTA per
 // (bias plane, q tile, k tile) loops over those rows (the B batch items,
 // or all B*H rows when Hb = 1), recomputing S = Q K^T and dP = dO V^T, and
@@ -42,11 +45,12 @@
 // (0.81 GB in bf16, 0.24 ms) but recomputes two products per row
 // (137 GFLOP: 0.14 ms in bf16, 2.05 ms in f32): bytes bound it in bf16,
 // operations in f32.
-// What the design does about it, as a first, simple kernel:
+// What the forward, dq and d(bias) designs (and the f32 dk/dv kernel)
+// do about it, as first, simple kernels:
 //   * no [S, T] matrix ever reaches device memory: each CTA keeps its
 //     q (or k) tile in shared memory, streams the other side's tiles
 //     through shared memory and carries the online softmax (forward) or
-//     the dq / dk,dv sums (backward) in shared memory in f32;
+//     the dq (dk, dv) sums in shared memory in f32;
 //   * tiles wholly past the causal diagonal are never loaded;
 //   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
 //     accumulate), with P rounded to bf16 to feed the P*V and P^T*dO
@@ -60,19 +64,49 @@
 //     gradient at T5-11B width.  f32 products stay IEEE f32 (FMA on the
 //     CUDA cores, no TF32); d(bias) rounds nothing, since no product
 //     follows it;
-//   * the dk/dv kernel walks every (group head, q tile) of its kv head
-//     inside the CTA and writes dk and dv once: no atomics, no GQA
+//   * the dk/dv kernels walk every (group head, q tile) of their kv head
+//     inside the CTA and write dk and dv once: no atomics, no GQA
 //     broadcast of K/V and no reduction over the group afterwards;
 //   * each kernel carves only the shared-memory tiles it uses, so the
 //     bf16 forward (112 KB at D = 128) and d(bias) (104 KB, registers
 //     held to 128 a thread) run two CTAs per SM.
-// Every product is staged through shared memory (scores, probabilities
-// and accumulators all live there), which keeps one code path for both
-// dtypes and makes the kernel shared-memory-bandwidth bound well below
-// the tensor-core rate.  Keeping the accumulators in registers,
-// ldmatrix, cp.async/TMA pipelining and wgmma are the later steps; so is
-// ordering the grid so that CTAs of one bias plane run together and L2
-// serves the bias re-reads.
+// Staging every product through shared memory (scores, probabilities and
+// accumulators all live there) keeps one code path for both dtypes and
+// makes those kernels shared-memory-bandwidth bound well below the
+// tensor-core rate; ordering the grid so that CTAs of one bias plane run
+// together (L2 serving the bias re-reads) is a later step.
+//
+// The bf16 dk/dv kernel (flash_dkv_bf16_kernel) is built around
+// registers instead.  Built like the kernels above, dk/dv is bound not
+// by the tensor cores but by everything around them: f32 dK and dV in
+// shared memory, each of the five products per (group head, q tile)
+// reading C from there, adding one k step and writing it back, S and dP
+// staged as f32 tiles and P and dS as bf16 tiles, operand fragments
+// gathered by scalar 16-bit loads where k is not contiguous, the next
+// tile loaded after a barrier with nothing in flight, and the bias a
+// dependent device load in the elementwise pass: at llama3-8b width
+// that ran at 4 % of the operations bound.  This kernel:
+//   * each of 4 warps owns 16 of the CTA's 64 keys and keeps their dK and
+//     dV (128 f32 registers a thread at D = 128) in mma.sync accumulator
+//     fragments for the whole walk; they are written once, to bf16;
+//   * S^T = K Q^T and dP^T = V dO^T are computed transposed, 16 keys x BQ
+//     queries, into registers; p^T and ds^T are formed in those
+//     fragments, the mask applied only on tiles that cross the diagonal
+//     or a ragged edge (or with segments), and packed straight into the A
+//     operands of dV += P^T dO and dK += dS^T_hi Q + dS^T_lo Q (the hi/lo
+//     split kept);
+//   * every operand comes from shared memory through ldmatrix: K and V as
+//     A, Q and dO as the col-major B of the score products, and the same
+//     Q and dO through ldmatrix.trans as B of the accumulating ones;
+//   * a ring of two stages, filled by cp.async, holds one (group head, q
+//     tile) each: Q, dO, lse, delta, the query segment ids and the bias
+//     tile [BQ, 64] f32; step n + 1 is issued before step n computes, so
+//     the bias tile is read ahead of the softmax pass, from shared memory;
+//   * BQ = 32 at D = 128 (64 below) keeps S^T and dP^T within the
+//     registers the accumulators leave, without spilling; 86 KB of shared
+//     memory at D = 128 lets two CTAs (8 warps) share an SM.
+// The next steps for it are wgmma (64-row warpgroup products from shared
+// memory), TMA loads and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,14 +122,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;  // the TPU kernel's masked logit
 
-// Tile sizes per dtype: f32 tiles take twice the shared memory, so the
-// f32 dk/dv kernel walks q in tiles of 32 rows to stay under 227 KB.
+// Tile sizes per dtype of the kernels that stage every product through
+// shared memory (the bf16 dk/dv kernel has its own, in Dkv below).
 template <typename T>
 struct Tiles {
   static constexpr int kFwdQ = 64, kFwdK = 64;
   static constexpr int kDqQ = 64, kDqK = 64;
-  static constexpr int kDkvQ = std::is_same<T, float>::value ? 32 : 64;
-  static constexpr int kDkvK = 64;
   static constexpr int kDbQ = 64, kDbK = 64;
   // CTAs per SM the d(bias) kernel is built for: its bf16 tiles leave room
   // for two, if its registers stay within 128 a thread.
@@ -105,6 +137,8 @@ struct Tiles {
   static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
 };
 constexpr int kPadF = 4;  // the same for f32 score / accumulator tiles
+// The f32 dk/dv kernel walks q in tiles of 32 rows to stay under 227 KB.
+constexpr int kDkvQ32 = 32, kDkvK32 = 64;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -153,7 +187,7 @@ struct Layout {
   int ldt, lds, ldp, ldo;  // row strides: T tiles, f32 scores, T probs, f32 accs
   size_t a0, a1, b0, b1;   // T tiles: two of the owned side, two streamed
   size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP; n_s)
-  size_t p0, p1, p2;       // T [q rows, k cols] tiles (n_p of them); alias
+  size_t p0, p1;           // T [q rows, k cols] tiles (n_p of them); alias
                            // s0/s1 in f32, which needs no low part of dS
   size_t acc0, acc1;       // f32 [owned rows, D] accumulators (n_acc of them)
   size_t r0, r1, r2, r3;   // f32 per-q-row vectors
@@ -180,7 +214,6 @@ struct Layout {
     const size_t pt = static_cast<size_t>(bq) * ldp * sizeof(T);
     p0 = f32 ? s0 : (n_p > 0 ? c.take(pt) : 0);
     p1 = f32 ? s1 : (n_p > 1 ? c.take(pt) : p0);
-    p2 = f32 ? s0 : (n_p > 2 ? c.take(pt) : p1);
     const size_t af = static_cast<size_t>(rows_a) * ldo * sizeof(float);
     acc0 = n_acc > 0 ? c.take(af) : 0;
     acc1 = n_acc > 1 ? c.take(af) : acc0;
@@ -207,12 +240,10 @@ __host__ __device__ Layout<T> dq_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDqQ, Tiles<T>::kDqK, Tiles<T>::kDqQ,
                    Tiles<T>::kDqK, 2, 2, 2, 1);
 }
-// dk/dv: owns k and v, streams q and do; S, dP, P, dS (two parts); dK, dV;
-// lse, delta.
-template <typename T>
-__host__ __device__ Layout<T> dkv_layout(int D) {
-  return Layout<T>(D, Tiles<T>::kDkvK, Tiles<T>::kDkvQ, Tiles<T>::kDkvQ,
-                   Tiles<T>::kDkvK, 2, 2, 3, 2);
+// f32 dk/dv: owns k and v, streams q and do; S, dP (P and dS alias them);
+// dK, dV; lse, delta.
+__host__ __device__ inline Layout<float> dkv_layout_f32(int D) {
+  return Layout<float>(D, kDkvK32, kDkvQ32, kDkvQ32, kDkvK32, 2, 2, 2, 2);
 }
 
 // d(bias): owns q and do, streams k and v; S, dP; no T tile and no
@@ -279,12 +310,12 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p, int step) {
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Tensor cores: each warp takes 16 x (8*NT) output tiles in turn, loading
@@ -333,10 +364,8 @@ __device__ void gemm_tiles(const bf16* A, int lda, const bf16* B, int ldb,
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const bf16* bc = B + (n0 + 8 * j + g) * (B_K ? ldb : 1);
-        uint32_t b[2];
-        b[0] = ld_pair<B_K>(bc + ka * b_step, b_step);
-        b[1] = ld_pair<B_K>(bc + (ka + 8) * b_step, b_step);
-        mma_bf16(c[j], a, b);
+        mma_bf16(c[j], a, ld_pair<B_K>(bc + ka * b_step, b_step),
+                 ld_pair<B_K>(bc + (ka + 8) * b_step, b_step));
       }
     }
 #pragma unroll
@@ -667,11 +696,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
-  constexpr int BQ = Tiles<T>::kDkvQ, BK = Tiles<T>::kDkvK;
+// f32 dk/dv (IEEE FMA on the CUDA cores), every product staged through
+// shared memory; the bf16 kernel is flash_dkv_bf16_kernel below.
+__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Params p) {
+  using T = float;
+  constexpr int BQ = kDkvQ32, BK = kDkvK32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L = dkv_layout<T>(p.D);
+  const Layout<T> L = dkv_layout_f32(p.D);
   T* ks = reinterpret_cast<T*>(smem + L.a0);
   T* vs = reinterpret_cast<T*>(smem + L.a1);
   T* qs = reinterpret_cast<T*>(smem + L.b0);
@@ -680,7 +711,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
   float* dps = reinterpret_cast<float*>(smem + L.s1);
   T* ps = reinterpret_cast<T*>(smem + L.p0);
   T* dss = reinterpret_cast<T*>(smem + L.p1);
-  T* dss_lo = reinterpret_cast<T*>(smem + L.p2);
   float* dks = reinterpret_cast<float*>(smem + L.acc0);
   float* dvs = reinterpret_cast<float*>(smem + L.acc1);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
@@ -726,15 +756,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
       gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
       gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
       __syncthreads();
-      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, dss_lo, L.lds,
-                            L.ldp, lse_s, delta_s, qseg_s, kseg_s);
+      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, nullptr,
+                            L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q: A(m = key, k = query row) = P[k][m].
       gemm<false, false>(ps, L.ldp, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
       gemm<false, false>(dss, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true, nullptr);
-      if constexpr (!std::is_same<T, float>::value)
-        gemm<false, false>(dss_lo, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true,
-                           nullptr);
     }
   }
   __syncthreads();
@@ -745,6 +772,339 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
     if (k0 + r < p.T) {
       dk[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dks[r * L.ldo + d]);
       dv[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dvs[r * L.ldo + d]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: register accumulators, ldmatrix operands, a cp.async ring
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes from device to shared memory, asynchronously; when
+// `full` is false nothing is read (src need only be a valid address) and
+// the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// row addresses of matrix i; lane 4r + c receives row r, columns 2c and
+// 2c + 1 of each (with TRANS: column r, rows 2c and 2c + 1).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
+  if (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(ptr)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(ptr)));
+}
+
+// (lo, hi) rounded to bf16 and packed, lo in the low half: two
+// consecutive k of an mma operand fragment.
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Tiles and shared-memory layout (byte offsets) of the bf16 dk/dv kernel:
+// K and V [BK, D] once, then a ring of kStages stages of one (group
+// head, q tile) each: Q and dO [BQ, D] bf16, the bias tile [BQ, BK] f32,
+// lse, delta and the query segment ids.  Rows are padded by 16 bytes, so
+// the 8 rows of an ldmatrix (and the bias reads of a fragment) fall in
+// distinct banks.
+template <int D>
+struct Dkv {
+  static constexpr int kWarps = 4, kThreads = 32 * kWarps;
+  static constexpr int BK = 16 * kWarps;  // 16 keys per warp
+  // Queries per stage: at D = 128 the 128 f32 registers of dK and dV
+  // leave room for S^T and dP^T of 32 queries, not 64.
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int kStages = 2;
+  static constexpr int LDT = D + 8;   // bf16 row stride
+  static constexpr int LDB = BK + 4;  // f32 bias row stride
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + BK * LDT * 2;
+  static constexpr int kKseg = kV + BK * LDT * 2;
+  static constexpr int kRing = kKseg + BK * 4;
+  static constexpr int kQ = 0;  // offsets inside a stage
+  static constexpr int kDo = kQ + BQ * LDT * 2;
+  static constexpr int kBias = kDo + BQ * LDT * 2;
+  static constexpr int kLse = kBias + BQ * LDB * 4;
+  static constexpr int kDelta = kLse + BQ * 4;
+  static constexpr int kQseg = kDelta + BQ * 4;
+  static constexpr int kStage = kQseg + BQ * 4;
+  static constexpr int kBytes = kRing + kStages * kStage;
+  static_assert(kStage % 16 == 0 && kRing % 16 == 0, "16-byte pieces");
+};
+
+// One CTA per (kv row, k tile of BK keys), as in the f32 kernel; each of
+// its 4 warps owns 16 keys and keeps their dK and dV in mma.sync
+// accumulator fragments for the whole walk over (group head g, q tile).
+// Per step: S^T = K Q^T and dP^T = V dO^T (16 keys x BQ queries, in
+// registers; K and V through ldmatrix as the A operand, Q and dO through
+// ldmatrix as the col-major B operand), then p^T and ds^T in those
+// fragments, then dV += P^T dO and dK += dS^T Q, with bf16(p) and the two
+// bf16 parts of ds packed straight from the fragments into A operands (a
+// C fragment of m16n8k16 is half an A fragment of the next product), dO
+// and Q through ldmatrix.trans.  The next step's Q, dO, lse, delta, query
+// segment ids and bias tile are in flight (cp.async) while this one
+// computes.
+template <int D>
+__global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
+    flash_dkv_bf16_kernel(Params p) {
+  using C = Dkv<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDT = C::LDT, LDB = C::LDB;
+  constexpr int NQ = BQ / 8;  // n tiles of S^T (queries)
+  constexpr int ND = D / 8;   // n tiles of dK, dV (head dim)
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem + C::kK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + C::kV);
+  int* kseg_s = reinterpret_cast<int*>(smem + C::kKseg);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int G = p.H / p.KV;
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int b = bkv / p.KV;
+  const size_t koff = static_cast<size_t>(bkv) * p.T * D;
+  const bf16* qg = static_cast<const bf16*>(p.q);
+  const bf16* dog = static_cast<const bf16*>(p.dout);
+  // 16-byte bias vectors when every bias row starts 16-byte aligned.
+  const bool bias_vec =
+      p.T % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+
+  // K and V once (rows past T as zeros), in the first stage's group.
+  {
+    const bf16* kg = static_cast<const bf16*>(p.k) + koff;
+    const bf16* vg = static_cast<const bf16*>(p.v) + koff;
+    for (int i = tid; i < BK * (D / 8); i += C::kThreads) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      const bool full = k0 + r < p.T;
+      const size_t at = full ? static_cast<size_t>(k0 + r) * D + c : 0;
+      cp_async16(ks + r * LDT + c, kg + at, full);
+      cp_async16(vs + r * LDT + c, vg + at, full);
+    }
+    for (int r = tid; r < BK; r += C::kThreads)
+      kseg_s[r] = (p.kseg != nullptr && k0 + r < p.T)
+                      ? p.kseg[static_cast<size_t>(b) * p.T + k0 + r]
+                      : 0;
+  }
+
+  const int nq = (p.S + BQ - 1) / BQ;
+  // First q tile with a row that may see key k0 (causal): the row i with
+  // k0 <= i + T - S, i.e. i >= k0 - (T - S).
+  int qt0 = 0;
+  if (p.causal) {
+    const int first_row = k0 - (p.T - p.S);
+    qt0 = first_row <= 0 ? 0 : first_row / BQ;
+  }
+  const int per_head = nq - qt0;
+  const int steps = G * per_head;  // the walk, flattened over (g, q tile)
+
+  // Step n's operands into ring stage n % kStages, rows past S and keys
+  // past T as zeros.
+  auto issue = [&](int n) {
+    unsigned char* st = smem + C::kRing + (n % C::kStages) * C::kStage;
+    const int bh = bkv * G + n / per_head;  // query head (b, kv*G + g)
+    const int q0 = (qt0 + n % per_head) * BQ;
+    const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+    bf16* qs = reinterpret_cast<bf16*>(st + C::kQ);
+    bf16* dos = reinterpret_cast<bf16*>(st + C::kDo);
+    for (int i = tid; i < BQ * (D / 8); i += C::kThreads) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      const bool full = q0 + r < p.S;
+      const size_t at = full ? qoff + static_cast<size_t>(q0 + r) * D + c : 0;
+      cp_async16(qs + r * LDT + c, qg + at, full);
+      cp_async16(dos + r * LDT + c, dog + at, full);
+    }
+    float* lse_s = reinterpret_cast<float*>(st + C::kLse);
+    float* delta_s = reinterpret_cast<float*>(st + C::kDelta);
+    int* qseg_s = reinterpret_cast<int*>(st + C::kQseg);
+    for (int r = tid; r < BQ; r += C::kThreads) {
+      const bool full = q0 + r < p.S;
+      const size_t at = full ? static_cast<size_t>(bh) * p.S + q0 + r : 0;
+      cp_async4(lse_s + r, p.lse_in + at, full);
+      cp_async4(delta_s + r, p.delta + at, full);
+      if (p.qseg != nullptr)
+        cp_async4(qseg_s + r,
+                  p.qseg + (full ? static_cast<size_t>(b) * p.S + q0 + r : 0),
+                  full);
+    }
+    const float* plane = bias_plane(p, bh);
+    if (plane != nullptr) {
+      float* bias_s = reinterpret_cast<float*>(st + C::kBias);
+      if (bias_vec) {
+        for (int i = tid; i < BQ * BK / 4; i += C::kThreads) {
+          const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+          const bool full = q0 + r < p.S && k0 + c < p.T;
+          const size_t at =
+              full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
+          cp_async16(bias_s + r * LDB + c, plane + at, full);
+        }
+      } else {
+        for (int i = tid; i < BQ * BK; i += C::kThreads) {
+          const int r = i / BK, c = i % BK;
+          const bool full = q0 + r < p.S && k0 + c < p.T;
+          const size_t at =
+              full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
+          cp_async4(bias_s + r * LDB + c, plane + at, full);
+        }
+      }
+    }
+  };
+
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  const int kw = k0 + 16 * warp;  // the warp's first key
+  // ldmatrix row addresses of this lane: the A operand (16 rows, k
+  // contiguous); the B operand stored [n][k] (two n tiles); the B operand
+  // stored [k][n] (two n tiles, through .trans).
+  const bf16* ka = ks + (16 * warp + (lane & 15)) * LDT + (lane >> 4) * 8;
+  const bf16* va = vs + (16 * warp + (lane & 15)) * LDT + (lane >> 4) * 8;
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int t_col = (lane >> 4) * 8;
+  const bool has_bias = p.bias != nullptr;
+
+  for (int n = 0; n < steps; ++n) {
+    cp_async_wait_all();
+    __syncthreads();  // stage n landed for all; stage n + 1's buffer is free
+    if (n + 1 < steps) issue(n + 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + C::kRing + (n % C::kStages) * C::kStage;
+    const bf16* qs = reinterpret_cast<const bf16*>(st + C::kQ);
+    const bf16* dos = reinterpret_cast<const bf16*>(st + C::kDo);
+    const float* bias_s = reinterpret_cast<const float*>(st + C::kBias);
+    const float* lse_s = reinterpret_cast<const float*>(st + C::kLse);
+    const float* delta_s = reinterpret_cast<const float*>(st + C::kDelta);
+    const int* qseg_s = reinterpret_cast<const int*>(st + C::kQseg);
+    const int q0 = (qt0 + n % per_head) * BQ;
+    // A warp whose keys no row of this tile sees adds nothing.
+    if (kw >= p.T || (p.causal && kw > q0 + BQ - 1 + p.T - p.S)) continue;
+    // The mask only where the tile crosses the diagonal or a ragged edge,
+    // or segments decide.
+    const bool masked = p.qseg != nullptr || q0 + BQ > p.S || kw + 16 > p.T ||
+                        (p.causal && kw + 15 > q0 + p.T - p.S);
+
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a_k[4], a_v[4];
+      ldsm_x4<false>(a_k, ka + 16 * kk);
+      ldsm_x4<false>(a_v, va + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t b_q[4], b_do[4];
+        ldsm_x4<false>(b_q, qs + (16 * j + b_row) * LDT + 16 * kk + b_col);
+        ldsm_x4<false>(b_do, dos + (16 * j + b_row) * LDT + 16 * kk + b_col);
+        mma_bf16(s[2 * j], a_k, b_q[0], b_q[1]);
+        mma_bf16(s[2 * j + 1], a_k, b_q[2], b_q[3]);
+        mma_bf16(dp[2 * j], a_v, b_do[0], b_do[1]);
+        mma_bf16(dp[2 * j + 1], a_v, b_do[2], b_do[3]);
+      }
+    }
+
+    // p^T = exp(s*scale [+ bias] - lse) where visible, else 0; ds^T =
+    // p^T (dp^T - delta) scale.  Element e of fragment j: key g + 8(e/2)
+    // of the warp's 16, query 8j + 2t + e%2 of the tile.
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        const int kl = 16 * warp + g + 8 * (e >> 1);
+        float x = s[j][e] * p.scale;
+        if (has_bias) x += bias_s[qi * LDB + kl];
+        float pr = expf(x - lse_s[qi]);
+        if (masked && !visible(p, q0 + qi, k0 + kl, qseg_s[qi], kseg_s[kl]))
+          pr = 0.f;
+        s[j][e] = pr;
+        dp[j][e] = pr * (dp[j][e] - delta_s[qi]) * p.scale;
+      }
+
+    // dV += P^T dO and dK += dS^T_hi Q + dS^T_lo Q over the tile's
+    // queries: fragments 2kk and 2kk + 1 of S^T are the A operand of k
+    // step kk.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t a_p[4], a_hi[4], a_lo[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = 2 * kk + (h >> 1), e = 2 * (h & 1);
+        a_p[h] = bf16x2_bits(__floats2bfloat162_rn(s[j][e], s[j][e + 1]));
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(dp[j][e], dp[j][e + 1]);
+        a_hi[h] = bf16x2_bits(hi);
+        a_lo[h] = bf16x2_bits(__floats2bfloat162_rn(
+            dp[j][e] - __low2float(hi), dp[j][e + 1] - __high2float(hi)));
+      }
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t b_do[4], b_q[4];
+        ldsm_x4<true>(b_do, dos + (16 * kk + t_row) * LDT + 16 * j + t_col);
+        ldsm_x4<true>(b_q, qs + (16 * kk + t_row) * LDT + 16 * j + t_col);
+        mma_bf16(dv[2 * j], a_p, b_do[0], b_do[1]);
+        mma_bf16(dv[2 * j + 1], a_p, b_do[2], b_do[3]);
+        mma_bf16(dk[2 * j], a_hi, b_q[0], b_q[1]);
+        mma_bf16(dk[2 * j + 1], a_hi, b_q[2], b_q[3]);
+        mma_bf16(dk[2 * j], a_lo, b_q[0], b_q[1]);
+        mma_bf16(dk[2 * j + 1], a_lo, b_q[2], b_q[3]);
+      }
+    }
+  }
+
+  // dK and dV once, rounded to bf16, rows past T left alone.
+  bf16* dkg = static_cast<bf16*>(p.out) + koff;
+  bf16* dvg = static_cast<bf16*>(p.out2) + koff;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw + g + 8 * h;
+    if (row >= p.T) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const size_t at = static_cast<size_t>(row) * D + 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dkg + at) =
+          __floats2bfloat162_rn(dk[j][2 * h], dk[j][2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvg + at) =
+          __floats2bfloat162_rn(dv[j][2 * h], dv[j][2 * h + 1]);
     }
   }
 }
@@ -834,9 +1194,12 @@ __global__ void __launch_bounds__(kThreads, Tiles<T>::kDbBlocks)
 // launches
 // ---------------------------------------------------------------------------
 
+// Launches `kernel` with `threads` a CTA, or, when `shape` is given,
+// launches nothing and stores how many of its CTAs fit on one SM, its
+// threads and its dynamic shared memory there.
 template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
-           cudaStream_t stream) {
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Params& p,
+           cudaStream_t stream, int* shape) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -849,40 +1212,65 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  if (shape != nullptr) {
+    shape[1] = threads;
+    shape[2] = static_cast<int>(smem);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        shape, kernel, threads, smem));
+  }
+  kernel<<<grid, threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int run(int which, const Params& p, cudaStream_t stream) {
-  const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
-  const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
-  const int nk_d = (p.T + Tiles<T>::kDkvK - 1) / Tiles<T>::kDkvK;
-  if (which == 0)
-    return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f),
-                  fwd_layout<T>(p.D).bytes, p, stream);
-  if (which == 1)
-    return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d),
-                  dq_layout<T>(p.D).bytes, p, stream);
-  if (which == 2)
-    return launch(flash_dkv_kernel<T>, dim3(p.B * p.KV, nk_d),
-                  dkv_layout<T>(p.D).bytes, p, stream);
-  const int nq_b = (p.S + Tiles<T>::kDbQ - 1) / Tiles<T>::kDbQ;
-  const int nk_b = (p.T + Tiles<T>::kDbK - 1) / Tiles<T>::kDbK;
-  return launch(flash_dbias_kernel<T>, dim3(p.Hb, nq_b, nk_b),
-                dbias_layout<T>(p.D).bytes, p, stream);
+template <int D>
+int run_dkv_bf16(const Params& p, cudaStream_t stream, int* shape) {
+  using C = Dkv<D>;
+  return launch(flash_dkv_bf16_kernel<D>,
+                dim3(p.B * p.KV, (p.T + C::BK - 1) / C::BK), C::kThreads,
+                C::kBytes, p, stream, shape);
 }
 
-int dispatch(int which, Params p, int dtype, void* stream) {
+template <typename T>
+int run(int which, const Params& p, cudaStream_t stream, int* shape) {
+  const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
+  const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
+  if (which == 0)
+    return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f), kThreads,
+                  fwd_layout<T>(p.D).bytes, p, stream, shape);
+  if (which == 1)
+    return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d), kThreads,
+                  dq_layout<T>(p.D).bytes, p, stream, shape);
+  if (which == 2) {
+    if constexpr (std::is_same<T, float>::value) {
+      return launch(flash_dkv_f32_kernel,
+                    dim3(p.B * p.KV, (p.T + kDkvK32 - 1) / kDkvK32), kThreads,
+                    dkv_layout_f32(p.D).bytes, p, stream, shape);
+    } else {
+      switch (p.D) {
+        case 16: return run_dkv_bf16<16>(p, stream, shape);
+        case 32: return run_dkv_bf16<32>(p, stream, shape);
+        case 64: return run_dkv_bf16<64>(p, stream, shape);
+        default: return run_dkv_bf16<128>(p, stream, shape);
+      }
+    }
+  }
+  const int nq_b = (p.S + Tiles<T>::kDbQ - 1) / Tiles<T>::kDbQ;
+  const int nk_b = (p.T + Tiles<T>::kDbK - 1) / Tiles<T>::kDbK;
+  return launch(flash_dbias_kernel<T>, dim3(p.Hb, nq_b, nk_b), kThreads,
+                dbias_layout<T>(p.D).bytes, p, stream, shape);
+}
+
+int dispatch(int which, Params p, int dtype, void* stream,
+             int* shape = nullptr) {
   if (p.B <= 0 || p.KV <= 0 || p.H % p.KV != 0 || p.S <= 0 || p.T <= 0 ||
       !(p.D == 16 || p.D == 32 || p.D == 64 || p.D == 128) ||
       (p.qseg == nullptr) != (p.kseg == nullptr) ||
       (p.bias != nullptr && !(p.Hb == 1 || p.Hb == p.H)) ||
-      (which == 3 && p.bias == nullptr))
+      (which == 3 && p.bias == nullptr && shape == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(which, p, s);
-  if (dtype == 1) return run<bf16>(which, p, s);
+  if (dtype == 0) return run<float>(which, p, s, shape);
+  if (dtype == 1) return run<bf16>(which, p, s, shape);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -976,6 +1364,15 @@ int tdx_flash_dbias(const void* q, const void* k, const void* v,
   p.delta = delta;
   p.out = dbias;
   return dispatch(3, p, dtype, stream);
+}
+
+// Kernel `which` (0 forward, 1 dq, 2 dk/dv, 3 d(bias)) at head dim D and
+// dtype: shape[0] = its CTAs that fit on one SM, shape[1] = threads a
+// CTA, shape[2] = dynamic shared memory bytes.  Launches nothing.
+int tdx_flash_launch_shape(int which, int D, int dtype, int* shape) {
+  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         1, 1, 1, 1, 1, 1, D, 0, 1.f);
+  return dispatch(which, p, dtype, nullptr, shape);
 }
 
 const char* tdx_cuda_error_string(int err) {
