@@ -35,10 +35,15 @@ user calls, and checks what comes out.  One JSON object per line:
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
    at head dims 32, 64 and 128 (float32 within
    1e-5, bfloat16 within 3e-2, relative above magnitude 1; rows that see
-   no key exactly zero); the bf16 dk/dv kernel's registers, spills (it
-   fails on any), CTAs per SM and shared memory, and its hi/lo split of
-   dS (||sum_j dK_j|| / ||dK|| within 2x of the exact dK rounded once to
-   bf16, on a case where dS rounded once misses by 30x); and the
+   no key exactly zero); the bf16 forward, dq and dk/dv kernels'
+   registers, spills (it fails on any), CTAs per SM and shared memory;
+   the hi/lo split of dS in dk/dv (||sum_j dK_j|| / ||dK|| within 2x of
+   the exact dK rounded once to bf16, on a case where dS rounded once
+   misses by 30x) and in dq (dq within 2x of the exact dq rounded once,
+   on keys sharing a large component, where dS rounded once misses by
+   60x); the forward's normalizer (its f32 O within 2x of the error of P
+   rounded once, on values sharing a large component, where dividing by
+   the exact sum of P misses by 60x); and the
    llama3-8b and gpt2-125m training shapes in both dtypes (float32
    within 1e-5, bfloat16 within 1e-2 normwise) with their
    times: kernel, plain version, a library yardstick
@@ -129,6 +134,7 @@ from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops import paged_attention, paged_attention_reference
 from torchdistx_tpu_torch.ops.flash_attention import (
     _dense_probs,
+    _flash_forward,
     bias_launches as flash_bias_launches,
     flash_backward,
     flash_backward_dbias,
@@ -649,6 +655,11 @@ FLASH_CASES = (  # name, shape, causal, segments
      True, None),
     ("dkv-ragged-d128-full", dict(B=1, S=114, T=114, H=2, D=128), False, None),
     ("dkv-d128-segments-causal", dict(B=2, S=50, H=4, D=128), True, "three"),
+    # The bf16 forward and dq kernels' tiles (64 rows, 64 keys) at D = 128:
+    # causal with S > T, so the first 50 rows see no key, a ragged last q
+    # tile and GQA.
+    ("fq-ragged-d128-causal-empty-rows", dict(B=1, S=150, T=100, H=4, KV=2,
+                                              D=128), True, None),
 )
 
 
@@ -798,50 +809,73 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
             "kernels": kernels}
 
 
-def launch_shape(which: int, D: int, dtype) -> dict:
+def launch_shape(which: int, D: int, dtype, bias: bool = False) -> dict:
     """CTAs per SM, threads and dynamic shared memory of flash kernel
     ``which`` (0 forward, 1 dq, 2 dk/dv, 3 d(bias)), as the CUDA runtime's
-    occupancy calculator gives them for the launch the wrappers make."""
+    occupancy calculator gives them for the launch the wrappers make, with
+    or without a bias."""
     fn = _build.load("flash_attention.cu").tdx_flash_launch_shape
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     shape = (ctypes.c_int * 3)()
-    err = fn(which, D, {torch.float32: 0, torch.bfloat16: 1}[dtype], shape)
+    err = fn(which, D, {torch.float32: 0, torch.bfloat16: 1}[dtype], int(bias),
+             shape)
     if err:
         raise RuntimeError(f"tdx_flash_launch_shape({which}, {D}): error {err}")
     return {"ctas_per_sm": shape[0], "threads": shape[1],
             "smem_bytes": shape[2]}
 
 
-def dkv_bf16_build(build: dict) -> dict:
-    """Registers and spills (ptxas's lines of the build) and the launch
-    shape of the bf16 dk/dv kernel at each head dim.  Fails on any spill:
-    the design keeps dK, dV, S^T and dP^T in registers, and a spill moves
-    them to local memory."""
+# The bf16 register kernels: which (for launch_shape), the template
+# arguments ptxas must report (head dim, and warps a CTA for the forward
+# and dq: 8 only at D = 128 with a bias).
+BF16_KERNELS = {
+    "flash_fwd_bf16_kernel": (0, ["16-4", "32-4", "64-4", "128-4", "128-8"]),
+    "flash_dq_bf16_kernel": (1, ["16-4", "32-4", "64-4", "128-4", "128-8"]),
+    "flash_dkv_bf16_kernel": (2, ["16", "32", "64", "128"]),
+}
+
+
+def bf16_build(build: dict) -> dict:
+    """Registers and spills (ptxas's lines of the build) of each
+    instantiation of the bf16 forward, dq and dk/dv kernels, and the launch
+    shape of each at every head dim, without and with a bias.  Fails on any
+    spill: the design keeps the accumulators and the score fragments in
+    registers, and a spill moves them to local memory."""
     rows, fn = {}, None
     for ln in build.get("ptxas", []):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
             continue
-        m = fn and re.search(r"flash_dkv_bf16_kernelILi(\d+)E", fn)
+        m = fn and re.search(r"(flash_(?:fwd|dq|dkv)_bf16_kernel)((?:ILi\d+E)"
+                             r"(?:Li\d+E)?)", fn)
         if not m:
             continue
-        row = rows.setdefault(int(m.group(1)), {})
+        inst = "-".join(re.findall(r"\d+", m.group(2)))
+        row = rows.setdefault(m.group(1), {}).setdefault(inst, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             row["spill_stores"], row["spill_loads"] = int(m[1]), int(m[2])
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             row["registers"] = int(m[1])
-    if sorted(rows) != [16, 32, 64, 128]:
-        raise AssertionError(f"no ptxas lines for flash_dkv_bf16_kernel<D> at "
-                             f"every D: {sorted(rows)}")
-    for D, row in rows.items():
-        if row.get("spill_stores", 1) or row.get("spill_loads", 1):
-            raise AssertionError(f"flash_dkv_bf16_kernel<{D}> spills: {row}")
-        row.update(launch_shape(2, D, torch.bfloat16))
-    return {str(D): rows[D] for D in sorted(rows)}
+    out = {}
+    for name, (which, insts) in BF16_KERNELS.items():
+        got = rows.get(name, {})
+        if sorted(got) != sorted(insts):
+            raise AssertionError(f"ptxas lines for {name} at {sorted(got)}, "
+                                 f"not {insts}")
+        for inst, row in got.items():
+            if row.get("spill_stores", 1) or row.get("spill_loads", 1):
+                raise AssertionError(f"{name}<{inst}> spills: {row}")
+        launch = {str(D): {"no_bias": launch_shape(which, D, torch.bfloat16),
+                           "bias": launch_shape(which, D, torch.bfloat16,
+                                                True)}
+                  for D in (16, 32, 64, 128)}
+        out[name] = {"instances": {i: got[i] for i in insts},
+                     "launch": launch}
+    return out
 
 
 # The hi/lo split of dS in the bf16 dk/dv kernel, held on the card.  Each
@@ -902,12 +936,117 @@ def check_dk_sum(dev) -> dict:
                      f"{BF16_NORM_RTOL}", "dk_normwise": normwise}
 
 
+# dq's hi/lo split of dS, held on the card.  Keys sharing a large
+# component c (k_j = c + n_j) shift each query's scores by q_i . c, which
+# cancels in the softmax, and sum_j dS_ij = 0 cancels c from the true dq =
+# sum_j dS_ij k_j too.  dS rounded once to bf16 leaves about 2**-9 of each
+# row's sum_j |dS_ij| in that sum, times c: with near-uniform attention dq
+# is then 0.10 off normwise, where the exact dq rounded once to bf16 is
+# 1.7e-3 off and dS split into hi + lo gives the same 1.7e-3 (both
+# computed on the CPU by tests/test_torch_flash_attention.py).  The kernel
+# is held to twice the exact dq's rounding.
+DQ_SHARED_SHAPE = dict(BH=2, S=256, D=128, shared=64.0)
+
+
+def dq_shared_case(seed, *, BH, S, D, shared):
+    """q, k, v, do as float64 numpy arrays [BH, S, D] (S = T)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(BH, S, D) * 0.1
+    k = shared * rng.randn(BH, 1, D) + rng.randn(BH, S, D)
+    v = rng.randn(BH, S, D)
+    return q, k, v, rng.randn(BH, S, D)
+
+
+def check_dq_shared(dev) -> dict:
+    """The bf16 dq kernel's error against f64 on the case above, against
+    that of the exact dq rounded once to bf16."""
+    q, k, v, do = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in dq_shared_case(0, **DQ_SHARED_SHAPE))
+    ref = [t.double() for t in (q, k, v, do)]
+    r_out, r_lse = flash_forward_reference(*ref[:3], False)
+    delta = (ref[3] * r_out).sum(-1)
+    dq = flash_backward_dq(q, k, v, do, r_lse.float(), delta.float(),
+                           causal=False)
+    r_dq = flash_backward_reference(*ref, r_lse, delta, False)[0]
+    torch.cuda.synchronize()
+
+    def off(x):
+        return ((x.double() - r_dq).norm() / r_dq.norm()).item()
+
+    got, exact = off(dq), off(r_dq.to(torch.bfloat16))
+    if not got <= 2 * exact:
+        raise AssertionError(
+            f"bf16 dq: {got} off normwise > 2 x {exact}, the exact dq rounded "
+            f"to bf16 once: the hi/lo split of dS is lost")
+    return {"dq_normwise": got, "exact_rounded_normwise": exact,
+            "limit": "dq_normwise <= 2 x exact_rounded_normwise"}
+
+
+# The forward's normalizer, held on the card.  Values sharing a large
+# component c (v_j = c + n_j) give O = c + a convex combination of the
+# n_j, so O - c is all that the keys decide.  Dividing P V by the sum of
+# the same bf16(p) it multiplied keeps c exact; dividing by the exact sum
+# of p leaks (sum bf16(p) - sum p) / sum p times c.  With near-uniform
+# attention the kept rounding (evaluated in f64) leaves O 1.7e-3 off
+# normwise relative to ||O - c||, the exact normalizer 0.115 (both
+# computed on the CPU by tests/test_torch_flash_attention.py).  The
+# forward's f32 copy of O is held to twice the former.
+O_SHARED_SHAPE = dict(BH=2, S=256, D=128, shared=64.0)
+
+
+def o_shared_case(seed, *, BH, S, D, shared):
+    """q, k, v as float64 numpy arrays [BH, S, D] (S = T), and the shared
+    value c [BH, 1, D]."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(BH, S, D) * 0.3
+    k = rng.randn(BH, S, D)
+    c = shared * rng.randn(BH, 1, D)
+    return q, k, c + rng.randn(BH, S, D), c
+
+
+def kept_rounding_output(q, k, v):
+    """The forward's kept rounding, evaluated in q's dtype (f64): P rounded
+    once to bf16, O = sum bf16(p) v / sum bf16(p), no mask."""
+    s = torch.bmm(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(torch.bfloat16).to(q.dtype)
+    return torch.bmm(p, v) / p.sum(-1, keepdim=True)
+
+
+def check_o_shared(dev) -> dict:
+    """The bf16 forward's f32 O against f64 on the case above, normwise
+    relative to ||O - c||, against the kept rounding's error."""
+    *qkv, c = o_shared_case(0, **O_SHARED_SHAPE)
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in qkv)
+    ref = [t.double() for t in (q, k, v)]
+    r_out = flash_forward_reference(*ref, False)[0]
+    o32 = _flash_forward(q, k, v, False, None, None, None, True)[2]
+    kept = kept_rounding_output(*ref)
+    torch.cuda.synchronize()
+    size = (r_out - torch.from_numpy(c).to(dev)).norm()
+
+    def off(x):
+        return ((x.double() - r_out).norm() / size).item()
+
+    got, yardstick = off(o32), off(kept)
+    if not got <= 2 * yardstick:
+        raise AssertionError(
+            f"bf16 forward: O - c {got} off normwise > 2 x {yardstick}, the "
+            f"kept rounding's: O is not normalized by the sum of the bf16 P "
+            f"it multiplied")
+    return {"o_minus_c_normwise": got, "kept_rounding_normwise": yardstick,
+            "limit": "o_minus_c_normwise <= 2 x kept_rounding_normwise"}
+
+
 def phase_flash_kernel(dev, flush, build: dict) -> dict:
     emit({"phase": "flash_kernel_cases", "kernel": "flash_attention", **build,
-          "dkv_bf16_build": dkv_bf16_build(build),
+          "bf16_build": bf16_build(build),
           "max_abs_err": flash_cases(dev)})
     emit({"phase": "flash_dkv_bf16_dk_sum", "shape": DK_SUM_SHAPE,
           **check_dk_sum(dev)})
+    emit({"phase": "flash_dq_bf16_shared_key", "shape": DQ_SHARED_SHAPE,
+          **check_dq_shared(dev)})
+    emit({"phase": "flash_fwd_bf16_shared_value", "shape": O_SHARED_SHAPE,
+          **check_o_shared(dev)})
     rows = {}
     for model in FLASH_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -942,6 +1081,10 @@ BIAS_CASES = (  # name, shape, causal, bias planes (H or 1), segments
      False, "1", None),
     ("bias-dkv-ragged-d128-causal", dict(B=1, S=114, T=114, H=2, D=128), True,
      "H", None),
+    # The bf16 forward and dq kernels' bias tile by 4-byte copies (T = 114)
+    # at D = 64, one plane for every head, causal with T > S.
+    ("bias-fq-d64-broadcast-t114", dict(B=2, S=70, T=114, H=4, D=64), True,
+     "1", None),
 )
 # T5-11B's attention at the T5 main path's batch: 128 heads of 128 (MHA).
 T5_SHAPES = {

@@ -28,8 +28,10 @@ from torchdistx_tpu_torch.models.layers import default_attention
 from torchdistx_tpu_torch.ops import flash_attention, make_flash_attention
 from torchdistx_tpu_torch.ops.flash_attention import (
     _dense_probs,
+    _flash_forward,
     flash_backward,
     flash_backward_dkv,
+    flash_backward_dq,
     flash_backward_reference,
     flash_forward,
     flash_forward_reference,
@@ -77,8 +79,11 @@ CASES = {  # shape, causal, segments, dtype
 
 # On the card only: the bf16 dk/dv kernel's tiles (64 keys; 64 queries,
 # 32 at D = 128) at head dims 32, 64 and 128, S and T multiples of
-# neither.
-DKV_CASES = {
+# neither; the bf16 forward and dq kernels' tiles (64 rows, 64 keys) at
+# D = 128, causal with S > T (the first 50 rows see no key); and their
+# bias tile by 4-byte copies (T = 114) at D = 64, one plane ("Hb": 1) for
+# every head.
+CARD_CASES = {
     "dkv-ragged-d32-causal-gqa": (dict(B=2, S=100, T=150, H=4, KV=2, D=32),
                                   True, None, "bfloat16"),
     "dkv-ragged-d64-full-mqa": (dict(B=2, S=150, T=100, H=4, KV=1, D=64),
@@ -87,6 +92,10 @@ DKV_CASES = {
                                         D=128), True, None, "bfloat16"),
     "dkv-ragged-d128-segments": (dict(B=2, S=50, H=4, D=128), True, "three",
                                  "bfloat16"),
+    "fq-ragged-d128-causal-empty-rows": (dict(B=1, S=150, T=100, H=4, KV=2,
+                                              D=128), True, None, "bfloat16"),
+    "fq-d64-broadcast-bias-t114": (dict(B=2, S=70, T=114, H=4, D=64, Hb=1),
+                                   True, None, "bfloat16"),
 }
 
 
@@ -251,12 +260,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES) + list(DKV_CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(CARD_CASES))
 def test_cuda_kernels_match_plain(cuda_device, name):
     """The hand-written kernels against the plain versions on the card,
     each launch counted: forward, then both backward kernels from the
     plain forward's lse."""
-    shape, causal, segs, dtype = {**CASES, **DKV_CASES}[name]
+    shape, causal, segs, dtype = {**CASES, **CARD_CASES}[name]
     B, S, H, D = shape["B"], shape["S"], shape["H"], shape["D"]
     T, KV = shape.get("T", S), shape.get("KV", H)
     rng = np.random.RandomState(2)
@@ -270,13 +279,19 @@ def test_cuda_kernels_match_plain(cuda_device, name):
         qs, ks = _segments(segs, B)
         seg = (torch.from_numpy(qs).to(cuda_device),
                torch.from_numpy(qs if ks is None else ks).to(cuda_device))
+    bias = None
+    if "Hb" in shape:
+        bias = torch.from_numpy(rng.randn(shape["Hb"], S, T).astype(
+            np.float32)).to(cuda_device)
+    kw = dict(bias=bias, heads=H)
     before = dict(launches)
-    out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg)
-    r_out, r_lse = flash_forward_reference(q, k, v, causal, seg)
+    out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg, **kw)
+    r_out, r_lse = flash_forward_reference(q, k, v, causal, seg, bias, H)
     delta = (do.float() * r_out.float()).sum(-1)
     grads = flash_backward(q, k, v, do, r_lse, delta, causal=causal,
-                           segment_ids=seg)
-    r_grads = flash_backward_reference(q, k, v, do, r_lse, delta, causal, seg)
+                           segment_ids=seg, **kw)
+    r_grads = flash_backward_reference(q, k, v, do, r_lse, delta, causal, seg,
+                                       bias, H)
     torch.cuda.synchronize()
     assert {n: launches[n] - before[n] for n in launches} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
@@ -361,3 +376,115 @@ def test_cuda_bf16_dk_sums_to_zero(cuda_device):
     dk = dk.cpu().double()
     assert _sum_ratio(dk) <= 2 * _sum_ratio(r_dk.bfloat16())
     assert ((dk - r_dk).norm() / r_dk.norm()).item() <= 1e-2
+
+
+# dq's hi/lo split of dS.  Keys sharing a large component c (k_j = c +
+# n_j) shift each query's scores by q_i . c, which cancels in the softmax,
+# and sum_j dS_ij = 0 cancels c from the true dq = sum_j dS_ij k_j too;
+# near-uniform attention keeps that dq small.  dS rounded once to bf16
+# leaves about 2**-9 of each row's sum_j |dS_ij| in that sum, times c.
+# (chip_smoke.py holds the kernel to the same limit.)
+
+
+def _dq_shared_case(seed, BH=2, S=256, D=128, shared=64.0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(BH, S, D) * 0.1
+    k = shared * rng.randn(BH, 1, D) + rng.randn(BH, S, D)
+    v = rng.randn(BH, S, D)
+    do = rng.randn(BH, S, D)
+    return [torch.from_numpy(a).bfloat16().double() for a in (q, k, v, do)]
+
+
+def _off(x, exact, size=None):
+    size = exact if size is None else size
+    return ((x.double() - exact).norm() / size.norm()).item()
+
+
+def test_dq_shared_key_case_separates_the_split():
+    """On the plain version: dq from dS split into two bf16 parts is as
+    close to the exact dq as that dq rounded once to bf16 (within 2x, the
+    limit the kernel is held to on the card), while dq from dS rounded once
+    misses by more than 10x that and by more than the 1e-2 normwise limit
+    of the card's bf16 checks."""
+    q, k, v, do = _dq_shared_case(0)
+    out, lse = flash_forward_reference(q, k, v, False)
+    delta = (do * out).sum(-1)
+    dq = flash_backward_reference(q, k, v, do, lse, delta, False)[0]
+    s, _, _ = _dense_probs(q, k, False, None)
+    dp = torch.bmm(do, v.transpose(1, 2))
+    ds = torch.exp(s - lse[..., None]) * (dp - delta[..., None]) / math.sqrt(128)
+    hi = ds.bfloat16().double()
+    lo = (ds - hi).bfloat16().double()
+
+    def dq_from(parts):
+        return sum(torch.bmm(p, k) for p in parts).bfloat16()
+
+    exact = _off(dq.bfloat16(), dq)
+    assert _off(dq_from([hi, lo]), dq) <= 2 * exact
+    once = _off(dq_from([hi]), dq)
+    assert once > 10 * exact and once > 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_dq_shared_key(cuda_device):
+    """The bf16 dq kernel on the case above: within 2x of the exact dq
+    rounded once to bf16."""
+    ref = _dq_shared_case(0)
+    q, k, v, do = (t.to(cuda_device, torch.bfloat16) for t in ref)
+    out, lse = flash_forward_reference(*ref[:3], False)
+    delta = (ref[3] * out).sum(-1)
+    dq = flash_backward_dq(q, k, v, do, lse.float().to(cuda_device),
+                           delta.float().to(cuda_device), causal=False)
+    r_dq = flash_backward_reference(*ref, lse, delta, False)[0]
+    assert _off(dq.cpu(), r_dq) <= 2 * _off(r_dq.bfloat16(), r_dq)
+
+
+# The forward's normalizer.  Values sharing a large component c (v_j = c +
+# n_j) give O = c + a convex combination of the n_j: O - c is all that the
+# keys decide.  P V divided by the sum of the same bf16(p) it multiplied
+# keeps c exact; divided by the exact sum of p it leaks (sum bf16(p) - sum
+# p) / sum p times c.  Errors are taken relative to ||O - c||.
+# (chip_smoke.py holds the kernel to the same limit.)
+
+
+def _o_shared_case(seed, BH=2, S=256, D=128, shared=64.0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(BH, S, D) * 0.3
+    k = rng.randn(BH, S, D)
+    c = shared * rng.randn(BH, 1, D)
+    v = c + rng.randn(BH, S, D)
+    return ([torch.from_numpy(a).bfloat16().double() for a in (q, k, v)],
+            torch.from_numpy(c))
+
+
+def _rounded_p(q, k):
+    s = torch.bmm(q, k.transpose(1, 2)) / math.sqrt(q.shape[-1])
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return p, p.bfloat16().double()
+
+
+def test_o_shared_value_case_separates_the_normalizer():
+    """On the plain version: O from P rounded once to bf16 and divided by
+    the sum of those rounded values is more than 10x closer to the exact O
+    than the same P V divided by the exact sum of p."""
+    (q, k, v), c = _o_shared_case(0)
+    out = flash_forward_reference(q, k, v, False)[0]
+    p, pb = _rounded_p(q, k)
+    kept = torch.bmm(pb, v) / pb.sum(-1, keepdim=True)
+    broken = torch.bmm(pb, v) / p.sum(-1, keepdim=True)
+    kept_off, broken_off = _off(kept, out, out - c), _off(broken, out, out - c)
+    assert kept_off < 1e-2
+    assert broken_off > 10 * kept_off
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_o_shared_value(cuda_device):
+    """The bf16 forward's f32 O on the case above: within 2x of the error
+    of P rounded once to bf16 (relative to ||O - c||)."""
+    ref, c = _o_shared_case(0)
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in ref)
+    o32 = _flash_forward(q, k, v, False, None, None, None, True)[2]
+    out = flash_forward_reference(*ref, False)[0]
+    _, pb = _rounded_p(*ref[:2])
+    kept = torch.bmm(pb, ref[2]) / pb.sum(-1, keepdim=True)
+    assert _off(o32.cpu(), out, out - c) <= 2 * _off(kept, out, out - c)

@@ -2,8 +2,10 @@
 // interface loaded through ctypes (torchdistx_tpu_torch/ops/flash_attention.py).
 //
 // Replaces four Pallas TPU kernels of torchdistx_tpu/ops/flash_attention.py:
-//   * _fwd_kernel (l.91, launched by _fwd_call l.446)     -> flash_fwd_kernel
-//   * _bwd_dq_kernel (l.206, via _bwd_call l.499)         -> flash_dq_kernel
+//   * _fwd_kernel (l.91, launched by _fwd_call l.446)     -> flash_fwd_bf16_kernel,
+//                                                           flash_fwd_kernel (f32)
+//   * _bwd_dq_kernel (l.206, via _bwd_call l.499)         -> flash_dq_bf16_kernel,
+//                                                           flash_dq_kernel (f32)
 //   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_bf16_kernel,
 //                                                           flash_dkv_f32_kernel
 //   * _dbias_kernel (l.318, via _dbias_call l.619)        -> flash_dbias_kernel
@@ -19,11 +21,11 @@
 //
 // The additive bias is f32 [Hb, S, T] whatever q's dtype, Hb = H or 1:
 // the score of row bh is s = (q k^T) * scale + bias[(bh % H) % Hb, i, j],
-// added before the mask in the one elementwise pass each kernel has, read
-// straight from device memory there (lanes walk consecutive j, so the
-// reads coalesce; every read is checked against i < S and j < T), except
-// in the bf16 dk/dv kernel, which brings each bias tile into shared
-// memory one step ahead (below).  d(bias)
+// added before the mask in the one elementwise pass each kernel has.  The
+// f32 kernels and d(bias) read it straight from device memory there (lanes
+// walk consecutive j, so the reads coalesce; every read is checked against
+// i < S and j < T); the bf16 forward, dq and dk/dv kernels bring each bias
+// tile into shared memory one step ahead (below).  d(bias)
 // = sum over the rows of one bias plane of p * (dp - delta): one CTA per
 // (bias plane, q tile, k tile) loops over those rows (the B batch items,
 // or all B*H rows when Hb = 1), recomputing S = Q K^T and dP = dO V^T, and
@@ -45,68 +47,78 @@
 // (0.81 GB in bf16, 0.24 ms) but recomputes two products per row
 // (137 GFLOP: 0.14 ms in bf16, 2.05 ms in f32): bytes bound it in bf16,
 // operations in f32.
-// What the forward, dq and d(bias) designs (and the f32 dk/dv kernel)
-// do about it, as first, simple kernels:
+// What the d(bias) kernel and the f32 kernels do about it, as first,
+// simple kernels:
 //   * no [S, T] matrix ever reaches device memory: each CTA keeps its
 //     q (or k) tile in shared memory, streams the other side's tiles
 //     through shared memory and carries the online softmax (forward) or
 //     the dq (dk, dv) sums in shared memory in f32;
 //   * tiles wholly past the causal diagonal are never loaded;
-//   * bf16 products run on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate), with P rounded to bf16 to feed the P*V and P^T*dO
-//     products (O normalized by the sum of the rounded P, see the
-//     forward's epilogue), and dS split into two bf16 parts (hi + lo, ~2^-17
-//     relative) to feed dS*K and dS^T*Q: each row of dS sums to zero in
-//     exact arithmetic, which cancels the component shared by all keys
-//     from dq and by all positions' inputs from the key projection's
-//     gradient; dS rounded once breaks those sums by 2^-9 of its size,
-//     and that leaked 16 % (normwise) into a T5 decoder's key-projection
-//     gradient at T5-11B width.  f32 products stay IEEE f32 (FMA on the
-//     CUDA cores, no TF32); d(bias) rounds nothing, since no product
-//     follows it;
+//   * f32 products stay IEEE f32 (FMA on the CUDA cores, no TF32); bf16
+//     products of d(bias) run on the tensor cores (mma.sync m16n8k16, f32
+//     accumulate); d(bias) rounds nothing, since no product follows it;
 //   * the dk/dv kernels walk every (group head, q tile) of their kv head
 //     inside the CTA and write dk and dv once: no atomics, no GQA
 //     broadcast of K/V and no reduction over the group afterwards;
-//   * each kernel carves only the shared-memory tiles it uses, so the
-//     bf16 forward (112 KB at D = 128) and d(bias) (104 KB, registers
-//     held to 128 a thread) run two CTAs per SM.
+//   * each kernel carves only the shared-memory tiles it uses, so bf16
+//     d(bias) (104 KB, registers held to 128 a thread) runs two CTAs per
+//     SM.
 // Staging every product through shared memory (scores, probabilities and
 // accumulators all live there) keeps one code path for both dtypes and
 // makes those kernels shared-memory-bandwidth bound well below the
 // tensor-core rate; ordering the grid so that CTAs of one bias plane run
 // together (L2 serving the bias re-reads) is a later step.
 //
-// The bf16 dk/dv kernel (flash_dkv_bf16_kernel) is built around
-// registers instead.  Built like the kernels above, dk/dv is bound not
-// by the tensor cores but by everything around them: f32 dK and dV in
-// shared memory, each of the five products per (group head, q tile)
-// reading C from there, adding one k step and writing it back, S and dP
-// staged as f32 tiles and P and dS as bf16 tiles, operand fragments
-// gathered by scalar 16-bit loads where k is not contiguous, the next
-// tile loaded after a barrier with nothing in flight, and the bias a
-// dependent device load in the elementwise pass: at llama3-8b width
-// that ran at 4 % of the operations bound.  This kernel:
-//   * each of 4 warps owns 16 of the CTA's 64 keys and keeps their dK and
-//     dV (128 f32 registers a thread at D = 128) in mma.sync accumulator
-//     fragments for the whole walk; they are written once, to bf16;
-//   * S^T = K Q^T and dP^T = V dO^T are computed transposed, 16 keys x BQ
-//     queries, into registers; p^T and ds^T are formed in those
-//     fragments, the mask applied only on tiles that cross the diagonal
-//     or a ragged edge (or with segments), and packed straight into the A
-//     operands of dV += P^T dO and dK += dS^T_hi Q + dS^T_lo Q (the hi/lo
-//     split kept);
-//   * every operand comes from shared memory through ldmatrix: K and V as
-//     A, Q and dO as the col-major B of the score products, and the same
-//     Q and dO through ldmatrix.trans as B of the accumulating ones;
-//   * a ring of two stages, filled by cp.async, holds one (group head, q
-//     tile) each: Q, dO, lse, delta, the query segment ids and the bias
-//     tile [BQ, 64] f32; step n + 1 is issued before step n computes, so
-//     the bias tile is read ahead of the softmax pass, from shared memory;
-//   * BQ = 32 at D = 128 (64 below) keeps S^T and dP^T within the
-//     registers the accumulators leave, without spilling; 86 KB of shared
-//     memory at D = 128 lets two CTAs (8 warps) share an SM.
-// The next steps for it are wgmma (64-row warpgroup products from shared
-// memory), TMA loads and warp specialisation.
+// The bf16 forward, dq and dk/dv kernels are built around registers
+// instead.  Built like the kernels above, they were bound not by the
+// tensor cores but by everything around them: f32 accumulators (O, dQ,
+// dK, dV) in shared memory, each product reading C from there, adding one
+// k step of 64 and writing it back; S and dP staged as f32 tiles and P
+// and dS as bf16 tiles, the online softmax one warp per row over a shared
+// tile with its m, l and correction in shared vectors; operand fragments
+// gathered by scalar 16-bit loads where k is not contiguous (P V, dS K,
+// P^T dO, dS^T Q); the next tile loaded after a barrier with nothing in
+// flight; and the bias a dependent device load in the elementwise pass.
+// At llama3-8b width the forward ran at 5 % and dq at 4 % of the
+// operations bound.  These kernels:
+//   * a warp owns 16 rows of the side the CTA walks against (queries in
+//     the forward and dq, keys in dk/dv) and keeps their accumulators in
+//     mma.sync fragments for the whole walk: O or dQ (64 f32 registers a
+//     thread at D = 128), dK and dV (128); each is written once, to bf16;
+//   * the scores (S, and dP in the backward) are computed into registers,
+//     p and ds formed in those fragments, the mask applied only on tiles
+//     that cross the diagonal or a ragged edge (or with segments), and
+//     bf16(p) and the two bf16 parts of ds (hi + lo, ~2^-17 relative)
+//     packed straight into the A operands of the next products (a C
+//     fragment of m16n8k16 is half an A fragment); dk/dv computes S^T =
+//     K Q^T so that its keys are the fragments' rows;
+//   * the forward's online softmax runs in the fragments: a thread holds
+//     two rows, a row's max is reduced over the 4 lanes of a quad, and
+//     each thread keeps its share of l (the exact sum of p, for lse) and
+//     of lp (the sum of bf16(p), which O is divided by: O stays a convex
+//     combination of the values it multiplied, so the component they
+//     share passes through exactly and cancels from dP - delta);
+//   * dS is split into hi + lo for dS K and dS^T Q: each row of dS sums
+//     to zero in exact arithmetic, which cancels the component shared by
+//     all keys from dq and by all positions' inputs from the key
+//     projection's gradient; dS rounded once breaks those sums by 2^-9 of
+//     its size, and that leaked 16 % (normwise) into a T5 decoder's
+//     key-projection gradient at T5-11B width;
+//   * every operand comes from shared memory through ldmatrix, with
+//     .trans where k is not contiguous in memory (V and K as the B of
+//     P V and dS K; Q and dO as the B of dK and dV); rows padded by 16
+//     bytes keep both forms free of bank conflicts;
+//   * a ring of two stages, filled by cp.async, holds one step each: the
+//     forward and dq hold the k tile's K, V, key segment ids and bias
+//     tile [BQ, 64] f32; dk/dv one (group head, q tile)'s Q, dO, lse,
+//     delta, query segment ids and bias tile [BQ, 64].  Step n + 1 is
+//     issued before step n computes, so the bias is read ahead of the
+//     elementwise pass, from shared memory;
+//   * two CTAs of 4 warps share an SM (8 warps), except for the forward
+//     and dq at D = 128 with a bias, whose bias tiles leave room for one
+//     4-warp CTA: there one CTA of 8 warps (128 rows) takes the SM.
+// The next steps for them are wgmma (64-row warpgroup products from
+// shared memory), TMA loads and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +135,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;  // the TPU kernel's masked logit
 
 // Tile sizes per dtype of the kernels that stage every product through
-// shared memory (the bf16 dk/dv kernel has its own, in Dkv below).
+// shared memory (the bf16 forward, dq and dk/dv kernels have their own, in
+// Fq and Dkv below; the forward and dq tiles here are f32's only).
 template <typename T>
 struct Tiles {
   static constexpr int kFwdQ = 64, kFwdK = 64;
@@ -227,14 +240,15 @@ struct Layout {
   }
 };
 
-// Forward: owns q (one tile: q), streams k and v; S, P; O; m, l, corr
-// (112 KB in bf16 at D = 128, so two CTAs share an SM).
+// f32 forward: owns q (one tile: q), streams k and v; S (P aliases it); O;
+// m, l, corr.
 template <typename T>
 __host__ __device__ Layout<T> fwd_layout(int D) {
   return Layout<T>(D, Tiles<T>::kFwdQ, Tiles<T>::kFwdK, Tiles<T>::kFwdQ,
                    Tiles<T>::kFwdK, 1, 1, 1, 1);
 }
-// dq: owns q and do, streams k and v; S, dP, dS (two parts); dQ; lse, delta.
+// f32 dq: owns q and do, streams k and v; S, dP (dS aliases them); dQ; lse,
+// delta.
 template <typename T>
 __host__ __device__ Layout<T> dq_layout(int D) {
   return Layout<T>(D, Tiles<T>::kDqQ, Tiles<T>::kDqK, Tiles<T>::kDqQ,
@@ -604,12 +618,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 
 // p = exp(s*scale [+ bias] - lse) where visible, else 0;
 // ds = p*(dp - delta)*scale (the TPU kernel's _block_p_ds), for a [bq, bk]
-// tile of query row with bias plane `bplane` (or null).  In bf16, ds is
-// stored as dss + dss_lo, its rounding and the rounding of the rest.
+// tile of query row with bias plane `bplane` (or null), for the f32
+// kernels.
 template <typename T, int BQ, int BK>
 __device__ void block_p_ds(const Params& p, const float* bplane, int q0,
                            int k0, const float* ss, const float* dps, T* ps,
-                           T* dss, T* dss_lo, int lds, int ldp,
+                           T* dss, int lds, int ldp,
                            const float* lse_s, const float* delta_s,
                            const int* qseg_s, const int* kseg_s) {
   for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
@@ -621,11 +635,7 @@ __device__ void block_p_ds(const Params& p, const float* bplane, int q0,
             ? expf(biased(p, bplane, s * p.scale, q0 + r, k0 + j) - lse_s[r])
             : 0.f;
     if (ps != nullptr) ps[r * ldp + j] = from_f32<T>(pr);
-    const float ds = pr * (dp - delta_s[r]) * p.scale;
-    const T hi = from_f32<T>(ds);
-    dss[r * ldp + j] = hi;
-    if constexpr (!std::is_same<T, float>::value)
-      dss_lo[r * ldp + j] = from_f32<T>(ds - to_f32(hi));
+    dss[r * ldp + j] = from_f32<T>(pr * (dp - delta_s[r]) * p.scale);
   }
 }
 
@@ -641,7 +651,6 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   float* ss = reinterpret_cast<float*>(smem + L.s0);
   float* dps = reinterpret_cast<float*>(smem + L.s1);
   T* dss = reinterpret_cast<T*>(smem + L.p0);
-  T* dss_lo = reinterpret_cast<T*>(smem + L.p1);
   float* dqs = reinterpret_cast<float*>(smem + L.acc0);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
   float* delta_s = reinterpret_cast<float*>(smem + L.r1);
@@ -678,14 +687,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
     __syncthreads();
     block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, static_cast<T*>(nullptr),
-                          dss, dss_lo, L.lds, L.ldp, lse_s, delta_s, qseg_s,
-                          kseg_s);
+                          dss, L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
     __syncthreads();
-    // The same thread owns each dQ element in both products: no barrier.
     gemm<true, false>(dss, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true, nullptr);
-    if constexpr (!std::is_same<T, float>::value)
-      gemm<true, false>(dss_lo, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true,
-                        nullptr);
   }
   __syncthreads();
   T* dq = static_cast<T*>(p.out) + qoff;
@@ -756,8 +760,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Params p) {
       gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
       gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
       __syncthreads();
-      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, nullptr,
-                            L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
+      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, L.lds, L.ldp,
+                            lse_s, delta_s, qseg_s, kseg_s);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q: A(m = key, k = query row) = P[k][m].
       gemm<false, false>(ps, L.ldp, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
@@ -828,6 +832,31 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
 // consecutive k of an mma operand fragment.
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// The bias tile [BQ, BK] f32 of `plane` at (q0, k0) into `dst` (row
+// stride LDB) by the CTA's NT threads, asynchronously: 16-byte copies when
+// `vec` (every bias row starts 16-byte aligned: T % 4 = 0), else 4-byte
+// ones; entries past S or T as zeros.
+template <int BQ, int BK, int LDB, int NT>
+__device__ __forceinline__ void bias_tile_async(float* dst, const float* plane,
+                                                const Params& p, int q0, int k0,
+                                                bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < BQ * BK / 4; i += NT) {
+      const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
+      const bool full = q0 + r < p.S && k0 + c < p.T;
+      const size_t at = full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
+      cp_async16(dst + r * LDB + c, plane + at, full);
+    }
+  } else {
+    for (int i = threadIdx.x; i < BQ * BK; i += NT) {
+      const int r = i / BK, c = i % BK;
+      const bool full = q0 + r < p.S && k0 + c < p.T;
+      const size_t at = full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
+      cp_async4(dst + r * LDB + c, plane + at, full);
+    }
+  }
 }
 
 // Tiles and shared-memory layout (byte offsets) of the bf16 dk/dv kernel:
@@ -956,26 +985,9 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
                   full);
     }
     const float* plane = bias_plane(p, bh);
-    if (plane != nullptr) {
-      float* bias_s = reinterpret_cast<float*>(st + C::kBias);
-      if (bias_vec) {
-        for (int i = tid; i < BQ * BK / 4; i += C::kThreads) {
-          const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-          const bool full = q0 + r < p.S && k0 + c < p.T;
-          const size_t at =
-              full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
-          cp_async16(bias_s + r * LDB + c, plane + at, full);
-        }
-      } else {
-        for (int i = tid; i < BQ * BK; i += C::kThreads) {
-          const int r = i / BK, c = i % BK;
-          const bool full = q0 + r < p.S && k0 + c < p.T;
-          const size_t at =
-              full ? static_cast<size_t>(q0 + r) * p.T + k0 + c : 0;
-          cp_async4(bias_s + r * LDB + c, plane + at, full);
-        }
-      }
-    }
+    if (plane != nullptr)
+      bias_tile_async<BQ, BK, LDB, C::kThreads>(
+          reinterpret_cast<float*>(st + C::kBias), plane, p, q0, k0, bias_vec);
   };
 
   if (steps > 0) issue(0);
@@ -1109,6 +1121,477 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward and dq: register accumulators, ldmatrix operands, a cp.async
+// ring over the k tiles
+// ---------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * log2 e)
+
+// Tiles and shared-memory layout (byte offsets) of the bf16 forward and dq
+// kernels: W warps of 16 query rows each (BQ = 16 W), k tiles of 64 keys.
+// The CTA's own [BQ, D] bf16 tiles come first (Q; Q and dO for dq), then a
+// ring of kStages stages of one k tile each: K and V [BK, D] bf16, the key
+// segment ids and, only when the launch has a bias, the bias tile [BQ, BK]
+// f32.  Rows are padded by 16 bytes (bf16: the 8 rows of an ldmatrix fall
+// in distinct banks) and 32 bytes (the bias tile: a quarter warp's 8-byte
+// reads of one fragment do).
+template <int D, int W>
+struct Fq {
+  static constexpr int kThreads = 32 * W;
+  static constexpr int BQ = 16 * W, BK = 64;
+  static constexpr int kStages = 2;
+  static constexpr int LDT = D + 8;   // bf16 row stride
+  static constexpr int LDB = BK + 8;  // f32 bias row stride
+  static constexpr int kTile = BQ * LDT * 2;  // one owned [BQ, D] tile
+  static constexpr int kK = 0;                // offsets inside a stage
+  static constexpr int kV = kK + BK * LDT * 2;
+  static constexpr int kKseg = kV + BK * LDT * 2;
+  static constexpr int kBias = kKseg + BK * 4;
+  static constexpr int kBiasBytes = BQ * LDB * 4;
+  static_assert(kTile % 16 == 0 && kBias % 16 == 0, "16-byte pieces");
+  __host__ __device__ static int stage(bool bias) {
+    return kBias + (bias ? kBiasBytes : 0);
+  }
+  // With `owned` [BQ, D] tiles before the ring.
+  __host__ __device__ static int bytes(int owned, bool bias) {
+    return owned * kTile + kStages * stage(bias);
+  }
+};
+
+// Rows r0 .. r0 + ROWS - 1 of an [n, D] bf16 matrix into a tile of row
+// stride LDT by the CTA's NT threads, asynchronously, rows past n as zeros.
+template <int D, int LDT, int ROWS, int NT>
+__device__ __forceinline__ void rows_async(bf16* dst, const bf16* src, int r0,
+                                           int n) {
+  for (int i = threadIdx.x; i < ROWS * (D / 8); i += NT) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const bool full = r0 + r < n;
+    const size_t at = full ? static_cast<size_t>(r0 + r) * D + c : 0;
+    cp_async16(dst + r * LDT + c, src + at, full);
+  }
+}
+
+// The k tile at k0 into ring stage `st`: K and V (keys past T as zeros),
+// the key segment ids of batch item b, and the bias tile of `plane` for
+// the CTA's rows from q0 (none without a bias).
+template <int D, int W>
+__device__ __forceinline__ void k_tile_async(unsigned char* st,
+                                             const Params& p, const bf16* kg,
+                                             const bf16* vg, const float* plane,
+                                             int b, int q0, int k0,
+                                             bool bias_vec) {
+  using C = Fq<D, W>;
+  rows_async<D, C::LDT, C::BK, C::kThreads>(
+      reinterpret_cast<bf16*>(st + C::kK), kg, k0, p.T);
+  rows_async<D, C::LDT, C::BK, C::kThreads>(
+      reinterpret_cast<bf16*>(st + C::kV), vg, k0, p.T);
+  if (p.kseg != nullptr) {
+    int* kseg_s = reinterpret_cast<int*>(st + C::kKseg);
+    for (int r = threadIdx.x; r < C::BK; r += C::kThreads) {
+      const bool full = k0 + r < p.T;
+      cp_async4(kseg_s + r,
+                p.kseg + (full ? static_cast<size_t>(b) * p.T + k0 + r : 0),
+                full);
+    }
+  }
+  if (plane != nullptr)
+    bias_tile_async<C::BQ, C::BK, C::LDB, C::kThreads>(
+        reinterpret_cast<float*>(st + C::kBias), plane, p, q0, k0, bias_vec);
+}
+
+// One CTA per (query row bh, q tile of BQ rows), longest tiles first, as
+// in the f32 kernel; each of its W warps owns 16 rows and keeps their O
+// (64 f32 registers a thread at D = 128) in mma.sync accumulator
+// fragments for the whole walk over the k tiles, with their Q A-fragments
+// in registers too.  Per k tile: S = Q K^T into registers (K through
+// ldmatrix as the col-major B operand), the scale and the bias tile added
+// there, the online softmax in the fragments (a thread holds rows g and
+// g + 8, the 4 lanes of a quad share a row), bf16(p) packed straight into
+// the A operand of O += P V (V through ldmatrix.trans).  The next k
+// tile's K, V, key segment ids and bias tile are in flight (cp.async)
+// while this one computes.
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
+    flash_fwd_bf16_kernel(Params p) {
+  using C = Fq<D, W>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDT = C::LDT, LDB = C::LDB;
+  constexpr int NK = BK / 8;  // n tiles of S (keys): 32 elements a thread
+  constexpr int ND = D / 8;   // n tiles of O (head dim)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bf16* qs = reinterpret_cast<const bf16*>(smem);
+  unsigned char* ring = smem + C::kTile;
+  const bool has_bias = p.bias != nullptr;
+  const int stage_bytes = C::stage(has_bias);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int b = bh / p.H;
+  const size_t kvoff = static_cast<size_t>(bh / (p.H / p.KV)) * p.T * D;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kvoff;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kvoff;
+  const float* plane = bias_plane(p, bh);
+  const bool bias_vec =
+      p.T % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  const int nk = k_tiles_needed(p, q0, BQ, BK);
+
+  // Q once, with the first k tile.
+  rows_async<D, LDT, BQ, C::kThreads>(
+      reinterpret_cast<bf16*>(smem),
+      static_cast<const bf16*>(p.q) + static_cast<size_t>(bh) * p.S * D, q0,
+      p.S);
+  if (nk > 0) k_tile_async<D, W>(ring, p, kg, vg, plane, b, q0, 0, bias_vec);
+  cp_async_commit();
+
+  const int rw = q0 + 16 * warp;  // the warp's first row
+  int qseg[2] = {0, 0};           // of rows rw + g and rw + g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (p.qseg != nullptr && rw + g + 8 * h < p.S)
+      qseg[h] = p.qseg[static_cast<size_t>(b) * p.S + rw + g + 8 * h];
+  // ldmatrix row addresses of this lane: the A operand (16 rows, k
+  // contiguous); the B operand stored [n][k] (two n tiles); the B operand
+  // stored [k][n] (two n tiles, through .trans).
+  const int a_off = (16 * warp + (lane & 15)) * LDT + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LDT + ((lane >> 3) & 1) * 8;
+  const int t_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDT + (lane >> 4) * 8;
+
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t aq[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4<false>(aq[kk], qs + a_off + 16 * kk);
+
+  float o[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // Per row half h (rows g, g + 8): the running max, the sum of the exact
+  // p (for lse) and the sum of bf16(p) (O's normalizer), each over this
+  // thread's columns (the quad's partial sums share their rescaling).
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, lp[2] = {0.f, 0.f};
+
+  for (int n = 0; n < nk; ++n) {
+    cp_async_wait_all();
+    __syncthreads();  // tile n landed for all; stage n + 1's buffer is free
+    if (n + 1 < nk)
+      k_tile_async<D, W>(ring + ((n + 1) % C::kStages) * stage_bytes, p, kg,
+                         vg, plane, b, q0, (n + 1) * BK, bias_vec);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (n % C::kStages) * stage_bytes;
+    const bf16* ks = reinterpret_cast<const bf16*>(st + C::kK);
+    const bf16* vs = reinterpret_cast<const bf16*>(st + C::kV);
+    const int* kseg_s = reinterpret_cast<const int*>(st + C::kKseg);
+    const float* bias_s = reinterpret_cast<const float*>(st + C::kBias);
+    const int k0 = n * BK;
+    // A warp none of whose rows sees a key of this tile adds nothing.
+    if (rw >= p.S || (p.causal && k0 > rw + 15 + p.T - p.S)) continue;
+    // The mask only where the tile crosses the diagonal or a ragged edge,
+    // or segments decide.
+    const bool masked = p.qseg != nullptr || rw + 16 > p.S || k0 + BK > p.T ||
+                        (p.causal && k0 + BK - 1 > rw + p.T - p.S);
+
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+        uint32_t bk[4];
+        ldsm_x4<false>(bk, ks + b_off + 16 * j * LDT + 16 * kk);
+        mma_bf16(s[2 * j], aq[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], aq[kk], bk[2], bk[3]);
+      }
+
+    // x = s*scale [+ bias], -1e30 where not visible (bit 4j + e of `vis`
+    // cleared); the tile's row max.  Element e of fragment j: row g +
+    // 8(e/2) of the warp's 16, key 8j + 2t + e%2 of the tile.
+    uint32_t vis = 0xffffffffu;
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = 16 * warp + g + 8 * h, kl = 8 * j + 2 * t;
+        float x0 = s[j][2 * h] * p.scale, x1 = s[j][2 * h + 1] * p.scale;
+        if (has_bias) {
+          const float2 bb =
+              *reinterpret_cast<const float2*>(bias_s + qi * LDB + kl);
+          x0 += bb.x;
+          x1 += bb.y;
+        }
+        if (masked) {
+          if (!visible(p, q0 + qi, k0 + kl, qseg[h], kseg_s[kl])) {
+            x0 = kNeg;
+            vis &= ~(1u << (4 * j + 2 * h));
+          }
+          if (!visible(p, q0 + qi, k0 + kl + 1, qseg[h], kseg_s[kl + 1])) {
+            x1 = kNeg;
+            vis &= ~(1u << (4 * j + 2 * h + 1));
+          }
+        }
+        s[j][2 * h] = x0;
+        s[j][2 * h + 1] = x1;
+        mx[h] = fmaxf(mx[h], fmaxf(x0, x1));
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      corr[h] = exp2f((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+    }
+
+    // p = exp(x - m) where visible, else 0; bf16(p) packed straight into
+    // the A operand of P V (fragments 2kk and 2kk + 1 of S are that of k
+    // step kk).
+    uint32_t pa[BK / 16][4];
+    float ps[2] = {0.f, 0.f}, pts[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float p0 = exp2f((s[j][2 * h] - m[h]) * kLog2e);
+        float p1 = exp2f((s[j][2 * h + 1] - m[h]) * kLog2e);
+        if (!((vis >> (4 * j + 2 * h)) & 1u)) p0 = 0.f;
+        if (!((vis >> (4 * j + 2 * h + 1)) & 1u)) p1 = 0.f;
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
+        pa[j / 2][h + 2 * (j & 1)] = bf16x2_bits(pb);
+        ps[h] += p0 + p1;
+        pts[h] += __low2float(pb) + __high2float(pb);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + ps[h];
+      lp[h] = lp[h] * corr[h] + pts[h];
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t bv[4];
+        ldsm_x4<true>(bv, vs + t_off + 16 * kk * LDT + 16 * j);
+        mma_bf16(o[2 * j], pa[kk], bv[0], bv[1]);
+        mma_bf16(o[2 * j + 1], pa[kk], bv[2], bv[3]);
+      }
+  }
+
+  // O is normalized by the sum of the P it multiplied (rounded to bf16
+  // for the tensor cores), so it stays a convex combination of the
+  // values: the component they share passes through exactly, and so
+  // cancels from dP - delta in the backward.  lse keeps the exact sum, so
+  // the backward's recomputed P sums to one.  O once, to bf16 (and f32 on
+  // request), rows past S left alone.
+  const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+  bf16* og = static_cast<bf16*>(p.out) + qoff;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {  // the quad's partial sums
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], w);
+      lp[h] += __shfl_xor_sync(0xffffffffu, lp[h], w);
+    }
+    const int row = rw + g + 8 * h;
+    if (row >= p.S) continue;
+    const float den = fmaxf(lp[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const size_t at = static_cast<size_t>(row) * D + 8 * j + 2 * t;
+      const float v0 = o[j][2 * h] / den, v1 = o[j][2 * h + 1] / den;
+      *reinterpret_cast<__nv_bfloat162*>(og + at) = __floats2bfloat162_rn(v0, v1);
+      if (p.o32 != nullptr)
+        *reinterpret_cast<float2*>(p.o32 + qoff + at) = make_float2(v0, v1);
+    }
+    if (t == 0)
+      p.lse[static_cast<size_t>(bh) * p.S + row] =
+          m[h] + logf(fmaxf(l[h], 1e-30f));
+  }
+}
+
+// Same grid, walk and ring as the forward.  The CTA keeps Q and dO in
+// shared memory, and each of its W warps keeps dQ of its 16 rows (64 f32
+// registers a thread at D = 128) in accumulator fragments.  Per k tile:
+// S = Q K^T and dP = dO V^T into registers (K and V through ldmatrix as
+// col-major B operands), p = exp(s*scale [+ bias] - lse) and ds = p (dp -
+// delta) scale in those fragments, then dQ += dS_hi K + dS_lo K with the
+// two bf16 parts of ds packed straight into A operands and K through
+// ldmatrix.trans: the hi/lo split keeps the component shared by all keys
+// out of dq.
+template <int D, int W>
+__global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
+    flash_dq_bf16_kernel(Params p) {
+  using C = Fq<D, W>;
+  constexpr int BQ = C::BQ, BK = C::BK, LDT = C::LDT, LDB = C::LDB;
+  constexpr int NK = BK / 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bf16* qs = reinterpret_cast<const bf16*>(smem);
+  const bf16* dos = reinterpret_cast<const bf16*>(smem + C::kTile);
+  unsigned char* ring = smem + 2 * C::kTile;
+  const bool has_bias = p.bias != nullptr;
+  const int stage_bytes = C::stage(has_bias);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = bh / p.H;
+  const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+  const size_t kvoff = static_cast<size_t>(bh / (p.H / p.KV)) * p.T * D;
+  const bf16* kg = static_cast<const bf16*>(p.k) + kvoff;
+  const bf16* vg = static_cast<const bf16*>(p.v) + kvoff;
+  const float* plane = bias_plane(p, bh);
+  const bool bias_vec =
+      p.T % 4 == 0 && reinterpret_cast<uintptr_t>(p.bias) % 16 == 0;
+  const int nk = k_tiles_needed(p, q0, BQ, BK);
+
+  // Q and dO once, with the first k tile.
+  rows_async<D, LDT, BQ, C::kThreads>(
+      reinterpret_cast<bf16*>(smem), static_cast<const bf16*>(p.q) + qoff, q0,
+      p.S);
+  rows_async<D, LDT, BQ, C::kThreads>(
+      reinterpret_cast<bf16*>(smem + C::kTile),
+      static_cast<const bf16*>(p.dout) + qoff, q0, p.S);
+  if (nk > 0) k_tile_async<D, W>(ring, p, kg, vg, plane, b, q0, 0, bias_vec);
+  cp_async_commit();
+
+  const int rw = q0 + 16 * warp;
+  int qseg[2] = {0, 0};  // rows rw + g and rw + g + 8
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rw + g + 8 * h;
+    if (row >= p.S) continue;
+    lse[h] = p.lse_in[static_cast<size_t>(bh) * p.S + row];
+    delta[h] = p.delta[static_cast<size_t>(bh) * p.S + row];
+    if (p.qseg != nullptr) qseg[h] = p.qseg[static_cast<size_t>(b) * p.S + row];
+  }
+  const int a_off = (16 * warp + (lane & 15)) * LDT + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LDT + ((lane >> 3) & 1) * 8;
+  const int t_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDT + (lane >> 4) * 8;
+
+  float dq[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
+
+  for (int n = 0; n < nk; ++n) {
+    cp_async_wait_all();
+    __syncthreads();  // tile n landed for all; stage n + 1's buffer is free
+    if (n + 1 < nk)
+      k_tile_async<D, W>(ring + ((n + 1) % C::kStages) * stage_bytes, p, kg,
+                         vg, plane, b, q0, (n + 1) * BK, bias_vec);
+    cp_async_commit();
+
+    const unsigned char* st = ring + (n % C::kStages) * stage_bytes;
+    const bf16* ks = reinterpret_cast<const bf16*>(st + C::kK);
+    const bf16* vs = reinterpret_cast<const bf16*>(st + C::kV);
+    const int* kseg_s = reinterpret_cast<const int*>(st + C::kKseg);
+    const float* bias_s = reinterpret_cast<const float*>(st + C::kBias);
+    const int k0 = n * BK;
+    if (rw >= p.S || (p.causal && k0 > rw + 15 + p.T - p.S)) continue;
+    const bool masked = p.qseg != nullptr || rw + 16 > p.S || k0 + BK > p.T ||
+                        (p.causal && k0 + BK - 1 > rw + p.T - p.S);
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a_q[4], a_do[4];
+      ldsm_x4<false>(a_q, qs + a_off + 16 * kk);
+      ldsm_x4<false>(a_do, dos + a_off + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4<false>(bk, ks + b_off + 16 * j * LDT + 16 * kk);
+        ldsm_x4<false>(bv, vs + b_off + 16 * j * LDT + 16 * kk);
+        mma_bf16(s[2 * j], a_q, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], a_q, bk[2], bk[3]);
+        mma_bf16(dp[2 * j], a_do, bv[0], bv[1]);
+        mma_bf16(dp[2 * j + 1], a_do, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp(s*scale [+ bias] - lse) where visible, else 0; ds = p (dp -
+    // delta) scale, in dp's fragments (element layout as in the forward).
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = 16 * warp + g + 8 * h, kl = 8 * j + 2 * t;
+        float2 bb = make_float2(0.f, 0.f);
+        if (has_bias) bb = *reinterpret_cast<const float2*>(bias_s + qi * LDB + kl);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * h + c;
+          const float x = s[j][e] * p.scale + (c ? bb.y : bb.x);
+          float pr = exp2f((x - lse[h]) * kLog2e);
+          if (masked && !visible(p, q0 + qi, k0 + kl + c, qseg[h], kseg_s[kl + c]))
+            pr = 0.f;
+          dp[j][e] = pr * (dp[j][e] - delta[h]) * p.scale;
+        }
+      }
+
+    // dQ += dS_hi K + dS_lo K over the tile's keys: fragments 2kk and
+    // 2kk + 1 of dS are the A operand of k step kk.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = 2 * kk + (h >> 1), e = 2 * (h & 1);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(dp[j][e], dp[j][e + 1]);
+        a_hi[h] = bf16x2_bits(hi);
+        a_lo[h] = bf16x2_bits(__floats2bfloat162_rn(
+            dp[j][e] - __low2float(hi), dp[j][e + 1] - __high2float(hi)));
+      }
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t bk[4];
+        ldsm_x4<true>(bk, ks + t_off + 16 * kk * LDT + 16 * j);
+        mma_bf16(dq[2 * j], a_hi, bk[0], bk[1]);
+        mma_bf16(dq[2 * j + 1], a_hi, bk[2], bk[3]);
+        mma_bf16(dq[2 * j], a_lo, bk[0], bk[1]);
+        mma_bf16(dq[2 * j + 1], a_lo, bk[2], bk[3]);
+      }
+    }
+  }
+  cp_async_wait_all();  // nothing in flight at exit (a CTA that walks no tile)
+
+  // dQ once, rounded to bf16, rows past S left alone.
+  bf16* dqg = static_cast<bf16*>(p.out) + qoff;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rw + g + 8 * h;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dqg + static_cast<size_t>(row) * D +
+                                          8 * j + 2 * t) =
+          __floats2bfloat162_rn(dq[j][2 * h], dq[j][2 * h + 1]);
+  }
+}
+
 // d(bias) for one (bias plane hb, q tile, k tile): the sum of p * (dp -
 // delta) over the rows of that plane (b*H + hb for every b, or all B*H
 // rows when Hb = 1), in registers: thread t owns elements t + e*kThreads
@@ -1205,7 +1688,7 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Params& p,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     // All of the SM's unified memory as shared memory, so that as many
-    // CTAs as fit (two for the bf16 forward and d(bias)) share an SM.
+    // CTAs as fit (two for most bf16 kernels) share an SM.
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -1230,22 +1713,51 @@ int run_dkv_bf16(const Params& p, cudaStream_t stream, int* shape) {
                 C::kBytes, p, stream, shape);
 }
 
+// The bf16 forward (which 0) or dq (which 1) kernel at D with W warps.
+template <int D, int W>
+int run_fq(int which, const Params& p, cudaStream_t stream, int* shape) {
+  using C = Fq<D, W>;
+  const dim3 grid(p.B * p.H, (p.S + C::BQ - 1) / C::BQ);
+  const bool bias = p.bias != nullptr;
+  if (which == 0)
+    return launch(flash_fwd_bf16_kernel<D, W>, grid, C::kThreads,
+                  C::bytes(1, bias), p, stream, shape);
+  return launch(flash_dq_bf16_kernel<D, W>, grid, C::kThreads,
+                C::bytes(2, bias), p, stream, shape);
+}
+
+// Four warps a CTA, two CTAs an SM, except at D = 128 with a bias: there
+// the bias tiles of a two-stage ring leave room for one 4-warp CTA only,
+// so one CTA of 8 warps (128 rows) takes the SM instead.
+int run_fq_bf16(int which, const Params& p, cudaStream_t stream, int* shape) {
+  switch (p.D) {
+    case 16: return run_fq<16, 4>(which, p, stream, shape);
+    case 32: return run_fq<32, 4>(which, p, stream, shape);
+    case 64: return run_fq<64, 4>(which, p, stream, shape);
+    default:
+      return p.bias != nullptr ? run_fq<128, 8>(which, p, stream, shape)
+                               : run_fq<128, 4>(which, p, stream, shape);
+  }
+}
+
 template <typename T>
 int run(int which, const Params& p, cudaStream_t stream, int* shape) {
-  const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
-  const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
-  if (which == 0)
-    return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f), kThreads,
-                  fwd_layout<T>(p.D).bytes, p, stream, shape);
-  if (which == 1)
-    return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d), kThreads,
-                  dq_layout<T>(p.D).bytes, p, stream, shape);
-  if (which == 2) {
-    if constexpr (std::is_same<T, float>::value) {
+  if constexpr (std::is_same<T, float>::value) {
+    const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
+    const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
+    if (which == 0)
+      return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f), kThreads,
+                    fwd_layout<T>(p.D).bytes, p, stream, shape);
+    if (which == 1)
+      return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d), kThreads,
+                    dq_layout<T>(p.D).bytes, p, stream, shape);
+    if (which == 2)
       return launch(flash_dkv_f32_kernel,
                     dim3(p.B * p.KV, (p.T + kDkvK32 - 1) / kDkvK32), kThreads,
                     dkv_layout_f32(p.D).bytes, p, stream, shape);
-    } else {
+  } else {
+    if (which == 0 || which == 1) return run_fq_bf16(which, p, stream, shape);
+    if (which == 2) {
       switch (p.D) {
         case 16: return run_dkv_bf16<16>(p, stream, shape);
         case 32: return run_dkv_bf16<32>(p, stream, shape);
@@ -1367,11 +1879,13 @@ int tdx_flash_dbias(const void* q, const void* k, const void* v,
 }
 
 // Kernel `which` (0 forward, 1 dq, 2 dk/dv, 3 d(bias)) at head dim D and
-// dtype: shape[0] = its CTAs that fit on one SM, shape[1] = threads a
-// CTA, shape[2] = dynamic shared memory bytes.  Launches nothing.
-int tdx_flash_launch_shape(int which, int D, int dtype, int* shape) {
-  Params p = make_params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         1, 1, 1, 1, 1, 1, D, 0, 1.f);
+// dtype, for a launch with (bias = 1) or without a bias: shape[0] = its
+// CTAs that fit on one SM, shape[1] = threads a CTA, shape[2] = dynamic
+// shared memory bytes.  Launches nothing.
+int tdx_flash_launch_shape(int which, int D, int dtype, int bias, int* shape) {
+  static const float no_data = 0.f;  // a bias pointer, never read
+  Params p = make_params(nullptr, nullptr, nullptr, bias ? &no_data : nullptr,
+                         nullptr, nullptr, 1, 1, 1, 1, 1, 1, D, 0, 1.f);
   return dispatch(which, p, dtype, nullptr, shape);
 }
 
