@@ -18,25 +18,34 @@ user calls, and checks what comes out.  One JSON object per line:
    CUDA and nvcc versions;
 2. the paged-decode kernel against ``paged_attention_reference`` on the card: the 14
    cases of ``tests/test_paged_attention.py`` (float32 within 1e-5,
-   bfloat16 within 3e-2, idle rows exactly zero) and full-width decode
+   bfloat16 within 3e-2, idle rows exactly zero), lengths either side of
+   a split boundary (idle, 1, one page, boundary - 1, boundary, boundary
+   + 1, the table's full width) in both dtypes, the split launch replayed
+   from a CUDA graph equal to the eager one, and full-width decode
    shapes (float32 within 1e-5, bfloat16 within two bf16 ulps) with
-   their times: kernel, plain version, a library yardstick
-   (``scaled_dot_product_attention`` over pre-gathered contiguous K/V,
-   which the port never calls) and the bandwidth bound;
+   their split plan, CUDA launches per call (counted) and times: kernel
+   (eager, and from CUDA-graph replay), plain version, a library
+   yardstick (``scaled_dot_product_attention`` over contiguous K/V
+   gathered up to the longest lane, which the port never calls) and the
+   bandwidth bound;
 3. token-exact float32 serving of gpt2-125m (full size) and a 2-layer
    llama3-8b (full width) against the port's unbatched no-cache oracle,
    through a pool small enough to force preemption;
 4. full-depth llama3-8b bf16 serving: bring-up seconds and host RSS
    growth while the 16 GB of parameters are materialized on the card,
    both in a fresh process (cold) and in this one (warm), decode
-   tokens/s, and the kernel's launch count (32 per decode step);
+   tokens/s, and the kernel's launch count (32 per decode step, each
+   with one merge launch where the engine's table takes several splits);
+   a few decode ticks under ``torch.profiler``, the paged-decode and
+   merge kernels' device time and launches per call named apart;
 5. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
    at head dims 32, 64 and 128 (float32 within
    1e-5, bfloat16 within 3e-2, relative above magnitude 1; rows that see
-   no key exactly zero); the bf16 forward, dq and dk/dv kernels'
-   registers, spills (it fails on any), CTAs per SM and shared memory;
+   no key exactly zero); the bf16 forward, dq, dk/dv and d(bias)
+   kernels' registers, spills (it fails on any), CTAs per SM and shared
+   memory;
    the hi/lo split of dS in dk/dv (||sum_j dK_j|| / ||dK|| within 2x of
    the exact dK rounded once to bf16, on a case where dS rounded once
    misses by 30x) and in dq (dq within 2x of the exact dq rounded once,
@@ -65,8 +74,10 @@ user calls, and checks what comes out.  One JSON object per line:
    ``torch.profiler``;
 8. the flash kernels with a bias, and the d(bias) kernel, against the
    plain versions on the card: the bias cases of ``tests/test_ops.py``
-   in both dtypes (float32 against an f64 evaluation within 1e-5 x max(1,
-   |plain|), d(bias) included; bfloat16 within 3e-2), a TINY T5 on the
+   and cases for d(bias)'s ring of rows (one plane for 16 rows with GQA,
+   ragged S and T with T % 4 != 0 at D = 128, segments, causal with T >
+   S) in both dtypes (float32 against an f64 evaluation within 1e-5 x
+   max(1, |plain|), d(bias) included; bfloat16 within 3e-2), a TINY T5 on the
    kernels against ``default_attention``, the relative-position bucket
    map on the card equal to the CPU's, and T5-11B's attention shapes
    (encoder self-attention with the bias, decoder self-attention with
@@ -93,7 +104,10 @@ user calls, and checks what comes out.  One JSON object per line:
 12. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
-    bias);
+    bias; paged decode at the serving engine's batch, lengths and page
+    table width, with its merge launches and CUDA launches per call
+    counted on the serving main path, its time from CUDA-graph replay
+    too, and its times at a table cut to the lanes' own pages);
 13. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
@@ -132,6 +146,7 @@ from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
 from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops import paged_attention, paged_attention_reference
+from torchdistx_tpu_torch.ops.paged_attention import kernel_plan, split_plan
 from torchdistx_tpu_torch.ops.flash_attention import (
     _dense_probs,
     _flash_forward,
@@ -241,6 +256,32 @@ def time_ms(fn, flush: L2Flush, iters: int = 20) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` with no host work around it:
+    ``n`` calls captured into one CUDA graph, the median of ``reps``
+    replays divided by ``n`` (L2 warm: the calls follow one another)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()  # warm-up on the capture stream
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(n):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs])) / n
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +407,7 @@ def kernel_cases(dev) -> dict:
     args = rand_case(5, B=2, H=4, KV=2, D=8, page=4, n_pages=8, maxp=2,
                      lengths=[6, 8], dtype=torch.float32, device=dev)
     errs["gqa-grouping"] = check_kernel(args, "gqa-grouping", 1e-5)
+    errs.update(split_boundary_cases(dev))
     # Shape validation raises before anything launches.
     z = dict(device=dev)
     kp = torch.zeros(4, 8, 2, 8, **z)
@@ -388,31 +430,100 @@ def kernel_cases(dev) -> dict:
     return errs
 
 
-def decode_shape(dev, *, H, KV, D, page, lengths, dtype, seed=0, n_pages=None):
-    """Random decode inputs at a given width with ragged ``lengths``."""
+# Lanes of the split-boundary cases: llama3-8b's heads (32 of 128 over 8
+# kv heads), 7 lanes, a table of 96 pages of 16, which the split plan
+# cuts into several splits on an H100.
+SPLIT_SHAPE = dict(H=32, KV=8, D=128, page=16, maxp=96)
+
+
+def split_boundary_cases(dev) -> dict:
+    """The kernel on lengths either side of its first split boundary
+    (idle, 1, one page, boundary - 1, boundary, boundary + 1, the table's
+    full width), in both dtypes: float32 within 1e-5, bfloat16 within two
+    bf16 ulps of the plain value; the idle lane an exact zero row."""
+    errs = {}
+    H, KV, D, page, maxp = (SPLIT_SHAPE[k] for k in
+                            ("H", "KV", "D", "page", "maxp"))
+    B = 7
+    splits, span = split_plan(
+        B, H, KV, maxp * page,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if splits < 2:
+        raise AssertionError(f"split cases: the plan took {splits} split")
+    lengths = [0, 1, page, span - 1, span, span + 1, maxp * page]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = rand_case(9, B=B, H=H, KV=KV, D=D, page=page,
+                         n_pages=1 + B * maxp, maxp=maxp, lengths=lengths,
+                         dtype=dtype, device=dev)
+        name = f"split-boundaries-{str(dtype)[6:]}"
+        errs[name] = check_kernel(args, name)
+    # The split launch (workspace, split kernel, merge) captured into a
+    # CUDA graph and replayed gives the eager output bit for bit.
+    eager = paged_attention(*args)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        paged_attention(*args)  # warm-up on the capture stream
+        with torch.cuda.graph(graph, stream=stream):
+            captured = paged_attention(*args)
+    torch.cuda.current_stream().wait_stream(stream)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(captured, eager):
+        raise AssertionError("split decode replayed from a CUDA graph differs "
+                             "from the eager launch")
+    errs["split-boundaries-plan"] = {"splits": splits, "span": span,
+                                     "lengths": lengths,
+                                     "cuda_graph_replay_equal": True}
+    return errs
+
+
+def decode_shape(dev, *, H, KV, D, page, lengths, dtype, seed=0, n_pages=None,
+                 maxp=None):
+    """Random decode inputs at a given width with ragged ``lengths``; with
+    ``maxp`` the table is that wide, null pages past each lane's own (as
+    the engine's table rows are)."""
     B = len(lengths)
-    maxp = max(-(-L // page) for L in lengths)
+    used = max(-(-L // page) for L in lengths)
     if n_pages is None:
-        n_pages = 1 + B * maxp
-    return rand_case(seed, B=B, H=H, KV=KV, D=D, page=page, n_pages=n_pages,
-                     maxp=maxp, lengths=lengths, dtype=dtype, device=dev)
+        n_pages = 1 + B * used
+    q, kp, vp, lens, table = rand_case(
+        seed, B=B, H=H, KV=KV, D=D, page=page, n_pages=n_pages, maxp=used,
+        lengths=lengths, dtype=dtype, device=dev)
+    if maxp is not None and maxp > used:
+        table = F.pad(table, (0, maxp - used))
+    return q, kp, vp, lens, table
+
+
+def cuda_launches(fn) -> int:
+    """CUDA kernels one call of ``fn`` launched, by the paged-decode
+    wrapper's counts: the split kernel and, where it ran, the merge."""
+    before = paged_attention.launches + paged_attention.merge_launches
+    fn()
+    return paged_attention.launches + paged_attention.merge_launches - before
 
 
 def measure(args, flush: L2Flush) -> dict:
-    """Kernel, plain and library times and the bound for one input set."""
+    """Kernel, plain and library times and the bound for one input set;
+    the kernel also from CUDA-graph replay (no host work), and, where the
+    table is wider than its lanes need, at a table cut to their pages."""
     q, kp, vp, lens, table = args
     B, H, D = q.shape
     KV = kp.shape[2]
     page = kp.shape[1]
-    T = table.shape[1] * page
     err = check_kernel(args, "timed")
     kernel_ms = time_ms(lambda: paged_attention(*args), flush)
     plain_ms = time_ms(lambda: paged_attention_reference(*args), flush)
     # Library yardstick: SDPA over K/V already gathered into contiguous
-    # [B, H, T, D] (GQA heads expanded), lengths as a boolean mask.
+    # [B, H, T, D] (GQA heads expanded), lengths as a boolean mask, over
+    # the pages the longest lane uses (as a caller of SDPA would gather).
     g = H // KV
-    kc = kp[table.long()].reshape(B, T, KV, D).transpose(1, 2)
-    vc = vp[table.long()].reshape(B, T, KV, D).transpose(1, 2)
+    used = -(-int(lens.max().item()) // page)
+    T = used * page
+    kc = kp[table[:, :used].long()].reshape(B, T, KV, D).transpose(1, 2)
+    vc = vp[table[:, :used].long()].reshape(B, T, KV, D).transpose(1, 2)
     kc = kc.repeat_interleave(g, dim=1).contiguous()
     vc = vc.repeat_interleave(g, dim=1).contiguous()
     mask = (torch.arange(T, device=q.device)[None, :]
@@ -429,10 +540,16 @@ def measure(args, flush: L2Flush) -> dict:
     flops = 4 * live * H * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    return {
+    splits, span = kernel_plan(q, kp, table)
+    row = {
         "B": B, "H": H, "KV": KV, "D": D, "page": page,
+        "table_width": table.shape[1], "plan": {"splits": splits,
+                                                "span": span},
+        "cuda_launches_per_call": cuda_launches(lambda: paged_attention(*args)),
         "dtype": str(q.dtype)[6:], "live_tokens": live,
-        "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "kernel_ms": kernel_ms,
+        "kernel_graph_ms": graph_ms(lambda: paged_attention(*args)),
+        "plain_ms": plain_ms,
         "limit": ("2 bf16 ulps of |plain|, floor 1e-5"
                   if q.dtype == torch.bfloat16 else "1e-5"),
         "library_ms": library_ms,
@@ -442,6 +559,18 @@ def measure(args, flush: L2Flush) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops,
     }
+    if used < table.shape[1]:
+        narrow = (q, kp, vp, lens, table[:, :used].contiguous())
+        row["lane_width_table"] = {
+            "table_width": used,
+            "plan": dict(zip(("splits", "span"), kernel_plan(q, kp, narrow[4]))),
+            "cuda_launches_per_call": cuda_launches(
+                lambda: paged_attention(*narrow)),
+            "max_abs_err": check_kernel(narrow, "timed-lane-width"),
+            "kernel_ms": time_ms(lambda: paged_attention(*narrow), flush),
+            "kernel_graph_ms": graph_ms(lambda: paged_attention(*narrow)),
+        }
+    return row
 
 
 def build_all() -> dict:
@@ -833,22 +962,24 @@ BF16_KERNELS = {
     "flash_fwd_bf16_kernel": (0, ["16-4", "32-4", "64-4", "128-4", "128-8"]),
     "flash_dq_bf16_kernel": (1, ["16-4", "32-4", "64-4", "128-4", "128-8"]),
     "flash_dkv_bf16_kernel": (2, ["16", "32", "64", "128"]),
+    "flash_dbias_bf16_kernel": (3, ["16", "32", "64", "128"]),
 }
 
 
 def bf16_build(build: dict) -> dict:
     """Registers and spills (ptxas's lines of the build) of each
-    instantiation of the bf16 forward, dq and dk/dv kernels, and the launch
-    shape of each at every head dim, without and with a bias.  Fails on any
-    spill: the design keeps the accumulators and the score fragments in
-    registers, and a spill moves them to local memory."""
+    instantiation of the bf16 forward, dq, dk/dv and d(bias) kernels, and
+    the launch shape of each at every head dim, without and with a bias
+    (the same for d(bias), which always has one).  Fails on any spill: the design keeps the
+    accumulators and the score fragments in registers, and a spill moves
+    them to local memory."""
     rows, fn = {}, None
     for ln in build.get("ptxas", []):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
             continue
-        m = fn and re.search(r"(flash_(?:fwd|dq|dkv)_bf16_kernel)((?:ILi\d+E)"
+        m = fn and re.search(r"(flash_(?:fwd|dq|dkv|dbias)_bf16_kernel)((?:ILi\d+E)"
                              r"(?:Li\d+E)?)", fn)
         if not m:
             continue
@@ -1085,6 +1216,18 @@ BIAS_CASES = (  # name, shape, causal, bias planes (H or 1), segments
     # at D = 64, one plane for every head, causal with T > S.
     ("bias-fq-d64-broadcast-t114", dict(B=2, S=70, T=114, H=4, D=64), True,
      "1", None),
+    # The bf16 d(bias) kernel's ring of rows (BQ 64, BK 128, every row of a
+    # plane walked by one CTA): one plane for all B*H = 16 rows with GQA;
+    # ragged S and T, T % 4 != 0, at D = 128; segments at D = 32; causal
+    # with T > S and GQA at D = 128.
+    ("bias-ring-rows-broadcast-gqa", dict(B=4, S=70, T=90, H=4, KV=2, D=64),
+     False, "1", None),
+    ("bias-ring-ragged-d128-t130", dict(B=3, S=100, T=130, H=2, D=128), False,
+     "H", None),
+    ("bias-ring-segments-d32", dict(B=2, S=50, H=4, KV=2, D=32), True, "1",
+     "three"),
+    ("bias-ring-causal-t-gt-s-d128", dict(B=2, S=60, T=150, H=4, KV=2,
+                                          D=128), True, "H", None),
 )
 # T5-11B's attention at the T5 main path's batch: 128 heads of 128 (MHA).
 T5_SHAPES = {
@@ -1406,12 +1549,14 @@ def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
         eng.submit(Request(r.rid + "-p", r.tokens, max_new_tokens=n_ticks + 2))
     eng.step()  # admission + prefill, not profiled
     torch.cuda.synchronize()
+    calls = paged_attention.launches
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_ticks):
             eng.step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n_ticks
+    calls = (paged_attention.launches - calls) / n_ticks
     kernels = []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -1422,10 +1567,20 @@ def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
         kernels.append((us / 1e3 / n_ticks, evt.count / n_ticks, evt.key))
     kernels.sort(reverse=True)
     eng.run()  # finish the profiling requests
+    # The paged-decode kernels apart: their device time, and the CUDA
+    # launches of each per paged_attention call, as the profiler saw them.
+    paged = {name: [(ms, n) for ms, n, key in kernels if name in key]
+             for name in ("paged_decode_kernel", "paged_merge_kernel")}
     return {"phase": "decode_tick_profile", "ticks": n_ticks,
             "tick_wall_ms": wall_ms,
             "device_kernel_ms_per_tick": sum(k[0] for k in kernels),
             "kernel_launches_per_tick": sum(k[1] for k in kernels),
+            "paged_attention_calls_per_tick": calls,
+            "paged_kernels": {
+                name: {"ms_per_tick": sum(ms for ms, _ in rows),
+                       "launches_per_call": (sum(n for _, n in rows) / calls
+                                             if calls else None)}
+                for name, rows in paged.items()},
             "top_kernels": [{"name": k[2][:90], "ms_per_tick": k[0],
                              "launches_per_tick": k[1]} for k in kernels[:8]]}
 
@@ -1499,6 +1654,7 @@ def phase_bf16_full(dev):
                 + sum(len(lane.generated) for lane in eng.active.values()))
 
     paged_attention.launches = 0
+    paged_attention.merge_launches = 0
     decode_tokens, decode_s = 0, 0.0
     while eng.waiting or eng.active:
         prefills, before = eng.prefills, emitted()
@@ -1510,6 +1666,7 @@ def phase_bf16_full(dev):
             decode_tokens += emitted() - before
             decode_s += dt
     launches = paged_attention.launches
+    merges = paged_attention.merge_launches
     if set(eng.results) != {r.rid for r in reqs}:
         raise AssertionError(f"incomplete: {sorted(eng.results)}")
     if any(len(eng.results[r.rid]) != r.max_new_tokens for r in reqs):
@@ -1518,6 +1675,16 @@ def phase_bf16_full(dev):
         raise AssertionError(
             f"{launches} kernel launches != {cfg.n_layers} layers x "
             f"{eng.decode_steps} decode steps")
+    # The engine's table takes several splits on an H100, so every call
+    # must also have launched the merge kernel.
+    splits, _ = split_plan(eng.scfg.max_batch, cfg.n_heads, cfg.kv_heads,
+                           eng.scfg.max_pages_per_seq * scfg.page_size,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    if merges != (launches if splits > 1 else 0):
+        raise AssertionError(
+            f"{merges} merge launches for {launches} calls at {splits} "
+            f"splits")
     # bf16: batched decode and the unbatched oracle round differently, so
     # later tokens may drift apart; the first token (prefill vs the
     # oracle's forward at the same shape) must agree.
@@ -1539,6 +1706,7 @@ def phase_bf16_full(dev):
            "decode_steps": eng.decode_steps,
            "decode_tokens_per_s": decode_tokens / decode_s,
            "paged_decode_launches": launches,
+           "paged_merge_launches": merges,
            "first_token_matches_oracle": True}
     emit(row)
     emit(profile_decode_ticks(eng, reqs))
@@ -1548,7 +1716,8 @@ def phase_bf16_full(dev):
     main_args = decode_shape(dev, H=cfg.n_heads, KV=cfg.kv_heads,
                              D=cfg.head_size, page=scfg.page_size,
                              lengths=lengths, dtype=torch.bfloat16,
-                             n_pages=scfg.n_pages)
+                             n_pages=scfg.n_pages,
+                             maxp=eng.scfg.max_pages_per_seq)
     del eng
     torch.cuda.empty_cache()
     return row, main_args
@@ -2316,7 +2485,13 @@ def main() -> int:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
         "shape": {k: timing[k] for k in ("B", "H", "KV", "D", "page", "dtype",
-                                         "live_tokens")},
+                                         "live_tokens", "table_width")},
+        "merge_launches": main_row["paged_merge_launches"],
+        "cuda_launches_per_call": (main_row["paged_decode_launches"]
+                                   + main_row["paged_merge_launches"])
+        / main_row["paged_decode_launches"],
+        "kernel_graph_ms": timing["kernel_graph_ms"],
+        "lane_width_table": timing.get("lane_width_table"),
     }]
     # The flash kernels at the training main path's shape (llama3-8b
     # width, [2, 2048], bf16), launches from its 5-step run; beside them

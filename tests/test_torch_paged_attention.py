@@ -30,6 +30,7 @@ from torchdistx_tpu_torch.ops import (
     paged_attention_reference,
     paged_prefill_attention,
 )
+from torchdistx_tpu_torch.ops.paged_attention import kernel_plan, split_plan
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -214,6 +215,85 @@ def test_shape_validation_matches_jax():
         paged_attention(q, kp, kp, lens, torch.zeros(3, 2, dtype=torch.int32))
 
 
+def _split_merge(q, kp, vp, lengths, table, span):
+    """The CUDA kernel pair's arithmetic as a plain torch function: each
+    split s takes positions [s*span, (s+1)*span) below lengths[b], forms
+    its max m_s, its sum l_s = sum exp(score - m_s) and its unnormalized
+    partial o_s = sum exp(score - m_s) v; the merge weighs the splits
+    that hold a position by exp(m_s - max_s m_s) and divides the weighted
+    partials by the weighted sums.  A split past lengths[b] weighs 0 and
+    an idle lane is an exact zero row."""
+    B, H, D = q.shape
+    page, KV = kp.shape[1], kp.shape[2]
+    G, T = H // KV, table.shape[1] * page
+    k = kp[table.long()].reshape(B, T, KV, D).float()
+    v = vp[table.long()].reshape(B, T, KV, D).float()
+    qf = q.float().reshape(B, KV, G, D) / np.sqrt(D)
+    scores = torch.einsum("bkgd,btkd->bkgt", qf, k)
+    out = torch.zeros(B, KV, G, D)
+    for b in range(B):
+        L = int(lengths[b])
+        parts = []
+        for s0 in range(0, L, span):
+            sl = slice(s0, min(s0 + span, L))
+            m = scores[b, :, :, sl].amax(-1, keepdim=True)
+            p = torch.exp(scores[b, :, :, sl] - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgt,tkd->kgd", p, v[b, sl])))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        num = sum(torch.exp(m - mx) * o for m, _, o in parts)
+        den = sum(torch.exp(m - mx) * l for m, l, _ in parts)
+        out[b] = num / den
+    return out.reshape(B, H, D)
+
+
+def _split_boundary_case(span, page, maxp):
+    """Lengths on both sides of the first split boundary: idle, one
+    position, one page, boundary - 1, boundary, boundary + 1, full."""
+    return [0, 1, page, span - 1, span, span + 1, maxp * page]
+
+
+def test_split_plan_is_static_and_covers_the_table():
+    """Splits come from the table width and the SM count alone; every
+    position of the table lies in exactly one split, and a short table
+    or a batch that fills the card takes one split."""
+    assert split_plan(4, 32, 8, 48, 132) == (1, 64)
+    assert split_plan(128, 32, 8, 4096, 132)[0] == 1  # 1024 CTAs already
+    for B, H, KV, positions in ((8, 32, 8, 4096), (8, 12, 12, 1024),
+                                (4, 32, 8, 1008), (7, 4, 2, 512)):
+        splits, span = split_plan(B, H, KV, positions, 132)
+        assert splits > 1 and span % 64 == 0 and span >= 256
+        assert (splits - 1) * span < positions <= splits * span
+
+
+def test_split_merge_matches_jax_at_split_boundaries():
+    """The split-and-merge arithmetic, at the split plan of a 7-lane table
+    of 512 positions, on lengths either side of a boundary: equal to the
+    JAX Pallas kernel (interpret) and its reference within 1e-5 (f32) on
+    live lanes, and an exact zero row on the idle lane."""
+    B, H, KV, D, page, maxp = 7, 4, 2, 16, 128, 4
+    splits, span = split_plan(B, H, KV, maxp * page, 132)
+    assert splits == 2 and span == 256
+    lengths = _split_boundary_case(span, page, maxp)
+    rng = np.random.RandomState(8)
+    q = rng.randn(B, H, D).astype(np.float32)
+    kp = rng.randn(1 + B * maxp, page, KV, D).astype(np.float32)
+    vp = rng.randn(1 + B * maxp, page, KV, D).astype(np.float32)
+    table = (rng.permutation(B * maxp) + 1).reshape(B, maxp).astype(np.int32)
+    jx, tx = _both(q, kp, vp, lengths, table, "float32")
+    got = _split_merge(*tx, span).numpy()
+    live = np.asarray(lengths) > 0
+    assert np.all(got[~live] == 0.0)
+    np.testing.assert_allclose(got[live], _f32(jax_reference(*jx))[live],
+                               atol=1e-5)
+    np.testing.assert_allclose(got, _f32(jax_paged_attention(*jx)), atol=1e-5)
+    np.testing.assert_allclose(got[live],
+                               _f32(paged_attention_reference(*tx))[live],
+                               atol=1e-5)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -222,20 +302,33 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "split-boundaries"])
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (8, 1)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, atol, H, KV):
+def test_cuda_kernel_matches_plain(cuda_device, dtype, atol, H, KV, case):
     """The hand-written kernel against the plain version on the card,
-    idle rows exactly zero; each launch is counted."""
+    idle rows exactly zero; each launch is counted.  ``split-boundaries``
+    takes a table wide enough for several splits on this card and lengths
+    either side of the first boundary."""
     B, D, page, maxp = 5, 16, 8, 3
     lengths = [1, page * maxp, 0, 7, 13]
+    if case == "split-boundaries":
+        B, maxp = 7, 128
+        splits, span = split_plan(
+            B, H, KV, maxp * page,
+            torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+        assert splits > 1
+        lengths = _split_boundary_case(span, page, maxp)
     q, kp, vp, table = _np_case(0, B=B, H=H, KV=KV, D=D, page=page,
-                                n_pages=16, maxp=maxp)
+                                n_pages=1 + B * maxp, maxp=maxp)
     _, tx = _both(q, kp, vp, lengths, table, dtype, device=cuda_device)
     before = paged_attention.launches
+    merges = paged_attention.merge_launches
     out = paged_attention(*tx)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
+    splits, _ = kernel_plan(tx[0], tx[1], tx[4])
+    assert paged_attention.merge_launches == merges + (splits > 1)
     ref = paged_attention_reference(*tx)
     live = torch.tensor(lengths, device=cuda_device) > 0
     assert torch.all(out[~live] == 0)

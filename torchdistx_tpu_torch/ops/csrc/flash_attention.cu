@@ -8,7 +8,8 @@
 //                                                           flash_dq_kernel (f32)
 //   * _bwd_dkv_kernel (l.257, via _bwd_call l.591)        -> flash_dkv_bf16_kernel,
 //                                                           flash_dkv_f32_kernel
-//   * _dbias_kernel (l.318, via _dbias_call l.619)        -> flash_dbias_kernel
+//   * _dbias_kernel (l.318, via _dbias_call l.619)        -> flash_dbias_bf16_kernel,
+//                                                           flash_dbias_kernel (f32)
 // It computes the same functions, not the same blocks.  Layout [B*H, S, D]
 // for q/o/do/dq, [B*KV, T, D] for k/v/dk/dv, lse and delta [B*H, S] f32.
 // Query head row bh reads kv row bh / G (G = H / KV).  Key j is visible to
@@ -22,15 +23,15 @@
 // The additive bias is f32 [Hb, S, T] whatever q's dtype, Hb = H or 1:
 // the score of row bh is s = (q k^T) * scale + bias[(bh % H) % Hb, i, j],
 // added before the mask in the one elementwise pass each kernel has.  The
-// f32 kernels and d(bias) read it straight from device memory there (lanes
-// walk consecutive j, so the reads coalesce; every read is checked against
-// i < S and j < T); the bf16 forward, dq and dk/dv kernels bring each bias
-// tile into shared memory one step ahead (below).  d(bias)
-// = sum over the rows of one bias plane of p * (dp - delta): one CTA per
-// (bias plane, q tile, k tile) loops over those rows (the B batch items,
-// or all B*H rows when Hb = 1), recomputing S = Q K^T and dP = dO V^T, and
-// writes its tile once, from registers, with no atomics; tiles wholly past
-// the causal diagonal are written as zeros.
+// f32 kernels read it straight from device memory there (lanes walk
+// consecutive j, so the reads coalesce; every read is checked against i <
+// S and j < T); the bf16 forward, dq and dk/dv kernels bring each bias
+// tile into shared memory one step ahead, and bf16 d(bias) holds its tile
+// in registers (below).  d(bias) = sum over the rows of one bias plane of
+// p * (dp - delta): one CTA per (bias plane, q tile, k tile) walks those
+// rows (the B batch items, or all B*H rows when Hb = 1), recomputing S =
+// Q K^T and dP = dO V^T, and writes its tile once, from registers, with
+// no atomics; tiles wholly past the causal diagonal are written as zeros.
 //
 // What bounds it on the H100.  Without a bias: operations.  At the
 // training shapes (S = T = 1024..2048, D = 64..128) attention does ~S*D/2
@@ -40,37 +41,35 @@
 // CUDA cores, no TF32).  With a bias, at T5's encoder shape (B 8, H 128,
 // S = T = 512, D 128, bf16) the f32 [H, S, T] plane (134 MB) and q, k, v,
 // o move 0.67 GB, 0.20 ms at 3.35 TB/s, against 0.14 ms of bf16 matmul:
-// bytes bound the forward, dq and dk/dv kernels there.  This design reads
-// the plane once per (batch, head) row, B*H*S*T*4 = 1.07 GB (0.32 ms),
-// unless L2 serves the re-reads of the other batch items.  The dbias
-// kernel reads q, k, v, do and the bias once and writes d(bias) once
-// (0.81 GB in bf16, 0.24 ms) but recomputes two products per row
-// (137 GFLOP: 0.14 ms in bf16, 2.05 ms in f32): bytes bound it in bf16,
-// operations in f32.
-// What the d(bias) kernel and the f32 kernels do about it, as first,
-// simple kernels:
+// bytes bound the forward, dq and dk/dv kernels there.  They read the
+// plane once per (batch, head) row, B*H*S*T*4 = 1.07 GB (0.32 ms), unless
+// L2 serves the re-reads of the other batch items.  The d(bias) kernel
+// reads q, k, v, do and the bias once and writes d(bias) once (0.81 GB in
+// bf16, 0.24 ms) but recomputes two products per row (137 GFLOP: 0.14 ms
+// in bf16, 2.05 ms in f32): bytes bound it in bf16, operations in f32.
+// Its bf16 kernel (below) moves more than that through L2: each CTA reads
+// its rows' Q and dO tiles and K and V tiles, 12 bytes per (query, key)
+// pair of each row at D = 128 (3.2 GB at T5's encoder shape), which the
+// plane-major grid keeps in L2 but which still fill shared memory, and
+// its products read every operand again from there through ldmatrix.
+//
+// The f32 kernels are first, simple kernels:
 //   * no [S, T] matrix ever reaches device memory: each CTA keeps its
 //     q (or k) tile in shared memory, streams the other side's tiles
 //     through shared memory and carries the online softmax (forward) or
-//     the dq (dk, dv) sums in shared memory in f32;
+//     the dq (dk, dv, d(bias)) sums in shared memory or registers in f32;
 //   * tiles wholly past the causal diagonal are never loaded;
-//   * f32 products stay IEEE f32 (FMA on the CUDA cores, no TF32); bf16
-//     products of d(bias) run on the tensor cores (mma.sync m16n8k16, f32
-//     accumulate); d(bias) rounds nothing, since no product follows it;
-//   * the dk/dv kernels walk every (group head, q tile) of their kv head
-//     inside the CTA and write dk and dv once: no atomics, no GQA
+//   * products stay IEEE f32 (FMA on the CUDA cores, no TF32);
+//   * the dk/dv kernel walks every (group head, q tile) of its kv head
+//     inside the CTA and writes dk and dv once: no atomics, no GQA
 //     broadcast of K/V and no reduction over the group afterwards;
-//   * each kernel carves only the shared-memory tiles it uses, so bf16
-//     d(bias) (104 KB, registers held to 128 a thread) runs two CTAs per
-//     SM.
+//   * each kernel carves only the shared-memory tiles it uses.
 // Staging every product through shared memory (scores, probabilities and
-// accumulators all live there) keeps one code path for both dtypes and
-// makes those kernels shared-memory-bandwidth bound well below the
-// tensor-core rate; ordering the grid so that CTAs of one bias plane run
-// together (L2 serving the bias re-reads) is a later step.
+// accumulators all live there) makes them shared-memory-bandwidth bound
+// well below the CUDA cores' rate.
 //
-// The bf16 forward, dq and dk/dv kernels are built around registers
-// instead.  Built like the kernels above, they were bound not by the
+// The bf16 kernels are built around registers instead.  Built like the
+// f32 kernels, they were bound not by the
 // tensor cores but by everything around them: f32 accumulators (O, dQ,
 // dK, dV) in shared memory, each product reading C from there, adding one
 // k step of 64 and writing it back; S and dP staged as f32 tiles and P
@@ -80,7 +79,9 @@
 // P^T dO, dS^T Q); the next tile loaded after a barrier with nothing in
 // flight; and the bias a dependent device load in the elementwise pass.
 // At llama3-8b width the forward ran at 5 % and dq at 4 % of the
-// operations bound.  These kernels:
+// operations bound; d(bias), built so too, read its bias tile once per
+// row and ran its CTAs plane after plane, so a plane's tiles were out of
+// L2 before its next CTA came.  These kernels:
 //   * a warp owns 16 rows of the side the CTA walks against (queries in
 //     the forward and dq, keys in dk/dv) and keeps their accumulators in
 //     mma.sync fragments for the whole walk: O or dQ (64 f32 registers a
@@ -116,15 +117,24 @@
 //     elementwise pass, from shared memory;
 //   * two CTAs of 4 warps share an SM (8 warps), except for the forward
 //     and dq at D = 128 with a bias, whose bias tiles leave room for one
-//     4-warp CTA: there one CTA of 8 warps (128 rows) takes the SM.
+//     4-warp CTA: there one CTA of 8 warps (128 rows) takes the SM;
+//   * d(bias) (flash_dbias_bf16_kernel): a CTA of 8 warps owns a 64 x 128
+//     tile of one bias plane, each warp 16 rows x 64 keys, and holds their
+//     sum of p * (dp - delta) and their bias (read once per CTA, not once
+//     per row) in C-fragment registers over the walk of the plane's rows;
+//     S = Q K^T and dP = dO V^T come by ldmatrix (no .trans: all four are
+//     contiguous in D); its ring of two stages holds one row each (Q, dO,
+//     K, V, lse, delta and segment ids, 105,728 B at D = 128), so one CTA
+//     takes the SM; the plane is the slowest grid dimension, so a plane's
+//     32 CTAs at T5's shape run together and L2 serves their re-reads.
 // The next steps for them are wgmma (64-row warpgroup products from
-// shared memory), TMA loads and warp specialisation.
+// shared memory), TMA loads and warp specialisation; for d(bias), a
+// larger tile per CTA too, which cuts its L2 and shared-memory traffic
+// per pair.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -134,35 +144,20 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;  // the TPU kernel's masked logit
 
-// Tile sizes per dtype of the kernels that stage every product through
-// shared memory (the bf16 forward, dq and dk/dv kernels have their own, in
-// Fq and Dkv below; the forward and dq tiles here are f32's only).
-template <typename T>
+// Tile sizes of the f32 kernels, which stage every product through
+// shared memory (the bf16 kernels have their own, in Dkv, Fq and Db
+// below).
 struct Tiles {
   static constexpr int kFwdQ = 64, kFwdK = 64;
   static constexpr int kDqQ = 64, kDqK = 64;
   static constexpr int kDbQ = 64, kDbK = 64;
-  // CTAs per SM the d(bias) kernel is built for: its bf16 tiles leave room
-  // for two, if its registers stay within 128 a thread.
-  static constexpr int kDbBlocks = std::is_same<T, float>::value ? 1 : 2;
-  // Row padding of a T tile: 16 bytes, which keeps rows 16-byte aligned
-  // and moves consecutive rows to other banks.
-  static constexpr int kPad = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kDbBlocks = 1;  // CTAs per SM of the f32 d(bias)
 };
-constexpr int kPadF = 4;  // the same for f32 score / accumulator tiles
+// Row padding of an f32 tile: 16 bytes, which keeps rows 16-byte aligned
+// and moves consecutive rows to other banks.
+constexpr int kPadF = 4;
 // The f32 dk/dv kernel walks q in tiles of 32 rows to stay under 227 KB.
 constexpr int kDkvQ32 = 32, kDkvK32 = 64;
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -189,34 +184,29 @@ struct Carve {
   }
 };
 
-// Tiles of one kernel: `rows_a` rows of the side the CTA owns, `rows_b`
-// rows of the side it streams; `n_s` f32 and `n_p` T tiles of [q rows,
-// k cols] and `n_acc` f32 accumulators, only as many as the kernel uses
-// (shared memory decides how many CTAs share an SM).  Byte offsets,
-// computed identically on the host (for the launch's shared-memory size)
-// and on the device.
-template <typename T>
+// Tiles of one f32 kernel: `rows_a` rows of the side the CTA owns,
+// `rows_b` rows of the side it streams; `n_s` [q rows, k cols] tiles
+// (the probabilities and dS overwrite them in place) and `n_acc`
+// accumulators, only as many as the kernel uses (shared memory decides
+// how many CTAs share an SM).  Byte offsets, computed identically on the
+// host (for the launch's shared-memory size) and on the device.
 struct Layout {
-  int ldt, lds, ldp, ldo;  // row strides: T tiles, f32 scores, T probs, f32 accs
-  size_t a0, a1, b0, b1;   // T tiles: two of the owned side, two streamed
-  size_t s0, s1;           // f32 [q rows, k cols] tiles (scores, dP; n_s)
-  size_t p0, p1;           // T [q rows, k cols] tiles (n_p of them); alias
-                           // s0/s1 in f32, which needs no low part of dS
-  size_t acc0, acc1;       // f32 [owned rows, D] accumulators (n_acc of them)
-  size_t r0, r1, r2, r3;   // f32 per-q-row vectors
-  size_t qseg, kseg;       // int per-row segment ids
+  int ldt, lds, ldo;      // row strides: operand tiles, scores, accumulators
+  size_t a0, a1, b0, b1;  // operand tiles: two of the owned side, two streamed
+  size_t s0, s1;          // [q rows, k cols] tiles (scores, dP; n_s)
+  size_t acc0, acc1;      // [owned rows, D] accumulators (n_acc of them)
+  size_t r0, r1, r2;      // per-q-row vectors
+  size_t qseg, kseg;      // int per-row segment ids
   size_t bytes;
 
   __host__ __device__ Layout(int D, int rows_a, int rows_b, int bq, int bk,
-                             int n_a, int n_s, int n_p, int n_acc) {
-    constexpr bool f32 = std::is_same<T, float>::value;
-    ldt = D + Tiles<T>::kPad;
+                             int n_a, int n_s, int n_acc) {
+    ldt = D + kPadF;
     lds = bk + kPadF;
-    ldp = f32 ? lds : bk + Tiles<T>::kPad;
     ldo = D + kPadF;
     Carve c;
-    const size_t ta = static_cast<size_t>(rows_a) * ldt * sizeof(T);
-    const size_t tb = static_cast<size_t>(rows_b) * ldt * sizeof(T);
+    const size_t ta = static_cast<size_t>(rows_a) * ldt * sizeof(float);
+    const size_t tb = static_cast<size_t>(rows_b) * ldt * sizeof(float);
     a0 = c.take(ta);
     a1 = n_a > 1 ? c.take(ta) : a0;
     b0 = c.take(tb);
@@ -224,58 +214,49 @@ struct Layout {
     const size_t sf = static_cast<size_t>(bq) * lds * sizeof(float);
     s0 = c.take(sf);
     s1 = n_s > 1 ? c.take(sf) : s0;
-    const size_t pt = static_cast<size_t>(bq) * ldp * sizeof(T);
-    p0 = f32 ? s0 : (n_p > 0 ? c.take(pt) : 0);
-    p1 = f32 ? s1 : (n_p > 1 ? c.take(pt) : p0);
     const size_t af = static_cast<size_t>(rows_a) * ldo * sizeof(float);
     acc0 = n_acc > 0 ? c.take(af) : 0;
     acc1 = n_acc > 1 ? c.take(af) : acc0;
     r0 = c.take(bq * sizeof(float));
     r1 = c.take(bq * sizeof(float));
     r2 = c.take(bq * sizeof(float));
-    r3 = c.take(bq * sizeof(float));
     qseg = c.take(bq * sizeof(int));
     kseg = c.take(bk * sizeof(int));
     bytes = c.off;
   }
 };
 
-// f32 forward: owns q (one tile: q), streams k and v; S (P aliases it); O;
-// m, l, corr.
-template <typename T>
-__host__ __device__ Layout<T> fwd_layout(int D) {
-  return Layout<T>(D, Tiles<T>::kFwdQ, Tiles<T>::kFwdK, Tiles<T>::kFwdQ,
-                   Tiles<T>::kFwdK, 1, 1, 1, 1);
+// f32 forward: owns q (one tile: q), streams k and v; S (P overwrites
+// it); O; m, l, corr.
+__host__ __device__ inline Layout fwd_layout(int D) {
+  return Layout(D, Tiles::kFwdQ, Tiles::kFwdK, Tiles::kFwdQ, Tiles::kFwdK, 1,
+                1, 1);
 }
-// f32 dq: owns q and do, streams k and v; S, dP (dS aliases them); dQ; lse,
-// delta.
-template <typename T>
-__host__ __device__ Layout<T> dq_layout(int D) {
-  return Layout<T>(D, Tiles<T>::kDqQ, Tiles<T>::kDqK, Tiles<T>::kDqQ,
-                   Tiles<T>::kDqK, 2, 2, 2, 1);
+// f32 dq: owns q and do, streams k and v; S, dP (dS overwrites them); dQ;
+// lse, delta.
+__host__ __device__ inline Layout dq_layout(int D) {
+  return Layout(D, Tiles::kDqQ, Tiles::kDqK, Tiles::kDqQ, Tiles::kDqK, 2, 2,
+                1);
 }
-// f32 dk/dv: owns k and v, streams q and do; S, dP (P and dS alias them);
-// dK, dV; lse, delta.
-__host__ __device__ inline Layout<float> dkv_layout_f32(int D) {
-  return Layout<float>(D, kDkvK32, kDkvQ32, kDkvQ32, kDkvK32, 2, 2, 2, 2);
+// f32 dk/dv: owns k and v, streams q and do; S, dP (P and dS overwrite
+// them); dK, dV; lse, delta.
+__host__ __device__ inline Layout dkv_layout_f32(int D) {
+  return Layout(D, kDkvK32, kDkvQ32, kDkvQ32, kDkvK32, 2, 2, 2);
 }
 
-// d(bias): owns q and do, streams k and v; S, dP; no T tile and no
-// accumulator tile (the [bq, bk] sum lives in registers); lse, delta
-// (104 KB in bf16 at D = 128, so two CTAs share an SM).
-template <typename T>
-__host__ __device__ Layout<T> dbias_layout(int D) {
-  return Layout<T>(D, Tiles<T>::kDbQ, Tiles<T>::kDbK, Tiles<T>::kDbQ,
-                   Tiles<T>::kDbK, 2, 2, 0, 0);
+// f32 d(bias): owns q and do, streams k and v; S, dP; no accumulator tile
+// (the [bq, bk] sum lives in registers); lse, delta.
+__host__ __device__ inline Layout dbias_layout(int D) {
+  return Layout(D, Tiles::kDbQ, Tiles::kDbK, Tiles::kDbQ, Tiles::kDbK, 2, 2,
+                0);
 }
 
 // rows [row0, row0 + rows) of a [total, D] matrix into a tile of stride
-// ld, rows past `total` as zeros; 16-byte vectors (D * sizeof(T) is a
+// ld, rows past `total` as zeros; 16-byte vectors (D * 4 bytes is a
 // multiple of 16 for every supported D).
-template <typename T>
-__device__ void load_tile(T* dst, int ld, const T* __restrict__ src, int row0,
-                          int total, int rows, int D) {
-  constexpr int V = 16 / sizeof(T);
+__device__ void load_tile(float* dst, int ld, const float* __restrict__ src,
+                          int row0, int total, int rows, int D) {
+  constexpr int V = 4;
   const int vpr = D / V;
   for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
     const int r = i / vpr;
@@ -309,100 +290,7 @@ __device__ void zero_f32(float* dst, int n) {
 // A(m, k) is A[m*lda + k] when A_K (k contiguous), else A[k*lda + m];
 // B(k, n) is B[n*ldb + k] when B_K, else B[k*ldb + n].  C is f32, stride
 // ldc; each element is owned by one thread, so no barrier is needed inside.
-// M, N, K are multiples of 16 (bf16) or 4 (f32).
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Elements (k, k+1) of an operand whose k-step in memory is `step`.
-template <bool CONTIG>
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p, int step) {
-  if (CONTIG) return *reinterpret_cast<const uint32_t*>(p);
-  return pack_bf16(p[0], p[step]);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Tensor cores: each warp takes 16 x (8*NT) output tiles in turn, loading
-// each A fragment once for its NT products.  Fragment layouts of
-// mma.m16n8k16 (PTX ISA): lane = 4*g + t holds A rows g, g+8 at k = 2t,
-// 2t+1, 2t+8, 2t+9; B column g at k = 2t, 2t+1, 2t+8, 2t+9; C rows g, g+8
-// at columns 2t, 2t+1.
-template <bool A_K, bool B_K, int NT>
-__device__ void gemm_tiles(const bf16* A, int lda, const bf16* B, int ldb,
-                           float* C, int ldc, int M, int N, int K, bool acc,
-                           const float* rowscale) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int a_step = A_K ? 1 : lda;  // memory step of k in A
-  const int b_step = B_K ? 1 : ldb;
-  const int tiles_n = N / (8 * NT);
-  const int tiles = (M / 16) * tiles_n;
-  for (int tile = warp; tile < tiles; tile += kWarps) {
-    const int m0 = (tile / tiles_n) * 16;
-    const int n0 = (tile % tiles_n) * 8 * NT;
-    float c[NT][4];
-    const float s0 = acc ? (rowscale ? rowscale[m0 + g] : 1.f) : 0.f;
-    const float s1 = acc ? (rowscale ? rowscale[m0 + g + 8] : 1.f) : 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float* c0 = C + (m0 + g) * ldc + n0 + 8 * j + 2 * t;
-      const float* c1 = c0 + 8 * ldc;
-      c[j][0] = acc ? c0[0] * s0 : 0.f;
-      c[j][1] = acc ? c0[1] * s0 : 0.f;
-      c[j][2] = acc ? c1[0] * s1 : 0.f;
-      c[j][3] = acc ? c1[1] * s1 : 0.f;
-    }
-    // A(m, k) at A + m*(A_K ? lda : 1) + k*a_step; B(k, n) likewise.
-    const bf16* ar0 = A + (m0 + g) * (A_K ? lda : 1);
-    const bf16* ar1 = A + (m0 + g + 8) * (A_K ? lda : 1);
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const int ka = k0 + 2 * t;
-      uint32_t a[4];
-      a[0] = ld_pair<A_K>(ar0 + ka * a_step, a_step);
-      a[1] = ld_pair<A_K>(ar1 + ka * a_step, a_step);
-      a[2] = ld_pair<A_K>(ar0 + (ka + 8) * a_step, a_step);
-      a[3] = ld_pair<A_K>(ar1 + (ka + 8) * a_step, a_step);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* bc = B + (n0 + 8 * j + g) * (B_K ? ldb : 1);
-        mma_bf16(c[j], a, ld_pair<B_K>(bc + ka * b_step, b_step),
-                 ld_pair<B_K>(bc + (ka + 8) * b_step, b_step));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      float* c0 = C + (m0 + g) * ldc + n0 + 8 * j + 2 * t;
-      float* c1 = c0 + 8 * ldc;
-      c0[0] = c[j][0];
-      c0[1] = c[j][1];
-      c1[0] = c[j][2];
-      c1[1] = c[j][3];
-    }
-  }
-}
-
-template <bool A_K, bool B_K>
-__device__ void gemm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                     int ldc, int M, int N, int K, bool acc,
-                     const float* rowscale) {
-  if (N % 32 == 0)
-    gemm_tiles<A_K, B_K, 4>(A, lda, B, ldb, C, ldc, M, N, K, acc, rowscale);
-  else
-    gemm_tiles<A_K, B_K, 2>(A, lda, B, ldb, C, ldc, M, N, K, acc, rowscale);
-}
+// M, N, K are multiples of 4.
 
 // CUDA cores, IEEE f32 FMA: each thread takes 4x4 output elements in
 // turn, rows m + i*M/4 and columns n + j*N/4, so neighbouring threads read
@@ -504,21 +392,20 @@ __device__ __forceinline__ int k_tiles_needed(const Params& p, int q0, int bq,
   return last < 0 ? 0 : min(nk, last / bk + 1);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int BQ = Tiles<T>::kFwdQ, BK = Tiles<T>::kFwdK;
+  using T = float;
+  constexpr int BQ = Tiles::kFwdQ, BK = Tiles::kFwdK;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L = fwd_layout<T>(p.D);
+  const Layout L = fwd_layout(p.D);
   T* qs = reinterpret_cast<T*>(smem + L.a0);
   T* ks = reinterpret_cast<T*>(smem + L.b0);
   T* vs = reinterpret_cast<T*>(smem + L.b1);
   float* ss = reinterpret_cast<float*>(smem + L.s0);
-  T* ps = reinterpret_cast<T*>(smem + L.p0);
+  float* ps = ss;  // P overwrites S in place
   float* os = reinterpret_cast<float*>(smem + L.acc0);
   float* m_s = reinterpret_cast<float*>(smem + L.r0);
   float* l_s = reinterpret_cast<float*>(smem + L.r1);
   float* c_s = reinterpret_cast<float*>(smem + L.r2);
-  float* lp_s = reinterpret_cast<float*>(smem + L.r3);
   int* qseg_s = reinterpret_cast<int*>(smem + L.qseg);
   int* kseg_s = reinterpret_cast<int*>(smem + L.kseg);
 
@@ -540,7 +427,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
     m_s[r] = kNeg;
     l_s[r] = 0.f;
-    lp_s[r] = 0.f;
   }
   const int nk = k_tiles_needed(p, q0, BQ, BK);
   for (int kt = 0; kt < nk; ++kt) {
@@ -569,30 +455,26 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
       mx = warp_max(mx);
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f, pt_sum = 0.f;
+      float psum = 0.f;
 #pragma unroll
       for (int c = 0; c < BK / 32; ++c) {
         const int j = lane + 32 * c;
         const float pr = visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
                              ? expf(s[c] - m_new)
                              : 0.f;
-        const T pt = from_f32<T>(pr);
-        ps[r * L.ldp + j] = pt;
+        ps[r * L.lds + j] = pr;
         psum += pr;
-        pt_sum += to_f32(pt);
       }
       psum = warp_sum(psum);
-      pt_sum = warp_sum(pt_sum);
       if (lane == 0) {
         const float corr = expf(m_prev - m_new);
         m_s[r] = m_new;
         l_s[r] = l_s[r] * corr + psum;
-        lp_s[r] = lp_s[r] * corr + pt_sum;
         c_s[r] = corr;
       }
     }
     __syncthreads();
-    gemm<true, false>(ps, L.ldp, vs, L.ldt, os, L.ldo, BQ, D, BK, true, c_s);
+    gemm<true, false>(ps, L.lds, vs, L.ldt, os, L.ldo, BQ, D, BK, true, c_s);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
@@ -600,13 +482,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
     if (q0 + r < p.S) {
       const size_t at = static_cast<size_t>(bh) * p.S * D +
                         static_cast<size_t>(q0 + r) * D + d;
-      // O is normalized by the sum of the P it multiplied (rounded to
-      // bf16 for the tensor cores), so it stays a convex combination of
-      // the values: the component they share passes through exactly, and
-      // so cancels from dP - delta in the backward.  lse keeps the exact
-      // sum, so the backward's recomputed P sums to one.
-      const float val = os[r * L.ldo + d] / fmaxf(lp_s[r], 1e-30f);
-      static_cast<T*>(p.out)[at] = from_f32<T>(val);
+      const float val = os[r * L.ldo + d] / fmaxf(l_s[r], 1e-30f);
+      static_cast<T*>(p.out)[at] = val;
       if (p.o32 != nullptr) p.o32[at] = val;
     }
   }
@@ -620,10 +497,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 // ds = p*(dp - delta)*scale (the TPU kernel's _block_p_ds), for a [bq, bk]
 // tile of query row with bias plane `bplane` (or null), for the f32
 // kernels.
-template <typename T, int BQ, int BK>
+template <int BQ, int BK>
 __device__ void block_p_ds(const Params& p, const float* bplane, int q0,
-                           int k0, const float* ss, const float* dps, T* ps,
-                           T* dss, int lds, int ldp,
+                           int k0, const float* ss, const float* dps,
+                           float* ps, float* dss, int lds,
                            const float* lse_s, const float* delta_s,
                            const int* qseg_s, const int* kseg_s) {
   for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
@@ -634,23 +511,23 @@ __device__ void block_p_ds(const Params& p, const float* bplane, int q0,
         visible(p, q0 + r, k0 + j, qseg_s[r], kseg_s[j])
             ? expf(biased(p, bplane, s * p.scale, q0 + r, k0 + j) - lse_s[r])
             : 0.f;
-    if (ps != nullptr) ps[r * ldp + j] = from_f32<T>(pr);
-    dss[r * ldp + j] = from_f32<T>(pr * (dp - delta_s[r]) * p.scale);
+    if (ps != nullptr) ps[r * lds + j] = pr;
+    dss[r * lds + j] = pr * (dp - delta_s[r]) * p.scale;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
-  constexpr int BQ = Tiles<T>::kDqQ, BK = Tiles<T>::kDqK;
+  using T = float;
+  constexpr int BQ = Tiles::kDqQ, BK = Tiles::kDqK;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L = dq_layout<T>(p.D);
+  const Layout L = dq_layout(p.D);
   T* qs = reinterpret_cast<T*>(smem + L.a0);
   T* dos = reinterpret_cast<T*>(smem + L.a1);
   T* ks = reinterpret_cast<T*>(smem + L.b0);
   T* vs = reinterpret_cast<T*>(smem + L.b1);
   float* ss = reinterpret_cast<float*>(smem + L.s0);
   float* dps = reinterpret_cast<float*>(smem + L.s1);
-  T* dss = reinterpret_cast<T*>(smem + L.p0);
+  float* dss = ss;  // dS overwrites S in place
   float* dqs = reinterpret_cast<float*>(smem + L.acc0);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
   float* delta_s = reinterpret_cast<float*>(smem + L.r1);
@@ -686,17 +563,17 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
     gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
     __syncthreads();
-    block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, static_cast<T*>(nullptr),
-                          dss, L.lds, L.ldp, lse_s, delta_s, qseg_s, kseg_s);
+    block_p_ds<BQ, BK>(p, bplane, q0, k0, ss, dps, nullptr, dss, L.lds, lse_s,
+                       delta_s, qseg_s, kseg_s);
     __syncthreads();
-    gemm<true, false>(dss, L.ldp, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true, nullptr);
+    gemm<true, false>(dss, L.lds, ks, L.ldt, dqs, L.ldo, BQ, D, BK, true, nullptr);
   }
   __syncthreads();
   T* dq = static_cast<T*>(p.out) + qoff;
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     if (q0 + r < p.S)
-      dq[static_cast<size_t>(q0 + r) * D + d] = from_f32<T>(dqs[r * L.ldo + d]);
+      dq[static_cast<size_t>(q0 + r) * D + d] = dqs[r * L.ldo + d];
   }
 }
 
@@ -706,15 +583,15 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Params p) {
   using T = float;
   constexpr int BQ = kDkvQ32, BK = kDkvK32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L = dkv_layout_f32(p.D);
+  const Layout L = dkv_layout_f32(p.D);
   T* ks = reinterpret_cast<T*>(smem + L.a0);
   T* vs = reinterpret_cast<T*>(smem + L.a1);
   T* qs = reinterpret_cast<T*>(smem + L.b0);
   T* dos = reinterpret_cast<T*>(smem + L.b1);
   float* ss = reinterpret_cast<float*>(smem + L.s0);
   float* dps = reinterpret_cast<float*>(smem + L.s1);
-  T* ps = reinterpret_cast<T*>(smem + L.p0);
-  T* dss = reinterpret_cast<T*>(smem + L.p1);
+  float* ps = ss;    // P overwrites S in place
+  float* dss = dps;  // and dS dP
   float* dks = reinterpret_cast<float*>(smem + L.acc0);
   float* dvs = reinterpret_cast<float*>(smem + L.acc1);
   float* lse_s = reinterpret_cast<float*>(smem + L.r0);
@@ -760,12 +637,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Params p) {
       gemm<true, true>(qs, L.ldt, ks, L.ldt, ss, L.lds, BQ, BK, D, false, nullptr);
       gemm<true, true>(dos, L.ldt, vs, L.ldt, dps, L.lds, BQ, BK, D, false, nullptr);
       __syncthreads();
-      block_p_ds<T, BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, L.lds, L.ldp,
-                            lse_s, delta_s, qseg_s, kseg_s);
+      block_p_ds<BQ, BK>(p, bplane, q0, k0, ss, dps, ps, dss, L.lds, lse_s,
+                         delta_s, qseg_s, kseg_s);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q: A(m = key, k = query row) = P[k][m].
-      gemm<false, false>(ps, L.ldp, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
-      gemm<false, false>(dss, L.ldp, qs, L.ldt, dks, L.ldo, BK, D, BQ, true, nullptr);
+      gemm<false, false>(ps, L.lds, dos, L.ldt, dvs, L.ldo, BK, D, BQ, true, nullptr);
+      gemm<false, false>(dss, L.lds, qs, L.ldt, dks, L.ldo, BK, D, BQ, true, nullptr);
     }
   }
   __syncthreads();
@@ -774,8 +651,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(Params p) {
   for (int i = threadIdx.x; i < BK * D; i += kThreads) {
     const int r = i / D, d = i % D;
     if (k0 + r < p.T) {
-      dk[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dks[r * L.ldo + d]);
-      dv[static_cast<size_t>(k0 + r) * D + d] = from_f32<T>(dvs[r * L.ldo + d]);
+      dk[static_cast<size_t>(k0 + r) * D + d] = dks[r * L.ldo + d];
+      dv[static_cast<size_t>(k0 + r) * D + d] = dvs[r * L.ldo + d];
     }
   }
 }
@@ -826,6 +703,18 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(smem_u32(ptr)));
+}
+
+// C += A B on the tensor cores.  Fragment layouts of mma.m16n8k16 (PTX
+// ISA): lane = 4*g + t holds A rows g, g+8 at k = 2t, 2t+1, 2t+8, 2t+9; B
+// column g at k = 2t, 2t+1, 2t+8, 2t+9; C rows g, g+8 at columns 2t, 2t+1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // (lo, hi) rounded to bf16 and packed, lo in the low half: two
@@ -1592,19 +1481,232 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
   }
 }
 
-// d(bias) for one (bias plane hb, q tile, k tile): the sum of p * (dp -
+// ---------------------------------------------------------------------------
+// bf16 d(bias): register sums over a cp.async ring of rows, plane-major grid
+// ---------------------------------------------------------------------------
+
+// Tiles and shared-memory layout (byte offsets) of the bf16 d(bias)
+// kernel: 8 warps as 4 row groups of 16 queries x 2 key halves of 64
+// (BQ 64, BK 128), and a ring of kStages stages of one row of the plane
+// each: Q and dO [BQ, D] and K and V [BK, D] bf16 (rows padded by 16
+// bytes, so the 8 rows of an ldmatrix fall in distinct banks), lse, delta
+// and the query and key segment ids.
+template <int D>
+struct Db {
+  static constexpr int kWarps = 8, kThreads = 32 * kWarps;
+  static constexpr int BQ = 64, BK = 128, WK = 64;  // WK: keys a warp owns
+  static constexpr int kStages = 2;
+  static constexpr int LDT = D + 8;  // bf16 row stride
+  static constexpr int kQ = 0;       // offsets inside a stage
+  static constexpr int kDo = kQ + BQ * LDT * 2;
+  static constexpr int kK = kDo + BQ * LDT * 2;
+  static constexpr int kV = kK + BK * LDT * 2;
+  static constexpr int kLse = kV + BK * LDT * 2;
+  static constexpr int kDelta = kLse + BQ * 4;
+  static constexpr int kQseg = kDelta + BQ * 4;
+  static constexpr int kKseg = kQseg + BQ * 4;
+  static constexpr int kStage = kKseg + BK * 4;
+  static constexpr int kBytes = kStages * kStage;
+  static_assert(kStage % 16 == 0 && kK % 16 == 0, "16-byte pieces");
+};
+
+// d(bias) for one (bias plane hb, q tile of 64, k tile of 128): the sum
+// over the plane's rows (b*H + hb for every b, or all B*H rows when Hb =
+// 1) of p * (dp - delta).  The plane is the slowest grid dimension, so
+// the CTAs of one plane run together and L2 serves their re-reads of Q,
+// dO, K and V.  Each warp owns 16 rows x 64 keys of the tile and keeps
+// their sum in mma.sync C fragments over the whole walk, with the bias
+// of those elements in registers too (read once per CTA, not per row).
+// Per row: S = Q K^T and dP = dO V^T into fragments (every operand by
+// ldmatrix: Q, dO, K and V are all contiguous in D), p = exp(s*scale +
+// bias - lse), then sum += p (dp - delta) in place; the next row's Q, dO,
+// K, V, lse, delta and segment ids are in flight (cp.async) meanwhile.
+// The sum is f32 throughout; the tile is written once (zeros where no
+// row sees a key: the output is not pre-zeroed).
+template <int D>
+__global__ void __launch_bounds__(Db<D>::kThreads, 1)
+    flash_dbias_bf16_kernel(Params p) {
+  using C = Db<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, WK = C::WK, LDT = C::LDT;
+  constexpr int NK = WK / 8;  // n tiles of the warp's keys
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int hb = blockIdx.z;
+  const int q0 = blockIdx.y * BQ, k0 = blockIdx.x * BK;
+  const int G = p.H / p.KV;
+  const int rq = 16 * (warp & 3), kq = WK * (warp >> 2);  // in the tile
+  const int rw = q0 + rq, kw = k0 + kq;  // the warp's first row and key
+  const bf16* qg = static_cast<const bf16*>(p.q);
+  const bf16* dog = static_cast<const bf16*>(p.dout);
+  const bf16* kg = static_cast<const bf16*>(p.k);
+  const bf16* vg = static_cast<const bf16*>(p.v);
+  // A tile wholly past the causal diagonal walks no row.
+  const bool needed = !p.causal || k0 <= q0 + BQ - 1 + p.T - p.S;
+  const int steps = needed ? (p.Hb == 1 ? p.B * p.H : p.B) : 0;
+
+  // Row n of the walk into ring stage n % kStages, rows past S and keys
+  // past T as zeros.
+  auto issue = [&](int n) {
+    unsigned char* st = smem + (n % C::kStages) * C::kStage;
+    const int bh = p.Hb == 1 ? n : n * p.H + hb;
+    const int b = bh / p.H;
+    const size_t qoff = static_cast<size_t>(bh) * p.S * D;
+    const size_t koff = static_cast<size_t>(bh / G) * p.T * D;
+    rows_async<D, LDT, BQ, C::kThreads>(reinterpret_cast<bf16*>(st + C::kQ),
+                                        qg + qoff, q0, p.S);
+    rows_async<D, LDT, BQ, C::kThreads>(reinterpret_cast<bf16*>(st + C::kDo),
+                                        dog + qoff, q0, p.S);
+    rows_async<D, LDT, BK, C::kThreads>(reinterpret_cast<bf16*>(st + C::kK),
+                                        kg + koff, k0, p.T);
+    rows_async<D, LDT, BK, C::kThreads>(reinterpret_cast<bf16*>(st + C::kV),
+                                        vg + koff, k0, p.T);
+    float* lse_s = reinterpret_cast<float*>(st + C::kLse);
+    float* delta_s = reinterpret_cast<float*>(st + C::kDelta);
+    int* qseg_s = reinterpret_cast<int*>(st + C::kQseg);
+    int* kseg_s = reinterpret_cast<int*>(st + C::kKseg);
+    for (int r = tid; r < BQ; r += C::kThreads) {
+      const bool full = q0 + r < p.S;
+      const size_t at = full ? static_cast<size_t>(bh) * p.S + q0 + r : 0;
+      cp_async4(lse_s + r, p.lse_in + at, full);
+      cp_async4(delta_s + r, p.delta + at, full);
+      if (p.qseg != nullptr)
+        cp_async4(qseg_s + r,
+                  p.qseg + (full ? static_cast<size_t>(b) * p.S + q0 + r : 0),
+                  full);
+    }
+    if (p.kseg != nullptr)
+      for (int r = tid; r < BK; r += C::kThreads) {
+        const bool full = k0 + r < p.T;
+        cp_async4(kseg_s + r,
+                  p.kseg + (full ? static_cast<size_t>(b) * p.T + k0 + r : 0),
+                  full);
+      }
+  };
+
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  // A warp none of whose rows sees one of its keys adds nothing; the mask
+  // only where its 16 x 64 crosses the diagonal or a ragged edge, or
+  // segments decide.
+  const bool active = needed && rw < p.S && kw < p.T &&
+                      (!p.causal || kw <= rw + 15 + p.T - p.S);
+  const bool masked = p.qseg != nullptr || rw + 16 > p.S || kw + WK > p.T ||
+                      (p.causal && kw + WK - 1 > rw + p.T - p.S);
+
+  // The warp's bias and sum, element e of fragment j: row rw + g + 8(e/2),
+  // key kw + 8j + 2t + e%2.
+  float bias[NK][4], acc[NK][4];
+  const float* plane = p.bias + static_cast<size_t>(hb) * p.S * p.T;
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rw + g + 8 * (e >> 1), c = kw + 8 * j + 2 * t + (e & 1);
+      bias[j][e] = active && r < p.S && c < p.T
+                       ? __ldg(plane + static_cast<size_t>(r) * p.T + c)
+                       : 0.f;
+      acc[j][e] = 0.f;
+    }
+
+  const int a_off = (rq + (lane & 15)) * LDT + (lane >> 4) * 8;
+  const int b_off =
+      (kq + (lane & 7) + ((lane >> 4) << 3)) * LDT + ((lane >> 3) & 1) * 8;
+
+  for (int n = 0; n < steps; ++n) {
+    cp_async_wait_all();
+    __syncthreads();  // row n landed for all; stage n + 1's buffer is free
+    if (n + 1 < steps) issue(n + 1);
+    cp_async_commit();
+    if (!active) continue;
+
+    const unsigned char* st = smem + (n % C::kStages) * C::kStage;
+    const bf16* qs = reinterpret_cast<const bf16*>(st + C::kQ);
+    const bf16* dos = reinterpret_cast<const bf16*>(st + C::kDo);
+    const bf16* ks = reinterpret_cast<const bf16*>(st + C::kK);
+    const bf16* vs = reinterpret_cast<const bf16*>(st + C::kV);
+    const float* lse_s = reinterpret_cast<const float*>(st + C::kLse);
+    const float* delta_s = reinterpret_cast<const float*>(st + C::kDelta);
+    const int* qseg_s = reinterpret_cast<const int*>(st + C::kQseg);
+    const int* kseg_s = reinterpret_cast<const int*>(st + C::kKseg);
+
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a_q[4], a_do[4];
+      ldsm_x4<false>(a_q, qs + a_off + 16 * kk);
+      ldsm_x4<false>(a_do, dos + a_off + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NK / 2; ++j) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4<false>(bk, ks + b_off + 16 * j * LDT + 16 * kk);
+        ldsm_x4<false>(bv, vs + b_off + 16 * j * LDT + 16 * kk);
+        mma_bf16(s[2 * j], a_q, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], a_q, bk[2], bk[3]);
+        mma_bf16(dp[2 * j], a_do, bv[0], bv[1]);
+        mma_bf16(dp[2 * j + 1], a_do, bv[2], bv[3]);
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = rq + g + 8 * h;
+      const float lse = lse_s[qi], delta = delta_s[qi];
+      const int qseg = qseg_s[qi];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 2 * h + c, kl = kq + 8 * j + 2 * t + c;
+          float pr = exp2f((s[j][e] * p.scale + bias[j][e] - lse) * kLog2e);
+          if (masked && !visible(p, q0 + qi, k0 + kl, qseg, kseg_s[kl]))
+            pr = 0.f;
+          acc[j][e] += pr * (dp[j][e] - delta);
+        }
+    }
+  }
+  cp_async_wait_all();  // nothing in flight at exit
+
+  // The tile once, in f32; entries past S or T left alone.
+  float* out = static_cast<float*>(p.out) + static_cast<size_t>(hb) * p.S * p.T;
+  const bool pairs = p.T % 2 == 0;  // (c, c + 1) 8-byte aligned
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rw + g + 8 * h;
+    if (r >= p.S) continue;
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int c = kw + 8 * j + 2 * t;
+      float* o = out + static_cast<size_t>(r) * p.T + c;
+      if (pairs && c + 1 < p.T) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (c < p.T) o[0] = acc[j][2 * h];
+        if (c + 1 < p.T) o[1] = acc[j][2 * h + 1];
+      }
+    }
+  }
+}
+
+// f32 d(bias) for one (bias plane hb, q tile, k tile): the sum of p * (dp -
 // delta) over the rows of that plane (b*H + hb for every b, or all B*H
 // rows when Hb = 1), in registers: thread t owns elements t + e*kThreads
 // of the tile in every iteration.  The bias tile is read in every
-// iteration (from L2 after the first), which keeps the registers within
-// the 128 a thread that two CTAs per SM allow.  The tile is written once.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, Tiles<T>::kDbBlocks)
+// iteration (from L2 after the first).  The tile is written once.  The
+// bf16 kernel is flash_dbias_bf16_kernel above.
+__global__ void __launch_bounds__(kThreads, Tiles::kDbBlocks)
     flash_dbias_kernel(Params p) {
-  constexpr int BQ = Tiles<T>::kDbQ, BK = Tiles<T>::kDbK;
+  using T = float;
+  constexpr int BQ = Tiles::kDbQ, BK = Tiles::kDbK;
   constexpr int kPer = BQ * BK / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L = dbias_layout<T>(p.D);
+  const Layout L = dbias_layout(p.D);
   T* qs = reinterpret_cast<T*>(smem + L.a0);
   T* dos = reinterpret_cast<T*>(smem + L.a1);
   T* ks = reinterpret_cast<T*>(smem + L.b0);
@@ -1705,14 +1807,6 @@ int launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int run_dkv_bf16(const Params& p, cudaStream_t stream, int* shape) {
-  using C = Dkv<D>;
-  return launch(flash_dkv_bf16_kernel<D>,
-                dim3(p.B * p.KV, (p.T + C::BK - 1) / C::BK), C::kThreads,
-                C::kBytes, p, stream, shape);
-}
-
 // The bf16 forward (which 0) or dq (which 1) kernel at D with W warps.
 template <int D, int W>
 int run_fq(int which, const Params& p, cudaStream_t stream, int* shape) {
@@ -1740,36 +1834,51 @@ int run_fq_bf16(int which, const Params& p, cudaStream_t stream, int* shape) {
   }
 }
 
-template <typename T>
-int run(int which, const Params& p, cudaStream_t stream, int* shape) {
-  if constexpr (std::is_same<T, float>::value) {
-    const int nq_f = (p.S + Tiles<T>::kFwdQ - 1) / Tiles<T>::kFwdQ;
-    const int nq_d = (p.S + Tiles<T>::kDqQ - 1) / Tiles<T>::kDqQ;
-    if (which == 0)
-      return launch(flash_fwd_kernel<T>, dim3(p.B * p.H, nq_f), kThreads,
-                    fwd_layout<T>(p.D).bytes, p, stream, shape);
-    if (which == 1)
-      return launch(flash_dq_kernel<T>, dim3(p.B * p.H, nq_d), kThreads,
-                    dq_layout<T>(p.D).bytes, p, stream, shape);
-    if (which == 2)
-      return launch(flash_dkv_f32_kernel,
-                    dim3(p.B * p.KV, (p.T + kDkvK32 - 1) / kDkvK32), kThreads,
-                    dkv_layout_f32(p.D).bytes, p, stream, shape);
-  } else {
-    if (which == 0 || which == 1) return run_fq_bf16(which, p, stream, shape);
-    if (which == 2) {
-      switch (p.D) {
-        case 16: return run_dkv_bf16<16>(p, stream, shape);
-        case 32: return run_dkv_bf16<32>(p, stream, shape);
-        case 64: return run_dkv_bf16<64>(p, stream, shape);
-        default: return run_dkv_bf16<128>(p, stream, shape);
-      }
-    }
+// The bf16 dk/dv (which 2) or d(bias) (which 3) kernel at D.  d(bias)'s
+// grid puts the bias plane slowest (see flash_dbias_bf16_kernel).
+template <int D>
+int run_dkv_dbias_bf16(int which, const Params& p, cudaStream_t stream,
+                       int* shape) {
+  if (which == 2) {
+    using C = Dkv<D>;
+    return launch(flash_dkv_bf16_kernel<D>,
+                  dim3(p.B * p.KV, (p.T + C::BK - 1) / C::BK), C::kThreads,
+                  C::kBytes, p, stream, shape);
   }
-  const int nq_b = (p.S + Tiles<T>::kDbQ - 1) / Tiles<T>::kDbQ;
-  const int nk_b = (p.T + Tiles<T>::kDbK - 1) / Tiles<T>::kDbK;
-  return launch(flash_dbias_kernel<T>, dim3(p.Hb, nq_b, nk_b), kThreads,
-                dbias_layout<T>(p.D).bytes, p, stream, shape);
+  using C = Db<D>;
+  return launch(flash_dbias_bf16_kernel<D>,
+                dim3((p.T + C::BK - 1) / C::BK, (p.S + C::BQ - 1) / C::BQ,
+                     p.Hb),
+                C::kThreads, C::kBytes, p, stream, shape);
+}
+
+int run_f32(int which, const Params& p, cudaStream_t stream, int* shape) {
+  const int nq_f = (p.S + Tiles::kFwdQ - 1) / Tiles::kFwdQ;
+  const int nq_d = (p.S + Tiles::kDqQ - 1) / Tiles::kDqQ;
+  if (which == 0)
+    return launch(flash_fwd_kernel, dim3(p.B * p.H, nq_f), kThreads,
+                  fwd_layout(p.D).bytes, p, stream, shape);
+  if (which == 1)
+    return launch(flash_dq_kernel, dim3(p.B * p.H, nq_d), kThreads,
+                  dq_layout(p.D).bytes, p, stream, shape);
+  if (which == 2)
+    return launch(flash_dkv_f32_kernel,
+                  dim3(p.B * p.KV, (p.T + kDkvK32 - 1) / kDkvK32), kThreads,
+                  dkv_layout_f32(p.D).bytes, p, stream, shape);
+  const int nq_b = (p.S + Tiles::kDbQ - 1) / Tiles::kDbQ;
+  const int nk_b = (p.T + Tiles::kDbK - 1) / Tiles::kDbK;
+  return launch(flash_dbias_kernel, dim3(p.Hb, nq_b, nk_b), kThreads,
+                dbias_layout(p.D).bytes, p, stream, shape);
+}
+
+int run_bf16(int which, const Params& p, cudaStream_t stream, int* shape) {
+  if (which == 0 || which == 1) return run_fq_bf16(which, p, stream, shape);
+  switch (p.D) {
+    case 16: return run_dkv_dbias_bf16<16>(which, p, stream, shape);
+    case 32: return run_dkv_dbias_bf16<32>(which, p, stream, shape);
+    case 64: return run_dkv_dbias_bf16<64>(which, p, stream, shape);
+    default: return run_dkv_dbias_bf16<128>(which, p, stream, shape);
+  }
 }
 
 int dispatch(int which, Params p, int dtype, void* stream,
@@ -1781,8 +1890,8 @@ int dispatch(int which, Params p, int dtype, void* stream,
       (which == 3 && p.bias == nullptr && shape == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(which, p, s, shape);
-  if (dtype == 1) return run<bf16>(which, p, s, shape);
+  if (dtype == 0) return run_f32(which, p, s, shape);
+  if (dtype == 1) return run_bf16(which, p, s, shape);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

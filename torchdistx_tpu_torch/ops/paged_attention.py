@@ -21,13 +21,18 @@ logits there instead — callers must ignore idle rows.
 :func:`paged_attention` runs the hand-written CUDA kernel
 (``csrc/paged_decode.cu``) on CUDA tensors and the plain version
 :func:`paged_attention_reference` on CPU tensors, because they lie on
-the CPU; it never falls back from one to the other.
+the CPU; it never falls back from one to the other.  On the card the
+positions are split across CTAs (:func:`split_plan`, from the page
+table's width and the card's SM count only) and, with more than one
+split, a second kernel merges the splits by their softmax statistics.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
 
@@ -36,6 +41,13 @@ from . import _build
 _NEG = -1e30
 _MAX_HEAD_DIM = 256  # kMaxD in csrc/paged_decode.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The split plan: enough CTAs for _CTAS_PER_SM per SM, each split at
+# least _MIN_SPAN positions (shorter ones spend more on their merge than
+# they save), spans a multiple of _SPAN_ALIGN (two rounds of the 8 warps'
+# blocks of 4 positions).
+_CTAS_PER_SM = 4
+_MIN_SPAN = 256
+_SPAN_ALIGN = 64
 
 
 def paged_attention_reference(
@@ -139,9 +151,45 @@ def _check_cuda(q, k_pages, v_pages, lengths, page_table) -> None:
         raise TypeError("lengths and page_table must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel takes contiguous operands")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention kernel takes 16-byte aligned pools")
     if q.shape[2] > _MAX_HEAD_DIM:
         raise ValueError(
             f"head_dim {q.shape[2]} > {_MAX_HEAD_DIM} is not supported")
+
+
+def split_plan(B: int, H: int, KV: int, positions: int,
+               sm_count: int) -> Tuple[int, int]:
+    """``(splits, span)``: the kernel cuts a table of ``positions`` (its
+    width times the page size) into ``splits`` ranges of ``span``
+    positions, one CTA each per (kv head, sequence, chunk of query heads:
+    the largest of 8, 4, 2, 1 that divides H / KV, as in the kernel), so
+    that a few long lanes still fill the card.  Static facts only: it
+    never reads ``lengths``, so a launch needs no device value on the host
+    and can be captured into a CUDA graph."""
+    G = H // KV
+    ctas = KV * B * G // next(c for c in (8, 4, 2, 1) if G % c == 0)
+    splits = max(1, min(-(-_CTAS_PER_SM * sm_count // ctas),
+                        -(-positions // _MIN_SPAN)))
+    span = -(-positions // splits)
+    span = -(-span // _SPAN_ALIGN) * _SPAN_ALIGN
+    return -(-positions // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_plan(q: torch.Tensor, k_pages: torch.Tensor,
+                page_table: torch.Tensor) -> Tuple[int, int]:
+    """The ``(splits, span)`` that :func:`paged_attention` launches with
+    for these operands on their card; one CUDA launch per call with one
+    split, two (the split kernel and the merge) with more."""
+    B, H, _ = q.shape
+    _, page, KV, _ = k_pages.shape
+    return split_plan(B, H, KV, page_table.shape[1] * page,
+                      _sm_count(q.device.index))
 
 
 _kernel_fn = None
@@ -152,8 +200,8 @@ def _kernel():
     if _kernel_fn is None:
         lib = _build.load("paged_decode.cu")
         fn = lib.tdx_paged_decode
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         lib.tdx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tdx_cuda_error_string.restype = ctypes.c_char_p
@@ -177,8 +225,10 @@ def paged_attention(
     """Ragged paged-attention decode; output [B, H, D] in ``q``'s dtype.
 
     CUDA tensors launch the kernel on the current stream (or raise); CPU
-    tensors run :func:`paged_attention_reference`.  Each launch adds one
-    to ``paged_attention.launches``."""
+    tensors run :func:`paged_attention_reference`.  Each call adds one to
+    ``paged_attention.launches`` (one launch of the split kernel), and one
+    to ``paged_attention.merge_launches`` where it also launched the merge
+    kernel (with more than one split: :func:`kernel_plan`)."""
     _check_shapes(q, k_pages, v_pages, lengths, page_table)
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, lengths,
@@ -189,20 +239,30 @@ def paged_attention(
     fn = _kernel()
     B, H, D = q.shape
     _, page, KV, _ = k_pages.shape
+    splits, span = kernel_plan(q, k_pages, page_table)
     out = torch.empty_like(q)
+    merged = ctypes.c_int(0)
     with torch.cuda.device(q.device):
+        # The splits' partial rows, maxima and sums, from the caching
+        # allocator on the current stream.
+        part = None if splits == 1 else torch.empty(
+            B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-                 B, H, KV, D, page, page_table.shape[1], _DTYPE_CODE[q.dtype],
-                 1.0 / math.sqrt(D), stream)
+                 None if part is None else part.data_ptr(),
+                 B, H, KV, D, page, page_table.shape[1], splits, span,
+                 _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), stream,
+                 ctypes.byref(merged))
     if err != 0:
         msg = _build.load("paged_decode.cu").tdx_cuda_error_string(err)
         raise RuntimeError(
             f"paged_decode launch failed: CUDA error {err} ({msg.decode()})"
         )
     paged_attention.launches += 1
+    paged_attention.merge_launches += merged.value
     return out
 
 
 paged_attention.launches = 0
+paged_attention.merge_launches = 0
