@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU: decoder LMs and the T5 encoder-decoder.
+NVIDIA GPU: decoder LMs and the T5 encoder-decoder, and the keyed,
+sharded materializer.
 
     python3 chip_smoke.py
 
@@ -101,14 +102,38 @@ user calls, and checks what comes out.  One JSON object per line:
 11. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
     process — seconds and host RSS growth — and one forward at B = 1 on
     the flash kernels with finite logits;
-12. the kernels line: per kernel its launches on the main path, its error
+12. the keyed, sharded materializer (``cuda_bridge``) on gpt2-125m, f32:
+    the same seed twice bitwise equal, seed 1 moving every random entry;
+    against eager construction on the card equal names, shapes and
+    dtypes, the entries that draw nothing bitwise equal, the random
+    ones' std within 2 %; on virtual ``{fsdp: 2, tp: 4}`` meshes under
+    ``decoder_lm_plan`` and ``gspmd_2d_plan`` and ``{fsdp: 8}`` under
+    ``fsdp_plan``, each of the 8 coordinates' shards, materialized on
+    their own, equal to their slices of the unsharded values bit for
+    bit and covering them; a real one-rank ``DeviceMesh`` (NCCL, world
+    size 1, an in-memory store) equal to ``mesh=None``; the recording
+    still fake afterwards;
+13. full-depth llama3-8b recorded in f32, materialized as bf16 under
+    ``decoder_lm_plan`` on a one-rank mesh in a fresh process: seconds
+    from ``deferred_init`` to every value resident, bytes, GB/s, host
+    RSS growth (below a quarter of the bytes) and device-memory growth
+    (at most the bytes plus twice the largest entry at its recorded
+    dtype), beside the eager route's cold bring-up from phase 4;
+14. the training main path through the keyed materializer in a fresh
+    process: 2-layer llama3-8b width, [2, 2048], deferred_init ->
+    ``materialize_module_cuda`` -> the values loaded into the module ->
+    ``make_train_step`` -> the first loss on the host: seconds, host RSS
+    growth (below a quarter of the parameter bytes), one launch of each
+    flash kernel per layer, the loss within 1e-3 relative of the same
+    step on ``default_attention`` from the same recording's values;
+15. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias; paged decode at the serving engine's batch, lengths and page
     table width, with its merge launches and CUDA launches per call
     counted on the serving main path, its time from CUDA-graph replay
     too, and its times at a table cut to the lanes' own pages);
-13. last: ``{"ok": true, "device": {...}}``.
+16. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -125,14 +150,24 @@ import subprocess
 import sys
 import threading
 import time
+import itertools
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
 
-from torchdistx_tpu_torch import deferred_init, materialize_module
+from torchdistx_tpu_torch import _graph, deferred_init, is_fake, materialize_module
+from torchdistx_tpu_torch.cuda_bridge import (
+    materialize_module_cuda,
+    materialize_params_cuda,
+    named_fake_tensors,
+)
+from torchdistx_tpu_torch.fake import get_fake_context
 from torchdistx_tpu_torch.models import (
     LLAMA3_8B,
     PRESETS,
@@ -142,6 +177,7 @@ from torchdistx_tpu_torch.models import (
     make_t5,
 )
 from torchdistx_tpu_torch.models.layers import Linear, default_attention
+from torchdistx_tpu_torch.models.plans import decoder_lm_plan
 from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
 from torchdistx_tpu_torch.ops import make_flash_attention
@@ -161,7 +197,14 @@ from torchdistx_tpu_torch.ops.flash_attention import (
     launches as flash_launches,
     reset_launches as reset_flash_launches,
 )
-from torchdistx_tpu_torch.parallel import make_train_step
+from torchdistx_tpu_torch.parallel import (
+    VirtualMesh,
+    fsdp_plan,
+    gspmd_2d_plan,
+    make_mesh,
+    make_train_step,
+    placements_for,
+)
 from torchdistx_tpu_torch.parallel.train import (
     H100_PEAK_FLOPS,
     default_optimizer,
@@ -2426,6 +2469,322 @@ def phase_t5_11b_full_depth() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 12 to 14: the keyed, sharded materializer (cuda_bridge)
+# ---------------------------------------------------------------------------
+
+# Keyed draws against eager construction's on the card: the std of a
+# random entry of n >= 65,536 draws has a sampling spread of about
+# 1/sqrt(2n) <= 0.28 %, so 2 % allows for the truncation's tails and
+# still fails a wrong init (a missing scale, a wrong fan).
+STD_RTOL = 0.02
+STD_MIN_NUMEL = 1 << 16
+MATERIALIZE_CFG = PRESETS["gpt2-125m"].replace(dtype=torch.float32)
+VIRTUAL_MESHES = (("decoder_lm_plan", {"fsdp": 2, "tp": 4}),
+                  ("gspmd_2d_plan", {"fsdp": 2, "tp": 4}),
+                  ("fsdp_plan", {"fsdp": 8}))
+FIRST_STEP_LOSS_RTOL = 1e-3
+
+
+def draws(fake) -> bool:
+    """Whether the recording behind ``fake`` draws random numbers."""
+    ctx = get_fake_context(fake, _graph.CONTEXT_KEY)
+    return any(_graph._is_rng_op(n.op.func) for n in ctx.node.build_call_stack())
+
+
+def shard_region(shape, spec, axes: dict, coord: dict) -> tuple:
+    """The slices of the full tensor that the device at ``coord`` holds
+    under ``spec`` (a dim over several axes: the first named is the major
+    one) — written apart from the port's ``local_shard``."""
+    region = []
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        names = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n, i = 1, 0
+        for a in names:
+            n, i = n * axes[a], i * axes[a] + coord[a]
+        region.append(slice(i * (size // n), (i + 1) * (size // n)))
+    return tuple(region)
+
+
+def one_rank_group() -> None:
+    """A process group of world size 1 over an in-memory store: NCCL,
+    no network."""
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def load_values(module, values: dict) -> None:
+    """Swap each fake parameter and buffer of ``module`` for its
+    materialized value (tied entries share one parameter)."""
+    by_id = {id(t): values[n] for n, t in named_fake_tensors(module).items()}
+    made: dict = {}
+    for mod in module.modules():
+        for d, is_param in ((mod._parameters, True), (mod._buffers, False)):
+            for k, t in d.items():
+                if t is None or id(t) not in by_id:
+                    continue
+                if id(t) not in made:
+                    v = by_id[id(t)]
+                    made[id(t)] = nn.Parameter(
+                        v, requires_grad=t.requires_grad) if is_param else v
+                d[k] = made[id(t)]
+
+
+def phase_materialize_invariance(dev) -> dict:
+    """gpt2-125m (f32) through ``materialize_module_cuda``: same seed
+    twice bitwise equal, seed 1 moves every random entry; against eager
+    construction on the card, equal names, shapes and dtypes, the
+    entries that draw nothing bitwise equal, the random ones' std within
+    2 %; each of the 8 coordinates of three plans' virtual meshes,
+    materialized on its own, equal to its slice of the unsharded values
+    bit for bit, the slices covering every element; a real one-rank
+    ``DeviceMesh`` (NCCL, world size 1) equal to ``mesh=None``; the module
+    still fake at the end."""
+    cfg = MATERIALIZE_CFG
+    model = deferred_init(make_gpt2, cfg, device=dev)
+    fakes = named_fake_tensors(model)
+    random = {n for n, f in fakes.items() if draws(f)}
+    t = time.perf_counter()
+    a = materialize_module_cuda(model, seed=0, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    b = materialize_module_cuda(model, seed=0, device=dev)
+    c = materialize_module_cuda(model, seed=1, device=dev)
+    for n in a:
+        if not torch.equal(a[n], b[n]):
+            raise AssertionError(f"{n}: seed 0 twice differs")
+        if torch.equal(a[n], c[n]) == (n in random):
+            raise AssertionError(f"{n}: seed 1 {'equals' if n in random else 'moves'} it")
+    del b, c
+    torch.manual_seed(0)
+    eager_model = make_gpt2(cfg, device=dev)
+    eager = dict(eager_model.named_parameters())
+    eager.update(eager_model.named_buffers())
+    del eager_model
+    if list(eager) != list(a):
+        raise AssertionError(f"names {list(a)} != eager {list(eager)}")
+    std_worst = 0.0
+    for n, v in a.items():
+        e = eager[n].detach()
+        if v.shape != e.shape or v.dtype != e.dtype or v.device != e.device:
+            raise AssertionError(f"{n}: {v.shape} {v.dtype} {v.device} != "
+                                 f"eager {e.shape} {e.dtype} {e.device}")
+        if n not in random and not torch.equal(v, e):
+            raise AssertionError(f"{n} draws nothing and differs from eager")
+        if n in random and v.numel() >= STD_MIN_NUMEL:
+            rel = abs(v.std().item() / e.std().item() - 1)
+            std_worst = max(std_worst, rel)
+            if rel > STD_RTOL:
+                raise AssertionError(f"{n}: std {v.std().item()} vs eager "
+                                     f"{e.std().item()}")
+    del eager
+    plans = {"decoder_lm_plan": decoder_lm_plan(cfg),
+             "gspmd_2d_plan": gspmd_2d_plan(), "fsdp_plan": fsdp_plan()}
+    meshes = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # heads tp does not divide
+        for plan_name, axes in VIRTUAL_MESHES:
+            plan = plans[plan_name]
+            shape = VirtualMesh(axes, {x: 0 for x in axes}).shape
+            specs = {n: plan.spec_for(n, tuple(v.shape), shape)
+                     for n, v in a.items()}
+            covered = {n: torch.zeros(v.shape, dtype=torch.int32, device=dev)
+                       for n, v in a.items()}
+            coords = list(itertools.product(*(range(k) for k in shape.values())))
+            local_bytes = []
+            for coord in coords:
+                where = dict(zip(shape, coord))
+                local = materialize_module_cuda(
+                    model, mesh=VirtualMesh(axes, where), plan=plan,
+                    seed=0, device=dev)
+                local_bytes.append(sum(v.numel() * v.element_size()
+                                       for v in local.values()))
+                for n, v in local.items():
+                    region = shard_region(a[n].shape, specs[n], shape, where)
+                    if not torch.equal(v, a[n][region]):
+                        raise AssertionError(f"{plan_name} {where} {n}: the "
+                                             f"shard is not its slice")
+                    covered[n][region] += 1
+                del local
+            if any(not bool((k > 0).all()) for k in covered.values()):
+                raise AssertionError(f"{plan_name}: the shards miss elements")
+            meshes[plan_name] = {
+                "axes": axes, "coordinates": len(coords),
+                "sharded_entries": sum(1 for s in specs.values() if any(s)),
+                "entries": len(specs),
+                "local_bytes_max": max(local_bytes),
+                "gathered_equals_unsharded": True}
+            del covered
+    one_rank_group()
+    try:
+        mesh = make_mesh({"fsdp": 1, "tp": 1}, device_type="cuda")
+        plan = decoder_lm_plan(cfg)
+        on_mesh = materialize_module_cuda(model, mesh=mesh, plan=plan, seed=0)
+        for n, v in on_mesh.items():
+            spec = plan.spec_for(n, tuple(a[n].shape), mesh)
+            if tuple(v.placements) != placements_for(spec, mesh):
+                raise AssertionError(f"{n}: placements {v.placements}")
+            if not torch.equal(v.to_local(), a[n]):
+                raise AssertionError(f"{n}: the one-rank mesh differs")
+        del on_mesh
+    finally:
+        dist.destroy_process_group()
+    if not all(is_fake(f) for f in named_fake_tensors(model).values()):
+        raise AssertionError("the recording was consumed")
+    param_bytes = sum(v.numel() * v.element_size() for v in a.values())
+    row = {"phase": "materialize_invariance", "model": "gpt2-125m",
+           "dtype": "float32", "entries": len(a), "random_entries": len(random),
+           "param_bytes": param_bytes, "materialize_s_warm": seconds,
+           "same_seed_bitwise": True, "seed_1_moves_every_random_entry": True,
+           "eager_names_shapes_dtypes": True,
+           "eager_rng_free_bitwise": len(a) - len(random),
+           "eager_std_worst_rel": std_worst,
+           "eager_std_limit": f"<= {STD_RTOL} for n >= {STD_MIN_NUMEL}",
+           "virtual_meshes": meshes,
+           "one_rank_nccl_mesh_equals_unsharded": True,
+           "still_fake": True}
+    emit(row)
+    del a
+    torch.cuda.empty_cache()
+    return row
+
+
+def materialize_llama3_8b() -> None:
+    """Full-depth llama3-8b recorded in f32, materialized as bf16 by
+    ``materialize_module_cuda`` under ``decoder_lm_plan`` on a one-rank
+    NCCL mesh, as the first CUDA work of a fresh process after its CUDA
+    context: seconds from ``deferred_init`` to every value resident on
+    the card, bytes, GB/s, host RSS growth (below a quarter of the bytes)
+    and the growth of ``max_memory_allocated`` (at most the bytes plus
+    twice the largest entry at its recorded dtype); prints one JSON
+    line."""
+    dev = torch.device("cuda", 0)
+    ctx = cuda_context(dev)
+    one_rank_group()
+    try:
+        mesh = make_mesh({"fsdp": 1, "tp": 1}, device_type="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rss0 = _rss_bytes()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            model = deferred_init(make_llama, LLAMA3_8B, device=dev)
+            recorded = time.perf_counter() - t0
+            values = materialize_module_cuda(
+                model, mesh=mesh, plan=decoder_lm_plan(LLAMA3_8B), seed=0,
+                param_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        fakes = named_fake_tensors(model)
+        largest = max(f.numel() * f.element_size() for f in fakes.values())
+        local = {n: v.to_local() for n, v in values.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in local.values())
+        growth = rss.peak - rss0
+        if not growth < nbytes / 4:
+            raise AssertionError(f"host RSS grew {growth} bytes materializing "
+                                 f"{nbytes} bytes")
+        if not peak <= nbytes + 2 * largest:
+            raise AssertionError(f"device memory grew {peak} bytes for {nbytes} "
+                                 f"bytes, largest entry {largest}")
+        for n, v in local.items():
+            want = torch.bfloat16 if isinstance(fakes[n], nn.Parameter) \
+                else fakes[n].dtype
+            if v.dtype != want or v.shape != fakes[n].shape:
+                raise AssertionError(f"{n}: {v.dtype} {tuple(v.shape)}")
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{n} is not finite")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "materialize_llama3_8b", "model": "llama3-8b",
+          "n_layers": LLAMA3_8B.n_layers, "dtype": "recorded float32, "
+          "bfloat16 parameters", "mesh": {"fsdp": 1, "tp": 1},
+          "plan": "decoder_lm_plan", **ctx, "entries": len(local),
+          "bytes": nbytes, "record_s": recorded, "materialize_s": seconds,
+          "replay_s": seconds - recorded,
+          "gb_per_s": nbytes / seconds / 1e9,
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth,
+          "host_rss_limit_bytes": nbytes / 4,
+          "max_memory_allocated_growth_bytes": peak,
+          "device_limit_bytes": nbytes + 2 * largest,
+          "largest_entry_bytes": largest})
+
+
+def phase_materialize_llama3_8b(eager_row) -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("materialize_llama3_8b")
+    row["eager_bring_up_s_cold"] = (eager_row or {}).get("bring_up_s_cold")
+    emit(row)
+    return row
+
+
+def first_step_materialized() -> None:
+    """The training main path through the keyed materializer, as the
+    first CUDA work of a fresh process: deferred_init of 2-layer
+    llama3-8b width with the flash kernels -> ``materialize_module_cuda``
+    -> the values loaded into the module -> ``make_train_step`` -> the
+    first loss on the host; then the same step on ``default_attention``
+    from the same recording's values (materialized again, the same
+    seed).  Prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    batch = train_batch()
+    reset_flash_launches()
+    rss0 = _rss_bytes()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        model = deferred_init(make_llama, TRAIN_CFG,
+                              attn_fn=make_flash_attention(), device=dev)
+        fakes = named_fake_tensors(model)
+        load_values(model, materialize_module_cuda(model, seed=0, device=dev))
+        init_state, train_step, shard_batch = make_train_step(
+            model, TRAIN_CFG, device=dev)
+        state = init_state(model)
+        torch.cuda.synchronize()
+        bring_up = time.perf_counter() - t0
+        state, metrics = train_step(state, shard_batch(batch))
+        loss = float(metrics["loss"])
+        seconds = time.perf_counter() - t0
+    launches = {k: flash_launches[k] for k in FLASH_REPLACES}
+    param_bytes = sum(p.numel() * p.element_size() for p in state["params"])
+    growth = rss.peak - rss0
+    if not growth < param_bytes / 4:
+        raise AssertionError(f"host RSS grew {growth} bytes bringing up "
+                             f"{param_bytes} bytes of parameters")
+    if launches != {k: TRAIN_CFG.n_layers for k in FLASH_REPLACES}:
+        raise AssertionError(f"flash launches {launches}")
+    state["opt"].zero_grad(set_to_none=True)
+    plain = deferred_init(make_llama, TRAIN_CFG, device=dev)
+    load_values(plain, materialize_params_cuda(fakes, seed=0, device=dev))
+    p_init, p_step, p_shard = make_train_step(
+        plain, TRAIN_CFG, device=dev,
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0))
+    _, p_metrics = p_step(p_init(plain), p_shard(batch))
+    p_loss = float(p_metrics["loss"])
+    rel = abs(loss - p_loss) / abs(p_loss)
+    if not (math.isfinite(loss) and rel <= FIRST_STEP_LOSS_RTOL):
+        raise AssertionError(f"first loss {loss} vs default_attention "
+                             f"{p_loss}")
+    emit({"phase": "first_step_materialized", "model": "llama3-8b",
+          "n_layers": TRAIN_CFG.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "dtype": "bfloat16 compute, float32 parameters",
+          "materializer": "materialize_module_cuda, seed 0",
+          "first_step_s": seconds, "bring_up_s": bring_up,
+          "first_loss": loss, "default_attention_loss": p_loss,
+          "loss_rel": rel, "loss_limit": FIRST_STEP_LOSS_RTOL,
+          "flash_launches": launches, "param_bytes": param_bytes,
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth})
+
+
+def phase_first_step_materialized() -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("first_step_materialized")
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2470,6 +2829,9 @@ def main() -> int:
     run("t5_f32_exact", phase_t5_f32_exact, dev)
     t5_row = run("t5_train_bf16", phase_t5_train_bf16, dev)
     run("t5_11b_full_depth", phase_t5_11b_full_depth)
+    run("materialize_invariance", phase_materialize_invariance, dev)
+    run("materialize_llama3_8b", phase_materialize_llama3_8b, main_row)
+    run("first_step_materialized", phase_first_step_materialized)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)

@@ -30,7 +30,10 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import torchdistx_tpu_torch, torchdistx_tpu_torch.serve, "
-        "torchdistx_tpu_torch.ops, torchdistx_tpu_torch.models, chip_smoke\n"
+        "torchdistx_tpu_torch.ops, torchdistx_tpu_torch.models, "
+        "torchdistx_tpu_torch.models.plans, torchdistx_tpu_torch.parallel, "
+        "torchdistx_tpu_torch.cuda_bridge, torchdistx_tpu_torch.hf, "
+        "torchdistx_tpu_torch.fsdp, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'torchdistx_tpu'))\n"
         "print(bad)\n"

@@ -7,6 +7,11 @@ into GPU memory), the GPT-2/Llama model families, single-device training
 backward are hand-written CUDA kernels for Hopper
 (``ops/csrc/flash_attention.cu``), and the paged-decode serving runtime,
 whose decode attention is another (``ops/csrc/paged_decode.cu``).
+``cuda_bridge.materialize_module_cuda`` replays a recording with keyed
+RNG straight into each rank's planned shard on a ``DeviceMesh``
+(``parallel.make_mesh``, the plans of ``parallel.sharding`` and
+``models.plans``), leaving the module fake; ``hf`` and ``fsdp`` carry
+the HuggingFace and torch-FSDP entry points.
 
 The port imports nothing of the JAX package ``torchdistx_tpu``; it keeps
 its own copies of what it needs.  Entry points run on the GPU

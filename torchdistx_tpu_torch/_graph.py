@@ -98,7 +98,13 @@ def _next_op_nr() -> int:
     return next(_op_counter)
 
 
-# Per-thread state of the current top-level recording session.
+# Session-relative numbering for RNG-key derivation.  The global op_nr
+# is only an *ordering*; its raw value depends on everything recorded
+# before (other threads, earlier models), so the keyed materializer
+# (cuda_bridge) must not fold it into RNG keys.  Each top-level
+# deferred-init session numbers its ops 0..n on a thread-local counter:
+# the same model recorded under the same seed yields the same parameters
+# no matter what else this process recorded.
 _session_tls = threading.local()
 
 
@@ -117,6 +123,7 @@ class _SessionToken:
 
 
 def begin_recording_session() -> None:
+    _session_tls.counter = itertools.count()
     _session_tls.token = _SessionToken()
     # The thread-local list IS the token's list (one object): recording
     # appends via the TLS alias, consumers reach it via node tokens.  It
@@ -124,6 +131,18 @@ def begin_recording_session() -> None:
     # fake) must still replay pending draws in recorded order; the next
     # session starts a fresh list.
     _session_tls.rng_nodes = _session_tls.token.rng_nodes
+
+
+def end_recording_session() -> None:
+    _session_tls.counter = None
+    # rng_nodes is deliberately KEPT: value reads after the region
+    # (b.item() on a returned fake) must still replay pending draws in
+    # recorded order.  The list resets at the next session start.
+
+
+def _next_key_nr(op_nr: int) -> int:
+    counter = getattr(_session_tls, "counter", None)
+    return next(counter) if counter is not None else op_nr
 
 
 # Ops that consume the torch global generator at replay.  Tracked per
@@ -333,7 +352,7 @@ class OpNode:
     """A node of the replay DAG (deferred_init.cc:309-705)."""
 
     __slots__ = (
-        "op", "op_nr", "storages", "dependencies", "dependents",
+        "op", "op_nr", "key_nr", "storages", "dependencies", "dependents",
         "argument_versions", "outputs", "materialized",
         "session_token", "__weakref__",
     )
@@ -341,6 +360,10 @@ class OpNode:
     def __init__(self, op: Op):
         self.op = op
         self.op_nr = _next_op_nr()
+        # The op's number within its recording session: the keyed
+        # materializer derives the op's RNG key from it (see
+        # _next_key_nr); outside a session it falls back to op_nr.
+        self.key_nr = _next_key_nr(self.op_nr)
         # Which recording session this node belongs to (None outside a
         # session): materialize_many's include_session_rng uses it to
         # replay only the *requested model's* dead RNG draws, never a
@@ -702,15 +725,17 @@ class ReplayTarget:
         return obj
 
 
-def _resolve(obj, deps: List[Tuple[OpNode, int]]):
+def _resolve(obj, deps: List[Tuple[OpNode, int]], lookup=None):
+    """``obj`` with each :class:`_Dep` replaced by its producer's output:
+    ``lookup(node, idx)``, by default the node's cached output."""
     if isinstance(obj, _Dep):
         node, idx = deps[obj.index]
-        return node_output(node, idx)
+        return (lookup or node_output)(node, idx)
     if isinstance(obj, (list, tuple)):
-        r = [_resolve(x, deps) for x in obj]
+        r = [_resolve(x, deps, lookup) for x in obj]
         return r if isinstance(obj, list) else tuple(r)
     if isinstance(obj, dict):
-        return {k: _resolve(v, deps) for k, v in obj.items()}
+        return {k: _resolve(v, deps, lookup) for k, v in obj.items()}
     return obj
 
 
@@ -743,26 +768,31 @@ def replay_node(node: OpNode, target: ReplayTarget) -> None:
     args = _resolve(node.op.args, node.dependencies)
     kwargs = _resolve(node.op.kwargs, node.dependencies)
     out = node.op.replay(target, args, kwargs)
-    outputs: List[Any] = []
-    if isinstance(out, (list, tuple)):
-        for t in out:
-            outputs.append(t)
-    else:
-        outputs.append(out)
-    # Flatten to tensor-position indexing consistent with record time.
-    flat: List[Any] = []
-
-    def _flat(o):
-        if isinstance(o, torch.Tensor):
-            flat.append(o)
-        elif isinstance(o, (list, tuple)):
-            for x in o:
-                _flat(x)
-
-    _flat(out)
-    node.outputs = flat if flat else outputs
+    node.outputs = flat_outputs(out)
     node.materialized = True
     node.detach_dependencies()
+
+
+def flat_outputs(out) -> List[Any]:
+    """A replayed op's outputs, flattened to the tensor-position indexing
+    of record time (non-tensor outputs as they are when it has no
+    tensor output)."""
+    flat: List[Any] = []
+    _flatten_tensors(out, flat)
+    if flat:
+        return flat
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _flatten_tensors(o, flat: List[Any]) -> None:
+    # A module-level function, not a self-recursive closure: the closure
+    # would be a reference cycle holding ``flat`` (and the tensors in it)
+    # until the cyclic collector runs, which gc_paused holds off.
+    if isinstance(o, torch.Tensor):
+        flat.append(o)
+    elif isinstance(o, (list, tuple)):
+        for x in o:
+            _flatten_tensors(x, flat)
 
 
 def materialize_graph(node: OpNode, target: ReplayTarget) -> None:

@@ -1,0 +1,16 @@
+"""Keyed, sharded materialization of deferred-init recordings on the
+GPU (counterpart of ``torchdistx_tpu/jax_bridge``'s public API)."""
+
+from .materialize import (
+    materialize_module_cuda,
+    materialize_params_cuda,
+    materialize_tensor_cuda,
+    named_fake_tensors,
+)
+
+__all__ = [
+    "materialize_module_cuda",
+    "materialize_params_cuda",
+    "materialize_tensor_cuda",
+    "named_fake_tensors",
+]

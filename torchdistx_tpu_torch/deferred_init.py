@@ -115,11 +115,13 @@ class DeferredInitMode(TorchDispatchMode):
 
 
 # Top-level enable starts a fresh recording session, which tracks its own
-# RNG draws (see _graph.begin_recording_session).
+# RNG draws and numbers its ops for RNG keys (see
+# _graph.begin_recording_session).
 _deferred_toggle = ModeToggle(
     DeferredInitMode,
     "Deferred-init mode",
     on_first_enable=_graph.begin_recording_session,
+    on_last_disable=_graph.end_recording_session,
 )
 
 
