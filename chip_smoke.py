@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU: decoder LMs and the T5 encoder-decoder, and the keyed,
-sharded materializer.
+NVIDIA GPU: decoder LMs and the T5 encoder-decoder, the keyed, sharded
+materializer and the sharded train step (one-rank meshes).
 
     python3 chip_smoke.py
 
@@ -121,19 +121,39 @@ user calls, and checks what comes out.  One JSON object per line:
     dtype), beside the eager route's cold bring-up from phase 4;
 14. the training main path through the keyed materializer in a fresh
     process: 2-layer llama3-8b width, [2, 2048], deferred_init ->
-    ``materialize_module_cuda`` -> the values loaded into the module ->
-    ``make_train_step`` -> the first loss on the host: seconds, host RSS
-    growth (below a quarter of the parameter bytes), one launch of each
-    flash kernel per layer, the loss within 1e-3 relative of the same
-    step on ``default_attention`` from the same recording's values;
-15. the kernels line: per kernel its launches on the main path, its error
+    ``materialize_module_cuda`` -> ``bind_values`` -> ``make_train_step``
+    -> the first loss on the host: seconds, host RSS growth (below a
+    quarter of the parameter bytes), one launch of each flash kernel per
+    layer, the loss within 1e-3 relative of the same step on
+    ``default_attention`` from the same recording's values;
+15. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
+    (tensor parallelism and FSDP2 over the keyed values), gpt2-125m in
+    f32, 3 steps against ``mesh=None`` from the same values: losses and
+    gradient norms within 1e-6 relative, each parameter within 1e-6
+    normwise after the 3 steps (the key biases, whose gradient is zero
+    in exact arithmetic, within AdamW's step bound), and whether they
+    came out bitwise;
+16. the sharded training main path in a fresh process: 2-layer
+    llama3-8b width, bf16 parameters, [2, 2048], deferred_init ->
+    ``materialize_module_cuda(mesh={fsdp: 1, tp: 1}, plan=
+    decoder_lm_plan)`` -> ``bind_values`` -> ``make_train_step(mesh=)``
+    -> the first loss, then 4 more steps, the last two with telemetry
+    on: seconds to the first loss, host RSS growth (below a quarter of
+    the bytes), device-memory growth over bring-up (at most the bytes
+    plus twice the largest entry at its recorded dtype), step ms,
+    tokens/s, MFU and peak device memory beside the ``mesh=None`` step's
+    from the same values, one launch of each flash kernel per layer and
+    step, the loss within 1e-3 relative of ``mesh=None``'s, one
+    ``train.step`` span per instrumented step, the ``tdx.train.mfu``
+    gauge and the counted FLOPs within 1 % of ``train_step_flops``;
+17. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias; paged decode at the serving engine's batch, lengths and page
     table width, with its merge launches and CUDA launches per call
     counted on the serving main path, its time from CUDA-graph replay
     too, and its times at a table cut to the lanes' own pages);
-16. last: ``{"ok": true, "device": {...}}``.
+18. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -163,6 +183,7 @@ from torch import nn
 
 from torchdistx_tpu_torch import _graph, deferred_init, is_fake, materialize_module
 from torchdistx_tpu_torch.cuda_bridge import (
+    bind_values,
     materialize_module_cuda,
     materialize_params_cuda,
     named_fake_tensors,
@@ -1974,6 +1995,7 @@ def _kernel_kind(name: str) -> str:
     """A device kernel's kind, by its name."""
     low = name.lower()
     for kind, marks in (("flash", ("flash_",)),
+                        ("collective", ("nccl",)),
                         ("gemm", ("nvjet", "gemm", "cutlass", "cublas")),
                         ("optimizer_and_grad_norm", ("adam", "multi_tensor_apply")),
                         ("copy_or_cast", ("copy",)),
@@ -2515,23 +2537,6 @@ def one_rank_group() -> None:
                             world_size=1)
 
 
-def load_values(module, values: dict) -> None:
-    """Swap each fake parameter and buffer of ``module`` for its
-    materialized value (tied entries share one parameter)."""
-    by_id = {id(t): values[n] for n, t in named_fake_tensors(module).items()}
-    made: dict = {}
-    for mod in module.modules():
-        for d, is_param in ((mod._parameters, True), (mod._buffers, False)):
-            for k, t in d.items():
-                if t is None or id(t) not in by_id:
-                    continue
-                if id(t) not in made:
-                    v = by_id[id(t)]
-                    made[id(t)] = nn.Parameter(
-                        v, requires_grad=t.requires_grad) if is_param else v
-                d[k] = made[id(t)]
-
-
 def phase_materialize_invariance(dev) -> dict:
     """gpt2-125m (f32) through ``materialize_module_cuda``: same seed
     twice bitwise equal, seed 1 moves every random entry; against eager
@@ -2725,7 +2730,7 @@ def first_step_materialized() -> None:
     """The training main path through the keyed materializer, as the
     first CUDA work of a fresh process: deferred_init of 2-layer
     llama3-8b width with the flash kernels -> ``materialize_module_cuda``
-    -> the values loaded into the module -> ``make_train_step`` -> the
+    -> the values bound into the module (``bind_values``) -> ``make_train_step`` -> the
     first loss on the host; then the same step on ``default_attention``
     from the same recording's values (materialized again, the same
     seed).  Prints one JSON line."""
@@ -2738,7 +2743,7 @@ def first_step_materialized() -> None:
         model = deferred_init(make_llama, TRAIN_CFG,
                               attn_fn=make_flash_attention(), device=dev)
         fakes = named_fake_tensors(model)
-        load_values(model, materialize_module_cuda(model, seed=0, device=dev))
+        bind_values(model, materialize_module_cuda(model, seed=0, device=dev))
         init_state, train_step, shard_batch = make_train_step(
             model, TRAIN_CFG, device=dev)
         state = init_state(model)
@@ -2757,7 +2762,7 @@ def first_step_materialized() -> None:
         raise AssertionError(f"flash launches {launches}")
     state["opt"].zero_grad(set_to_none=True)
     plain = deferred_init(make_llama, TRAIN_CFG, device=dev)
-    load_values(plain, materialize_params_cuda(fakes, seed=0, device=dev))
+    bind_values(plain, materialize_params_cuda(fakes, seed=0, device=dev))
     p_init, p_step, p_shard = make_train_step(
         plain, TRAIN_CFG, device=dev,
         optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0))
@@ -2781,6 +2786,296 @@ def first_step_materialized() -> None:
 def phase_first_step_materialized() -> dict:
     torch.cuda.empty_cache()
     row = run_child("first_step_materialized")
+    emit(row)
+    return row
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the sharded train step (tensor parallelism and FSDP2)
+# ---------------------------------------------------------------------------
+
+# One-rank meshes run the sharded path's code (TP styles, fully_shard,
+# the collectives over one rank) with no other rank's arithmetic in it:
+# f32 gpt2-125m there against mesh=None, the same math summed in another
+# order at most (a one-rank all-gather and reduce-scatter copy).
+MESH_EXACT_RTOL = 1e-6
+MESH_AXES = {"fsdp": 1, "tp": 1}
+SHARDED_STEPS = 5
+
+
+def mesh_group_up(dev):
+    """A one-rank NCCL group and the ``{fsdp: 1, tp: 1}`` mesh over it,
+    its communicator started with one all-reduce (a trainer's group is
+    up before its model comes up)."""
+    torch.cuda.set_device(dev)
+    one_rank_group()
+    mesh = make_mesh(MESH_AXES, device_type="cuda")
+    for axis in MESH_AXES:
+        dist.all_reduce(torch.ones(1, device=dev), group=mesh.get_group(axis))
+    dist.all_reduce(torch.ones(1, device=dev))
+    torch.cuda.synchronize()
+    return mesh
+
+
+def local_of(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor, or the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def run_steps(state, train_step, batches) -> tuple:
+    losses, norms = [], []
+    for b in batches:
+        state, metrics = train_step(state, b)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return state, losses, norms
+
+
+def phase_train_mesh_exact(dev) -> dict:
+    """gpt2-125m (f32) from keyed values: 3 steps of the sharded step on
+    a one-rank ``{fsdp: 1, tp: 1}`` mesh against ``mesh=None`` from the
+    same values and batches."""
+    cfg = MATERIALIZE_CFG
+    B, S, steps = 4, cfg.max_seq_len, 3
+    rng = np.random.RandomState(41)
+    batches = [rng.randint(0, cfg.vocab_size, (B, S)) for _ in range(steps)]
+    mesh = mesh_group_up(dev)
+    try:
+        runs = {}
+        for name, m in (("mesh", mesh), ("unsharded", None)):
+            model = deferred_init(make_gpt2, cfg, attn_fn=make_flash_attention(),
+                                  device=dev)
+            values = materialize_module_cuda(
+                model, mesh=m, plan=decoder_lm_plan(cfg) if m else None,
+                seed=0, device=dev)
+            bind_values(model, values)
+            del values
+            init_state, train_step, shard_batch = make_train_step(
+                model, cfg, device=dev, mesh=m)
+            state = init_state(model)
+            reset_flash_launches()
+            state, losses, norms = run_steps(
+                state, train_step, [shard_batch(b) for b in batches])
+            launches = dict(flash_launches)
+            params = {n: (p.full_tensor() if hasattr(p, "full_tensor")
+                          else p).detach().clone()
+                      for n, p in model.named_parameters()}
+            runs[name] = {"losses": losses, "norms": norms,
+                          "launches": launches, "params": params}
+            del state, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    got, want = runs["mesh"], runs["unsharded"]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel = max(map(rel, got["losses"], want["losses"]))
+    norm_rel = max(map(rel, got["norms"], want["norms"]))
+    errs, key_bias, bitwise = {}, {}, 0
+    for n, w in want["params"].items():
+        g = got["params"][n]
+        bitwise += torch.equal(g, w)
+        if n.endswith("attn.wk.bias"):
+            key_bias[n] = float((g - w).abs().max())
+        else:
+            errs[n] = float((g - w).norm() / w.norm())
+    worst = max(errs, key=errs.get)
+    step_bound = steps * 3e-4 * 1.01  # AdamW moves a weight <= lr a step
+    want_launches = {k: cfg.n_layers * steps for k in FLASH_REPLACES}
+    want_launches["flash_dbias"] = 0
+    if not (loss_rel <= MESH_EXACT_RTOL and norm_rel <= MESH_EXACT_RTOL):
+        raise AssertionError(f"losses {got['losses']} vs {want['losses']}, "
+                             f"norms {got['norms']} vs {want['norms']}")
+    if not errs[worst] <= MESH_EXACT_RTOL:
+        raise AssertionError(f"{worst} differs by {errs[worst]} normwise")
+    if not max(key_bias.values()) <= step_bound:
+        raise AssertionError(f"key biases {key_bias}")
+    if got["launches"] != want_launches or want["launches"] != want_launches:
+        raise AssertionError(f"launches {got['launches']} {want['launches']}")
+    row = {"phase": "train_mesh_exact", "model": "gpt2-125m",
+           "dtype": "float32", "mesh": MESH_AXES, "plan": "decoder_lm_plan",
+           "batch": [B, S], "steps": steps,
+           "losses_mesh": got["losses"], "losses_unsharded": want["losses"],
+           "grad_norms_mesh": got["norms"],
+           "grad_norms_unsharded": want["norms"],
+           "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+           "param_worst": [worst, errs[worst]],
+           "limit": MESH_EXACT_RTOL,
+           "key_bias_max_abs": max(key_bias.values()),
+           "key_bias_limit": step_bound,
+           "params_bitwise": f"{bitwise} of {len(want['params'])}",
+           "losses_bitwise": got["losses"] == want["losses"],
+           "grad_norms_bitwise": got["norms"] == want["norms"],
+           "flash_launches": got["launches"]}
+    emit(row)
+    return row
+
+
+def timed_steps(state, train_step, batch, n: int) -> tuple:
+    """``n`` steps, each timed to its end on the card."""
+    step_s, losses = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t)
+    return state, losses, step_s
+
+
+def step_figures(step_s, flops, peak_bytes) -> dict:
+    step = float(np.median(step_s))
+    return {"step_ms": step * 1e3, "step_ms_samples": [x * 1e3 for x in step_s],
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step,
+            "mfu": flops / step / PEAK_FLOPS[torch.bfloat16],
+            "max_memory_allocated_bytes": peak_bytes}
+
+
+def first_step_sharded() -> None:
+    """The sharded training main path as the first model work of a fresh
+    process (after its CUDA context and its one-rank NCCL group):
+    deferred_init of 2-layer llama3-8b width with the flash kernels ->
+    ``materialize_module_cuda`` on the ``{fsdp: 1, tp: 1}`` mesh under
+    ``decoder_lm_plan``, bf16 parameters -> ``bind_values`` ->
+    ``make_train_step(mesh=)`` -> the first loss on the host, then 4
+    more steps on the same batch, the last two with telemetry on (the
+    first of them counts the step's FLOPs), and one profiled step; then
+    ``mesh=None`` from the same values, 5 steps and one profiled.  Prints
+    one JSON line."""
+    from torchdistx_tpu_torch import observe
+
+    dev = torch.device("cuda", 0)
+    ctx = cuda_context(dev)
+    mesh = mesh_group_up(dev)
+    cfg = TRAIN_CFG
+    batch_np = train_batch()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rss0 = _rss_bytes()
+        reset_flash_launches()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            model = deferred_init(make_llama, cfg,
+                                  attn_fn=make_flash_attention(), device=dev)
+            fakes = named_fake_tensors(model)
+            values = materialize_module_cuda(
+                model, mesh=mesh, plan=decoder_lm_plan(cfg), seed=0,
+                param_dtype=torch.bfloat16)
+            bind_values(model, values)
+            del values
+            # Telemetry on while the step is built wraps it; off, each
+            # call runs the raw step until it is turned on again.
+            observe.enable(True)
+            init_state, train_step, shard_batch = make_train_step(
+                model, cfg, device=dev, mesh=mesh)
+            observe.enable(False)
+            state = init_state(model)
+            torch.cuda.synchronize()
+            bring_up = time.perf_counter() - t0
+            bring_up_peak = torch.cuda.max_memory_allocated() - base
+            bring_up_rss = max(rss.peak, _rss_bytes()) - rss0
+            batch = shard_batch(batch_np)
+            state, metrics = train_step(state, batch)
+            first_loss = float(metrics["loss"])
+            seconds = time.perf_counter() - t0
+        growth = rss.peak - rss0
+        params = state["params"]
+        nbytes = sum(local_of(p).numel() * p.element_size() for p in params)
+        largest = max(f.numel() * f.element_size() for f in fakes.values())
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, step_s = timed_steps(state, train_step, batch, 2)
+        peak = torch.cuda.max_memory_allocated()
+        observe.reset()
+        observe.enable(True)
+        state, tele_losses, tele_s = timed_steps(state, train_step, batch, 2)
+        observe.enable(False)
+        spans = [e for e in observe.tracer().drain()
+                 if e["ph"] == "X" and e["name"] == "train.step"]
+        gauges = {r["name"]: r["value"] for r in observe.counters().snapshot()}
+        launches = dict(flash_launches)
+        profile = profile_step("llama3-8b sharded",
+                               lambda: train_step(state, batch))
+        flops = train_step_flops(model, cfg, TRAIN_BATCH, TRAIN_SEQ)
+        counted = spans[0]["args"].get("flops_counted") if spans else None
+        del state, model, params, metrics
+        torch.cuda.empty_cache()
+        # mesh=None from the same values (materialized again, same seed).
+        torch.cuda.reset_peak_memory_stats()
+        plain = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                              device=dev)
+        bind_values(plain, materialize_params_cuda(
+            named_fake_tensors(plain), seed=0, param_dtype=torch.bfloat16,
+            device=dev))
+        p_init, p_step, p_shard = make_train_step(plain, cfg, device=dev)
+        p_state = p_init(plain)
+        p_batch = p_shard(batch_np)
+        p_state, p_losses, p_step_s = timed_steps(p_state, p_step, p_batch,
+                                                  SHARDED_STEPS)
+        p_peak = torch.cuda.max_memory_allocated()
+        p_profile = profile_step("llama3-8b unsharded",
+                                 lambda: p_step(p_state, p_batch))
+        del p_state, plain
+    finally:
+        dist.destroy_process_group()
+    all_losses = [first_loss] + losses + tele_losses
+    loss_rel = abs(first_loss - p_losses[0]) / abs(p_losses[0])
+    want = {k: cfg.n_layers * SHARDED_STEPS for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    bound = nbytes + 2 * largest
+    failed = []  # checked after the row is out, so one run shows every figure
+    if not all(math.isfinite(x) for x in all_losses + p_losses):
+        failed.append(f"non-finite losses {all_losses} {p_losses}")
+    if not loss_rel <= FIRST_STEP_LOSS_RTOL:
+        failed.append(f"first loss {first_loss} vs mesh=None {p_losses[0]}")
+    if not growth < nbytes / 4:
+        failed.append(f"host RSS grew {growth} bytes for {nbytes}")
+    if not bring_up_peak <= bound:
+        failed.append(f"device memory grew {bring_up_peak} bytes over "
+                      f"bring-up, bound {bound}")
+    if launches != want:
+        failed.append(f"flash launches {launches} != {want}")
+    if len(spans) != 2 or "tdx.train.mfu" not in gauges or not counted:
+        failed.append(f"telemetry: {len(spans)} spans, gauges {sorted(gauges)}")
+    elif not abs(counted - flops) <= 0.01 * flops:
+        failed.append(f"counted FLOPs {counted} vs {flops}")
+    emit({"phase": "first_step_sharded", "model": "llama3-8b",
+          "n_layers": cfg.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "dtype": "bfloat16 compute, bfloat16 parameters (recorded f32)",
+          "mesh": MESH_AXES, "plan": "decoder_lm_plan", **ctx,
+          "first_step_s": seconds, "bring_up_s": bring_up,
+          "first_loss": first_loss, "losses": all_losses,
+          "unsharded_losses": p_losses, "loss_rel": loss_rel,
+          "loss_limit": FIRST_STEP_LOSS_RTOL, "param_bytes": nbytes,
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth,
+          "host_rss_limit_bytes": nbytes / 4,
+          "host_rss_growth_bytes_bring_up": bring_up_rss,
+          "bring_up_device_growth_bytes": bring_up_peak,
+          "device_limit_bytes": bound, "largest_entry_bytes": largest,
+          "flash_launches": launches, "flops_per_step": flops,
+          "sharded": step_figures(step_s, flops, peak),
+          "unsharded": step_figures(p_step_s[1:], flops, p_peak),
+          "profile_sharded": profile, "profile_unsharded": p_profile,
+          "telemetry": {
+              "train_step_spans": [
+                  {k: v for k, v in sp["args"].items()
+                   if k in ("step", "tokens_per_s", "tflops", "mfu",
+                            "mfu_est", "flops_counted")}
+                  | {"dur_ms": sp["dur"] / 1e3} for sp in spans],
+              "tdx.train.mfu": gauges.get("tdx.train.mfu"),
+              "tdx.train.tokens_per_s": gauges.get("tdx.train.tokens_per_s"),
+              "tdx.cuda.hbm_high_water_bytes":
+                  gauges.get("tdx.cuda.hbm_high_water_bytes"),
+              "counted_flops": counted,
+              "counted_over_train_step_flops": counted / flops if counted
+              else None,
+              "step_ms": [x * 1e3 for x in tele_s]},
+          "failed": failed})
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_first_step_sharded() -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("first_step_sharded")
     emit(row)
     return row
 
@@ -2832,6 +3127,8 @@ def main() -> int:
     run("materialize_invariance", phase_materialize_invariance, dev)
     run("materialize_llama3_8b", phase_materialize_llama3_8b, main_row)
     run("first_step_materialized", phase_first_step_materialized)
+    run("train_mesh_exact", phase_train_mesh_exact, dev)
+    sharded_row = run("first_step_sharded", phase_first_step_sharded)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -2874,6 +3171,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": train_row["flash_launches"][name],
+            "launches_sharded_path": sharded_row["flash_launches"][name],
             **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},

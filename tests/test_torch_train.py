@@ -196,13 +196,37 @@ def test_deferred_init_to_first_step_on_cpu():
 
 @pytest.mark.parametrize("kw,what", [
     (dict(pipeline=True), "A11"),
-    (dict(mesh=object()), "A5"),
     (dict(attn_fn=default_attention), "A11"),
-], ids=["pipeline", "mesh", "attn-fn"])
+    (dict(mesh={"fsdp": 1, "sp": 1}), "A10"),
+    (dict(mesh={"ep": 1, "tp": 1}), "A9"),
+    (dict(mesh={"pp": 1, "fsdp": 1}), "A11"),
+    (dict(mesh={"fsdp": 1}, moe=True), "A9"),
+    (dict(mesh={"fsdp": 1}, pipeline=True), "A11"),
+], ids=["pipeline", "attn-fn", "mesh-sp", "mesh-ep", "mesh-pp", "mesh-moe",
+        "mesh-pipeline"])
 def test_unported_options_raise(kw, what):
+    """Options and mesh axes the port does not carry yet raise, naming
+    their ROADMAP item (meshes: one gloo rank, an in-memory store)."""
+    import torch.distributed as dist
+
+    from torchdistx_tpu_torch.parallel import make_mesh
+
+    kw, cfg = dict(kw), TINY.replace(moe=object()) if kw.get("moe") else TINY
+    kw.pop("moe", None)
     model = make_llama(TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        make_train_step(model, TINY, device="cpu", **kw)
+    axes = kw.pop("mesh", None)
+    if axes is None:
+        with pytest.raises(NotImplementedError, match=what):
+            make_train_step(model, cfg, device="cpu", **kw)
+        return
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(axes, device_type="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_moe_config_raises():

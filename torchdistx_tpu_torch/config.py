@@ -1,0 +1,99 @@
+"""Runtime configuration (the port's own copy of the telemetry knobs of
+``torchdistx_tpu/config.py``): resolved from environment variables once
+at import and overridable per scope::
+
+    import torchdistx_tpu_torch.config as tdx_config
+    print(tdx_config.get())                # effective config
+    with tdx_config.override(trace_dir="/tmp/traces"):
+        ...                                # spans + counters collected
+
+Environment variables (read at first import):
+
+======================  ====================================================
+``TDX_TRACE_DIR``       Directory for runtime telemetry traces: when set,
+                        :mod:`torchdistx_tpu_torch.observe` collects spans
+                        and flushes a Chrome-trace JSON file
+                        (Perfetto-loadable) there at process exit or
+                        ``observe.flush()`` ("" disables).
+``TDX_METRICS_PATH``    File for the telemetry counter registry: Prometheus
+                        text format if the path ends in ``.prom``, JSON
+                        lines otherwise ("" disables).  ``%h``/``%p`` in the
+                        path expand to hostname/pid at write time (opt-in:
+                        paths without the tokens are used verbatim), so
+                        concurrent hosts and subprocesses of one run cannot
+                        clobber each other's file.
+======================  ====================================================
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from dataclasses import dataclass, replace
+from typing import Iterator, Optional
+
+__all__ = ["Config", "bind", "expand_path", "get", "override"]
+
+
+@dataclass(frozen=True)
+class Config:
+    trace_dir: Optional[str] = None
+    metrics_path: Optional[str] = None
+
+
+def _from_env() -> Config:
+    return Config(
+        trace_dir=os.environ.get("TDX_TRACE_DIR", "") or None,
+        metrics_path=os.environ.get("TDX_METRICS_PATH", "") or None,
+    )
+
+
+_base = _from_env()
+_tls = threading.local()
+
+
+def expand_path(path: Optional[str]) -> Optional[str]:
+    """Expand the multi-process template tokens in a telemetry path:
+    ``%h`` → short hostname, ``%p`` → pid.  Opt-in — a path without the
+    tokens is returned verbatim.  Applied at WRITE time by
+    ``observe.flush``, so one config value fans out correctly across
+    hosts and subprocesses."""
+    if not path or "%" not in path:
+        return path
+    if "%h" in path:
+        import socket
+
+        path = path.replace("%h", socket.gethostname().split(".")[0])
+    if "%p" in path:
+        path = path.replace("%p", str(os.getpid()))
+    return path
+
+
+def get() -> Config:
+    """The effective config (innermost :func:`override` scope, else the
+    process-wide base)."""
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else _base
+
+
+def override(**kw):
+    """Thread-local scoped override: ``with override(trace_dir=d): ...``
+    (a :func:`bind` of the current effective config with ``kw`` replaced)."""
+    return bind(replace(get(), **kw))
+
+
+@contextlib.contextmanager
+def bind(cfg: Config) -> Iterator[Config]:
+    """Thread-local scope binding an EXACT ``Config``: work fanned out to
+    worker threads re-enters the submitting thread's ``get()`` with this,
+    so per-scope knobs mean the same thing on every thread of one logical
+    operation."""
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    stack.append(cfg)
+    try:
+        yield cfg
+    finally:
+        stack.pop()

@@ -2,6 +2,7 @@
 GPU (counterpart of ``torchdistx_tpu/jax_bridge``'s public API)."""
 
 from .materialize import (
+    bind_values,
     materialize_module_cuda,
     materialize_params_cuda,
     materialize_tensor_cuda,
@@ -9,6 +10,7 @@ from .materialize import (
 )
 
 __all__ = [
+    "bind_values",
     "materialize_module_cuda",
     "materialize_params_cuda",
     "materialize_tensor_cuda",

@@ -53,6 +53,7 @@ from ..parallel.sharding import (
 )
 
 __all__ = [
+    "bind_values",
     "materialize_module_cuda",
     "materialize_params_cuda",
     "materialize_tensor_cuda",
@@ -335,3 +336,31 @@ def materialize_module_cuda(
         return {}
     return materialize_params_cuda(fakes, mesh=mesh, plan=plan, seed=seed,
                                    param_dtype=param_dtype, device=device)
+
+
+def bind_values(module: torch.nn.Module, values: Dict[str, torch.Tensor]) -> None:
+    """Swap each fake parameter and buffer of ``module`` for its value in
+    ``values`` (as :func:`materialize_module_cuda` returns them, keyed by
+    :func:`named_fake_tensors`' names); tied entries share one
+    ``nn.Parameter``.
+
+    Values are bound as they come: on a ``DeviceMesh`` each parameter is
+    an ``nn.Parameter`` around its DTensor, this rank's shard and no more
+    (nothing is gathered), which ``parallel.make_train_step(mesh=)``
+    takes over into its tensor-parallel and FSDP2 layout."""
+    fakes = named_fake_tensors(module)
+    missing = [n for n in fakes if n not in values]
+    if missing:
+        raise KeyError(f"no value for {missing[:4]} ({len(missing)} entries)")
+    by_id = {id(t): values[n] for n, t in fakes.items()}
+    made: dict = {}
+    for mod in module.modules():
+        for d, is_param in ((mod._parameters, True), (mod._buffers, False)):
+            for k, t in d.items():
+                if t is None or id(t) not in by_id:
+                    continue
+                if id(t) not in made:
+                    v = by_id[id(t)]
+                    made[id(t)] = torch.nn.Parameter(
+                        v, requires_grad=t.requires_grad) if is_param else v
+                d[k] = made[id(t)]

@@ -144,9 +144,24 @@ class Embed(nn.Embedding):
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """``x @ embedding.T`` in the compute dtype (flax ``Embed.attend``)."""
+        """``x @ embedding.T`` in the compute dtype (flax ``Embed.attend``).
+
+        Under tensor parallelism the weight is a DTensor with the vocab
+        over ``tp``: ``x`` enters replicated and the logits leave
+        gathered, as a column-parallel head gives them."""
         dt = self.compute_dtype
-        return x.to(dt) @ self.weight.to(dt).T
+        w = self.weight.to(dt)
+        if type(w) not in (torch.Tensor, nn.Parameter):
+            # Imported here: torch.distributed.tensor pulls in ~500 modules.
+            from torch.distributed.tensor import DTensor, Replicate
+
+            if isinstance(w, DTensor):
+                mesh = w.device_mesh
+                x = DTensor.from_local(x.to(dt), mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+                return (x @ w.T).full_tensor()
+        return x.to(dt) @ w.T
 
 
 class RMSNorm(nn.Module):
@@ -248,13 +263,17 @@ class Attention(nn.Module):
         self.wo = _dense(cfg, cfg.n_heads * hd, cfg.d_model, device)
 
     def qkv(self, x: torch.Tensor):
-        """x [B, S, d] → q [B, S, H, D], k and v [B, S, KV, D]."""
-        cfg = self.cfg
+        """x [B, S, d] → q [B, S, H, D], k and v [B, S, KV, D].
+
+        The head counts are the projections' own: under tensor
+        parallelism ``wq``/``wk``/``wv`` give this rank's ``H/tp`` and
+        ``KV/tp`` heads (the plans shard a head dim only where ``tp``
+        divides its count, so the GQA group ratio stays ``H/KV``)."""
         B, S, _ = x.shape
-        hd = cfg.head_size
-        q = self.wq(x).view(B, S, cfg.n_heads, hd)
-        k = self.wk(x).view(B, S, cfg.kv_heads, hd)
-        v = self.wv(x).view(B, S, cfg.kv_heads, hd)
+        hd = self.cfg.head_size
+        q = self.wq(x).view(B, S, -1, hd)
+        k = self.wk(x).view(B, S, -1, hd)
+        v = self.wv(x).view(B, S, -1, hd)
         return q, k, v
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
@@ -292,12 +311,11 @@ class CrossAttention(nn.Module):
         self.wo = _dense(cfg, cfg.n_heads * hd, cfg.d_model, device, False)
 
     def forward(self, x, kv, *, bias=None, segment_ids=None):
-        cfg = self.cfg
         B, S, _ = x.shape
-        T, hd = kv.shape[1], cfg.head_size
-        q = self.wq(x).view(B, S, cfg.n_heads, hd)
-        k = self.wk(kv).view(B, T, cfg.kv_heads, hd)
-        v = self.wv(kv).view(B, T, cfg.kv_heads, hd)
+        T, hd = kv.shape[1], self.cfg.head_size
+        q = self.wq(x).view(B, S, -1, hd)  # local heads, as in Attention
+        k = self.wk(kv).view(B, T, -1, hd)
+        v = self.wv(kv).view(B, T, -1, hd)
         o = self.attn_fn(q, k, v, causal=False,
                          **_optional_attn_kwargs(bias, segment_ids))
         return self.wo(o.reshape(B, S, -1))

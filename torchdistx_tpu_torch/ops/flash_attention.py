@@ -50,6 +50,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .segments import normalize_segment_ids
@@ -430,6 +431,76 @@ def flash_backward(q, k, v, do, lse, delta, *, causal: bool = True,
     return (*grads, flash_backward_dbias(q, k, v, do, lse, delta, bias, **kw))
 
 
+# The kernels' entry points as custom ops, so a dispatch mode sees each
+# call as one op: ``torch.utils.flop_counter`` counts them by the
+# formulas below (it sees nothing inside a kernel).  On CPU tensors they
+# run the plain versions, as the functions they wrap do.
+@torch.library.custom_op(
+    "tdx_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? q_seg, "
+           "Tensor? kv_seg, bool causal, int? heads, bool want_f32) "
+           "-> (Tensor, Tensor, Tensor)")
+def _fwd_op(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32):
+    """:func:`_flash_forward`; the f32 output is empty where it would be
+    the output itself (an op's outputs may not alias)."""
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    out, lse, out32 = _flash_forward(q, k, v, causal, seg, bias, heads,
+                                     want_f32)
+    if out32 is None or out32 is out:
+        out32 = q.new_empty(0, dtype=torch.float32)
+    return out, lse, out32
+
+
+@torch.library.custom_op(
+    "tdx_torch::flash_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+           "Tensor delta, Tensor? bias, Tensor? q_seg, Tensor? kv_seg, "
+           "bool causal, int? heads, bool want_dbias) "
+           "-> (Tensor, Tensor, Tensor, Tensor)")
+def _bwd_op(q, k, v, do, lse, delta, bias, q_seg, kv_seg, causal, heads,
+            want_dbias):
+    """:func:`flash_backward`; d(bias) is empty unless asked for."""
+    seg = None if q_seg is None else (q_seg, kv_seg)
+    grads = flash_backward(q, k, v, do, lse, delta, causal=causal,
+                           segment_ids=seg, bias=bias, heads=heads,
+                           want_dbias=want_dbias)
+    dbias = grads[3] if want_dbias else q.new_empty(0, dtype=torch.float32)
+    return (*grads[:3], dbias)
+
+
+def visible_pairs(q, k, causal: bool, q_seg=None, kv_seg=None) -> int:
+    """The (query row, key) pairs the kernels compute at the raw layout:
+    q [BH, S, D], k [BKV, T, D]; causal keeps key j <= i + T - S, segment
+    ids keep equal ids (reading them synchronizes with the device)."""
+    BH, S = q.shape[:2]
+    T = k.shape[1]
+    if q_seg is None:
+        if not causal:
+            return BH * S * T
+        return BH * sum(min(T, max(0, i + T - S + 1)) for i in range(S))
+    mask = q_seg[:, :, None] == kv_seg[:, None, :]
+    if causal:
+        mask = mask & torch.ones(S, T, dtype=torch.bool,
+                                 device=mask.device).tril(T - S)
+    return BH // q_seg.shape[0] * int(mask.sum())
+
+
+# Model FLOPs per visible pair and head-dim element: forward QKᵀ and PV
+# (2 each); backward dP = dO·Vᵀ, dV = Pᵀ·dO, dQ = dS·K and dK = dSᵀ·Q (2
+# each).  The backward kernels' recomputation of QKᵀ (and of dP in dk/dv)
+# is not model work and is not counted, as MFU's convention has it.
+@register_flop_formula(torch.ops.tdx_torch.flash_fwd, get_raw=True)
+def _fwd_flops(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32, *,
+               out_val=None, **kwargs) -> int:
+    return 4 * q.shape[2] * visible_pairs(q, k, causal, q_seg, kv_seg)
+
+
+@register_flop_formula(torch.ops.tdx_torch.flash_bwd, get_raw=True)
+def _bwd_flops(q, k, v, do, lse, delta, bias, q_seg, kv_seg, causal, heads,
+               want_dbias, *, out_val=None, **kwargs) -> int:
+    return 8 * q.shape[2] * visible_pairs(q, k, causal, q_seg, kv_seg)
+
+
 class _FlashCore(torch.autograd.Function):
     """The custom VJP of the JAX ``_flash_core``: the forward kernel saves
     (its f32 output, lse); the backward computes delta = rowsum(do * out)
@@ -440,10 +511,11 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qh, kh, vh, bias, causal, heads, q_seg, kv_seg):
-        seg = None if q_seg is None else (q_seg, kv_seg)
         b32 = None if bias is None else bias.float().contiguous()
-        out, lse, out32 = _flash_forward(qh, kh, vh, causal, seg, b32, heads,
-                                         True)
+        out, lse, out32 = _fwd_op(qh, kh, vh, b32, q_seg, kv_seg, causal,
+                                  heads, True)
+        if out32.numel() == 0:
+            out32 = out
         ctx.save_for_backward(qh, kh, vh, b32, out32, lse, q_seg, kv_seg)
         ctx.causal, ctx.heads = causal, heads
         ctx.bias_dtype = None if bias is None else bias.dtype
@@ -452,14 +524,13 @@ class _FlashCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qh, kh, vh, b32, out32, lse, q_seg, kv_seg = ctx.saved_tensors
-        seg = None if q_seg is None else (q_seg, kv_seg)
         delta = (do.float() * out32.float()).sum(-1)
         want_dbias = b32 is not None and ctx.needs_input_grad[3]
-        grads = flash_backward(qh, kh, vh, do.contiguous(), lse, delta,
-                               causal=ctx.causal, segment_ids=seg, bias=b32,
-                               heads=ctx.heads, want_dbias=want_dbias)
-        dbias = grads[3].to(ctx.bias_dtype) if want_dbias else None
-        return (*grads[:3], dbias, None, None, None, None)
+        dq, dk, dv, dbias = _bwd_op(qh, kh, vh, do.contiguous(), lse, delta,
+                                    b32, q_seg, kv_seg, ctx.causal,
+                                    ctx.heads, want_dbias)
+        dbias = dbias.to(ctx.bias_dtype) if want_dbias else None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""Training, meshes and sharding plans: the loss and the single-device
-train step, ``make_mesh`` over ``torch.distributed``'s ``DeviceMesh``,
-and the name → PartitionSpec plans the materializer places shards by."""
+"""Training, meshes and sharding plans: the loss and the train step (on
+one device, or over a mesh with tensor parallelism and FSDP2:
+:mod:`.spmd`), ``make_mesh`` over ``torch.distributed``'s
+``DeviceMesh``, and the name → PartitionSpec plans the materializer
+places shards by."""
 
 from .mesh import DEFAULT_AXIS_ORDER, VirtualMesh, make_mesh, single_device_mesh
 from .pipeline import valid_next_token_mask

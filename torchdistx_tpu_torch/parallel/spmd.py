@@ -1,0 +1,345 @@
+"""Tensor parallelism and FSDP2 over a mesh, laid out as the keyed values
+already are.
+
+The JAX package lets GSPMD follow the shardings its parameters were
+materialized with.  Here the keyed values (``cuda_bridge``) arrive as
+DTensors placed by a sharding plan (:func:`..sharding.placements_for`),
+and :func:`shard_module` rebuilds the module around them:
+
+1. each bound parameter's placements say which tensor dim each mesh axis
+   shards; the parameter is swapped for a ``meta`` tensor of its global
+   shape (ties kept);
+2. :func:`tp_styles` maps those layouts to
+   ``torch.distributed.tensor.parallel`` styles — a linear whose weight
+   has ``tp`` on dim 0 is column-parallel, on dim 1 row-parallel; an
+   embedding with the vocab on ``tp`` is row-parallel (vocab-parallel) —
+   and ``parallelize_module`` applies them over ``mesh["tp"]``;
+3. ``fully_shard`` runs per block and at the root over ``mesh["fsdp"]``
+   (``mesh["dp", "fsdp"]``, FSDP2's HSDP, when ``dp > 1``), each
+   parameter sharded on the dim it has ``fsdp`` on; the parameters that
+   no data axis shards (the plans' norms and most biases) are left out of
+   FSDP2 and their gradients averaged over the data ranks by
+   :func:`reduce_replicated_grads`;
+4. each parameter's new layout is checked against the value's and the
+   value's local tensor is handed to it through
+   ``load_state_dict(assign=True)`` — FSDP2 adopts that storage as its
+   shard, so nothing is copied, gathered or allocated twice.
+
+A layout that no style or FSDP2 placement gives raises with the
+parameter's name and its spec; nothing falls back to replication.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from .sharding import PartitionSpec, mesh_shape, spec_str
+
+DATA_AXES = ("dp", "fsdp")
+# Attention and MLP projections that pair up: the inputs column-parallel,
+# the output row-parallel, the heads or the hidden units local in between.
+_PAIRS = {"Attention": (("wq", "wk", "wv"), "wo"),
+          "CrossAttention": (("wq", "wk", "wv"), "wo"),
+          "MLP": (("w_gate", "w_up"), "w_down")}
+
+AxisDims = Dict[str, int]  # mesh axis -> the tensor dim it shards
+
+
+def axis_dims(placements: Sequence, axes: Sequence[str]) -> AxisDims:
+    """``{axis: tensor dim}`` of DTensor ``placements`` over mesh ``axes``
+    (the axes that replicate are absent)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    return {a: p.dim for a, p in zip(axes, placements)
+            if isinstance(p, (Shard, _StridedShard))}
+
+
+def _spec(dims: AxisDims, ndim: int) -> str:
+    """``dims`` as a PartitionSpec string (axes in mesh order), for
+    messages."""
+    per_dim = [tuple(a for a, d in dims.items() if d == i) for i in range(ndim)]
+    return spec_str(PartitionSpec(*(None if not a else a[0] if len(a) == 1
+                                    else a for a in per_dim)))
+
+
+def tp_styles(module: nn.Module, dims: Dict[str, AxisDims]) -> dict:
+    """``{module name: ParallelStyle}`` for ``parallelize_module``, from
+    each parameter's ``{axis: tensor dim}`` (``dims`` by qualified name).
+    Raises ``ValueError`` naming the parameter and its spec where no
+    style gives that layout — for example ``wq`` sharded while ``wk`` is
+    replicated (a head count ``tp`` does not divide)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel
+
+    params = dict(module.named_parameters())
+
+    def tp_dim(name: str) -> Optional[int]:
+        return dims.get(name, {}).get("tp")
+
+    def fail(name: str, why: str):
+        raise ValueError(f"tensor parallelism: `{name}` has spec "
+                         f"{_spec(dims.get(name, {}), params[name].ndim)}: "
+                         f"{why}")
+
+    def check_bias(prefix: str, lin: nn.Module, want: Optional[int]):
+        if getattr(lin, "bias", None) is not None \
+                and tp_dim(prefix + "bias") != want:
+            fail(prefix + "bias", "the bias must be sharded as its weight's "
+                 "output dim (column-parallel) or replicated (row-parallel)")
+
+    styles: dict = {}
+    paired = set()
+    mods = dict(module.named_modules())
+    for mod_name, mod in mods.items():
+        pair = _PAIRS.get(type(mod).__name__)
+        if pair is None:
+            continue
+        ins, out = pair
+        prefix = f"{mod_name}." if mod_name else ""
+        members = [n for n in ins if isinstance(getattr(mod, n, None), nn.Linear)]
+        members.append(out)
+        paired.update(prefix + n for n in members)
+        sharded = [n for n in members if tp_dim(f"{prefix}{n}.weight") is not None]
+        for n in members:
+            want = (1 if n == out else 0) if sharded else None
+            if tp_dim(f"{prefix}{n}.weight") != want:
+                fail(f"{prefix}{n}.weight",
+                     f"{sharded[0]} of {mod_name or 'the module'} is "
+                     f"tensor-parallel, so this weight must have tp on dim "
+                     f"{want} ({'row' if n == out else 'column'}-parallel)")
+            check_bias(f"{prefix}{n}.", getattr(mod, n),
+                       0 if sharded and n != out else None)
+            if sharded:
+                styles[prefix + n] = (RowwiseParallel() if n == out
+                                      else ColwiseParallel())
+    for mod_name, mod in mods.items():
+        if mod_name in paired or not isinstance(mod, (nn.Linear, nn.Embedding)):
+            continue
+        prefix = f"{mod_name}." if mod_name else ""
+        dim = tp_dim(prefix + "weight")
+        if isinstance(mod, nn.Linear):
+            check_bias(prefix, mod, 0 if dim == 0 else None)
+        if dim is None:
+            continue
+        if isinstance(mod, nn.Embedding):
+            # [vocab, d]: the vocab over tp is the vocab-parallel lookup.
+            styles[mod_name] = (RowwiseParallel(input_layouts=Replicate())
+                                if dim == 0 else
+                                ColwiseParallel(output_layouts=Replicate()))
+        else:
+            # A lone linear (the head): its output or input is whole.
+            styles[mod_name] = (ColwiseParallel(output_layouts=Replicate())
+                                if dim == 0 else
+                                RowwiseParallel(input_layouts=Replicate()))
+    styled = {f"{m}.{n}" if m else n for m in styles
+              for n, _ in mods[m].named_parameters(recurse=False)}
+    for name in params:
+        if tp_dim(name) is not None and name not in styled:
+            fail(name, "no tensor-parallel style shards this parameter")
+    return styles
+
+
+def layout_of(t: torch.Tensor, mesh) -> tuple:
+    """``t``'s placements over ``mesh``'s dims, by axis name: a DTensor on
+    a sub-mesh is replicated over the axes it lacks, a plain tensor over
+    all of them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    names = list(mesh_shape(mesh))
+    out = [Replicate()] * len(names)
+    if isinstance(t, DTensor):
+        for a, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+            out[names.index(a)] = p
+    return tuple(out)
+
+
+def data_axes(mesh, batch_axes: Sequence[str] = DATA_AXES) -> Tuple[str, ...]:
+    """The axes of ``batch_axes`` on ``mesh``, in mesh order."""
+    bad = [a for a in batch_axes if a not in DATA_AXES]
+    if bad:
+        raise ValueError(f"batch_axes {tuple(batch_axes)}: only {DATA_AXES} "
+                         f"carry the batch in the port")
+    return tuple(a for a in mesh.mesh_dim_names if a in batch_axes)
+
+
+def _blocks(module: nn.Module) -> List[nn.Module]:
+    """The transformer blocks FSDP2 wraps one by one."""
+    from ..models.layers import Block
+
+    return [m for m in module.modules() if isinstance(m, Block)]
+
+
+@dataclass
+class ShardedModule:
+    """What :func:`shard_module` did: each parameter's ``{axis: tensor
+    dim}`` by name, the parameters left replicated over the data axes
+    (``replicated``), the groups their gradients are summed over and the
+    number of data ranks."""
+
+    dims: Dict[str, AxisDims]
+    replicated: List[nn.Parameter]
+    groups: list
+    n_data: int
+
+
+def shard_module(module: nn.Module, mesh) -> ShardedModule:
+    """Lay ``module``'s bound keyed values (DTensors on ``mesh``) out for
+    training: tensor parallelism over ``mesh["tp"]`` and FSDP2 over the
+    data axes, adopting each value's local tensor as the parameter's
+    shard (see the module docstring).  In place."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    names = tuple(mesh.mesh_dim_names)
+    shape = mesh_shape(mesh)
+    # 1. The bound values, one per tensor (ties share the first name).
+    first: Dict[int, str] = {}
+    canon: Dict[str, str] = {}
+    values: Dict[str, DTensor] = {}
+    dims: Dict[str, AxisDims] = {}
+    for name, p in module.named_parameters(remove_duplicate=False):
+        canon[name] = first.setdefault(id(p), name)
+        if not isinstance(p, DTensor) or p.device_mesh != mesh:
+            raise ValueError(
+                f"`{name}` is not a DTensor on {mesh}: bind the values "
+                f"materialize_module_cuda(mesh=mesh, plan=...) gives")
+        values.setdefault(canon[name], p)
+        dims[name] = axis_dims(p.placements, names)
+    for name, b in module.named_buffers():
+        if isinstance(b, DTensor):
+            raise NotImplementedError(f"buffer `{name}` is a DTensor: sharded "
+                                      f"buffers are not carried yet")
+    # 2. Meta parameters of the global shapes, ties kept.
+    meta: Dict[int, nn.Parameter] = {}
+    for mod in module.modules():
+        for k, p in mod._parameters.items():
+            if p is None:
+                continue
+            if id(p) not in meta:
+                meta[id(p)] = nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                    requires_grad=p.requires_grad)
+            mod._parameters[k] = meta[id(p)]
+    # 3. Tensor parallelism, then FSDP2 over the data axes, each
+    # parameter on the dim it has fsdp on; the rest ignored by FSDP2.
+    if "tp" in names:
+        styles = tp_styles(module, dims)
+        if styles:
+            parallelize_module(module, mesh["tp"], styles)
+    replicated_names = {n for n, d in dims.items()
+                        if not any(a in d for a in DATA_AXES)}
+    if "fsdp" in names:
+        name_of = {id(p): n for n, p in module.named_parameters()}
+        ignored = {p for n, p in module.named_parameters()
+                   if n in replicated_names}
+
+        def placement(p: nn.Parameter):
+            name = name_of[id(p)]
+            if "fsdp" not in dims[name]:
+                raise ValueError(
+                    f"FSDP2: `{name}` has spec {_spec(dims[name], p.ndim)}: "
+                    f"sharded over dp but not fsdp")
+            return Shard(dims[name]["fsdp"])
+
+        fsdp_mesh = (mesh["dp", "fsdp"] if shape.get("dp", 1) > 1
+                     else mesh["fsdp"])
+        for blk in _blocks(module):
+            fully_shard(blk, mesh=fsdp_mesh, shard_placement_fn=placement,
+                        ignored_params=ignored)
+        fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=placement,
+                    ignored_params=ignored)
+    # 4. The new layouts against the values'; the local tensors adopted.
+    state: Dict[str, nn.Parameter] = {}
+    made: Dict[str, nn.Parameter] = {}
+    replicated: List[nn.Parameter] = []
+    for name, p in module.named_parameters(remove_duplicate=False):
+        key = canon[name]
+        if key in made:
+            state[name] = made[key]
+            continue
+        value = values[key]
+        got = layout_of(p, mesh)
+        if got != tuple(value.placements):
+            raise ValueError(
+                f"`{name}` has spec {_spec(dims[name], p.ndim)}, placed "
+                f"{tuple(value.placements)}; tensor parallelism and FSDP2 "
+                f"give {got}")
+        local = value.to_local()
+        if isinstance(p, DTensor):
+            local = DTensor.from_local(local, p.device_mesh, p.placements,
+                                       run_check=False, shape=p.shape,
+                                       stride=p.stride())
+        new = made[key] = nn.Parameter(local, requires_grad=p.requires_grad)
+        state[name] = new
+        if key in replicated_names:
+            replicated.append(new)
+    module.load_state_dict(state, strict=False, assign=True)
+    dp = [a for a in DATA_AXES if a in names]
+    groups = [mesh.get_group(a) for a in dp if shape[a] > 1]
+    return ShardedModule(dims, replicated, groups,
+                         math.prod(shape[a] for a in dp))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def reduce_replicated_grads(sharded: ShardedModule) -> None:
+    """Average the gradients of the parameters FSDP2 does not hold over
+    the data ranks, as FSDP2's reduce-scatter averages its own: one
+    all-reduce of their flattened local gradients per data axis and
+    dtype."""
+    grads = [_local(p.grad) for p in sharded.replicated if p.grad is not None]
+    if not sharded.groups or not grads:
+        return
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        for group in sharded.groups:
+            dist.all_reduce(flat, group=group)
+        flat /= sharded.n_data
+        offset = 0
+        for g in same:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def global_grad_norm(params: Iterable[nn.Parameter], mesh) -> torch.Tensor:
+    """The L2 norm of every gradient, each counted once however it is
+    sharded or replicated: each rank sums the squares of its local
+    shards, divided by the number of ranks holding the same shard, and
+    one all-reduce over the mesh adds them up."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"{mesh} spans {mesh.size()} of "
+                         f"{dist.get_world_size()} ranks; the port's meshes "
+                         f"span the whole group")
+    total = None
+    for p in params:
+        g = p.grad
+        if g is None:
+            continue
+        copies = mesh.size()
+        if isinstance(g, DTensor):
+            for i, pl in enumerate(g.placements):
+                if not isinstance(pl, Replicate):
+                    copies //= g.device_mesh.size(i)
+        sq = _local(g).float().square().sum() / copies
+        total = sq if total is None else total + sq
+    if total is None:
+        raise ValueError("no gradients")
+    dist.all_reduce(total)
+    return total.sqrt()

@@ -1,47 +1,60 @@
 """The training step: loss, optimizer wiring and the update (counterpart
-of ``torchdistx_tpu/parallel/train.py``), on one device.
+of ``torchdistx_tpu/parallel/train.py``), on one device or over a mesh.
 
 PyTorch runs eagerly, so the step is a plain function: forward, the
 loss, ``backward`` (through the flash kernels' backward when the model's
 ``attn_fn`` is ``make_flash_attention()``), the global gradient norm, and
-an AdamW update in place.  Sharding over a device mesh (FSDP2, ROADMAP
-A5), the pipeline schedules (A11) and mixture-of-experts losses (A9) are
-not ported yet and raise; so do the JAX package's telemetry wrapper
-``_instrument_step`` and ``train_elastic`` (A5, A12), which have no
-counterpart here yet.
+an AdamW update in place.  Over a ``DeviceMesh`` the module takes the
+keyed values' layout with tensor parallelism and FSDP2
+(:mod:`.spmd`), the batch is split over the data axes, and the metrics
+are reduced to the global ones on every rank.  The pipeline schedules
+(A11), sequence parallelism (A10), mixture-of-experts (A9) and
+``train_elastic`` (A12) are not ported yet and raise.  With telemetry on
+(:func:`..observe.enabled`) the step is wrapped by
+:func:`_instrument_step`.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import observe
 from .._device import resolve_device
 from ..fake import is_fake
 from ..models.configs import TransformerConfig
 from ..models.layers import AttnFn, Linear
+from ..observe.step import H100_PEAK_FLOPS  # noqa: F401 — re-exported
 from .pipeline import valid_next_token_mask
 
-# Dense peak FLOP/s of one NVIDIA H100 SXM by compute dtype (NVIDIA's data
-# sheet, at the 700 W power limit; f32 on the CUDA cores, no TF32): the
-# denominator of MFU.
-H100_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
+OptimizerFactory = Callable[[Iterable], torch.optim.Optimizer]
 
 
-def default_optimizer(params: Iterable[nn.Parameter]) -> torch.optim.Optimizer:
+def default_optimizer(params: Iterable) -> torch.optim.Optimizer:
     """``optax.adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1)`` of the JAX
-    package: decoupled weight decay on every parameter.  On the GPU the
-    update is PyTorch's fused AdamW (one pass over parameters, gradients
-    and both moments, as XLA fuses optax's update)."""
-    params = list(params)
-    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+    package: decoupled weight decay on every parameter.  ``params`` are
+    parameters or param groups (the mesh path groups its parameters by
+    their DTensor mesh).  On the GPU the update is PyTorch's fused AdamW
+    (one pass over parameters, gradients and both moments, as XLA fuses
+    optax's update), DTensor parameters included."""
+    groups = list(params)
+    flat = [p for g in groups for p in g["params"]] \
+        if groups and isinstance(groups[0], dict) else groups
+    return torch.optim.AdamW(groups, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
                              weight_decay=0.1,
-                             fused=all(p.is_cuda for p in params))
+                             fused=all(p.is_cuda for p in flat))
+
+
+def _token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """[B, S-1] next-token negative log-likelihoods, log-softmax in f32."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
+                           tokens[:, 1:].long().reshape(-1),
+                           reduction="none").view(tokens.shape[0], -1)
 
 
 def lm_cross_entropy(logits: torch.Tensor, tokens: torch.Tensor,
@@ -52,10 +65,7 @@ def lm_cross_entropy(logits: torch.Tensor, tokens: torch.Tensor,
     With ``segment_ids`` (packed sequences), positions whose next token
     belongs to another document, or to the padded tail (a NEGATIVE id),
     are excluded from the mean."""
-    V = logits.shape[-1]
-    nll = F.cross_entropy(logits[:, :-1].float().reshape(-1, V),
-                          tokens[:, 1:].long().reshape(-1),
-                          reduction="none").view(tokens.shape[0], -1)
+    nll = _token_nll(logits, tokens)
     if segment_ids is None:
         return nll.mean()
     valid = valid_next_token_mask(segment_ids)
@@ -75,6 +85,12 @@ def train_step_flops(model: nn.Module, cfg: TransformerConfig, batch: int,
     return 6.0 * n * batch * seq + attn
 
 
+# Mesh axes the port does not carry yet, and the ROADMAP item of each.
+_UNPORTED_AXES = {"sp": "sequence parallelism: ROADMAP A10",
+                  "ep": "expert parallelism: ROADMAP A9",
+                  "pp": "pipeline parallelism: ROADMAP A11"}
+
+
 def make_train_step(
     model: nn.Module,
     cfg: TransformerConfig,
@@ -83,20 +99,31 @@ def make_train_step(
     attn_fn: Optional[AttnFn] = None,
     device="cuda",
     mesh=None,
+    batch_axes=("dp", "fsdp"),
     pipeline: bool = False,
 ):
     """Build ``(init_state, train_step, shard_batch)`` for a decoder LM.
 
     * ``init_state(model)`` takes the materialized module (the one passed
-      here: ``materialize_module`` works in place) and returns the state
-      ``{"model", "params", "opt", "step"}``; ``optimizer`` is a factory
-      over the parameters (default: :func:`default_optimizer`);
+      here: ``materialize_module`` works in place, and
+      ``cuda_bridge.bind_values`` binds the keyed values) and returns the
+      state ``{"model", "params", "opt", "step"}``; ``optimizer`` is a
+      factory over the parameters (default: :func:`default_optimizer`);
     * ``train_step(state, tokens, segment_ids=None) -> (state, metrics)``
       updates the state in place; ``metrics`` holds ``loss``, ``ce``,
       ``aux`` (0: no MoE yet) and ``grad_norm`` (the global L2 norm of
       the gradients, unclipped, as ``optax.global_norm``) as 0-d device
       tensors, so the loop stays asynchronous until a value is read;
     * ``shard_batch(tokens)`` puts a [B, S] batch on the device.
+
+    With ``mesh`` (a ``DeviceMesh`` of ``dp``, ``fsdp`` and ``tp`` axes),
+    ``init_state`` takes a module bound to the keyed values
+    ``materialize_module_cuda(mesh=mesh, plan=...)`` gave and lays it out
+    as they are placed, with tensor parallelism and FSDP2
+    (:func:`.spmd.shard_module`); ``shard_batch``
+    gives this rank its rows of the global batch over ``batch_axes``
+    (replicated over ``tp``); the metrics are the global ones, equal on
+    every rank.  The device is the mesh's.
 
     A model's attention is set by its constructor (``make_llama(cfg,
     attn_fn=...)``).  ``attn_fn`` here is the JAX signature's attention
@@ -106,19 +133,29 @@ def make_train_step(
             "make_train_step(attn_fn=) feeds the pipeline schedules, not "
             "ported yet (ROADMAP A11); pass attn_fn to the model's "
             "constructor")
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported yet: ROADMAP A5 "
-            "(FSDP2 over the A2 mesh)")
     if pipeline:
         raise NotImplementedError(
             "pipeline schedules are not ported yet: ROADMAP A11")
     if cfg.moe is not None:
         raise NotImplementedError(
             "mixture-of-experts training is not ported yet: ROADMAP A9")
-    dev = resolve_device(device)
     make_opt = optimizer or default_optimizer
+    if mesh is None:
+        dev, n_batch = resolve_device(device), 1
+        init_state, train_step, shard_batch = _single_device(dev, make_opt)
+    else:
+        dev, n_batch, (init_state, train_step, shard_batch) = _over_mesh(
+            mesh, device, batch_axes, make_opt)
+    if observe.enabled():
+        # Decided at build time: with telemetry off the raw step is
+        # returned and the loop stays asynchronous.
+        train_step = _instrument_step(train_step, cfg, dev,
+                                      1 if mesh is None else mesh.size(),
+                                      n_batch)
+    return init_state, train_step, shard_batch
 
+
+def _single_device(dev: torch.device, make_opt):
     def init_state(module: nn.Module) -> dict:
         params = list(module.parameters())
         if any(is_fake(p) for p in params):
@@ -151,3 +188,161 @@ def make_train_step(
         return torch.as_tensor(tokens).to(dev, torch.long)
 
     return init_state, train_step, shard_batch
+
+
+def _over_mesh(mesh, device, batch_axes, make_opt):
+    """The mesh path of :func:`make_train_step`."""
+    import torch.distributed as dist
+
+    from .sharding import mesh_shape
+    from .spmd import (
+        data_axes,
+        global_grad_norm,
+        reduce_replicated_grads,
+        shard_module,
+    )
+
+    names = tuple(mesh.mesh_dim_names or ())
+    for axis, item in _UNPORTED_AXES.items():
+        if axis in names:
+            raise NotImplementedError(
+                f"mesh axis {axis!r}: {item} (not ported yet)")
+    if not names or any(a not in ("dp", "fsdp", "tp") for a in names):
+        raise ValueError(f"make_train_step takes a mesh of named dp, fsdp "
+                         f"and tp axes, not {mesh}")
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device!r} differs from the mesh's "
+                         f"device type {mesh.device_type!r}")
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    shape = mesh_shape(mesh)
+    baxes = data_axes(mesh, batch_axes)
+    if not baxes and mesh.size() > 1:
+        warnings.warn(
+            f"make_train_step: none of batch_axes={tuple(batch_axes)} is on "
+            f"the mesh (axes: {names}); the batch will be REPLICATED on "
+            f"every device. Pass batch_axes matching your mesh's data axes "
+            f"if this is not intended.")
+    n_batch = 1
+    for a in baxes:
+        n_batch *= shape[a]
+    batch_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
+
+    def all_sum(t: torch.Tensor) -> torch.Tensor:
+        for group in batch_groups:
+            dist.all_reduce(t, group=group)
+        return t
+
+    def init_state(module: nn.Module) -> dict:
+        sharded = shard_module(module, mesh)
+        params = list(module.parameters())
+        by_mesh: dict = {}
+        for p in params:
+            by_mesh.setdefault(getattr(p, "device_mesh", None), []).append(p)
+        return {"model": module, "params": params,
+                "opt": make_opt([{"params": ps} for ps in by_mesh.values()]),
+                "step": 0, "sharded": sharded}
+
+    def train_step(state: dict, tokens: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor] = None):
+        module, opt = state["model"], state["opt"]
+        opt.zero_grad(set_to_none=True)
+        args = (tokens,) if segment_ids is None else (tokens, segment_ids)
+        nll = _token_nll(module(*args), tokens)
+        if segment_ids is None:
+            total = float(nll.numel() * n_batch)
+            nll_sum = nll.sum()
+        else:
+            valid = valid_next_token_mask(segment_ids)
+            nll_sum = (nll * valid).sum()
+            total = all_sum(valid.sum()).clamp_min(1.0)
+        # FSDP2 and reduce_replicated_grads average the gradients over
+        # the data ranks; this rank's share of the global mean, times the
+        # number of batch shards, averages to the global mean's gradient.
+        (nll_sum * (n_batch / total)).backward()
+        reduce_replicated_grads(state["sharded"])
+        grad_norm = global_grad_norm(state["params"], mesh)
+        opt.step()
+        state["step"] += 1
+        ce = all_sum(nll_sum.detach()) / total
+        aux = torch.zeros((), device=ce.device)
+        return state, {"loss": ce + aux, "ce": ce, "aux": aux,
+                       "grad_norm": grad_norm}
+
+    def shard_batch(tokens) -> torch.Tensor:
+        t = torch.as_tensor(tokens)
+        if t.shape[0] % n_batch:
+            raise ValueError(f"batch of {t.shape[0]} rows does not divide "
+                             f"over {baxes} ({n_batch} shards)")
+        where = dict(zip(names, mesh.get_coordinate()))
+        idx = 0
+        for a in baxes:
+            idx = idx * shape[a] + where[a]
+        rows = t.shape[0] // n_batch
+        return t[idx * rows:(idx + 1) * rows].to(dev, torch.long)
+
+    return dev, n_batch, (init_state, train_step, shard_batch)
+
+
+# Batch shapes whose FLOPs are counted; past this, new shapes use the
+# 6·N·D estimate (the JAX package's AOT cache has the same bound).
+_COUNTED_SHAPES_MAX = 8
+
+
+def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
+                     n_ranks: int, n_batch: int):
+    """Per-step telemetry around a train step: a ``train.step`` span plus
+    ``tdx.train.tokens_per_s`` and MFU gauges, via
+    :class:`..observe.StepMeter`.  Each step synchronizes the device so
+    the span covers its work — which is why this wrapper exists only
+    when telemetry is enabled.
+
+    FLOPs are counted: the first call of each batch shape runs under
+    ``FlopCounterMode`` (:func:`..observe.costmodel.program_costs`; that
+    step is metered like any other and its span carries the count as
+    ``flops_counted``), and the gauge is ``tdx.train.mfu``, counted work
+    over measured time.  Shapes past the first 8 use the 6·N·D estimate
+    under the ``tdx.train.mfu_est`` name.
+
+    The peak is the card's peak times the ranks, and the FLOPs are this
+    rank's count times the ranks (each rank counts its own shards;
+    ``n_batch`` data shards carry the global batch): whole-mesh work over
+    the whole mesh's peak.  On a card whose peak is unknown (and on the
+    CPU) MFU is left out."""
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    chip_peak = observe.peak_tflops_for(kind, cfg.dtype)
+    meter = observe.StepMeter(
+        peak_tflops=chip_peak * n_ranks if chip_peak else None)
+    counted: dict = {}
+    n_params = None
+
+    def wrapped(state, tokens, segment_ids=None):
+        if not observe.enabled():
+            # Telemetry was turned off after build: skip the meter (it
+            # would record nothing but still synchronize every step).
+            return step_fn(state, tokens, segment_ids)
+        nonlocal n_params
+        if n_params is None:
+            n_params = sum(p.numel() for p in state["params"])
+        ntok = tokens.numel() * n_batch
+        meter.tokens_per_step = ntok
+        shape = (tuple(tokens.shape), str(tokens.dtype), segment_ids is None)
+        count = shape not in counted and len(counted) < _COUNTED_SHAPES_MAX
+        flops = counted.get(shape)
+        meter.flops_per_step = flops or 6.0 * n_params * ntok
+        meter.flops_source = "counted" if flops else "estimate"
+        meter.start()
+        if count:
+            out, costs = observe.costmodel.program_costs(
+                step_fn, state, tokens, segment_ids)
+            flops = counted[shape] = costs["flops"] * n_ranks
+            observe.costmodel.note_program_memory(costs)
+            meter.flops_per_step, meter.flops_source = flops, "counted"
+            if meter._span is not None:
+                meter._span.set(flops_counted=flops)
+        else:
+            out = step_fn(state, tokens, segment_ids)
+        meter.stop(out[1])
+        return out
+
+    return wrapped
