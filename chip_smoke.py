@@ -31,14 +31,33 @@ user calls, and checks what comes out.  One JSON object per line:
    bandwidth bound;
 3. token-exact float32 serving of gpt2-125m (full size) and a 2-layer
    llama3-8b (full width) against the port's unbatched no-cache oracle,
-   through a pool small enough to force preemption;
+   through a pool small enough to force preemption, every serving
+   program a captured CUDA graph, prefix caching and speculation on;
+   then the same two models through a request mix that forces every
+   serving feature (``serve_features_f32``: 6 requests sharing a
+   32-token preamble, a 48-token prompt twice, a 150-token prompt past
+   the largest bucket): tokens equal to the oracle and final logits
+   within 1e-4, each follower a prefix hit, a copy-on-write copy, two
+   or more chunks, a verify tick, no page in use after ``drain``, the
+   same run on the replica's eager programs (``cuda_graphs=False``)
+   with equal tokens and final logits within 1e-6; in both phases the
+   paged-decode kernel's launches equal the layers times the PLAIN
+   decode ticks (a verify tick attends through the plain
+   ``paged_prefill_attention``; a graph replay adds the calls its
+   capture recorded);
 4. full-depth llama3-8b bf16 serving: bring-up seconds and host RSS
    growth while the 16 GB of parameters are materialized on the card,
-   both in a fresh process (cold) and in this one (warm), decode
-   tokens/s, and the kernel's launch count (32 per decode step, each
-   with one merge launch where the engine's table takes several splits);
-   a few decode ticks under ``torch.profiler``, the paged-decode and
-   merge kernels' device time and launches per call named apart;
+   both in a fresh process (cold) and in this one (warm), the seconds
+   to capture its 20 programs and the graph pool's bytes; with
+   speculation off, decode tokens/s and tick ms on the captured
+   programs and on the same replica's eager ones, and the kernel's
+   launch count (32 per decode step, each with one merge launch where
+   the engine's table takes several splits); with speculation on, a
+   repeated prompt's drafted / accepted tokens and verify ticks, first
+   tokens equal to the oracle; a few decode ticks of each mode under
+   ``torch.profiler``: tick wall ms, device ms, the host's launch calls
+   (``cudaGraphLaunch`` counted) and the paged-decode and merge
+   kernels' device time and launches per tick, named apart;
 5. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
@@ -162,6 +181,7 @@ from a directory without the port, or when any phase fails.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -235,6 +255,7 @@ from torchdistx_tpu_torch.parallel.train import (
 from torchdistx_tpu_torch.serve import (
     Request,
     ServeConfig,
+    ServeEngine,
     oracle_generate,
     spin_up_replica,
 )
@@ -1525,9 +1546,27 @@ def staggered_requests(vocab: int, seed: int):
     ]
 
 
+def captured(eng) -> int:
+    """How many of the engine's programs are CUDA graphs."""
+    return sum(p.graph is not None for p in eng._programs.values())
+
+
+def check_plain_launches(name, launches, cfg, eng) -> None:
+    """The paged-decode kernel runs once per layer in each PLAIN decode
+    tick (a verify tick attends through ``paged_prefill_attention``);
+    under CUDA-graph replay each replay adds the calls it recorded."""
+    plain = eng.decode_steps - eng.spec_verify_ticks
+    if launches != cfg.n_layers * plain:
+        raise AssertionError(
+            f"{name}: {launches} kernel launches != {cfg.n_layers} layers "
+            f"x {plain} plain decode ticks ({eng.spec_verify_ticks} verify "
+            f"ticks)")
+
+
 def phase_exact_f32(dev) -> list:
     """Token-exact float32 serving against the unbatched no-cache oracle,
-    with a pool too small for all lanes at once."""
+    with a pool too small for all lanes at once, on the captured
+    programs with prefix caching and speculation on (the defaults)."""
     rows = []
     runs = (
         ("gpt2-125m", "gpt2", PRESETS["gpt2-125m"].replace(dtype=torch.float32)),
@@ -1556,19 +1595,137 @@ def phase_exact_f32(dev) -> list:
                 raise AssertionError(f"{name} {r.rid}: final logits off by {err}")
         if eng.preemptions < 1:
             raise AssertionError(f"{name}: the pool forced no preemption")
-        if launches != cfg.n_layers * eng.decode_steps:
-            raise AssertionError(
-                f"{name}: {launches} kernel launches != {cfg.n_layers} "
-                f"layers x {eng.decode_steps} decode steps")
+        check_plain_launches(name, launches, cfg, eng)
         row = {"phase": "serve_f32_exact", "model": name,
                "requests": len(reqs), "token_exact": True,
                "max_final_logit_err": worst, "preemptions": eng.preemptions,
                "prefills": eng.prefills, "decode_steps": eng.decode_steps,
+               "spec_verify_ticks": eng.spec_verify_ticks,
                "paged_decode_launches": launches,
-               "bring_up_s": eng.bring_up_seconds}
+               "graphs": captured(eng),
+               "bring_up_s": eng.bring_up_seconds,
+               "capture_s": eng.capture_seconds}
         emit(row)
         rows.append(row)
         del eng
+        torch.cuda.empty_cache()
+    return rows
+
+
+# Pages, buckets and a chunk cap that force every feature: a 32-token
+# preamble shared by 6 requests (2 full pages: prefix hits), a 48-token
+# prompt sent twice (3 full pages: the repeat is fully cached and
+# recomputes its last position, a copy-on-write), a 150-token prompt
+# (past the largest bucket: 3 chunks of at most 64).
+FEATURES_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=40,
+                             prefill_buckets=(16, 32, 64), prefill_chunk=64)
+
+
+def feature_requests(vocab: int, seed: int) -> list:
+    """The request mix of ``serve_features_f32``, in arrival order (the
+    queue is FIFO: a request behind one not yet arrived waits)."""
+    rng = np.random.RandomState(seed)
+    preamble = rng.randint(0, vocab, 32).tolist()
+    repeat = rng.randint(0, vocab, 48).tolist()
+    reqs = [Request(f"s{i}", preamble + rng.randint(0, vocab, 5).tolist(),
+                    max_new_tokens=8, arrival_step=2 * i) for i in range(6)]
+    reqs += [Request("c0", repeat, max_new_tokens=10, arrival_step=1),
+             Request("c1", list(repeat), max_new_tokens=10, arrival_step=5),
+             Request("long", rng.randint(0, vocab, 150).tolist(),
+                     max_new_tokens=8, arrival_step=3)]
+    return sorted(reqs, key=lambda r: r.arrival_step)
+
+
+def serve_counted(name, eng, cfg, reqs) -> dict:
+    """Serve ``reqs`` to the end with the paged-decode count reset just
+    before; checks the count per plain tick and returns it."""
+    paged_attention.launches = 0
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = paged_attention.launches
+    check_plain_launches(name, launches, cfg, eng)
+    return {"out": out, "launches": launches}
+
+
+def phase_features_f32(dev) -> list:
+    """The prefix cache, copy-on-write, chunked prefill and speculative
+    decoding at full width in float32, on the captured programs and on
+    the same replica's eager ones."""
+    rows = []
+    runs = (
+        ("gpt2-125m", "gpt2", PRESETS["gpt2-125m"].replace(dtype=torch.float32)),
+        ("llama3-8b@2-layers", "llama",
+         LLAMA3_8B.replace(n_layers=2, dtype=torch.float32)),
+    )
+    for name, family, cfg in runs:
+        eng = spin_up_replica(cfg, family=family, serve_cfg=FEATURES_SERVE,
+                              seed=0, param_dtype=torch.float32, device=dev)
+        reqs = feature_requests(cfg.vocab_size, seed=17)
+        graph = serve_counted(name, eng, cfg, reqs)
+        out = graph["out"]
+        worst = 0.0
+        for r in reqs:
+            want, want_logits = oracle_generate(eng.model, r.tokens,
+                                                r.max_new_tokens, r.eos_id)
+            if out.get(r.rid) != want:
+                raise AssertionError(
+                    f"{name} {r.rid}: engine {out.get(r.rid)} != oracle {want}")
+            err = float(np.abs(eng.final_logits[r.rid] - want_logits).max())
+            worst = max(worst, err)
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} {r.rid}: final logits off by {err}")
+        followers = sum(r.rid.startswith("s") for r in reqs) - 1
+        checks = {
+            "prefix hits (each follower, and c1)":
+                eng.prefix_hits >= followers + 1,
+            "reused tokens": eng.prefix_tokens_reused >= 32 * followers + 47,
+            "a copy-on-write copy": eng.cow_copies >= 1,
+            "two chunks": eng.prefill_chunks >= 2,
+            "a verify tick": eng.spec_verify_ticks >= 1,
+        }
+        missing = [k for k, ok in checks.items() if not ok]
+        if missing:
+            raise AssertionError(f"{name}: no {missing}")
+        eager_eng = ServeEngine(family, cfg, eng.model,
+                                serve_cfg=FEATURES_SERVE, device=dev,
+                                cuda_graphs=False)
+        eager = serve_counted(name + " eager", eager_eng, cfg,
+                              feature_requests(cfg.vocab_size, seed=17))
+        if eager["out"] != out:
+            raise AssertionError(f"{name}: eager tokens != captured tokens")
+        graph_vs_eager = max(
+            float(np.abs(eng.final_logits[r.rid]
+                         - eager_eng.final_logits[r.rid]).max())
+            for r in reqs)
+        if not graph_vs_eager <= 1e-6:
+            raise AssertionError(
+                f"{name}: captured vs eager final logits {graph_vs_eager}")
+        eng.drain()
+        if eng.kv.pages_in_use != 0:
+            raise AssertionError(
+                f"{name}: {eng.kv.pages_in_use} pages in use after drain")
+        row = {"phase": "serve_features_f32", "model": name,
+               "requests": len(reqs), "token_exact": True,
+               "max_final_logit_err": worst,
+               "graph_vs_eager_max_logit_diff": graph_vs_eager,
+               "prefix_hits": eng.prefix_hits,
+               "prefix_tokens_reused": eng.prefix_tokens_reused,
+               "cow_copies": eng.cow_copies,
+               "prefill_chunks": eng.prefill_chunks,
+               "spec_drafted": eng.spec_drafted,
+               "spec_accepted": eng.spec_accepted,
+               "spec_verify_ticks": eng.spec_verify_ticks,
+               "decode_steps": eng.decode_steps,
+               "preemptions": eng.preemptions,
+               "paged_decode_launches": graph["launches"],
+               "paged_decode_launches_eager": eager["launches"],
+               "launches_per_plain_tick": cfg.n_layers,
+               "pages_in_use_after_drain": 0,
+               "graphs": captured(eng), "capture_s": eng.capture_seconds,
+               "graph_pool_bytes": eng.graph_pool_bytes()}
+        emit(row)
+        rows.append(row)
+        del eng, eager_eng
         torch.cuda.empty_cache()
     return rows
 
@@ -1603,10 +1760,21 @@ class RssSampler:
         self.peak = max(self.peak, _rss_bytes())
 
 
-def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
+# CUDA runtime and driver calls that start work on the device: a kernel
+# launch (the merge kernel's programmatic-dependent launch is an Ex
+# call) or a whole graph.
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaLaunchKernelEx", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def profile_decode_ticks(eng, reqs, mode: str, tick_ms: float,
+                         n_ticks: int = 3) -> dict:
     """Where a decode tick's time goes: ``torch.profiler`` over a few
     decode-only ticks of the same replica (after the measured run), the
-    device kernels summed by name."""
+    device kernels summed by name, the host's launch calls counted.
+    ``tick_ms`` is the measured run's decode tick: the profiler's own
+    tracing slows the ticks it watches (``tick_wall_ms_profiled``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for r in reqs:
@@ -1621,9 +1789,11 @@ def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / n_ticks
     calls = (paged_attention.launches - calls) / n_ticks
-    kernels = []
+    kernels, host = [], {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if evt.key in HOST_LAUNCH_CALLS:
+                host[evt.key] = evt.count / n_ticks
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -1635,13 +1805,16 @@ def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
     # launches of each per paged_attention call, as the profiler saw them.
     paged = {name: [(ms, n) for ms, n, key in kernels if name in key]
              for name in ("paged_decode_kernel", "paged_merge_kernel")}
-    return {"phase": "decode_tick_profile", "ticks": n_ticks,
-            "tick_wall_ms": wall_ms,
+    return {"phase": "decode_tick_profile", "mode": mode, "ticks": n_ticks,
+            "tick_wall_ms": tick_ms, "tick_wall_ms_profiled": wall_ms,
             "device_kernel_ms_per_tick": sum(k[0] for k in kernels),
             "kernel_launches_per_tick": sum(k[1] for k in kernels),
+            "host_launch_calls_per_tick": sum(host.values()),
+            "host_launch_calls": host,
             "paged_attention_calls_per_tick": calls,
             "paged_kernels": {
                 name: {"ms_per_tick": sum(ms for ms, _ in rows),
+                       "launches_per_tick": sum(n for _, n in rows),
                        "launches_per_call": (sum(n for _, n in rows) / calls
                                              if calls else None)}
                 for name, rows in paged.items()},
@@ -1649,7 +1822,10 @@ def profile_decode_ticks(eng, reqs, n_ticks: int = 3) -> dict:
                              "launches_per_tick": k[1]} for k in kernels[:8]]}
 
 
-BF16_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=64)
+# Speculation off: the decode tokens/s of earlier runs stay comparable
+# (a verify tick runs the plain attention, not the paged-decode kernel).
+BF16_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=64,
+                         spec_decode=False)
 
 
 def bring_up_bf16(dev):
@@ -1669,6 +1845,7 @@ def bring_up_bf16(dev):
             f"{param_bytes} bytes of parameters")
     return eng, {"param_bytes": param_bytes,
                  "bring_up_s": eng.bring_up_seconds,
+                 "capture_s": eng.capture_seconds,
                  "host_rss_peak_bytes": rss.peak,
                  "host_rss_growth_bytes": growth}
 
@@ -1695,21 +1872,10 @@ def run_child(func: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def phase_bf16_full(dev):
-    """Full-depth llama3-8b in bf16: bring-up in a fresh process (cold)
-    and in this one (warm: CUDA context, cuBLAS and the kernel library
-    already loaded by the earlier phases), then 4 requests of 16 new
-    tokens each through the warm replica."""
-    cold = run_child("cold_bring_up")
-    eng, warm = bring_up_bf16(dev)
-    scfg = BF16_SERVE
-    cfg = eng.cfg
-    rng = np.random.RandomState(13)
-    # Prompt lengths equal to prefill buckets: the prefill then runs the
-    # same shapes as the oracle's forward.
-    reqs = [Request(f"b{i}", rng.randint(0, cfg.vocab_size, n).tolist(),
-                    max_new_tokens=16)
-            for i, n in enumerate((16, 32, 8, 16))]
+def decode_tokens_per_s(eng, reqs) -> dict:
+    """Serve ``reqs`` to the end, one synchronized tick at a time, with
+    the paged-decode counts reset just before: tokens/s over the
+    decode-only ticks (no admission in them), and the launches."""
     for r in reqs:
         eng.submit(r)
 
@@ -1719,7 +1885,7 @@ def phase_bf16_full(dev):
 
     paged_attention.launches = 0
     paged_attention.merge_launches = 0
-    decode_tokens, decode_s = 0, 0.0
+    decode_tokens, decode_s, ticks = 0, 0.0, 0
     while eng.waiting or eng.active:
         prefills, before = eng.prefills, emitted()
         t = time.perf_counter()
@@ -1729,16 +1895,54 @@ def phase_bf16_full(dev):
         if eng.prefills == prefills:  # a decode-only tick
             decode_tokens += emitted() - before
             decode_s += dt
-    launches = paged_attention.launches
-    merges = paged_attention.merge_launches
+            ticks += 1
     if set(eng.results) != {r.rid for r in reqs}:
         raise AssertionError(f"incomplete: {sorted(eng.results)}")
     if any(len(eng.results[r.rid]) != r.max_new_tokens for r in reqs):
         raise AssertionError("a request stopped short of its budget")
-    if launches != cfg.n_layers * eng.decode_steps:
-        raise AssertionError(
-            f"{launches} kernel launches != {cfg.n_layers} layers x "
-            f"{eng.decode_steps} decode steps")
+    return {"tokens_per_s": decode_tokens / decode_s,
+            "tick_ms": decode_s * 1e3 / ticks,
+            "decode_steps": eng.decode_steps,
+            "launches": paged_attention.launches,
+            "merges": paged_attention.merge_launches}
+
+
+def bf16_requests(vocab: int) -> list:
+    rng = np.random.RandomState(13)
+    # Prompt lengths equal to prefill buckets: the prefill then runs the
+    # same shapes as the oracle's forward.
+    return [Request(f"b{i}", rng.randint(0, vocab, n).tolist(),
+                    max_new_tokens=16)
+            for i, n in enumerate((16, 32, 8, 16))]
+
+
+def check_first_tokens(eng, reqs) -> None:
+    # bf16: batched decode and the unbatched oracle round differently, so
+    # later tokens may drift apart; the first token (prefill vs the
+    # oracle's forward at the same shape) must agree.
+    for r in reqs:
+        want, _ = oracle_generate(eng.model, r.tokens, 1)
+        if eng.results[r.rid][0] != want[0]:
+            raise AssertionError(
+                f"{r.rid}: first token {eng.results[r.rid][0]} != oracle "
+                f"{want[0]}")
+
+
+def phase_bf16_full(dev):
+    """Full-depth llama3-8b in bf16: bring-up in a fresh process (cold)
+    and in this one (warm: CUDA context, cuBLAS and the kernel library
+    already loaded by the earlier phases), every program captured as a
+    CUDA graph; then 4 requests of 16 new tokens each through the warm
+    replica's graphs, the same through the same replica's eager programs,
+    and, with speculation on, a repeated prompt through graphs."""
+    cold = run_child("cold_bring_up")
+    eng, warm = bring_up_bf16(dev)
+    scfg = BF16_SERVE
+    cfg = eng.cfg
+    reqs = bf16_requests(cfg.vocab_size)
+    graph = decode_tokens_per_s(eng, reqs)
+    launches, merges = graph["launches"], graph["merges"]
+    check_plain_launches("llama3-8b bf16", launches, cfg, eng)
     # The engine's table takes several splits on an H100, so every call
     # must also have launched the merge kernel.
     splits, _ = split_plan(eng.scfg.max_batch, cfg.n_heads, cfg.kv_heads,
@@ -1749,31 +1953,75 @@ def phase_bf16_full(dev):
         raise AssertionError(
             f"{merges} merge launches for {launches} calls at {splits} "
             f"splits")
-    # bf16: batched decode and the unbatched oracle round differently, so
-    # later tokens may drift apart; the first token (prefill vs the
-    # oracle's forward at the same shape) must agree.
-    for r in reqs:
-        want, _ = oracle_generate(eng.model, r.tokens, 1)
-        if eng.results[r.rid][0] != want[0]:
-            raise AssertionError(
-                f"{r.rid}: first token {eng.results[r.rid][0]} != oracle "
-                f"{want[0]}")
+    check_first_tokens(eng, reqs)
+    profiles = [profile_decode_ticks(eng, reqs, "graph", graph["tick_ms"])]
+    # The same replica's programs run eagerly (its weights, a pool of its
+    # own), in the same process.
+    eager_eng = ServeEngine("llama", cfg, eng.model, serve_cfg=scfg,
+                            device=dev, cuda_graphs=False)
+    eager = decode_tokens_per_s(eager_eng, bf16_requests(cfg.vocab_size))
+    check_plain_launches("llama3-8b bf16 eager", eager["launches"], cfg,
+                         eager_eng)
+    check_first_tokens(eager_eng, reqs)
+    profiles.append(profile_decode_ticks(eager_eng, reqs, "eager",
+                                         eager["tick_ms"]))
+    graph_tokens_equal_eager = all(
+        eng.results[r.rid] == eager_eng.results[r.rid] for r in reqs)
+    del eager_eng
+    torch.cuda.empty_cache()
+    # Speculation on: a prompt, then the same prompt again once the first
+    # has streamed a few tokens (its chain feeds the drafter).
+    spec_eng = ServeEngine("llama", cfg, eng.model,
+                           serve_cfg=dataclasses.replace(scfg,
+                                                         spec_decode=True),
+                           device=dev)
+    spec_eng.warmup()
+    spec_reqs = [Request("q0", reqs[0].tokens, max_new_tokens=16),
+                 Request("q1", list(reqs[0].tokens), max_new_tokens=16,
+                         arrival_step=6),
+                 Request("q2", reqs[1].tokens, max_new_tokens=16)]
+    spec = serve_counted("llama3-8b bf16 speculative", spec_eng, cfg,
+                         spec_reqs)
+    if spec_eng.spec_verify_ticks < 1:
+        raise AssertionError("speculation on: no verify tick")
+    check_first_tokens(spec_eng, spec_reqs)
     row = {"phase": "serve_bf16_full", "model": "llama3-8b",
            "n_layers": cfg.n_layers, "param_bytes": warm["param_bytes"],
            "bring_up_s_cold": cold["bring_up_s"],
+           "capture_s_cold": cold["capture_s"],
            "host_rss_peak_bytes_cold": cold["host_rss_peak_bytes"],
            "host_rss_growth_bytes_cold": cold["host_rss_growth_bytes"],
            "bring_up_s_warm": warm["bring_up_s"],
+           "capture_s_warm": warm["capture_s"],
+           "graphs": captured(eng),
+           "graph_pool_bytes": eng.graph_pool_bytes(),
            "host_rss_peak_bytes_warm": warm["host_rss_peak_bytes"],
            "host_rss_growth_bytes_warm": warm["host_rss_growth_bytes"],
-           "requests_completed": len(eng.results),
-           "decode_steps": eng.decode_steps,
-           "decode_tokens_per_s": decode_tokens / decode_s,
+           "requests_completed": len(reqs),
+           "decode_steps": graph["decode_steps"],
+           "decode_tokens_per_s": graph["tokens_per_s"],
+           "decode_tick_ms": graph["tick_ms"],
+           "decode_tokens_per_s_eager": eager["tokens_per_s"],
+           "decode_tick_ms_eager": eager["tick_ms"],
+           "graph_tokens_equal_eager": graph_tokens_equal_eager,
            "paged_decode_launches": launches,
            "paged_merge_launches": merges,
-           "first_token_matches_oracle": True}
+           "paged_decode_launches_eager": eager["launches"],
+           "first_token_matches_oracle": True,
+           "speculative": {
+               "requests": len(spec_reqs),
+               "spec_drafted": spec_eng.spec_drafted,
+               "spec_accepted": spec_eng.spec_accepted,
+               "spec_verify_ticks": spec_eng.spec_verify_ticks,
+               "decode_steps": spec_eng.decode_steps,
+               "prefix_hits": spec_eng.prefix_hits,
+               "cow_copies": spec_eng.cow_copies,
+               "paged_decode_launches": spec["launches"],
+               "capture_s": spec_eng.capture_seconds,
+               "first_tokens_match_oracle": True}}
     emit(row)
-    emit(profile_decode_ticks(eng, reqs))
+    for prof in profiles:
+        emit(prof)
     # The kernel's inputs at this path's decode shape: the engine's batch
     # and pool, each lane at its final context length.
     lengths = [len(r.tokens) + r.max_new_tokens - 1 for r in reqs]
@@ -1782,7 +2030,7 @@ def phase_bf16_full(dev):
                              lengths=lengths, dtype=torch.bfloat16,
                              n_pages=scfg.n_pages,
                              maxp=eng.scfg.max_pages_per_seq)
-    del eng
+    del eng, spec_eng
     torch.cuda.empty_cache()
     return row, main_args
 
@@ -3116,6 +3364,7 @@ def main() -> int:
                      builds.get("flash_attention.cu", {}))
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
     run("serve_f32_exact", phase_exact_f32, dev)
+    run("serve_features_f32", phase_features_f32, dev)
     res = run("serve_bf16_full", phase_bf16_full, dev)
     if res is not None:
         main_row, main_args = res

@@ -4,10 +4,14 @@ identical float32 weights (carried across by ``from_flax_params``).
 Every request's tokens must equal the JAX ``oracle_generate`` (the
 unbatched, no-cache greedy reference over the flax model) and its final
 logits must agree within atol 1e-4 (the same math summed in another
-order); through batching, staggered arrivals, EOS and page-exhaustion
-preemption.  The JAX ``ServeEngine``, with prefix caching and
-speculative decoding off, serves the same requests once: equal tokens,
-equal preemption count.  The configs are those of tests/test_serve.py.
+order); through batching, staggered arrivals, EOS, page-exhaustion
+preemption and a prompt longer than the largest bucket (chunked
+prefill).  Prefix caching and speculative decoding are on by default,
+as in the JAX package.  The JAX ``ServeEngine``, with both off, serves
+the preemption requests once beside the port's engine with both off:
+equal tokens, equal preemption count.  The configs are those of
+tests/test_serve.py; tests/test_torch_serve_features.py holds the
+features themselves against the JAX package.
 """
 
 import numpy as np
@@ -128,7 +132,7 @@ def test_preemption_matches_jax_engine(pair):
         Request("p0", [1, 2, 3, 4, 5, 6], max_new_tokens=8),
         Request("p1", [9, 8, 7, 6, 5, 4], max_new_tokens=8),
     ]
-    eng = pair.engine(**TIGHT)
+    eng = pair.engine(prefix_cache=False, spec_decode=False, **TIGHT)
     out = eng.run(reqs)
     assert eng.preemptions > 0
     assert eng.kv.pages_in_use == 0
@@ -156,13 +160,19 @@ def test_preemption_matches_jax_engine(pair):
 
 
 def test_unported_features_raise(pair):
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        pair.engine(prefix_cache=True, **SERVE)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        pair.engine(spec_decode=True, **SERVE)
+    """What the port once refused now serves: ``prefix_cache=True`` and
+    ``spec_decode=True`` construct an engine, and a prompt longer than
+    the largest bucket prefills in chunks, equal to the JAX oracle."""
+    for knobs in (dict(prefix_cache=True), dict(spec_decode=True)):
+        eng = pair.engine(**knobs, **SERVE)
+        for name, value in knobs.items():
+            assert getattr(eng.scfg, name) is value
     eng = pair.engine(**SERVE)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        eng.submit(Request("long", [1] * 17, max_new_tokens=2))
+    req = Request("long", [(5 * i + 1) % 128 for i in range(17)],
+                  max_new_tokens=2)
+    out = eng.run([req])
+    assert eng.prefill_chunks == 2  # 16 + 1 tokens through chunk-16/-8
+    pair.check_against_jax_oracle(eng, [req], out)
 
 
 def test_spin_up_replica_on_cpu_serves():

@@ -1,5 +1,5 @@
-"""Runtime configuration (the port's own copy of the telemetry knobs of
-``torchdistx_tpu/config.py``): resolved from environment variables once
+"""Runtime configuration (the port's own copy of the telemetry and
+serving knobs of ``torchdistx_tpu/config.py``): resolved from environment variables once
 at import and overridable per scope::
 
     import torchdistx_tpu_torch.config as tdx_config
@@ -22,6 +22,25 @@ Environment variables (read at first import):
                         paths without the tokens are used verbatim), so
                         concurrent hosts and subprocesses of one run cannot
                         clobber each other's file.
+``TDX_PREFILL_CHUNK``   Default chunk-size cap for serving chunked prefill
+                        (:mod:`torchdistx_tpu_torch.serve`): max prompt
+                        tokens a lane prefills per engine tick.  0
+                        (default) means the largest prefill bucket, i.e.
+                        one chunk for any prompt that fits a bucket.  A
+                        host-side scheduling knob: the captured program
+                        set is the same at every setting.
+``TDX_SPEC_DECODE``     "0" disables speculative decoding on the serving
+                        hot path (:mod:`torchdistx_tpu_torch.serve`): the
+                        n-gram drafter, the batched ``verify-<k>`` tick
+                        and KV rollback.  On by default: greedy accept
+                        keeps every float32 completion equal to the
+                        unbatched oracle, so the switch trades only
+                        throughput.
+``TDX_SPEC_K``          Max draft length per lane per verify tick
+                        (default 4, clamped to the largest verify
+                        bucket).  A host-side scheduling knob: the
+                        ``verify-<k>`` programs are fixed by
+                        ``ServeConfig.spec_buckets``, not by this value.
 ======================  ====================================================
 """
 
@@ -40,12 +59,18 @@ __all__ = ["Config", "bind", "expand_path", "get", "override"]
 class Config:
     trace_dir: Optional[str] = None
     metrics_path: Optional[str] = None
+    prefill_chunk: int = 0
+    spec_decode: bool = True
+    spec_k: int = 4
 
 
 def _from_env() -> Config:
     return Config(
         trace_dir=os.environ.get("TDX_TRACE_DIR", "") or None,
         metrics_path=os.environ.get("TDX_METRICS_PATH", "") or None,
+        prefill_chunk=int(os.environ.get("TDX_PREFILL_CHUNK", "0")),
+        spec_decode=os.environ.get("TDX_SPEC_DECODE", "1") != "0",
+        spec_k=int(os.environ.get("TDX_SPEC_K", "4")),
     )
 
 

@@ -3,22 +3,52 @@
 
 One :class:`ServeEngine` is one replica: a fixed-lane decode batch
 (``ServeConfig.max_batch``), a paged KV pool (:mod:`.kv_cache`), an
-admission queue, and the prefill/decode programs (:mod:`.programs`).
-Each :meth:`ServeEngine.step` interleaves:
+admission queue, and the serving programs (:mod:`.programs`), each a
+CUDA graph captured once per replica shape on the card.  Each
+:meth:`ServeEngine.step` interleaves:
 
-1. **admission** — waiting requests are admitted while a batch lane and
-   enough pages for their prompt are free, each prefilled in one shot
-   through its prompt bucket (that is the first generated token);
-2. **decode** — ONE batched step for every active lane (ragged paged
-   attention over each lane's own context length, the CUDA kernel on
-   the GPU); one token per lane per step;
-3. **retirement** — lanes that hit EOS / their token budget / the
-   context cap release their pages *immediately*, so the next step's
-   admission can hand them to waiting requests.
+1. **admission**: waiting requests are admitted while a batch lane and
+   enough pages for their prompt are free; admission first consults the
+   prefix cache (:mod:`.prefix`): the longest cached page-aligned
+   prefix's pages are MAPPED into the new sequence's table
+   (``alloc_shared``: no prefill FLOPs for the reused tokens) and only
+   the suffix is prefilled.  A fresh prompt that fits one chunk runs
+   through its ``prefill-<bucket>`` program at admission (the first
+   generated token); a suffix behind a cached prefix, or a prompt longer
+   than ``ServeConfig.prefill_chunk``, prefills **chunked**: one
+   ``chunk-<bucket>`` call per engine tick, interleaved with decode,
+   which is also how prompts longer than the largest bucket serve;
+2. **decode**: ONE batched step for every fully-prefilled lane (ragged
+   paged attention over each lane's own context length, the CUDA kernel
+   on the GPU); mid-prefill lanes sit the step out;
+3. **retirement**: lanes that hit EOS / their token budget / the
+   context cap drop their page references *immediately* (a page frees
+   when its last reference drops; shared prefix pages survive in the
+   cache).  A finished prefill inserts its prompt's full pages into the
+   prefix cache first, so later requests with the same preamble reuse
+   them.
+
+Shared pages are COPY-ON-WRITE: the only write a grower can aim at a
+shared page (recomputing the last prompt position of a fully cached
+page-aligned prompt) first duplicates the page through the ``cow``
+program and remaps the grower's table.  Under pool pressure the engine
+EVICTS cache leaves (LRU) before it preempts a running lane.
+
+Decode is **speculative** by default (``TDX_SPEC_DECODE=0`` turns it
+off): a host-side n-gram drafter (:class:`.prefix.NgramDrafter`) fed by
+admitted prompts and each lane's own emitted tokens proposes up to
+``spec_k`` tokens per lane, and one ``verify-<k>`` call scores all k+1
+positions of every lane.  Greedy accept keeps the longest draft prefix
+matching the verify argmaxes plus one corrected (or bonus) token;
+:meth:`PagedKVCache.rollback` retracts the rejected positions.  The
+verify program attends through the plain
+:func:`~..ops.paged_attention.paged_prefill_attention`, which rounds
+otherwise than the decode kernel: in float32 every token equals plain
+decode's, in bfloat16 later tokens may differ.
 
 When the pool cannot cover a lane's growth the engine **preempts** the
 youngest lane (frees its pages, requeues the whole request at the front
-of the queue — greedy decode regenerates it identically), the vLLM
+of the queue; greedy decode regenerates it identically), the vLLM
 recompute-preemption policy: page exhaustion costs latency, never a
 wrong or dropped response.
 
@@ -26,14 +56,20 @@ wrong or dropped response.
 end to end: the port's :func:`~..deferred_init.deferred_init` records the
 model as fakes (zero storage), and
 :func:`~..deferred_init.materialize_module` replays the recording
-straight onto the device — parameters are born in device memory and
-never pass through the host.
+straight onto the device; then :meth:`ServeEngine.warmup` captures every
+program.
 
-Not ported yet (ROADMAP Queue A item 6): prefix caching with
-copy-on-write pages, chunked prefill, speculative decoding, and the
-chaos / telemetry / request-ledger / SLO hooks.  Plain integer counters
-(``prefills``, ``decode_steps``, ``preemptions``) take the telemetry's
-place.
+Telemetry through the port's :mod:`..observe`, under the JAX package's
+names: ``tdx.serve.*`` counters (``prefills``, ``prefill_tokens``,
+``prefill_chunks``, ``prefix_hits``, ``prefix_tokens_reused``,
+``cow_copies``, ``decode_steps``, ``requests_completed``,
+``preempted_requests``), histograms (``ttft_s``, ``queue_wait_s``,
+``token_latency_s``), gauges (``queue_depth``, ``active_requests``,
+``tokens_per_s``, ``prefix_nodes``, ``prefix_hit_rate``, ``spec_*``)
+and ``serve.step`` / ``serve.prefill`` / ``serve.spin_up`` spans.  Plain
+integer attributes (``prefills``, ``decode_steps``, ``preemptions``,
+``prefill_chunks``, ``cow_copies``, ``prefix_hits``,
+``prefix_tokens_reused``, ``spec_*``) count the same events per engine.
 """
 
 from __future__ import annotations
@@ -41,23 +77,26 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import observe
 from .._device import resolve_device
 from ..deferred_init import deferred_init, materialize_module
 from ..models import PRESETS, TransformerConfig
 from ..ops.paged_attention import build_kernel
 from .kv_cache import OutOfPages, PagedKVCache, init_pools
+from .prefix import NgramDrafter, PrefixCache
 from .programs import (
     ResolvedServeConfig,
     ServeConfig,
-    build_decode_fn,
-    build_prefill_fn,
+    ServeProgram,
+    build_serving_functions,
     make_model,
     model_family,
+    serve_program_specs,
 )
 
 __all__ = ["Request", "ServeEngine", "oracle_generate", "spin_up_replica"]
@@ -66,13 +105,21 @@ __all__ = ["Request", "ServeEngine", "oracle_generate", "spin_up_replica"]
 @dataclass
 class Request:
     """One generation request.  ``arrival_step`` simulates staggered
-    arrivals (a request is not admissible before that engine step)."""
+    arrivals (a request is not admissible before that engine step).
+
+    ``deadline_s`` is an END-TO-END deadline, measured from first
+    submission: past it the request is expired while queued AND
+    cancelled mid-decode (its lane's pages freed immediately,
+    ``on_cancel`` told with the tokens so far).  ``priority`` is for a
+    fleet's load shedding; the engine treats priorities equally."""
 
     rid: str
     tokens: List[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     arrival_step: int = 0
+    deadline_s: Optional[float] = None
+    priority: int = 1
 
 
 @dataclass
@@ -85,11 +132,17 @@ class _Lane:
     length: int = 0                # tokens currently in the KV cache
     generated: List[int] = field(default_factory=list)
     admitted_step: int = 0
+    prefilling: bool = False       # mid-chunked-prefill; decode skips it
+    spec_k: int = 0                # current draft length cap (adaptive)
 
 
 class ServeEngine:
     """One serving replica over ``model`` (the family's ``nn.Module``,
-    materialized on ``device``); see the module docstring for the loop."""
+    materialized on ``device``); see the module docstring for the loop.
+
+    On the card each program is captured as a CUDA graph at its first
+    use (:meth:`warmup` captures them all); ``cuda_graphs=False`` runs
+    them eagerly instead.  A capture or replay that fails raises."""
 
     def __init__(
         self,
@@ -99,35 +152,108 @@ class ServeEngine:
         *,
         serve_cfg: Optional[ServeConfig] = None,
         device="cuda",
+        cuda_graphs: bool = True,
+        on_token: Optional[Callable[[str, int], None]] = None,
+        on_complete: Optional[Callable[[str, List[int], np.ndarray],
+                                       None]] = None,
+        on_cancel: Optional[Callable[[str, List[int], bool], None]] = None,
     ):
         self.device = resolve_device(device)
         self.family = family
         self.cfg = cfg
         self.model = model
+        # Weight-version stamp of the parameters served (install_params).
+        self.weight_version: Optional[str] = None
         self.scfg: ResolvedServeConfig = (serve_cfg or ServeConfig()).resolve(cfg)
+        self.on_token = on_token
+        self.on_complete = on_complete
+        # (rid, tokens_so_far, was_active): was_active tells a cancelled
+        # LANE (pages freed mid-decode) from an expired waiting request.
+        self.on_cancel = on_cancel
+        self.cancelled: Dict[str, List[int]] = {}  # rid -> tokens at cancel
+        self._draining = False
         self.kv = PagedKVCache(self.scfg.kv_config(cfg))
+        self.prefix = PrefixCache(self.kv)
         self.k_pages, self.v_pages = init_pools(
             self.scfg.kv_config(cfg), cfg.dtype, self.device)
-        self._prefill_fn = build_prefill_fn(model)
-        self._decode_fn = build_decode_fn(model)
+        self._fns = build_serving_functions(model)
+        self._specs = {s.name: s for s in serve_program_specs(self.scfg)}
+        self._programs: Dict[str, ServeProgram] = {}
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        # One memory pool for every graph of the engine (programs never
+        # run concurrently, so they may share intermediates) and one
+        # side stream for the captures.
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
+        self._capture_stream = (torch.cuda.Stream(self.device)
+                                if self.cuda_graphs else None)
+        self.capture_seconds = 0.0
+        self._drafter: Optional[NgramDrafter] = (
+            NgramDrafter() if self.scfg.spec_decode else None)
+        self.spec_drafted = 0       # draft tokens sent to verify
+        self.spec_accepted = 0      # draft tokens accepted
+        self.spec_verify_ticks = 0  # batched verify calls
         self.waiting: deque[Request] = deque()
         self.active: Dict[int, _Lane] = {}      # slot -> lane
+        self._delivered: Dict[str, int] = {}    # rid -> tokens streamed
         self.results: Dict[str, List[int]] = {}
         self.final_logits: Dict[str, np.ndarray] = {}
         self._step_no = 0
         self._next_seq = 1
-        # Set by spin_up_replica: record + materialize + warm-up seconds.
+        self._t0: Optional[float] = None
+        self._tokens_out = 0
+        # Set by spin_up_replica: record + materialize seconds.
         self.bring_up_seconds: Optional[float] = None
-        # Plain counters in place of the JAX engine's telemetry.
         self.prefills = 0
-        self.decode_steps = 0
+        self.decode_steps = 0           # plain and verify ticks
         self.preemptions = 0
+        self.prefill_chunks = 0
+        self.cow_copies = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
 
-    def warmup(self) -> None:
-        """Build the decode kernel now, so the first request pays no
-        compile (nothing to build on the CPU)."""
+    # -- programs -----------------------------------------------------------
+
+    def _program(self, name: str) -> ServeProgram:
+        """The program ``name``, built (and on the card captured) at its
+        first use."""
+        prog = self._programs.get(name)
+        if prog is None:
+            if self.k_pages is None:
+                raise RuntimeError("release_kv() dropped this engine's pool")
+            spec = self._specs[name]
+            prog = ServeProgram(spec, self._fns[spec.kind],
+                                (self.k_pages, self.v_pages))
+            if self.cuda_graphs:
+                t = time.perf_counter()
+                prog.capture(self._graph_pool, self._capture_stream)
+                self.capture_seconds += time.perf_counter() - t
+            self._programs[name] = prog
+        return prog
+
+    def warmup(self) -> Dict[str, float]:
+        """Build, and on the card capture, every program of the replica
+        shape now (the JAX engine compiles them all here), so the first
+        request pays none; returns name -> seconds."""
         if self.device.type == "cuda":
             build_kernel()
+        seconds: Dict[str, float] = {}
+        for name in self._specs:
+            if name not in self._programs:
+                t = time.perf_counter()
+                self._program(name)
+                seconds[name] = time.perf_counter() - t
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return seconds
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes the captured graphs' shared memory pool holds."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- public API ---------------------------------------------------------
 
@@ -154,16 +280,28 @@ class ServeEngine:
                 f"request {req.rid}: max_new_tokens must be >= 1, got "
                 f"{req.max_new_tokens}"
             )
-        self.scfg.bucket_for(len(req.tokens))  # longer prompts: not ported
+        req._submit_t = time.perf_counter()
+        # The deadline is END-TO-END: anchored once, at the first submit;
+        # a requeued request keeps its original deadline.
+        if req.deadline_s is not None and not hasattr(req, "_deadline_t"):
+            req._deadline_t = req._submit_t + req.deadline_s
         self.waiting.append(req)
+        self._gauges()
 
     def run(self, requests: Sequence[Request] = (), *,
             max_steps: int = 100_000) -> Dict[str, List[int]]:
         """Submit ``requests`` and drive the loop until every request
         completed (or ``max_steps``); returns the replica's cumulative
-        rid → generated-tokens map."""
+        rid -> generated-tokens map."""
         for r in requests:
             self.submit(r)
+        if (self._drafter is not None and not len(self._drafter)
+                and len(self.prefix)):
+            # A fresh drafter on a warm radix tree seeds itself from the
+            # preambles the tree already proved hot.
+            self._drafter.warm_from_prefix(self.prefix)
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
         start = self._step_no
         while (self.waiting or self.active) and (
                 self._step_no - start) < max_steps:
@@ -175,12 +313,150 @@ class ServeEngine:
             )
         return dict(self.results)
 
+    def drain(self, *, max_steps: int = 100_000) -> List[Request]:
+        """Scale-down hook: finish every IN-FLIGHT lane (admission is
+        suspended), then hand back whatever was still waiting, and drop
+        the prefix cache's references so every refcount returns to 0."""
+        self._draining = True
+        try:
+            start = self._step_no
+            while self.active and (self._step_no - start) < max_steps:
+                self.step()
+            if self.active:
+                raise RuntimeError(
+                    f"drain hit max_steps={max_steps} with "
+                    f"{len(self.active)} lanes still active"
+                )
+            leftover = list(self.waiting)
+            self.waiting.clear()
+            self.prefix.clear()
+            return leftover
+        finally:
+            self._draining = False
+
+    def requeue_active(self, *, reason: str = "fault") -> int:
+        """Preempt every active lane back into ``waiting`` (recompute
+        policy); returns the number of lanes requeued."""
+        n = len(self.active)
+        for slot in list(self.active):
+            self._preempt(slot, reason=reason)
+        return n
+
+    def cancel(self, rid: str, *,
+               reason: str = "cancel") -> Optional[List[int]]:
+        """Cancel one request: an active lane is evicted and its pages
+        freed IMMEDIATELY; a waiting request is removed.  Returns the
+        tokens generated so far (``[]`` if never admitted), or ``None``
+        if the engine doesn't hold ``rid``.  Each lane's decode reads only
+        its own row and page table, so the survivors' tokens cannot
+        change.  Does not call ``on_cancel`` (the caller knows)."""
+        for slot, lane in list(self.active.items()):
+            if lane.req.rid != rid:
+                continue
+            self.active.pop(slot)
+            self.kv.free(lane.seq_id)
+            self._delivered.pop(rid, None)
+            self.cancelled[rid] = list(lane.generated)
+            observe.instant("serve.cancel", category="serve", rid=rid,
+                            reason=reason, step=self._step_no,
+                            tokens=len(lane.generated))
+            self._gauges()
+            return list(lane.generated)
+        for req in list(self.waiting):
+            if req.rid == rid:
+                self.waiting.remove(req)
+                self.cancelled[rid] = []
+                observe.instant("serve.cancel", category="serve", rid=rid,
+                                reason=reason, step=self._step_no, tokens=0)
+                self._gauges()
+                return []
+        return None
+
+    def _expire_deadlines(self) -> None:
+        """Cancel every lane and waiting request past its end-to-end
+        deadline, freeing lane pages at once, and tell ``on_cancel``."""
+        now = time.perf_counter()
+        doomed = [
+            lane.req.rid for lane in self.active.values()
+            if getattr(lane.req, "_deadline_t", None) is not None
+            and now > lane.req._deadline_t
+        ] + [
+            req.rid for req in self.waiting
+            if getattr(req, "_deadline_t", None) is not None
+            and now > req._deadline_t
+        ]
+        for rid in doomed:
+            was_active = any(lane.req.rid == rid
+                             for lane in self.active.values())
+            toks = self.cancel(rid, reason="deadline")
+            if toks is not None and self.on_cancel is not None:
+                self.on_cancel(rid, toks, was_active)
+
+    def install_params(self, params: Mapping[str, torch.Tensor], *,
+                       version: Optional[str] = None) -> None:
+        """Serve other weights (a state dict of the model): copied INTO
+        the existing parameter storages, which the captured graphs read,
+        so no program is recaptured.  Legal only while no lane is active;
+        clears the prefix cache, whose K/V the old weights computed."""
+        if self.active:
+            raise RuntimeError(
+                f"install_params with {len(self.active)} active lanes; "
+                f"drain first"
+            )
+        self.prefix.clear()
+        self.model.load_state_dict(params)
+        self.weight_version = version
+
+    def release_kv(self) -> None:
+        """Free the replica's KV pool and its programs' graphs (the end
+        of a drain).  The engine can still report results; it can no
+        longer serve."""
+        if self.active:
+            raise RuntimeError(
+                f"release_kv with {len(self.active)} active lanes; "
+                f"drain first"
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._programs.clear()
+        self._graph_pool = None
+        self.k_pages = self.v_pages = None
+        self.kv = PagedKVCache(self.scfg.kv_config(self.cfg))
+        self.prefix = PrefixCache(self.kv)
+        self._gauges()
+
+    def outstanding_tokens(self) -> int:
+        """Remaining token budget across waiting + active requests: the
+        load signal a fleet router balances on.  Safe to call from
+        another thread (a stale snapshot, never a crash)."""
+        for _ in range(8):
+            try:
+                waiting = list(self.waiting)
+                lanes = list(self.active.values())
+            except RuntimeError:  # resized mid-iteration; retry
+                continue
+            return (
+                sum(r.max_new_tokens for r in waiting)
+                + sum(max(1, lane.req.max_new_tokens - len(lane.generated))
+                      for lane in lanes)
+            )
+        return len(self.waiting) + len(self.active)  # coarse fallback
+
     def step(self) -> None:
-        """One engine tick: admission (+prefill) → one batched decode
-        step → retirement."""
+        """One engine tick: deadlines -> chunked-prefill advance ->
+        admission (+prefill) -> one batched decode step -> retirement."""
         self._step_no += 1
-        self._admit()
-        self._decode_step()
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        with observe.span(
+            "serve.step", category="serve", step=self._step_no,
+            active=len(self.active), waiting=len(self.waiting),
+        ):
+            self._expire_deadlines()
+            self._advance_prefill()
+            self._admit()
+            self._decode_step()
+        self._gauges()
 
     # -- admission / prefill ------------------------------------------------
 
@@ -191,6 +467,8 @@ class ServeEngine:
         return None
 
     def _admit(self) -> None:
+        if self._draining:
+            return  # a draining replica finishes lanes, admits nothing
         while self.waiting:
             req = self.waiting[0]
             if req.arrival_step > self._step_no:
@@ -198,84 +476,250 @@ class ServeEngine:
             slot = self._free_slot()
             if slot is None:
                 break
-            if self.kv.cfg.pages_for(len(req.tokens)) > self.kv.free_pages:
+            shared = (self.prefix.match(req.tokens)
+                      if self.scfg.prefix_cache else [])
+            need = self.kv.cfg.pages_for(len(req.tokens)) - len(shared)
+            # Cache leaves are cheaper to give up than running lanes;
+            # evict LRU ones (never this request's own matched prefix)
+            # until the suffix fits.
+            while (need > self.kv.free_pages
+                   and self.prefix.evict(exclude=set(shared))):
+                pass
+            if need > self.kv.free_pages:
                 break  # retirement will free pages; keep FIFO order
             self.waiting.popleft()
-            self._prefill(req, slot)
+            self._prefill(req, slot, shared)
 
-    def _prefill(self, req: Request, slot: int) -> None:
-        """Admit one request: allocate its pages and prefill the prompt
-        in one shot through its bucket."""
+    def _chunk_cap(self) -> int:
+        return self.scfg.prefill_chunk or self.scfg.prefill_buckets[-1]
+
+    def _prefill(self, req: Request, slot: int,
+                 shared: Sequence[int]) -> None:
+        """Admit one request: map its cached prefix pages (``shared``),
+        then prefill the suffix: in one shot through ``prefill-<bucket>``
+        when it is a fresh prompt that fits one chunk, else chunk by
+        chunk across engine ticks (``_advance_prefill``)."""
         L = len(req.tokens)
+        sub = getattr(req, "_submit_t", None)
+        if sub is not None:
+            observe.histogram("tdx.serve.queue_wait_s").observe(
+                time.perf_counter() - sub)
         sid = self._next_seq
         self._next_seq += 1
-        self.kv.alloc(sid, L)
-        bucket = self.scfg.bucket_for(L)
-        toks = np.zeros((1, bucket), np.int32)
-        toks[0, :L] = req.tokens
-        row = np.asarray(
-            [self.kv.table_row(sid, self.scfg.max_pages_per_seq)], np.int32)
-        logits = self._prefill_fn(
-            self.k_pages, self.v_pages, self._on_device(toks),
-            self._on_device(np.asarray([L], np.int32)), self._on_device(row),
-        )
-        lane = _Lane(req=req, seq_id=sid, slot=slot, length=L,
-                     admitted_step=self._step_no)
+        if shared:
+            self.kv.alloc_shared(sid, shared, L)
+        else:
+            self.kv.alloc(sid, L)
+        # Reused tokens never re-prefill, but the LAST prompt position
+        # must run (its logits are the first generated token): a fully
+        # cached prompt recomputes exactly one token, and that write is
+        # the one copy-on-write case (it lands in a shared page).
+        start = min(len(shared) * self.scfg.page_size, L - 1)
+        if start > 0:
+            self.prefix_hits += 1
+            self.prefix_tokens_reused += start
+            observe.counter("tdx.serve.prefix_hits").inc()
+            observe.counter("tdx.serve.prefix_tokens_reused").inc(start)
+        lane = _Lane(req=req, seq_id=sid, slot=slot, length=start,
+                     admitted_step=self._step_no, prefilling=True,
+                     spec_k=self.scfg.spec_k)
+        if self._drafter is not None:
+            self._drafter.observe(req.tokens)
+        try:
+            with observe.span("serve.prefill", category="serve", rid=req.rid,
+                              tokens=L, reused=start):
+                if (not shared and L <= self.scfg.prefill_buckets[-1]
+                        and L <= self._chunk_cap()):
+                    bucket = self.scfg.bucket_for(L)
+                    toks = np.zeros((1, bucket), np.int32)
+                    toks[0, :L] = req.tokens
+                    row = self.kv.table_rows([sid],
+                                             self.scfg.max_pages_per_seq)
+                    logits = self._program(f"prefill-{bucket}")(
+                        toks, np.asarray([L], np.int32), row)
+                    logits = logits.float().cpu().numpy()
+                    lane.length = L
+                else:
+                    logits = self._run_chunk(lane)  # None: more chunks
+        except BaseException:
+            # The request left the queue and holds pages but is not in
+            # `active`: undo both, so a failed program costs no leaked
+            # pages or lost request, then let the error through.
+            self.kv.free(sid)
+            self.waiting.appendleft(req)
+            raise
         self.active[slot] = lane
         self.prefills += 1
-        logits = logits.float().cpu().numpy()
-        self._emit(lane, int(np.argmax(logits)), logits)
+        observe.counter("tdx.serve.prefills").inc()
+        observe.counter("tdx.serve.prefill_tokens").inc(L - start)
+        if logits is not None:
+            self._finish_prefill(lane, logits)
 
-    def _on_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _run_chunk(self, lane: _Lane) -> Optional[np.ndarray]:
+        """One prefill chunk for ``lane``: copy-on-write its first page
+        if shared, run the bucketed chunk program over the next
+        ``prefill_chunk`` prompt tokens.  Returns the final position's
+        logits when the prompt is complete, else ``None``."""
+        req = lane.req
+        L = len(req.tokens)
+        s = lane.length
+        n = min(L - s, self._chunk_cap())
+        bucket = self.scfg.bucket_for(n)
+        # Only a chunk's FIRST page can be shared (later pages were
+        # written by this sequence's earlier chunks); cow_page does
+        # nothing at refcount 1, so this is unconditional.
+        self._cow_for(lane, s // self.scfg.page_size)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :n] = req.tokens[s:s + n]
+        row = self.kv.table_rows([lane.seq_id], self.scfg.max_pages_per_seq)
+        logits = self._program(f"chunk-{bucket}")(
+            toks, np.asarray([s], np.int32), np.asarray([s + n], np.int32),
+            row)
+        lane.length = s + n
+        self.prefill_chunks += 1
+        observe.counter("tdx.serve.prefill_chunks").inc()
+        if lane.length >= L:
+            return logits.float().cpu().numpy()
+        return None
+
+    def _cow_for(self, lane: _Lane, page_index: int) -> None:
+        """Give ``lane`` a private copy of its ``page_index``-th page if
+        that page is shared, cloning the contents through the ``cow``
+        program.  Under pool exhaustion: evict cache leaves, then preempt
+        the youngest OTHER lane; each drops references, so the loop ends
+        (at worst the refcount falls to 1 and no copy is needed)."""
+        while True:
+            try:
+                moved = self.kv.cow_page(lane.seq_id, page_index)
+                break
+            except OutOfPages:
+                if self.prefix.evict():
+                    continue
+                victim = self._youngest_other(lane)
+                if victim is not None:
+                    self._preempt(victim, reason="pages")
+                    continue
+                raise  # pragma: no cover — ref > 1 implies an evictee
+        if moved is not None:
+            src, dst = moved
+            self._program("cow")(np.asarray([src], np.int32),
+                                 np.asarray([dst], np.int32))
+            self.cow_copies += 1
+            observe.counter("tdx.serve.cow_copies").inc()
+
+    def _youngest_other(self, lane: _Lane) -> Optional[int]:
+        others = [s for s in self.active if s != lane.slot]
+        if not others:
+            return None
+        return max(others, key=lambda s: (self.active[s].admitted_step, s))
+
+    def _advance_prefill(self) -> None:
+        """One chunk for every mid-prefill lane: chunked prefill
+        interleaves with decode at engine-tick granularity, so a long
+        prompt cannot lock the batch out for its whole prefill."""
+        for slot in sorted(self.active):
+            lane = self.active.get(slot)
+            if lane is None or not lane.prefilling:
+                continue
+            logits = self._run_chunk(lane)
+            if logits is not None:
+                self._finish_prefill(lane, logits)
+
+    def _finish_prefill(self, lane: _Lane, logits: np.ndarray) -> None:
+        """The prompt's K/V is fully written: publish its full pages to
+        the prefix cache (BEFORE the first emit: retirement may free the
+        sequence at once, and the cache's references keep the pages
+        alive), then deliver the first token."""
+        lane.prefilling = False
+        req = lane.req
+        nfull = len(req.tokens) // self.scfg.page_size
+        if nfull and self.scfg.prefix_cache:
+            self.prefix.insert(
+                req.tokens[:nfull * self.scfg.page_size],
+                self.kv.page_ids(lane.seq_id)[:nfull],
+            )
+        # A re-prefill after preemption replays a first token the client
+        # already received: no TTFT sample for it.
+        first_delivery = self._delivered.get(req.rid, 0) == 0
+        self._emit(lane, int(np.argmax(logits)), logits)
+        sub = getattr(req, "_submit_t", None)
+        if first_delivery and sub is not None:
+            observe.histogram("tdx.serve.ttft_s").observe(
+                time.perf_counter() - sub)
 
     # -- decode ---------------------------------------------------------------
 
+    def _decodable(self) -> List[int]:
+        return [s for s in sorted(self.active)
+                if not self.active[s].prefilling]
+
+    def _oldest_first(self) -> List[int]:
+        return sorted(self.active,
+                      key=lambda s: (self.active[s].admitted_step, s))
+
+    def _youngest(self) -> int:
+        return max(self.active,
+                   key=lambda s: (self.active[s].admitted_step, s))
+
     def _ensure_capacity(self) -> None:
-        """Every lane must own a page slot for its next token; preempt
-        the youngest lanes until the pool covers the rest."""
-        for slot in sorted(self.active,
-                           key=lambda s: (self.active[s].admitted_step, s)):
+        """Every decoding lane must own a page slot for its next token;
+        evict prefix-cache leaves first, then preempt the youngest lanes,
+        until the pool covers the rest."""
+        for slot in self._oldest_first():
             lane = self.active.get(slot)
-            if lane is None:
+            if lane is None or lane.prefilling:
                 continue
             while True:
                 try:
                     self.kv.extend(lane.seq_id, lane.length + 1)
                     break
                 except OutOfPages:
-                    victim = max(
-                        self.active,
-                        key=lambda s: (self.active[s].admitted_step, s),
-                    )
-                    self._preempt(victim)
+                    if self.prefix.evict():
+                        continue
+                    victim = self._youngest()
+                    self._preempt(victim, reason="pages")
                     if victim == slot:
                         break  # this lane itself was the youngest
 
     def _decode_step(self) -> None:
-        if not self.active:
+        if not self._decodable():
             return
-        self._ensure_capacity()
-        slots = sorted(self.active)
-        if not slots:
-            return
+        if self._drafter is not None:
+            self._spec_decode_step()
+        else:
+            self._plain_decode_step()
+
+    def _step_operands(self, slots: List[int], width: int):
+        """(tokens [B, width], starts [B], page table [B, maxp]) of a
+        decode or verify tick: each lane's last token at column 0, idle
+        lanes all zeros (position 0, null table row)."""
         B = self.scfg.max_batch
         maxp = self.scfg.max_pages_per_seq
-        tokens = np.zeros((B,), np.int32)
-        positions = np.zeros((B,), np.int32)
+        tokens = np.zeros((B, width), np.int32)
+        start = np.zeros((B,), np.int32)
         table = np.zeros((B, maxp), np.int32)
         table[slots] = self.kv.table_rows(
             [self.active[s].seq_id for s in slots], maxp)
         for slot in slots:
             lane = self.active[slot]
-            tokens[slot] = (lane.generated[-1] if lane.generated
-                            else lane.req.tokens[-1])
-            positions[slot] = lane.length
-        logits = self._decode_fn(
-            self.k_pages, self.v_pages, self._on_device(tokens),
-            self._on_device(positions), self._on_device(table),
-        )
+            tokens[slot, 0] = (lane.generated[-1] if lane.generated
+                               else lane.req.tokens[-1])
+            start[slot] = lane.length
+        return tokens, start, table
+
+    def _plain_decode_step(self) -> None:
+        self._ensure_capacity()
+        slots = self._decodable()
+        if not slots:
+            return
+        t_step = time.perf_counter()
+        tokens, positions, table = self._step_operands(slots, 1)
+        logits = self._program("decode")(tokens[:, 0], positions, table)
         logits = logits.float().cpu().numpy()
+        # Every lane's next token took this step's wall time: one sample
+        # per lane.
+        observe.histogram("tdx.serve.token_latency_s").observe(
+            time.perf_counter() - t_step, n=len(slots))
         for slot in slots:
             lane = self.active.get(slot)
             if lane is None:  # pragma: no cover — nothing retires mid-loop
@@ -283,9 +727,150 @@ class ServeEngine:
             lane.length += 1
             self._emit(lane, int(np.argmax(logits[slot])), logits[slot])
         self.decode_steps += 1
+        observe.counter("tdx.serve.decode_steps").inc()
+
+    # -- speculative decode -------------------------------------------------
+
+    def _drafts_for(self, slots: List[int]) -> Dict[int, List[int]]:
+        """Per-slot draft proposals, clamped so no draft outruns the
+        request's token budget or the context cap."""
+        drafts: Dict[int, List[int]] = {}
+        for slot in slots:
+            lane = self.active[slot]
+            req = lane.req
+            k = min(
+                lane.spec_k,
+                req.max_new_tokens - len(lane.generated) - 1,
+                self.scfg.max_context - lane.length - 1,
+            )
+            drafts[slot] = (self._drafter.draft(req.tokens + lane.generated, k)
+                            if k > 0 else [])
+        return drafts
+
+    def _ensure_spec_capacity(self, drafts: Dict[int, List[int]]) -> None:
+        """Like :meth:`_ensure_capacity` but covering each lane's draft
+        window too.  Under pool pressure a lane's OWN draft is shed
+        before anyone is preempted: speculation is optional, lanes are
+        not."""
+        for slot in self._oldest_first():
+            lane = self.active.get(slot)
+            if lane is None or lane.prefilling:
+                continue
+            while True:
+                try:
+                    self.kv.extend(
+                        lane.seq_id,
+                        lane.length + len(drafts.get(slot, ())) + 1)
+                    break
+                except OutOfPages:
+                    if self.prefix.evict():
+                        continue
+                    if drafts.get(slot):
+                        drafts[slot] = []
+                        continue
+                    victim = self._youngest()
+                    self._preempt(victim, reason="pages")
+                    if victim == slot:
+                        break  # this lane itself was the youngest
+
+    def _spec_decode_step(self) -> None:
+        """Draft -> one batched verify tick -> greedy accept + rollback.
+        ``verify-<k>`` scores all k+1 positions of every lane in ONE call
+        (a zero-draft lane occupies a width-1 ragged row); greedy accept
+        takes the longest draft prefix matching the program's own
+        argmaxes plus one corrected (or bonus) token, then KV rollback
+        retracts the rejected positions."""
+        drafts = self._drafts_for(self._decodable())
+        if not any(drafts.values()):
+            # Nothing proposed (cold drafter): plain decode is the same
+            # tick at width 1, without the rollback.
+            self._plain_decode_step()
+            return
+        self._ensure_spec_capacity(drafts)
+        # COW guard for the write at position ``length`` (nothing at
+        # refcount 1), BEFORE the page tables are read: a cow under pool
+        # pressure can preempt a lane, and a stale table row would let
+        # the verify tick write a dead lane's K/V into a reused page.
+        for slot in self._decodable():
+            lane = self.active.get(slot)
+            if lane is not None:
+                self._cow_for(lane, lane.length // self.scfg.page_size)
+        slots = self._decodable()
+        if not slots:
+            return
+        t_step = time.perf_counter()
+        kb = self.scfg.spec_bucket_for(
+            max(len(drafts.get(s, ())) for s in slots) or 1)
+        tokens, start, table = self._step_operands(slots, kb + 1)
+        end = np.zeros_like(start)
+        for slot in slots:
+            d = drafts.get(slot, ())
+            tokens[slot, 1:1 + len(d)] = d
+            end[slot] = start[slot] + len(d) + 1
+        logits = self._program(f"verify-{kb}")(tokens, start, end, table)
+        logits = logits.float().cpu().numpy()
+        dt = time.perf_counter() - t_step
+        total_emitted = 0
+        for slot in slots:
+            lane = self.active.get(slot)
+            if lane is None:  # pragma: no cover — nothing retires mid-loop
+                continue
+            d = drafts.get(slot, [])
+            rows = logits[slot]  # [kb+1, vocab]
+            accepted = 0
+            emitted: List[int] = []
+            for i, guess in enumerate(d):
+                t = int(np.argmax(rows[i]))
+                emitted.append(t)
+                if t != guess:
+                    break  # first wrong draft; t is the corrected token
+                accepted += 1
+            if accepted == len(d):
+                # Clean sweep: the last verified position yields one
+                # bonus token.
+                emitted.append(int(np.argmax(rows[len(d)])))
+            self.spec_drafted += len(d)
+            self.spec_accepted += accepted
+            if d:
+                # Per-lane k adaptation: grow back toward the cap on a
+                # clean sweep, back off when under half survived.
+                if accepted == len(d):
+                    lane.spec_k = min(lane.spec_k + 1, self.scfg.spec_k)
+                elif accepted * 2 < len(d):
+                    lane.spec_k = max(1, lane.spec_k - 1)
+            # Token-level rollback: the verify tick wrote K/V for every
+            # position in [length, length + len(d)]; those past the
+            # accepted prefix hold rejected drafts.
+            self.kv.rollback(lane.seq_id, lane.length + accepted + 1)
+            for i, tok in enumerate(emitted):
+                lane.length += 1
+                self._emit(lane, tok, rows[i])
+                total_emitted += 1
+                if lane.slot not in self.active:
+                    break  # retired (eos / budget); KV already freed
+        self.spec_verify_ticks += 1
+        if total_emitted:
+            observe.histogram("tdx.serve.token_latency_s").observe(
+                dt, n=total_emitted)
+        self.decode_steps += 1
+        observe.counter("tdx.serve.decode_steps").inc()
 
     def _emit(self, lane: _Lane, token: int, logits: np.ndarray) -> None:
         lane.generated.append(token)
+        if self._drafter is not None:
+            # One (order-gram -> token) pair per emitted token: the
+            # lane's own stream predicts its future best.
+            seq = lane.req.tokens + lane.generated
+            self._drafter.observe(seq[-(self._drafter.order + 1):])
+        # Recompute preemption replays a requeued request from scratch;
+        # positions the client already received must not stream twice.
+        pos = len(lane.generated)
+        rid = lane.req.rid
+        if pos > self._delivered.get(rid, 0):
+            self._delivered[rid] = pos
+            self._tokens_out += 1
+            if self.on_token is not None:
+                self.on_token(rid, token)
         req = lane.req
         done = (
             (req.eos_id is not None and token == req.eos_id)
@@ -298,16 +883,45 @@ class ServeEngine:
     def _retire(self, lane: _Lane, logits: np.ndarray) -> None:
         self.kv.free(lane.seq_id)
         self.active.pop(lane.slot, None)
+        self._delivered.pop(lane.req.rid, None)
         self.results[lane.req.rid] = list(lane.generated)
         self.final_logits[lane.req.rid] = np.asarray(logits, np.float32)
+        observe.counter("tdx.serve.requests_completed").inc()
+        if self.on_complete is not None:
+            self.on_complete(lane.req.rid, list(lane.generated),
+                             self.final_logits[lane.req.rid])
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, *, reason: str) -> None:
         """Evict a lane and requeue its whole request at the queue front
         (recompute policy: greedy decode regenerates identically)."""
         lane = self.active.pop(slot)
         self.kv.free(lane.seq_id)
         self.waiting.appendleft(lane.req)
         self.preemptions += 1
+        observe.counter("tdx.serve.preempted_requests").inc()
+        observe.instant("serve.preempt", category="serve",
+                        rid=lane.req.rid, reason=reason, step=self._step_no)
+
+    # -- telemetry ----------------------------------------------------------
+
+    def _gauges(self) -> None:
+        if not observe.enabled():
+            return
+        observe.gauge("tdx.serve.queue_depth").set(len(self.waiting))
+        observe.gauge("tdx.serve.active_requests").set(len(self.active))
+        if self._t0 is not None:
+            dt = time.perf_counter() - self._t0
+            if dt > 0:
+                observe.gauge("tdx.serve.tokens_per_s").set(
+                    round(self._tokens_out / dt, 3))
+        observe.gauge("tdx.serve.prefix_nodes").set(self.prefix.page_count())
+        observe.gauge("tdx.serve.prefix_hit_rate").set(
+            round(self.prefix.hit_rate(), 4))
+        if self.spec_drafted:
+            observe.gauge("tdx.serve.spec_drafted").set(self.spec_drafted)
+            observe.gauge("tdx.serve.spec_accepted").set(self.spec_accepted)
+            observe.gauge("tdx.serve.spec_accept_rate").set(
+                round(self.spec_accepted / self.spec_drafted, 4))
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +946,11 @@ def spin_up_replica(
     device="cuda",
 ) -> ServeEngine:
     """Bring up one serving replica on ``device``: ``deferred_init`` the
-    model (fakes claiming ``device``, zero storage) → materialize the
+    model (fakes claiming ``device``, zero storage) -> materialize the
     parameters straight onto the device under ``torch.manual_seed(seed)``
-    → build the decode kernel.
+    -> capture every serving program (:meth:`ServeEngine.warmup`).
+    ``bring_up_seconds`` covers the first two, ``capture_seconds`` the
+    last.
 
     ``model`` is a preset name (family inferred from it) or a
     :class:`TransformerConfig` (then pass ``family``).  ``param_dtype``
@@ -344,15 +960,21 @@ def spin_up_replica(
     cfg, family = _resolve_model(model, family)
     if param_dtype is not None:
         cfg = cfg.replace(param_dtype=param_dtype)
-    t0 = time.perf_counter()
-    fake = deferred_init(make_model, family, cfg, dev)
-    torch.manual_seed(seed)
-    net = materialize_module(fake, device=dev).eval()
-    engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg, device=dev)
-    engine.warmup()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    engine.bring_up_seconds = time.perf_counter() - t0
+    with observe.span("serve.spin_up", category="serve",
+                      family=family) as sp:
+        t0 = time.perf_counter()
+        fake = deferred_init(make_model, family, cfg, dev)
+        torch.manual_seed(seed)
+        net = materialize_module(fake, device=dev).eval()
+        engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg,
+                             device=dev)
+        if dev.type == "cuda":
+            build_kernel()
+            torch.cuda.synchronize(dev)
+        engine.bring_up_seconds = time.perf_counter() - t0
+        engine.warmup()
+        sp.set(seconds=round(engine.bring_up_seconds, 3),
+               capture_s=round(engine.capture_seconds, 3))
     return engine
 
 
@@ -365,9 +987,9 @@ def oracle_generate(
 ):
     """The no-batching, no-cache greedy oracle: full forward over the
     growing sequence through the model, argmax each step.  Returns
-    ``(generated_tokens, final_step_logits)`` — what the engine must
-    reproduce for the same request, whatever batching, paging or
-    preemption happened along the way."""
+    ``(generated_tokens, final_step_logits)``: what the engine must
+    reproduce for the same request, whatever batching, paging, sharing,
+    speculation or preemption happened along the way."""
     device = next(model.parameters()).device
     toks = list(prompt)
     out: List[int] = []

@@ -25,9 +25,8 @@ never read (idle lanes carry ``length == 0``).
 Pages carry host-side **refcounts** (one per page table that maps the
 page, one per prefix-cache holder), so a page returns to the free list
 only when its last reference drops; :meth:`PagedKVCache.cow_page` is the
-copy-on-write step for shared pages.  The serving engine of this package
-does not share pages yet (prefix caching is a later item), so its counts
-stay at one.
+copy-on-write step for shared pages (the prefix cache of
+:mod:`.prefix` shares them).
 """
 
 from __future__ import annotations

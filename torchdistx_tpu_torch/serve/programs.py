@@ -1,44 +1,73 @@
-"""Serving programs: the prefill and decode forwards (counterpart of
+"""Serving programs: the prefill, chunk, decode, verify and copy-on-write
+forwards, and their capture as CUDA graphs (counterpart of
 ``torchdistx_tpu/serve/programs.py``).
 
-The JAX package compiles each program once per replica shape; here they
-are eager PyTorch functions over the model's modules, with the same
-signatures and padding contracts:
+The programs of one replica shape, each named as in the JAX package:
 
-* **prefill-<bucket>** — one prompt, padded to a prefill bucket, through
+* **prefill-<bucket>**: one prompt, padded to a prefill bucket, through
   the full stack with causal attention, writing its K/V into the paged
   pool and returning the last valid position's logits (the first
   generated token);
-* **decode** — one token per batch lane through the stack, K/V written
+* **chunk-<bucket>**: one CHUNK of a prompt (the suffix after a cached
+  prefix, or one slice of a long prompt) at an arbitrary start
+  position, attending the already-written pool context through the page
+  table (:func:`..ops.paged_attention.paged_prefill_attention`);
+* **decode**: one token per batch lane through the stack, K/V written
   into each lane's current page/slot, context attended through the page
   table by :func:`..ops.paged_attention` (the CUDA kernel on the GPU),
-  logits out.
+  logits out;
+* **verify-<k>**: the speculative-decoding verify tick: every lane
+  scores its last emitted token plus up to ``k`` drafted tokens in one
+  batched ragged pass against the paged cache, logits for ALL ``k+1``
+  positions;
+* **cow**: the copy-on-write page duplication: clone one pool page (all
+  layers, K and V) into a fresh page before a grower writes into a
+  shared one.
+
+The JAX package compiles each program once per replica shape; here each
+becomes a :class:`ServeProgram`, which on the card is one
+``torch.cuda.CUDAGraph`` captured once: its int32 operands live in a
+static device buffer filled from a pinned host buffer before each
+replay, its output in a static tensor, and the pools and the parameters
+are read and written in place.  On the CPU, and on the card when asked
+for (``cuda_graphs=False``), the same functions run eagerly.
 
 The pools are updated IN PLACE (``index_put_``) where the JAX programs
 return new pools functionally (``kp.at[...].set``): no second copy of
-the cache ever exists.  Padded prompt positions and idle decode lanes
-write the reserved null page 0, which is never read.
+the cache ever exists.  Padded prompt positions and idle lanes write
+the reserved null page 0, which is never read.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import config as tdx_config
 from ..models import GPT2Model, LlamaModel, TransformerConfig
 from ..models.layers import apply_rope, default_attention
 from ..ops import paged_attention
+from ..ops.paged_attention import paged_prefill_attention
 from .kv_cache import KVCacheConfig
 
 __all__ = [
     "ResolvedServeConfig",
     "ServeConfig",
+    "ServeProgram",
+    "ServeProgramSpec",
+    "build_chunk_prefill_fn",
+    "build_cow_fn",
     "build_decode_fn",
     "build_prefill_fn",
+    "build_serving_functions",
+    "build_verify_fn",
     "make_model",
     "model_family",
+    "serve_program_specs",
 ]
 
 
@@ -52,24 +81,22 @@ class ServeConfig:
     max_pages_per_seq: Optional[int] = None  # default: fits max_seq_len
     prefill_buckets: Tuple[int, ...] = ()    # default: powers of two
     max_new_tokens: int = 16    # default per-request budget
-    # Prefix sharing (ROADMAP Queue A item 6: prefix cache + COW) and
-    # speculative decoding (same item: spec decode/verify) are not
-    # ported yet; asking for either raises.
-    prefix_cache: bool = False
-    spec_decode: bool = False
+    # Chunked-prefill cap: max prompt tokens computed per engine tick
+    # per lane (None -> TDX_PREFILL_CHUNK -> the largest bucket, i.e. one
+    # chunk).  A host-side scheduling knob: the program set is the same
+    # at every setting.
+    prefill_chunk: Optional[int] = None
+    # Prefix sharing (serve/prefix.py), host-side too.
+    prefix_cache: bool = True
+    # Speculative decoding.  ``spec_buckets`` is the verify-<k> program
+    # family, a SHAPE knob like prefill_buckets; ``spec_decode`` and
+    # ``spec_k`` are host-side scheduling knobs (None -> TDX_SPEC_DECODE /
+    # TDX_SPEC_K).
+    spec_buckets: Tuple[int, ...] = ()       # default: (2, 4)
+    spec_decode: Optional[bool] = None
+    spec_k: Optional[int] = None
 
     def resolve(self, cfg: TransformerConfig) -> "ResolvedServeConfig":
-        if self.prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True: the prefix cache with copy-on-write "
-                "pages is not ported yet (ROADMAP Queue A item 6, "
-                "'prefix cache + COW')"
-            )
-        if self.spec_decode:
-            raise NotImplementedError(
-                "spec_decode=True: speculative decoding is not ported yet "
-                "(ROADMAP Queue A item 6, 'spec decode/verify')"
-            )
         page = self.page_size
         maxp = self.max_pages_per_seq
         cap = min(cfg.max_seq_len, (self.n_pages - 1) * page)
@@ -86,17 +113,39 @@ class ServeConfig:
             buckets = tuple(sorted(set(acc)))
         else:
             buckets = tuple(sorted({min(b, max_context) for b in buckets}))
+        chunk = self.prefill_chunk
+        if chunk is None:
+            chunk = tdx_config.get().prefill_chunk
+        if chunk is None or chunk <= 0:
+            chunk = buckets[-1]
+        chunk = max(1, min(chunk, buckets[-1]))
+        spec_buckets = tuple(self.spec_buckets) or (2, 4)
+        # A verify-<k> tick writes k+1 positions; k must leave room for
+        # at least one prior context token.
+        spec_buckets = tuple(sorted(
+            {max(1, min(k, max_context - 2)) for k in spec_buckets}
+        ))
+        spec_on = self.spec_decode
+        if spec_on is None:
+            spec_on = tdx_config.get().spec_decode
+        spec_k = self.spec_k
+        if spec_k is None:
+            spec_k = tdx_config.get().spec_k
+        spec_k = max(1, min(spec_k, spec_buckets[-1]))
         return ResolvedServeConfig(
             max_batch=self.max_batch, page_size=page, n_pages=self.n_pages,
             max_pages_per_seq=maxp, prefill_buckets=buckets,
             max_new_tokens=self.max_new_tokens, max_context=max_context,
+            prefill_chunk=chunk, prefix_cache=self.prefix_cache,
+            spec_buckets=spec_buckets, spec_decode=bool(spec_on),
+            spec_k=spec_k,
         )
 
 
 @dataclass(frozen=True)
 class ResolvedServeConfig:
     """A :class:`ServeConfig` with every default pinned against one model
-    config — the form the engine consumes."""
+    config: the form the engine and the program specs consume."""
 
     max_batch: int
     page_size: int
@@ -105,6 +154,11 @@ class ResolvedServeConfig:
     prefill_buckets: Tuple[int, ...]
     max_new_tokens: int
     max_context: int
+    prefill_chunk: int = 0      # resolved chunk cap (host-side knob)
+    prefix_cache: bool = True   # prefix sharing armed (host-side knob)
+    spec_buckets: Tuple[int, ...] = (2, 4)  # the verify-<k> family
+    spec_decode: bool = True    # speculation armed (host-side knob)
+    spec_k: int = 4             # max draft length (host-side knob)
 
     def kv_config(self, cfg: TransformerConfig) -> KVCacheConfig:
         return KVCacheConfig(
@@ -117,10 +171,19 @@ class ResolvedServeConfig:
         for b in self.prefill_buckets:
             if b >= n_tokens:
                 return b
-        raise NotImplementedError(
+        raise ValueError(
             f"prompt of {n_tokens} tokens exceeds the largest prefill "
-            f"bucket {self.prefill_buckets[-1]}: chunked prefill is not "
-            f"ported yet (ROADMAP Queue A item 6, 'chunked prefill')"
+            f"bucket {self.prefill_buckets[-1]} (max_context="
+            f"{self.max_context})"
+        )
+
+    def spec_bucket_for(self, n_draft: int) -> int:
+        for k in self.spec_buckets:
+            if k >= n_draft:
+                return k
+        raise ValueError(
+            f"draft of {n_draft} tokens exceeds the largest verify "
+            f"bucket {self.spec_buckets[-1]}"
         )
 
 
@@ -248,3 +311,235 @@ def build_prefill_fn(model) -> Callable:
         return decomp.head(x_last)[0, 0]  # [vocab]
 
     return prefill_fn
+
+
+def _chunk_block(blk, x, kp, vp, *, angles, positions, end, page_table):
+    """One layer of CHUNKED prefill: x [B, S, d] holds prompt positions
+    ``[start, start+S)``; valid positions' K/V are written into their
+    pages in place (the caller already copy-on-wrote any shared first
+    page), and attention runs through the page table over the WHOLE
+    written context (cached prefix pages, earlier chunks, and this
+    chunk's causal self-context), which is what lets a suffix prefill
+    skip the prefix's FLOPs."""
+    page_size = kp.shape[1]
+    maxp = page_table.shape[1]
+    h = blk.norm_0(x)
+    q, k, v = blk.attn.qkv(h)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    valid = positions < end[:, None]  # [B, S] absolute-position validity
+    pidx = torch.clamp(positions // page_size, max=maxp - 1)
+    page = torch.where(valid, torch.gather(page_table, 1, pidx.long()), 0)
+    slot = torch.where(valid, positions % page_size, 0)
+    kp.index_put_((page.long(), slot.long()), k)
+    vp.index_put_((page.long(), slot.long()), v)
+    attn = paged_prefill_attention(q, kp, vp, positions, end, page_table)
+    x = x + blk.attn.out(attn)
+    return x + blk.mlp(blk.norm_1(x))
+
+
+def _chunk_forward(decomp, k_pages, v_pages, tokens, start, end, page_table):
+    """The chunk/verify stack: tokens [B, S] at absolute positions
+    ``start[b] + [0, S)`` -> final activations [B, S, d]."""
+    S = tokens.shape[1]
+    positions = start[:, None] + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)[None]
+    x = decomp.embed(tokens, positions)
+    angles = decomp.angles_at(positions)
+    for layer, blk in enumerate(decomp.blocks):
+        x = _chunk_block(
+            blk, x, k_pages[layer], v_pages[layer], angles=angles,
+            positions=positions, end=end, page_table=page_table,
+        )
+    return x
+
+
+def build_chunk_prefill_fn(model) -> Callable:
+    """The single-sequence CHUNK prefill:
+    ``(k_pages, v_pages, tokens [1, bucket], start [1], end [1],
+    page_table [1, maxp]) -> logits [vocab]``, updating the pools in
+    place.  ``tokens`` holds prompt positions ``[start, end)``
+    left-aligned (padded past ``end - start``); attention reads the
+    whole written context through the page table, so a suffix behind a
+    shared prefix costs only its own FLOPs.  Logits are the last valid
+    position's: meaningful (the first generated token) only on the
+    final chunk."""
+    decomp = model.decode_decomposition()
+
+    @torch.no_grad()
+    def chunk_fn(k_pages, v_pages, tokens, start, end, page_table):
+        S = tokens.shape[1]
+        x = _chunk_forward(decomp, k_pages, v_pages, tokens, start, end,
+                           page_table)
+        last = torch.clamp(end - 1 - start, 0, S - 1).long()
+        x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+        return decomp.head(x_last)[0, 0]  # [vocab]
+
+    return chunk_fn
+
+
+def build_verify_fn(model) -> Callable:
+    """The batched speculative verify:
+    ``(k_pages, v_pages, tokens [B, k+1], start [B], end [B],
+    page_table [B, maxp]) -> logits [B, k+1, vocab]``, updating the
+    pools in place.  Lane ``b`` feeds its last emitted token plus its
+    draft, left-aligned in ``tokens[b]``, at absolute positions
+    ``[start[b], end[b])``; padded positions past ``end`` write the null
+    page and are masked out of attention, and idle lanes carry
+    ``start == end == 0`` with a null table row.  Row ``i`` of the
+    logits scores the token AFTER position ``start + i``, so greedy
+    accept walks the rows left to right.  The batched sibling of
+    :func:`build_chunk_prefill_fn`: the same per-layer write and ragged
+    attention, every lane at once, the head at every position."""
+    decomp = model.decode_decomposition()
+
+    @torch.no_grad()
+    def verify_fn(k_pages, v_pages, tokens, start, end, page_table):
+        x = _chunk_forward(decomp, k_pages, v_pages, tokens, start, end,
+                           page_table)
+        return decomp.head(x)  # [B, k+1, vocab]
+
+    return verify_fn
+
+
+def build_cow_fn() -> Callable:
+    """The copy-on-write page duplication:
+    ``(k_pages, v_pages, src [1], dst [1]) -> None``: clone page ``src``
+    into ``dst`` across every layer, K and V, in place, so a grower
+    about to write into a shared page writes into its private copy."""
+
+    @torch.no_grad()
+    def cow_fn(k_pages, v_pages, src, dst):
+        for pool in (k_pages, v_pages):
+            pool.index_copy_(1, dst.long(), pool.index_select(1, src.long()))
+
+    return cow_fn
+
+
+# ---------------------------------------------------------------------------
+# program specs and capture
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ServeProgramSpec:
+    """One program of a replica shape: its name (as in the JAX package),
+    the forward it runs, and the shapes of its int32 operands in call
+    order (the operands after the two pools)."""
+
+    name: str      # decode | prefill-<S> | chunk-<S> | verify-<k> | cow
+    kind: str      # decode | prefill | chunk | verify | cow
+    inputs: Tuple[Tuple[int, ...], ...]
+
+
+def serve_program_specs(scfg: ResolvedServeConfig) -> List[ServeProgramSpec]:
+    """Every program a replica of this shape runs, in bring-up order
+    (prefill buckets, chunk buckets, cow, decode, verify buckets).  The
+    verify family is part of every shape whatever ``spec_decode`` says,
+    as in the JAX package: speculation is a host-side switch."""
+    B, maxp = scfg.max_batch, scfg.max_pages_per_seq
+    specs = [ServeProgramSpec(f"prefill-{b}", "prefill",
+                              ((1, b), (1,), (1, maxp)))
+             for b in scfg.prefill_buckets]
+    specs += [ServeProgramSpec(f"chunk-{b}", "chunk",
+                               ((1, b), (1,), (1,), (1, maxp)))
+              for b in scfg.prefill_buckets]
+    specs.append(ServeProgramSpec("cow", "cow", ((1,), (1,))))
+    specs.append(ServeProgramSpec("decode", "decode",
+                                  ((B,), (B,), (B, maxp))))
+    specs += [ServeProgramSpec(f"verify-{k}", "verify",
+                               ((B, k + 1), (B,), (B,), (B, maxp)))
+              for k in scfg.spec_buckets]
+    return specs
+
+
+def build_serving_functions(model) -> Dict[str, Callable]:
+    """kind -> the forward every program of that kind runs (one function
+    serves every bucket: the bucket is its operands' width)."""
+    return {"decode": build_decode_fn(model),
+            "prefill": build_prefill_fn(model),
+            "chunk": build_chunk_prefill_fn(model),
+            "verify": build_verify_fn(model),
+            "cow": build_cow_fn()}
+
+
+class ServeProgram:
+    """One program of a replica, bound to its pools: call it with numpy
+    int32 operands, get its output (``None`` for ``cow``) as a device
+    tensor that stays valid until the program's next call.
+
+    Its operands live in ONE int32 buffer on the device (views of it,
+    one per operand), filled before each call by one copy from a pinned
+    host buffer; the copy is asynchronous, so the next fill first waits
+    for it to have read the host buffer.  :meth:`capture` records the
+    forward on those views into a ``torch.cuda.CUDAGraph`` (a warm-up
+    run on the capture stream first, as torch requires); after it, a
+    call is the copy and one replay.  Uncaptured, a call runs the forward
+    eagerly on the same views.  On the CPU the host buffer is the
+    operand buffer.
+
+    A replay launches what the capture recorded: the paged-decode
+    kernel's calls among it add to ``paged_attention.launches`` and
+    ``merge_launches`` at each replay, as the wrapper adds at each eager
+    call; the capture itself launches nothing and adds nothing."""
+
+    def __init__(self, spec: ServeProgramSpec, fn: Callable,
+                 pools: Tuple[torch.Tensor, torch.Tensor]):
+        self.spec = spec
+        self._fn = fn
+        self._pools = pools
+        device = pools[0].device
+        sizes = [math.prod(s) for s in spec.inputs]
+        on_card = device.type == "cuda"
+        self._host = torch.zeros(sum(sizes), dtype=torch.int32,
+                                 pin_memory=on_card)
+        self._dev = (torch.zeros(sum(sizes), dtype=torch.int32,
+                                 device=device) if on_card else self._host)
+        self._copied = torch.cuda.Event() if on_card else None
+        host_np = self._host.numpy()
+        self._host_views: List[np.ndarray] = []
+        self._operands: List[torch.Tensor] = []
+        off = 0
+        for shape, n in zip(spec.inputs, sizes):
+            self._host_views.append(host_np[off:off + n].reshape(shape))
+            self._operands.append(self._dev[off:off + n].view(shape))
+            off += n
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: Optional[torch.Tensor] = None
+        self._launches = (0, 0)   # paged-decode (calls, merges) per replay
+
+    def capture(self, pool, stream: torch.cuda.Stream) -> None:
+        """Record the forward into a CUDA graph drawing on the memory
+        ``pool`` (shared by every program of the engine: programs never
+        run concurrently).  The operand buffer is still all zeros, so
+        every write of the warm-up run lands in the null page."""
+        args = (*self._pools, *self._operands)
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        with torch.cuda.stream(stream):
+            self._fn(*args)  # warm-up: real launches, counted as such
+        before = (paged_attention.launches, paged_attention.merge_launches)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = self._fn(*args)
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+        self._launches = (paged_attention.launches - before[0],
+                          paged_attention.merge_launches - before[1])
+        paged_attention.launches, paged_attention.merge_launches = before
+        self.graph, self._out = graph, out
+
+    def __call__(self, *operands: np.ndarray) -> Optional[torch.Tensor]:
+        if self._copied is not None:
+            self._copied.synchronize()
+        for view, a in zip(self._host_views, operands):
+            view[...] = a
+        if self._dev is not self._host:
+            self._dev.copy_(self._host, non_blocking=True)
+            self._copied.record()
+        if self.graph is None:
+            return self._fn(*self._pools, *self._operands)
+        self.graph.replay()
+        paged_attention.launches += self._launches[0]
+        paged_attention.merge_launches += self._launches[1]
+        return self._out
+
