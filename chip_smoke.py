@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU: decoder LMs and the T5 encoder-decoder, the keyed, sharded
-materializer and the sharded train step (one-rank meshes).
+NVIDIA GPU: decoder LMs, Mixtral's mixture of experts, ViT and the T5
+encoder-decoder, the keyed, sharded materializer and the sharded train
+step (one-rank meshes).
 
     python3 chip_smoke.py
 
@@ -61,7 +62,7 @@ user calls, and checks what comes out.  One JSON object per line:
 5. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
-   at head dims 32, 64 and 128 (float32 within
+   at head dims 32, 64 and 128, ViT's non-causal S 197 (float32 within
    1e-5, bfloat16 within 3e-2, relative above magnitude 1; rows that see
    no key exactly zero); the bf16 forward, dq, dk/dv and d(bias)
    kernels' registers, spills (it fails on any), CTAs per SM and shared
@@ -73,7 +74,8 @@ user calls, and checks what comes out.  One JSON object per line:
    60x); the forward's normalizer (its f32 O within 2x of the error of P
    rounded once, on values sharing a large component, where dividing by
    the exact sum of P misses by 60x); and the
-   llama3-8b and gpt2-125m training shapes in both dtypes (float32
+   llama3-8b, gpt2-125m and vit-l16 (non-causal) training shapes in
+   both dtypes (float32
    within 1e-5, bfloat16 within 1e-2 normwise) with their
    times: kernel, plain version, a library yardstick
    (``scaled_dot_product_attention`` forward and its autograd backward,
@@ -165,14 +167,56 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the loss within 1e-3 relative of ``mesh=None``'s, one
     ``train.step`` span per instrumented step, the ``tdx.train.mfu``
     gauge and the counted FLOPs within 1 % of ``train_step_flops``;
-17. the kernels line: per kernel its launches on the main path, its error
+17. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
+    2048], on the flash kernels: deferred_init -> materialize on the
+    card -> ``make_train_step``, 5 steps on one batch (losses finite and
+    falling, 1 launch of each flash kernel per layer and step), step ms,
+    tokens/s, MFU by ``train_step_flops`` (MoE FLOPs counted), peak
+    device memory, the router loss and the share of (token, choice)
+    pairs dropped at capacity; one step on a fresh batch against the
+    same module on ``default_attention`` (loss and gradient norm within
+    1e-3, each gradient leaf within 5e-2 normwise); one profiled step with the
+    dispatch and combine einsums, the expert GEMMs and the one-hot
+    products apart;
+18. its keyed values (f32): each of the 8 coordinates of a virtual
+    ``{ep: 2, fsdp: 2, tp: 2}`` under ``decoder_lm_plan`` equal to its
+    slice of the unsharded values bit for bit, and a one-rank NCCL
+    ``{ep: 1, fsdp: 1, tp: 1}`` mesh equal to ``mesh=None``;
+19. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
+    holds in bf16) recorded as fakes and coordinate ep = 0 of a virtual
+    ``{ep: 8}`` materialized in bf16 in a fresh process: seconds,
+    GB/s, host RSS growth (below a quarter of the local bytes) and
+    device-memory growth (at most the local bytes plus twice the largest
+    entry at its recorded dtype);
+20. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
+    fsdp: 1, tp: 1}`` mesh in a fresh process: the first loss within
+    1e-3 of ``mesh=None``'s, counted FLOPs within 1 % of
+    ``train_step_flops``, RSS and device growth as in 16;
+21. 2-layer llama3-70b width (``remat="full"`` from the preset), bf16
+    parameters, [1, 8192]: one step with ``remat="none"`` and one with
+    ``"full"`` from the same keyed values, losses and gradient norms
+    within 1e-6 (leaves bitwise equal counted), the flash forward twice
+    per layer and step under ``"full"``, the peak device memory of a
+    later step lower under ``"full"``, both step times;
+22. ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
+    one step against ``default_attention`` (logits within 1e-4, each
+    gradient leaf within 1e-4 normwise); full-depth vit-l16, bf16
+    compute, B 32 at 224 x 224: the gradients on a fresh batch against
+    ``default_attention``'s under the limits of 7 before training (the
+    key biases, zero in exact arithmetic, held against the key weights'
+    gradient), each path's error against the same step in f32 compute,
+    then 5 label cross-entropy steps, step ms, images/s, MFU and peak
+    device memory;
+23. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
-    bias; paged decode at the serving engine's batch, lengths and page
-    table width, with its merge launches and CUDA launches per call
-    counted on the serving main path, its time from CUDA-graph replay
-    too, and its times at a table cut to the lanes' own pages);
-18. last: ``{"ok": true, "device": {...}}``.
+    bias and at ViT-L/16's, non-causal, with their launches on the
+    Mixtral, 70B-remat and ViT paths; paged decode at the serving
+    engine's batch, lengths and page table width, with its merge
+    launches and CUDA launches per call counted on the serving main
+    path, its time from CUDA-graph replay too, and its times at a table
+    cut to the lanes' own pages);
+24. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -215,9 +259,18 @@ from torchdistx_tpu_torch.models import (
     T5_11B,
     make_gpt2,
     make_llama,
+    make_mixtral,
     make_t5,
+    make_vit,
 )
-from torchdistx_tpu_torch.models.layers import Linear, default_attention
+from torchdistx_tpu_torch.models.layers import (
+    Attention,
+    Linear,
+    MoEMLP,
+    default_attention,
+    moe_capacity,
+    router_aux_loss,
+)
 from torchdistx_tpu_torch.models.plans import decoder_lm_plan
 from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
@@ -246,6 +299,7 @@ from torchdistx_tpu_torch.parallel import (
     make_train_step,
     placements_for,
 )
+from torchdistx_tpu_torch.parallel.sharding import spec_str
 from torchdistx_tpu_torch.parallel.train import (
     H100_PEAK_FLOPS,
     default_optimizer,
@@ -874,6 +928,9 @@ FLASH_CASES = (  # name, shape, causal, segments
     # tile and GQA.
     ("fq-ragged-d128-causal-empty-rows", dict(B=1, S=150, T=100, H=4, KV=2,
                                               D=128), True, None),
+    # ViT's attention: non-causal, D = 64, S = 197 (196 patches and the
+    # class token), ragged against every tile.
+    ("vit-ragged-197-d64-full", dict(B=2, S=197, H=16, D=64), False, None),
 )
 
 
@@ -933,7 +990,9 @@ def flash_cases(dev) -> dict:
 FLASH_WIDTHS = {  # the training shapes: batch, sequence, heads, head dim
     "llama3-8b": dict(B=TRAIN_BATCH, S=TRAIN_SEQ, H=32, KV=8, D=128),
     "gpt2-125m": dict(B=4, S=1024, H=12, KV=12, D=64),
+    "vit-l16": dict(B=32, S=197, H=16, KV=16, D=64),
 }
+FLASH_NON_CAUSAL = {"vit-l16"}  # encoders: every query sees every key
 
 
 def visible_pairs(S: int, T: int, causal: bool) -> int:
@@ -972,30 +1031,33 @@ def flash_bound(name: str, *, B, S, H, KV, D, dtype, T=None, causal=True,
 
 def measure_flash(dev, flush, model: str, dtype) -> dict:
     """Kernel, plain and library times and the bound of each flash kernel
-    at a training shape (causal), after holding the kernels against the
-    plain versions there."""
+    at a training shape (causal but for the encoders'), after holding the
+    kernels against the plain versions there."""
     shape = FLASH_WIDTHS[model]
+    causal = model not in FLASH_NON_CAUSAL
     B, S, H, KV, D = (shape[k] for k in ("B", "S", "H", "KV", "D"))
     args = flash_case(11, dtype=dtype, dev=dev, **shape)
     bf16 = dtype == torch.bfloat16
-    errs = check_flash(args, f"{model}-{str(dtype)[6:]}", causal=True,
+    errs = check_flash(args, f"{model}-{str(dtype)[6:]}", causal=causal,
                        atol=ATOL[dtype], normwise=bf16)
     q, k, v, do = args
-    out, lse = flash_forward(q, k, v)
+    out, lse = flash_forward(q, k, v, causal=causal)
     delta = (do.float() * out.float()).sum(-1)
     kernel_ms = {
-        "flash_fwd": time_ms(lambda: flash_forward(q, k, v), flush),
-        "flash_bwd_dq": time_ms(
-            lambda: flash_backward_dq(q, k, v, do, lse, delta), flush),
-        "flash_bwd_dkv": time_ms(
-            lambda: flash_backward_dkv(q, k, v, do, lse, delta), flush),
+        "flash_fwd": time_ms(lambda: flash_forward(q, k, v, causal=causal),
+                             flush),
+        "flash_bwd_dq": time_ms(lambda: flash_backward_dq(
+            q, k, v, do, lse, delta, causal=causal), flush),
+        "flash_bwd_dkv": time_ms(lambda: flash_backward_dkv(
+            q, k, v, do, lse, delta, causal=causal), flush),
     }
-    plain_fwd = time_ms(lambda: flash_forward_reference(q, k, v), flush, 5)
-    plain_bwd = time_ms(
-        lambda: flash_backward_reference(q, k, v, do, lse, delta), flush, 5)
+    plain_fwd = time_ms(lambda: flash_forward_reference(q, k, v, causal),
+                        flush, 5)
+    plain_bwd = time_ms(lambda: flash_backward_reference(
+        q, k, v, do, lse, delta, causal), flush, 5)
     lib = sdpa_yardstick(q.view(B, H, S, D), k.view(B, KV, S, D),
-                         v.view(B, KV, S, D), do.view(B, H, S, D), None, True,
-                         flush)
+                         v.view(B, KV, S, D), do.view(B, H, S, D), None,
+                         causal, flush)
     lib_fwd, lib_bwd = lib["fwd_ms"], lib["bwd_ms"]
     err = {"flash_fwd": max(errs["out"], errs["lse"]),  # absolute
            "flash_bwd_dq": errs["dq"],
@@ -1006,9 +1068,10 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
             "max_abs_err": err[name], "kernel_ms": kernel_ms[name],
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
             "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
-            **flash_bound(name, B=B, S=S, H=H, KV=KV, D=D, dtype=dtype)}
+            **flash_bound(name, B=B, S=S, H=H, KV=KV, D=D, dtype=dtype,
+                          causal=causal)}
     return {"phase": "flash_full_width", "model": model,
-            "dtype": str(dtype)[6:], "shape": shape, "causal": True,
+            "dtype": str(dtype)[6:], "shape": shape, "causal": causal,
             "limit": (f"||kernel - plain|| / ||plain|| <= {BF16_NORM_RTOL}"
                       if bf16 else f"{ATOL[dtype]} x max(1, |plain|)")
             + f"; lse {LSE_RTOL} x max(1, |plain|)",
@@ -1016,7 +1079,7 @@ def measure_flash(dev, flush, model: str, dtype) -> dict:
             "plain": "flash_forward_reference / flash_backward_reference "
                      "(the backward's plain version computes dq, dk and dv "
                      "in one call; its time stands for both kernels)",
-            "library": "F.scaled_dot_product_attention(is_causal=True, "
+            "library": f"F.scaled_dot_product_attention(is_causal={causal}, "
                        "enable_gqa=True) forward / its autograd backward "
                        "(a yardstick the port never calls)",
             "library_backend": lib["backend"],
@@ -2057,6 +2120,7 @@ def leaf_errors(names, got, want) -> dict:
     are exactly 0)."""
     errs = {}
     for name, a, b in zip(names, got, want):
+        b = b.to(a.device)
         d = (a.double() - b.double()).norm().item()
         n = b.double().norm().item()
         errs[name] = d / n if n else (0.0 if d == 0 else math.inf)
@@ -2198,13 +2262,16 @@ def cold_first_step() -> None:
     emit(stats)
 
 
-def profile_step(model: str, step) -> dict:
+def profile_step(model: str, step, classify=None) -> dict:
     """One more training step (``step()``) under ``torch.profiler``:
-    device time by kernel, and the flash kernels' share of it."""
+    device time by kernel, and the flash kernels' share of it; with
+    ``classify``, the profile is taken with the ops' input shapes and
+    ``classify(prof)`` is added as ``split``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=classify is not None) as prof:
         step()
         torch.cuda.synchronize()
     kernels = []
@@ -2230,13 +2297,16 @@ def profile_step(model: str, step) -> dict:
         if _kernel_kind(name) == "flash":
             key = re.search(r"flash_\w+", name).group(0)
             flash_by_kernel[key] = flash_by_kernel.get(key, 0.0) + ms
-    return {"phase": "train_step_profile", "model": model, "device_ms": total,
-            "kernel_launches": sum(k[1] for k in kernels),
-            "flash_ms": flash, "flash_share": flash / total if total else None,
-            "flash_ms_by_kernel": flash_by_kernel,
-            "device_ms_by_kind": by_kind,
-            "top_kernels": [{"name": k[2][:90], "ms": k[0], "launches": k[1]}
-                            for k in kernels[:12]]}
+    row = {"phase": "train_step_profile", "model": model, "device_ms": total,
+           "kernel_launches": sum(k[1] for k in kernels),
+           "flash_ms": flash, "flash_share": flash / total if total else None,
+           "flash_ms_by_kernel": flash_by_kernel,
+           "device_ms_by_kind": by_kind,
+           "top_kernels": [{"name": k[2][:90], "ms": k[0], "launches": k[1]}
+                           for k in kernels[:12]]}
+    if classify is not None:
+        row["split"] = classify(prof)
+    return row
 
 
 def _kernel_kind(name: str) -> str:
@@ -3050,14 +3120,14 @@ MESH_AXES = {"fsdp": 1, "tp": 1}
 SHARDED_STEPS = 5
 
 
-def mesh_group_up(dev):
-    """A one-rank NCCL group and the ``{fsdp: 1, tp: 1}`` mesh over it,
-    its communicator started with one all-reduce (a trainer's group is
-    up before its model comes up)."""
+def mesh_group_up(dev, axes=MESH_AXES):
+    """A one-rank NCCL group and the ``axes`` mesh over it (``{fsdp: 1,
+    tp: 1}`` by default), its communicator started with one all-reduce (a
+    trainer's group is up before its model comes up)."""
     torch.cuda.set_device(dev)
     one_rank_group()
-    mesh = make_mesh(MESH_AXES, device_type="cuda")
-    for axis in MESH_AXES:
+    mesh = make_mesh(axes, device_type="cuda")
+    for axis in axes:
         dist.all_reduce(torch.ones(1, device=dev), group=mesh.get_group(axis))
     dist.all_reduce(torch.ones(1, device=dev))
     torch.cuda.synchronize()
@@ -3328,6 +3398,796 @@ def phase_first_step_sharded() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phases 17 to 22: Mixtral's mixture of experts, full rematerialization and
+# ViT
+# ---------------------------------------------------------------------------
+
+# Mixtral 8x7B width (d 4096, 32 heads over 8 kv heads of 128, d_ff 14336,
+# 8 experts, top 2, rope theta 1e6, vocab 32000), depth cut to 2 layers,
+# bf16 compute on f32 parameters (3.165 B: 50.6 GB with gradients and
+# AdamW's moments, which fits beside the activations), a [2, 2048] batch.
+MIXTRAL_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=2)
+MIXTRAL_BATCH, MIXTRAL_SEQ = 2, 2048
+MIXTRAL_STEPS = 5
+MIXTRAL_MESH = {"ep": 1, "fsdp": 1, "tp": 1}
+
+
+def mixtral_batch() -> np.ndarray:
+    return np.random.RandomState(51).randint(
+        0, MIXTRAL_CFG.vocab_size, (MIXTRAL_BATCH, MIXTRAL_SEQ))
+
+
+def dropped_share(model) -> float:
+    """The share of the last forward's (token, choice) pairs that found no
+    slot in their expert's buffer, over every MoE layer."""
+    kept = [m.kept for m in model.modules() if isinstance(m, MoEMLP)]
+    return float(sum((~k).sum() for k in kept)) / sum(k.numel() for k in kept)
+
+
+def moe_matmuls(cfg, n_tokens: int):
+    """A profile classifier: the device ms of the MoE layers' matrix
+    products, by the shapes of the aten matmul that launched each kernel
+    (T tokens, E experts, C rows each, top k): the dispatch and combine
+    einsums (an operand with an E·C dim and a T dim), the expert GEMMs
+    (E-batched products) and the products that build the one-hot
+    dispatch and combine tensors (T-batched over k)."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    T, C = n_tokens, moe_capacity(cfg.moe, n_tokens)
+
+    def kind(shapes):
+        dims = {d for s in shapes for d in s}
+        if E * C in dims and T in dims:
+            return "dispatch_combine"
+        if any(len(s) == 3 and s[0] == E for s in shapes):
+            return "expert_gemm"
+        if any(len(s) == 3 and s[0] == T and k in s[1:] for s in shapes):
+            return "onehot"
+        return None
+
+    def classify(prof) -> dict:
+        ms, launches = {}, {}
+        for evt in prof.events():
+            if evt.name not in ("aten::mm", "aten::bmm", "aten::addmm",
+                                "aten::baddbmm") or not evt.kernels:
+                continue
+            what = kind([tuple(s) for s in evt.input_shapes or () if s])
+            if what:
+                ms[what] = ms.get(what, 0.0) + sum(
+                    kn.duration for kn in evt.kernels) / 1e3
+                launches[what] = launches.get(what, 0) + len(evt.kernels)
+        return {"device_ms": ms, "kernel_launches": launches,
+                "T": T, "E": E, "C": C, "k": k}
+
+    return classify
+
+
+def attention_modules(model) -> list:
+    return [m for m in model.modules() if isinstance(m, Attention)]
+
+
+def same_model_vs_plain(model, params, loss_fn, flash_step) -> dict:
+    """One step of a main path (``flash_step()``: the flash kernels, an
+    update, ``(loss, grad_norm)``) against the loss and gradients of the
+    same module with ``default_attention`` in its attention modules, on
+    the same weights and batch (``loss_fn(model)``; a batch the main path
+    has not trained on, as ``compare_plain_bf16`` takes: on a memorized
+    batch the gradients shrink and bf16's relative error grows).  The
+    plain gradients wait on the host, so the card never holds two sets."""
+    names = [n for n, _ in model.named_parameters()]
+    attns = attention_modules(model)
+    flash_fn = attns[0].attn_fn
+    for p in params:
+        p.grad = None
+    for a in attns:
+        a.attn_fn = default_attention
+    try:
+        loss = loss_fn(model)
+        loss.backward()
+    finally:
+        for a in attns:
+            a.attn_fn = flash_fn
+    p_loss = loss.item()
+    p_gn = float(torch.nn.utils.get_total_norm([p.grad for p in params]))
+    p_grads = [p.grad.to("cpu") for p in params]
+    del loss
+    for p in params:
+        p.grad = None
+    f_loss, f_gn = flash_step()
+    return vs_plain(names, (f_loss, p_loss), (f_gn, p_gn),
+                    [p.grad for p in params], p_grads)
+
+
+def phase_mixtral_train_bf16(dev) -> dict:
+    """2-layer Mixtral 8x7B width on the flash kernels, bf16 compute:
+    deferred_init -> materialize on the card -> ``make_train_step``, 5
+    steps on one batch (losses finite and falling, 1 launch of each flash
+    kernel per layer and step), step ms, tokens/s, MFU by
+    ``train_step_flops``, peak device memory, the router loss and the
+    share of (token, choice) pairs dropped at capacity; one step against
+    the same module on ``default_attention`` on a fresh batch; one
+    profiled step with the MoE matmuls apart."""
+    cfg = MIXTRAL_CFG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = deferred_init(make_mixtral, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    torch.manual_seed(0)
+    materialize_module(model, device=dev)
+    init_state, train_step, shard_batch = make_train_step(model, cfg,
+                                                          device=dev)
+    state = init_state(model)
+    torch.cuda.synchronize()
+    bring_up = time.perf_counter() - t0
+    batch = shard_batch(mixtral_batch())
+    reset_flash_launches()
+    losses, step_s, auxes, drops = [], [], [], []
+    for _ in range(MIXTRAL_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t)
+        auxes.append(float(metrics["aux"]))
+        drops.append(dropped_share(model))
+    launches = dict(flash_launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: cfg.n_layers * MIXTRAL_STEPS for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    if not all(math.isfinite(x) for x in losses + auxes):
+        raise AssertionError(f"non-finite losses {losses} or aux {auxes}")
+    if not all(x < losses[0] for x in losses[1:]):
+        raise AssertionError(f"losses do not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want}")
+    params = state["params"]
+    fresh = shard_batch(np.random.RandomState(52).randint(
+        0, cfg.vocab_size, (MIXTRAL_BATCH, MIXTRAL_SEQ)))
+
+    def flash_step():
+        _, metrics = train_step(state, fresh)
+        return float(metrics["loss"]), float(metrics["grad_norm"])
+
+    vs = same_model_vs_plain(
+        model, params,
+        lambda m: lm_cross_entropy(m(fresh), fresh) + router_aux_loss(m),
+        flash_step)
+    step = float(np.median(step_s[1:]))
+    ntok = MIXTRAL_BATCH * MIXTRAL_SEQ
+    flops = train_step_flops(model, cfg, MIXTRAL_BATCH, MIXTRAL_SEQ)
+    profile = profile_step("mixtral-8x7b", lambda: train_step(state, batch),
+                           classify=moe_matmuls(cfg, ntok))
+    row = {"phase": "mixtral_train_bf16", "model": "mixtral-8x7b",
+           "n_layers": cfg.n_layers, "dtype": "bfloat16 compute, float32 "
+           "parameters", "batch": [MIXTRAL_BATCH, MIXTRAL_SEQ],
+           "n_params": sum(p.numel() for p in params),
+           "param_bytes": sum(p.numel() * p.element_size() for p in params),
+           "bring_up_s": bring_up, "losses": losses, "aux": auxes,
+           "dropped_share": drops,
+           "capacity": moe_capacity(cfg.moe, ntok),
+           "step_ms": step * 1e3, "step_ms_samples": [x * 1e3 for x in step_s],
+           "tokens_per_s": ntok / step, "flops_per_step": flops,
+           "flops_formula": "train_step_flops: 6 x matmul weights x tokens + "
+                            "causal attention + per MoE layer 18 E d ff C + "
+                            "10 T E C d + 6 T E C k",
+           "mfu": flops / step / PEAK_FLOPS[torch.bfloat16],
+           "max_memory_allocated_bytes": peak, "flash_launches": launches,
+           "vs_default_attention": vs}
+    emit(row)
+    emit(profile)
+    row["profile"] = profile
+    del state, model, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mixtral_materialize_invariance(dev) -> dict:
+    """2-layer Mixtral width recorded in f32 through
+    ``materialize_module_cuda``: each of the 8 coordinates of
+    ``VirtualMesh({ep: 2, fsdp: 2, tp: 2})`` under ``decoder_lm_plan``,
+    materialized on its own, equal to its slice of the unsharded values
+    bit for bit, the slices covering every element; a one-rank NCCL
+    ``{ep: 1, fsdp: 1, tp: 1}`` mesh equal to ``mesh=None``."""
+    cfg = MIXTRAL_CFG
+    model = deferred_init(make_mixtral, cfg, device=dev)
+    t = time.perf_counter()
+    full = materialize_module_cuda(model, seed=0, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    axes = {"ep": 2, "fsdp": 2, "tp": 2}
+    plan = decoder_lm_plan(cfg)
+    shape = VirtualMesh(axes, {a: 0 for a in axes}).shape
+    specs = {n: plan.spec_for(n, tuple(v.shape), shape) for n, v in full.items()}
+    covered = {n: torch.zeros(v.shape, dtype=torch.uint8, device=dev)
+               for n, v in full.items()}
+    local_bytes, coord_s = [], []
+    for coord in itertools.product(*(range(k) for k in shape.values())):
+        where = dict(zip(shape, coord))
+        t = time.perf_counter()
+        local = materialize_module_cuda(model, mesh=VirtualMesh(axes, where),
+                                        plan=plan, seed=0, device=dev)
+        torch.cuda.synchronize()
+        coord_s.append(time.perf_counter() - t)
+        local_bytes.append(sum(v.numel() * v.element_size()
+                               for v in local.values()))
+        for n, v in local.items():
+            region = shard_region(full[n].shape, specs[n], shape, where)
+            if not torch.equal(v, full[n][region]):
+                raise AssertionError(f"{where} {n}: the shard is not its slice")
+            covered[n][region] += 1
+        del local
+    if any(not bool((k > 0).all()) for k in covered.values()):
+        raise AssertionError("the shards miss elements")
+    del covered
+    expert_specs = {n: spec_str(s) for n, s in specs.items()
+                    if n.startswith("blocks.0.moe.")}
+    one_rank_group()
+    try:
+        mesh = make_mesh(MIXTRAL_MESH, device_type="cuda")
+        on_mesh = materialize_module_cuda(model, mesh=mesh, plan=plan, seed=0)
+        for n, v in on_mesh.items():
+            spec = plan.spec_for(n, tuple(full[n].shape), mesh)
+            if tuple(v.placements) != placements_for(spec, mesh):
+                raise AssertionError(f"{n}: placements {v.placements}")
+            if not torch.equal(v.to_local(), full[n]):
+                raise AssertionError(f"{n}: the one-rank mesh differs")
+        del on_mesh
+    finally:
+        dist.destroy_process_group()
+    nbytes = sum(v.numel() * v.element_size() for v in full.values())
+    row = {"phase": "mixtral_materialize_invariance", "model": "mixtral-8x7b",
+           "n_layers": cfg.n_layers, "dtype": "float32",
+           "entries": len(full), "param_bytes": nbytes,
+           "materialize_s_unsharded": seconds,
+           "materialize_s_per_coordinate": coord_s,
+           "virtual_mesh": axes, "plan": "decoder_lm_plan",
+           "coordinates": len(coord_s), "local_bytes_max": max(local_bytes),
+           "expert_specs_layer_0": expert_specs,
+           "shards_bitwise_equal_slices": True, "shards_cover": True,
+           "one_rank_nccl_mesh": MIXTRAL_MESH,
+           "one_rank_nccl_mesh_equals_unsharded": True}
+    emit(row)
+    del full
+    torch.cuda.empty_cache()
+    return row
+
+
+def mixtral_8x7b_expert_shard() -> None:
+    """Full-depth Mixtral 8x7B (46.70 B parameters, 93.4 GB in bf16: more
+    than the card holds) recorded as fakes, and coordinate ep = 0 of
+    ``VirtualMesh({ep: 8})`` materialized on the card under
+    ``decoder_lm_plan`` in bf16, as the first model work of a fresh
+    process after its CUDA context: one expert of 8 per layer, the rest
+    replicated.  Seconds for recording and replay, bytes, GB/s, host RSS
+    growth (below a quarter of the local bytes) and the growth of
+    ``max_memory_allocated`` (at most the local bytes plus twice the
+    largest entry at its recorded dtype); prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    ctx = cuda_context(dev)
+    cfg = PRESETS["mixtral-8x7b"]
+    axes, where = {"ep": 8}, {"ep": 0}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _rss_bytes()
+    with RssSampler() as rss:
+        t0 = time.perf_counter()
+        model = deferred_init(make_mixtral, cfg, device=dev)
+        recorded = time.perf_counter() - t0
+        values = materialize_module_cuda(
+            model, mesh=VirtualMesh(axes, where), plan=decoder_lm_plan(cfg),
+            seed=0, param_dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    fakes = named_fake_tensors(model)
+    n_full = sum(f.numel() for f in fakes.values())
+    largest = max(f.numel() * f.element_size() for f in fakes.values())
+    nbytes = sum(v.numel() * v.element_size() for v in values.values())
+    growth = rss.peak - rss0
+    if not growth < nbytes / 4:
+        raise AssertionError(f"host RSS grew {growth} bytes materializing "
+                             f"{nbytes} bytes")
+    if not peak <= nbytes + 2 * largest:
+        raise AssertionError(f"device memory grew {peak} bytes for {nbytes} "
+                             f"bytes, largest entry {largest}")
+    for n, v in values.items():
+        f = fakes[n]
+        want = list(f.shape)
+        if ".moe.w_" in n:
+            want[0] //= axes["ep"]
+        if v.dtype != torch.bfloat16 or list(v.shape) != want:
+            raise AssertionError(f"{n}: {v.dtype} {tuple(v.shape)}")
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{n} is not finite")
+    emit({"phase": "mixtral_8x7b_expert_shard", "model": "mixtral-8x7b",
+          "n_layers": cfg.n_layers, "dtype": "recorded float32, bfloat16 "
+          "parameters", "virtual_mesh": axes, "coordinate": where,
+          "plan": "decoder_lm_plan", **ctx, "n_params_full": n_full,
+          "bytes_full_bf16": 2 * n_full, "entries": len(values),
+          "n_params_local": sum(v.numel() for v in values.values()),
+          "bytes": nbytes, "record_s": recorded, "materialize_s": seconds,
+          "replay_s": seconds - recorded,
+          "gb_per_s": nbytes / seconds / 1e9,
+          "gb_per_s_replay": nbytes / (seconds - recorded) / 1e9,
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth,
+          "host_rss_limit_bytes": nbytes / 4,
+          "max_memory_allocated_growth_bytes": peak,
+          "device_limit_bytes": nbytes + 2 * largest,
+          "largest_entry_bytes": largest})
+
+
+def phase_mixtral_8x7b_expert_shard() -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("mixtral_8x7b_expert_shard")
+    emit(row)
+    return row
+
+
+def mixtral_first_step_sharded() -> None:
+    """The sharded flow for Mixtral in a fresh process (after its CUDA
+    context and its one-rank NCCL group): deferred_init of 2-layer
+    Mixtral width with the flash kernels -> ``materialize_module_cuda``
+    on the ``{ep: 1, fsdp: 1, tp: 1}`` mesh under ``decoder_lm_plan``,
+    bf16 parameters -> ``bind_values`` -> ``make_train_step(mesh=)`` ->
+    the first loss, then 2 steps with telemetry on (the first counts the
+    step's FLOPs); then ``mesh=None`` from the same values, its first
+    loss.  Prints one JSON line."""
+    from torchdistx_tpu_torch import observe
+
+    dev = torch.device("cuda", 0)
+    ctx = cuda_context(dev)
+    mesh = mesh_group_up(dev, MIXTRAL_MESH)
+    cfg = MIXTRAL_CFG
+    batch_np = mixtral_batch()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rss0 = _rss_bytes()
+        reset_flash_launches()
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            model = deferred_init(make_mixtral, cfg,
+                                  attn_fn=make_flash_attention(), device=dev)
+            fakes = named_fake_tensors(model)
+            values = materialize_module_cuda(
+                model, mesh=mesh, plan=decoder_lm_plan(cfg), seed=0,
+                param_dtype=torch.bfloat16)
+            bind_values(model, values)
+            del values
+            observe.enable(True)
+            init_state, train_step, shard_batch = make_train_step(
+                model, cfg, device=dev, mesh=mesh)
+            observe.enable(False)
+            state = init_state(model)
+            torch.cuda.synchronize()
+            bring_up = time.perf_counter() - t0
+            bring_up_peak = torch.cuda.max_memory_allocated() - base
+            batch = shard_batch(batch_np)
+            state, metrics = train_step(state, batch)
+            first_loss = float(metrics["loss"])
+            first_aux = float(metrics["aux"])
+            seconds = time.perf_counter() - t0
+        growth = rss.peak - rss0
+        nbytes = sum(local_of(p).numel() * p.element_size()
+                     for p in state["params"])
+        largest = max(f.numel() * f.element_size() for f in fakes.values())
+        observe.reset()
+        observe.enable(True)
+        state, tele_losses, tele_s = timed_steps(state, train_step, batch, 2)
+        observe.enable(False)
+        spans = [e for e in observe.tracer().drain()
+                 if e["ph"] == "X" and e["name"] == "train.step"]
+        launches = dict(flash_launches)
+        flops = train_step_flops(model, cfg, MIXTRAL_BATCH, MIXTRAL_SEQ)
+        counted = spans[0]["args"].get("flops_counted") if spans else None
+        del state, model, metrics
+        torch.cuda.empty_cache()
+        plain = deferred_init(make_mixtral, cfg, attn_fn=make_flash_attention(),
+                              device=dev)
+        bind_values(plain, materialize_params_cuda(
+            named_fake_tensors(plain), seed=0, param_dtype=torch.bfloat16,
+            device=dev))
+        p_init, p_step, p_shard = make_train_step(plain, cfg, device=dev)
+        p_state, p_metrics = p_step(p_init(plain), p_shard(batch_np))
+        p_loss, p_aux = float(p_metrics["loss"]), float(p_metrics["aux"])
+        del p_state, plain
+    finally:
+        dist.destroy_process_group()
+    loss_rel = abs(first_loss - p_loss) / abs(p_loss)
+    want = {k: cfg.n_layers * 3 for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    bound = nbytes + 2 * largest
+    failed = []
+    if not all(math.isfinite(x) for x in [first_loss, p_loss] + tele_losses):
+        failed.append(f"non-finite losses {first_loss} {tele_losses} {p_loss}")
+    if not loss_rel <= FIRST_STEP_LOSS_RTOL:
+        failed.append(f"first loss {first_loss} vs mesh=None {p_loss}")
+    if not growth < nbytes / 4:
+        failed.append(f"host RSS grew {growth} bytes for {nbytes}")
+    if not bring_up_peak <= bound:
+        failed.append(f"device memory grew {bring_up_peak} bytes over "
+                      f"bring-up, bound {bound}")
+    if launches != want:
+        failed.append(f"flash launches {launches} != {want}")
+    if len(spans) != 2 or not counted:
+        failed.append(f"telemetry: {len(spans)} spans, counted {counted}")
+    elif not abs(counted - flops) <= 0.01 * flops:
+        failed.append(f"counted FLOPs {counted} vs {flops}")
+    emit({"phase": "mixtral_first_step_sharded", "model": "mixtral-8x7b",
+          "n_layers": cfg.n_layers, "batch": [MIXTRAL_BATCH, MIXTRAL_SEQ],
+          "dtype": "bfloat16 compute, bfloat16 parameters (recorded f32)",
+          "mesh": MIXTRAL_MESH, "plan": "decoder_lm_plan", **ctx,
+          "first_step_s": seconds, "bring_up_s": bring_up,
+          "first_loss": first_loss, "first_aux": first_aux,
+          "losses": [first_loss] + tele_losses,
+          "unsharded_first_loss": p_loss, "unsharded_first_aux": p_aux,
+          "loss_rel": loss_rel, "loss_limit": FIRST_STEP_LOSS_RTOL,
+          "param_bytes": nbytes, "host_rss_growth_bytes": growth,
+          "host_rss_limit_bytes": nbytes / 4,
+          "bring_up_device_growth_bytes": bring_up_peak,
+          "device_limit_bytes": bound, "largest_entry_bytes": largest,
+          "flash_launches": launches, "flops_per_step": flops,
+          "counted_flops": counted,
+          "counted_over_train_step_flops": counted / flops if counted
+          else None,
+          "step_ms_telemetry": [x * 1e3 for x in tele_s],
+          "failed": failed})
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def phase_mixtral_first_step_sharded() -> dict:
+    torch.cuda.empty_cache()
+    row = run_child("mixtral_first_step_sharded")
+    emit(row)
+    return row
+
+
+# 2-layer llama3-70b width (d 8192, 64 heads over 8 kv heads of 128, d_ff
+# 28672, vocab 128256), remat "full" from the preset, bf16 parameters,
+# one 8192-token sequence.
+REMAT_CFG = PRESETS["llama3-70b"].replace(n_layers=2)
+REMAT_BATCH, REMAT_SEQ = 1, 8192
+# The same step with and without rematerialization: the recompute runs
+# the same kernels on the same inputs, so the two agree to rounding at
+# most (in practice bit for bit).
+REMAT_RTOL = 1e-6
+REMAT_STEPS = 3
+
+
+def phase_remat_70b(dev) -> dict:
+    """One step of 2-layer llama3-70b width with ``remat="none"`` and one
+    with ``"full"`` from the same keyed values (bf16 parameters, [1,
+    8192], flash kernels): losses and gradient norms within 1e-6
+    relative, leaves bitwise equal counted, the flash forward launched
+    twice per layer and step under ``"full"``; then 2 more steps each,
+    timed, with the peak device memory of a step that holds AdamW's
+    moments — lower under ``"full"`` — and one profiled step each."""
+    if REMAT_CFG.remat != "full":
+        raise AssertionError(f"llama3-70b's preset has remat "
+                             f"{REMAT_CFG.remat!r}, not 'full'")
+    batch_np = np.random.RandomState(61).randint(
+        0, REMAT_CFG.vocab_size, (REMAT_BATCH, REMAT_SEQ))
+    runs, grads_none = {}, None
+    bitwise = worst = n_leaves = None
+    for remat in ("none", "full"):
+        cfg = REMAT_CFG.replace(remat=remat)
+        torch.cuda.empty_cache()
+        model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                              device=dev)
+        bind_values(model, materialize_module_cuda(
+            model, seed=0, param_dtype=torch.bfloat16, device=dev))
+        init_state, train_step, shard_batch = make_train_step(model, cfg,
+                                                              device=dev)
+        state = init_state(model)
+        batch = shard_batch(batch_np)
+        reset_flash_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, step_s = timed_steps(state, train_step, batch, 1)
+        first_peak = torch.cuda.max_memory_allocated()
+        launches = dict(flash_launches)
+        grads = [p.grad for p in state["params"]]
+        grad_norm = float(torch.nn.utils.get_total_norm(grads))
+        if remat == "none":
+            grads_none = [g.to("cpu") for g in grads]
+        else:
+            bitwise = sum(torch.equal(a, b.to(dev))
+                          for a, b in zip(grads, grads_none))
+            worst = max(leaf_errors(range(len(grads)), grads,
+                                    grads_none).values())
+        n_leaves = len(grads)
+        del grads
+        torch.cuda.reset_peak_memory_stats()
+        state, more, more_s = timed_steps(state, train_step, batch,
+                                          REMAT_STEPS - 1)
+        runs[remat] = {"losses": losses + more, "grad_norm": grad_norm,
+                       "step_ms": [x * 1e3 for x in step_s + more_s],
+                       "first_step_peak_bytes": first_peak,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "flash_launches_first_step": launches}
+        emit(profile_step(f"llama3-70b remat {remat}",
+                          lambda: train_step(state, batch)))
+        del state, model
+    torch.cuda.empty_cache()
+    none, full = runs["none"], runs["full"]
+    L = REMAT_CFG.n_layers
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel = rel(full["losses"][0], none["losses"][0])
+    gn_rel = rel(full["grad_norm"], none["grad_norm"])
+    want = {"none": {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                     "flash_dbias": 0},
+            "full": {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                     "flash_bwd_dkv": L, "flash_dbias": 0}}
+    failed = []
+    if not all(math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        failed.append("non-finite losses")
+    if not (loss_rel <= REMAT_RTOL and gn_rel <= REMAT_RTOL):
+        failed.append(f"loss {loss_rel} / grad norm {gn_rel} apart")
+    for r in runs:
+        if runs[r]["flash_launches_first_step"] != want[r]:
+            failed.append(f"{r}: launches {runs[r]['flash_launches_first_step']}"
+                          f" != {want[r]}")
+    if not full["peak_bytes"] < none["peak_bytes"]:
+        failed.append(f"peak {full['peak_bytes']} not below "
+                      f"{none['peak_bytes']}")
+    row = {"phase": "remat_70b", "model": "llama3-70b", "n_layers": L,
+           "batch": [REMAT_BATCH, REMAT_SEQ],
+           "dtype": "bfloat16 compute, bfloat16 parameters (recorded f32)",
+           "preset_remat": REMAT_CFG.remat, "none": none, "full": full,
+           "loss_rel": loss_rel, "grad_norm_rel": gn_rel, "limit": REMAT_RTOL,
+           "grad_leaves_bitwise": f"{bitwise} of {n_leaves}",
+           "grad_worst_leaf_rel": worst,
+           "peak_saved_bytes": none["peak_bytes"] - full["peak_bytes"],
+           "step_ms_ratio_full_over_none":
+               float(np.median(full["step_ms"][1:]))
+               / float(np.median(none["step_ms"][1:])),
+           "flops_per_step": train_step_flops(
+               make_llama(REMAT_CFG, device="meta"), REMAT_CFG, REMAT_BATCH,
+               REMAT_SEQ),
+           "failed": failed}
+    emit(row)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return row
+
+
+VIT_B16_F32 = PRESETS["vit-b16"].replace(
+    encoder=PRESETS["vit-b16"].encoder.replace(dtype=torch.float32))
+VIT_L16 = PRESETS["vit-l16"]
+VIT_B16_BATCH, VIT_L16_BATCH, VIT_STEPS = 8, 32, 5
+
+
+def vit_data(cfg, B: int, seed: int, dev):
+    rng = np.random.RandomState(seed)
+    images = torch.from_numpy(rng.randn(B, cfg.image_size, cfg.image_size,
+                                        cfg.channels).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, cfg.n_classes, B))
+    return images.to(dev), labels.to(dev)
+
+
+def vit_step_fn(model, opt, images, labels):
+    """A label cross-entropy step (the JAX package has no ViT trainer; its
+    test writes its own step): ``step() -> (loss, grad_norm)`` as device
+    tensors."""
+    params = list(model.parameters())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(images), labels)
+        loss.backward()
+        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        opt.step()
+        return loss.detach(), grad_norm
+
+    return step
+
+
+def vit_step_flops(cfg, B: int) -> float:
+    """Model FLOPs of one label cross-entropy step of ``cfg`` on B images:
+    6 per block weight per token, the patch conv's 4 per weight per patch
+    (no input gradient), the head's 6 per weight per image, and
+    non-causal attention's 12·L·B·H·S²·D."""
+    enc = cfg.encoder
+    S, d = cfg.seq_len, enc.d_model
+    blocks = enc.n_layers * (4 * d * enc.n_heads * enc.head_size
+                             + 2 * d * enc.d_ff)
+    conv = cfg.patch_size ** 2 * cfg.channels * d
+    return (6.0 * blocks * B * S + 4.0 * conv * B * cfg.n_patches
+            + 6.0 * d * cfg.n_classes * B
+            + 12.0 * enc.n_layers * B * enc.n_heads * S * S * enc.head_size)
+
+
+def key_bias(name: str) -> bool:
+    return name.endswith("attn.wk.bias")
+
+
+def phase_vit_train(dev) -> dict:
+    """ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
+    one label cross-entropy step against the same module on
+    ``default_attention`` — logits within 1e-4, each gradient leaf within
+    1e-4 normwise (the key biases, zero in exact arithmetic, below 1e-5
+    of the key weights' gradient); then vit-l16 at full depth, bf16
+    compute, B 32 at 224 x 224: at the materialized weights, the
+    gradients on a fresh batch against ``default_attention``'s under the
+    bf16 limits of ``train_bf16_full`` (the key biases below 5e-2 of the
+    key weights'), both beside the same step in f32 compute; then 5
+    steps on one batch (losses falling, 1 launch of each flash kernel
+    per layer and step), step ms, images/s, MFU, peak device memory; the
+    three gradients again after the steps, read only (24 bf16 layers
+    trained on one repeated batch put both bf16 paths as far from the
+    f32 answer as from each other); one profiled step."""
+    # vit-b16, f32
+    cfg = VIT_B16_F32
+    torch.manual_seed(0)
+    model = make_vit(cfg, attn_fn=make_flash_attention(), device=dev)
+    images, labels = vit_data(cfg, VIT_B16_BATCH, 71, dev)
+    attns = attention_modules(model)
+    with torch.no_grad():
+        flash_logits = model(images)
+        for a in attns:
+            a.attn_fn = default_attention
+        plain_logits = model(images)
+    grads = {}
+    for name, fn in (("plain", default_attention),
+                     ("flash", make_flash_attention())):
+        for a in attns:
+            a.attn_fn = fn
+        model.zero_grad(set_to_none=True)
+        F.cross_entropy(model(images), labels).backward()
+        grads[name] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    names = list(grads["flash"])
+    errs = leaf_errors(names, [grads["flash"][n] for n in names],
+                       [grads["plain"][n] for n in names])
+    checked = {n: e for n, e in errs.items() if not key_bias(n)}
+    worst = max(checked, key=checked.get)
+    zero_rel = max(grads[r][n].norm().item()
+                   / grads[r][n.replace("bias", "weight")].norm().item()
+                   for r in grads for n in names if key_bias(n))
+    logit_err = (flash_logits - plain_logits).abs().max().item()
+    if not logit_err <= 1e-4:
+        raise AssertionError(f"vit-b16 f32 logits differ by {logit_err}")
+    if not checked[worst] <= F32_GRAD_RTOL:
+        raise AssertionError(f"vit-b16 f32 gradient of {worst}: "
+                             f"{checked[worst]}")
+    if not zero_rel <= F32_ZERO_GRAD_RTOL:
+        raise AssertionError(f"vit-b16 key-bias gradients {zero_rel}")
+    b16 = {"model": "vit-b16", "dtype": "float32",
+           "batch": [VIT_B16_BATCH, cfg.image_size, cfg.image_size],
+           "seq": cfg.seq_len, "logits_max_abs_diff": logit_err,
+           "logits_limit": 1e-4, "grad_worst_leaf": [worst, checked[worst]],
+           "grad_limit": F32_GRAD_RTOL,
+           "key_bias_grad_over_key_weight_grad": zero_rel,
+           "key_bias_limit": F32_ZERO_GRAD_RTOL}
+    del model, grads, flash_logits, plain_logits
+    torch.cuda.empty_cache()
+    # vit-l16, bf16 compute, full depth
+    cfg = VIT_L16
+    torch.cuda.reset_peak_memory_stats()
+    model = deferred_init(make_vit, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    torch.manual_seed(0)
+    materialize_module(model, device=dev)
+    opt = default_optimizer(model.parameters())
+    images, labels = vit_data(cfg, VIT_L16_BATCH, 72, dev)
+    fresh_images, fresh_labels = vit_data(cfg, VIT_L16_BATCH, 73, dev)
+    ref = make_vit(cfg.replace(encoder=cfg.encoder.replace(
+        dtype=torch.float32)), device=dev)
+
+    def three_ways() -> tuple:
+        """Gradients on the fresh batch at the current weights: the flash
+        kernels, ``default_attention``, and ``default_attention`` in f32
+        compute (the same weights in ``ref``)."""
+        ce = lambda m: F.cross_entropy(m(fresh_images), fresh_labels)  # noqa: E731
+        flash_fn = attention_modules(model)[0].attn_fn
+        flash = attention_grads(model, flash_fn, ce)
+        plain = attention_grads(model, default_attention, ce)
+        for a in attention_modules(model):
+            a.attn_fn = flash_fn
+        ref.load_state_dict(model.state_dict())
+        return flash, plain, attention_grads(ref, default_attention, ce)
+
+    (f_loss, f_g), (p_loss, p_g), (_, r_g) = three_ways()
+    names = [n for n in f_g if not key_bias(n)]
+    vs = vs_plain(names, (f_loss, p_loss),
+                  (total_norm(f_g.values()), total_norm(p_g.values())),
+                  [f_g[n] for n in names], [p_g[n] for n in names])
+    vs["vs_float32_compute"] = vs_reference(names, f_g, p_g, r_g)
+    kb = max(f_g[n].norm().item() / f_g[n.replace("bias", "weight")].norm().item()
+             for n in f_g if key_bias(n))
+    if not kb <= BF16_GRAD_RTOL:
+        raise AssertionError(f"vit-l16 key-bias gradients {kb} of the key "
+                             f"weights'")
+    del f_g, p_g, r_g
+    step = vit_step_fn(model, opt, images, labels)
+    reset_flash_launches()
+    losses, step_s = [], []
+    for _ in range(VIT_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = step()
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t)
+    launches = dict(flash_launches)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.encoder.n_layers
+    want = {k: L * VIT_STEPS for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not all(x < losses[0] for x in losses[1:]):
+        raise AssertionError(f"losses do not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want}")
+    # After the steps, read only: the same three gradients again.
+    (_, f_g), (_, p_g), (_, r_g) = three_ways()
+    errs = leaf_errors(names, [f_g[n] for n in names], [p_g[n] for n in names])
+    worst = max(errs, key=errs.get)
+    after = {"grad_worst_leaf": [worst, errs[worst]],
+             "vs_float32_compute": vs_reference([worst], f_g, p_g, r_g)}
+    del f_g, p_g, r_g, ref
+    profile = profile_step("vit-l16", step)
+    t = float(np.median(step_s[1:]))
+    flops = vit_step_flops(cfg, VIT_L16_BATCH)
+    n_params = sum(p.numel() for p in model.parameters())
+    row = {"phase": "vit_train", "vit_b16_f32": b16,
+           "model": "vit-l16", "n_layers": L, "dtype": "bfloat16 compute, "
+           "float32 parameters", "batch": [VIT_L16_BATCH, cfg.image_size,
+                                          cfg.image_size],
+           "seq": cfg.seq_len, "heads": cfg.encoder.n_heads,
+           "head_dim": cfg.encoder.head_size,
+           "n_params": n_params, "losses": losses,
+           "step_ms": t * 1e3, "step_ms_samples": [x * 1e3 for x in step_s],
+           "images_per_s": VIT_L16_BATCH / t, "flops_per_step": flops,
+           "flops_formula": "6 x block weights x B x S + 4 x conv weights x "
+                            "patches + 6 x head weights x B + 12 x L x B x H "
+                            "x S^2 x D (non-causal attention)",
+           "mfu": flops / t / PEAK_FLOPS[torch.bfloat16],
+           "max_memory_allocated_bytes": peak, "flash_launches": launches,
+           "key_bias_grad_over_key_weight_grad": kb,
+           "key_bias_limit": BF16_GRAD_RTOL,
+           "vs_default_attention": vs,
+           "vs_default_attention_after_steps_read_only": after}
+    emit(row)
+    emit(profile)
+    del model, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def attention_grads(model, fn, loss_fn) -> tuple:
+    """``(loss, {name: gradient})`` of ``loss_fn(model)`` with ``fn`` in
+    every attention module, the gradients as f32 copies on the card."""
+    for a in attention_modules(model):
+        a.attn_fn = fn
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def total_norm(grads) -> float:
+    return float(torch.nn.utils.get_total_norm(list(grads)))
+
+
+def vs_reference(names, flash, plain, ref) -> dict:
+    """Each path's normwise error against the f32-compute gradients
+    ``ref`` at its worst leaf, and the worst ratio of the flash path's
+    error to the plain path's: where the bf16 step itself is far from
+    the f32 answer, both are, by the same amount."""
+    f = leaf_errors(names, [flash[n] for n in names], [ref[n] for n in names])
+    p = leaf_errors(names, [plain[n] for n in names], [ref[n] for n in names])
+    worst = max(f, key=f.get)
+    ratio = max(names, key=lambda n: f[n] / p[n] if p[n] else 0.0)
+    return {"flash_worst_leaf": [worst, f[worst]],
+            "plain_at_that_leaf": p[worst],
+            "plain_worst": max(p.values()),
+            "flash_over_plain_worst": [ratio, f[ratio] / p[ratio]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3378,6 +4238,13 @@ def main() -> int:
     run("first_step_materialized", phase_first_step_materialized)
     run("train_mesh_exact", phase_train_mesh_exact, dev)
     sharded_row = run("first_step_sharded", phase_first_step_sharded)
+    mixtral_row = run("mixtral_train_bf16", phase_mixtral_train_bf16, dev)
+    run("mixtral_materialize_invariance", phase_mixtral_materialize_invariance,
+        dev)
+    run("mixtral_8x7b_expert_shard", phase_mixtral_8x7b_expert_shard)
+    run("mixtral_first_step_sharded", phase_mixtral_first_step_sharded)
+    remat_row = run("remat_70b", phase_remat_70b, dev)
+    vit_row = run("vit_train", phase_vit_train, dev)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -3407,6 +4274,7 @@ def main() -> int:
     # ([8, 512], 128 heads, bf16), launches from its 4-step run, where
     # d(bias) runs.
     main_flash = flash_rows[("llama3-8b", "bfloat16")]
+    vit_flash = flash_rows[("vit-l16", "bfloat16")]
     t5_flash = bias_rows[("t5-encoder-self", "bfloat16")]
     t5_shape = {**t5_flash["shape"], "dtype": t5_flash["dtype"]}
 
@@ -3421,6 +4289,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "launches": train_row["flash_launches"][name],
             "launches_sharded_path": sharded_row["flash_launches"][name],
+            "launches_mixtral_path": mixtral_row["flash_launches"][name],
+            "launches_remat_70b_path":
+                remat_row["full"]["flash_launches_first_step"][name],
+            "launches_vit_l16_path": vit_row["flash_launches"][name],
             **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},
@@ -3430,6 +4302,11 @@ def main() -> int:
                 **numbers(t5_flash["kernels"][name]),
                 "library_backend": t5_flash["library_backend"],
                 "shape": t5_shape},
+            "vit_l16": {
+                **numbers(vit_flash["kernels"][name]),
+                "library_backend": vit_flash["library_backend"],
+                "shape": {**vit_flash["shape"], "dtype": vit_flash["dtype"],
+                          "causal": False}},
         })
     kernels.append({
         "name": "flash_dbias", "route": "cuda", "source": FLASH_SOURCE,

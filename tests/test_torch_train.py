@@ -42,10 +42,12 @@ from torchdistx_tpu.parallel.train import make_train_step as jax_make_train_step
 from torchdistx_tpu_torch import deferred_init, is_fake, materialize_module
 from torchdistx_tpu_torch.models import (
     TINY,
+    TINY_MOE,
     TransformerConfig,
     from_flax_params,
     make_gpt2,
     make_llama,
+    make_mixtral,
 )
 from torchdistx_tpu_torch.models.layers import default_attention
 from torchdistx_tpu_torch.ops import make_flash_attention
@@ -198,22 +200,25 @@ def test_deferred_init_to_first_step_on_cpu():
     (dict(pipeline=True), "A11"),
     (dict(attn_fn=default_attention), "A11"),
     (dict(mesh={"fsdp": 1, "sp": 1}), "A10"),
-    (dict(mesh={"ep": 1, "tp": 1}), "A9"),
+    (dict(mesh={"ep": 1, "tp": 1}), None),
     (dict(mesh={"pp": 1, "fsdp": 1}), "A11"),
-    (dict(mesh={"fsdp": 1}, moe=True), "A9"),
+    (dict(mesh={"fsdp": 1}, moe=True), None),
     (dict(mesh={"fsdp": 1}, pipeline=True), "A11"),
 ], ids=["pipeline", "attn-fn", "mesh-sp", "mesh-ep", "mesh-pp", "mesh-moe",
         "mesh-pipeline"])
 def test_unported_options_raise(kw, what):
     """Options and mesh axes the port does not carry yet raise, naming
-    their ROADMAP item (meshes: one gloo rank, an in-memory store)."""
+    their ROADMAP item (meshes: one gloo rank, an in-memory store); the
+    ``ep`` axis and a MoE config (``what`` None), ported with ROADMAP A9,
+    are taken."""
     import torch.distributed as dist
 
     from torchdistx_tpu_torch.parallel import make_mesh
 
-    kw, cfg = dict(kw), TINY.replace(moe=object()) if kw.get("moe") else TINY
-    kw.pop("moe", None)
-    model = make_llama(TINY, device="cpu")
+    kw = dict(kw)
+    moe = kw.pop("moe", False)
+    cfg = TINY_MOE if moe else TINY
+    model = (make_mixtral if moe else make_llama)(cfg, device="cpu")
     axes = kw.pop("mesh", None)
     if axes is None:
         with pytest.raises(NotImplementedError, match=what):
@@ -223,16 +228,24 @@ def test_unported_options_raise(kw, what):
                             world_size=1)
     try:
         mesh = make_mesh(axes, device_type="cpu")
-        with pytest.raises(NotImplementedError, match=what):
+        if what is None:
             make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
+        else:
+            with pytest.raises(NotImplementedError, match=what):
+                make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
     finally:
         dist.destroy_process_group()
 
 
 def test_moe_config_raises():
-    model = make_llama(TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_train_step(model, TINY.replace(moe=object()), device="cpu")
+    """Training takes a MoE config (ROADMAP A9); serving one still raises,
+    as the JAX engine refuses MoE decode."""
+    from torchdistx_tpu_torch.serve.programs import make_model
+
+    model = make_mixtral(TINY_MOE, device="cpu")
+    make_train_step(model, TINY_MOE, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        make_model("llama", TINY_MOE, device="cpu")
 
 
 def test_attn_fn_override_and_cuda_default():

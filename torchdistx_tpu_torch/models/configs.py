@@ -1,17 +1,24 @@
 """Model configurations (counterpart of ``torchdistx_tpu/models/configs.py``).
 
 The same fields and presets as the JAX package, with ``dtype`` (compute)
-and ``param_dtype`` (storage) as torch dtypes.  Only the families the
-port runs so far are here (the decoder LMs and T5); a config with
-``moe`` set is refused by the models.
+and ``param_dtype`` (storage) as torch dtypes: the decoder LMs (GPT-2,
+Llama, Mixtral with ``moe`` set), T5 and ViT.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Optional
+from typing import Optional
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    # load-balancing loss weight
+    router_aux_weight: float = 0.02
 
 
 @dataclass(frozen=True)
@@ -36,10 +43,14 @@ class TransformerConfig:
     relative_pos_buckets: int = 32  # t5-style
     relative_pos_max_distance: int = 128
 
-    moe: Optional[Any] = None  # mixture-of-experts: not ported yet
+    moe: Optional[MoEConfig] = None
 
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
+
+    # remat policy for the blocks: "none" | "full" (each block's forward
+    # runs again in the backward instead of keeping its activations)
+    remat: str = "none"
 
     @property
     def kv_heads(self) -> int:
@@ -63,6 +74,29 @@ class EncDecConfig:
     tie_embeddings: bool = True
 
     def replace(self, **kw) -> "EncDecConfig":
+        return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    """ViT-style image encoder: a TransformerConfig stack over patches."""
+
+    encoder: TransformerConfig
+    image_size: int = 224
+    patch_size: int = 16
+    channels: int = 3
+    n_classes: int = 1000
+    pool: str = "cls"  # "cls" (class token) | "gap" (mean over patches)
+
+    @property
+    def n_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.n_patches + (1 if self.pool == "cls" else 0)
+
+    def replace(self, **kw) -> "VisionConfig":
         return replace(self, **kw)
 
 
@@ -105,6 +139,19 @@ LLAMA3_70B = TransformerConfig(
     d_ff=28672,
     max_seq_len=8192,
     rope_theta=500000.0,
+    remat="full",
+)
+
+MIXTRAL_8X7B = TransformerConfig(
+    vocab_size=32000,
+    d_model=4096,
+    n_layers=32,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    max_seq_len=32768,
+    rope_theta=1000000.0,
+    moe=MoEConfig(n_experts=8, top_k=2),
 )
 
 _T5_STACK = TransformerConfig(
@@ -128,6 +175,26 @@ T5_11B = EncDecConfig(
     tie_embeddings=True,
 )
 
+_VIT_STACK = TransformerConfig(
+    vocab_size=1,  # unused by the vision family
+    d_model=768,
+    n_layers=12,
+    n_heads=12,
+    d_ff=3072,
+    max_seq_len=197,
+    use_bias=True,
+    activation="gelu",
+    norm="layernorm",
+    positions="learned",
+    norm_eps=1e-6,
+)
+
+VIT_B16 = VisionConfig(encoder=_VIT_STACK)
+
+VIT_L16 = VisionConfig(
+    encoder=_VIT_STACK.replace(d_model=1024, n_layers=24, n_heads=16, d_ff=4096),
+)
+
 # -- tiny variants for tests -------------------------------------------------
 
 TINY = TransformerConfig(
@@ -146,6 +213,8 @@ TINY_GPT2 = GPT2_125M.replace(
     dtype=torch.float32,
 )
 
+TINY_MOE = TINY.replace(moe=MoEConfig(n_experts=4, top_k=2))
+
 _TINY_T5_STACK = _T5_STACK.replace(
     vocab_size=256, d_model=64, n_layers=2, n_heads=4, head_dim=16, d_ff=128,
     max_seq_len=64, dtype=torch.float32,
@@ -157,12 +226,27 @@ TINY_T5 = EncDecConfig(
     vocab_size=256,
 )
 
+TINY_VIT = VisionConfig(
+    encoder=_VIT_STACK.replace(
+        d_model=64, n_layers=2, n_heads=4, d_ff=128, max_seq_len=17,
+        dtype=torch.float32,
+    ),
+    image_size=32,
+    patch_size=8,
+    n_classes=10,
+)
+
 PRESETS = {
     "gpt2-125m": GPT2_125M,
     "llama3-8b": LLAMA3_8B,
     "llama3-70b": LLAMA3_70B,
+    "mixtral-8x7b": MIXTRAL_8X7B,
     "t5-11b": T5_11B,
+    "vit-b16": VIT_B16,
+    "vit-l16": VIT_L16,
     "tiny": TINY,
     "tiny-gpt2": TINY_GPT2,
+    "tiny-moe": TINY_MOE,
     "tiny-t5": TINY_T5,
+    "tiny-vit": TINY_VIT,
 }

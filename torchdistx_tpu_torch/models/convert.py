@@ -13,7 +13,12 @@ Takes numpy and imports nothing of the JAX package.  The mapping:
   ``RMSNorm_0``/``RMSNorm_1`` are the encoder's and the decoder's final
   norms;
 * a tied model has no head weight on either side: its head reads the
-  token embedding, so the tie holds by construction.
+  token embedding, so the tie holds by construction;
+* a Mixtral block's ``moe`` router kernel ``[d, E]`` is transposed like
+  any dense kernel, its expert stacks ``[E, d, ff]`` / ``[E, ff, d]`` are
+  the port's layout already;
+* ViT's patch-embedding conv kernel ``[P, P, C, d]`` becomes ``Conv2d``'s
+  ``[d, C, P, P]``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .configs import EncDecConfig, TransformerConfig
+from .configs import EncDecConfig, TransformerConfig, VisionConfig
 
 __all__ = ["from_flax_params"]
 
@@ -64,6 +69,12 @@ def _block(sd: Dict[str, torch.Tensor], pre: str, blk: Mapping, i: int,
         for name in ("wq", "wk", "wv"):
             _dense(sd, f"{pre}.{mod}.{name}", blk[mod][name], 1, i)
         _dense(sd, f"{pre}.{mod}.wo", blk[mod]["wo"], 2, i)
+    if "moe" in blk:
+        moe = blk["moe"]
+        _dense(sd, f"{pre}.moe.router", moe["router"], 1, i)
+        for name in ("w_gate", "w_up", "w_down"):
+            sd[f"{pre}.moe.{name}"] = _t(np.asarray(moe[name])[i])
+        return
     for name, leaf in blk["mlp"].items():
         _dense(sd, f"{pre}.mlp.{name}", leaf, 1, i)
 
@@ -84,17 +95,34 @@ def _t5(cfg: EncDecConfig, p: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _vit(cfg: VisionConfig, p: Mapping) -> Dict[str, torch.Tensor]:
+    conv = p["patch_embed"]
+    sd = {"patch_embed.weight": _t(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)),
+          "patch_embed.bias": _t(conv["bias"]),
+          "pos_embed": _t(p["pos_embed"])}
+    if cfg.pool == "cls":
+        sd["cls"] = _t(p["cls"])
+    for i in range(cfg.encoder.n_layers):
+        _block(sd, f"blocks.{i}", p["blocks"]["block"], i, cfg.encoder, 2)
+    _norm(sd, "final_norm", p["final_norm"])
+    _dense(sd, "head", p["head"], 1)
+    return sd
+
+
 def from_flax_params(family: str, cfg, params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for ``family`` (``"llama"`` | ``"gpt2"``
-    with a ``TransformerConfig``, ``"t5"`` with an ``EncDecConfig``) from
-    the JAX model's parameters (``{"params": ...}`` or the inner tree),
-    leaves as numpy arrays.  Load it with ``model.load_state_dict(sd)``,
-    which casts to the model's dtypes."""
+    """The port's ``state_dict`` for ``family`` (``"llama"`` — Mixtral
+    included — | ``"gpt2"`` with a ``TransformerConfig``, ``"t5"`` with an
+    ``EncDecConfig``, ``"vit"`` with a ``VisionConfig``) from the JAX
+    model's parameters (``{"params": ...}`` or the inner tree), leaves as
+    numpy arrays.  Load it with ``model.load_state_dict(sd)``, which casts
+    to the model's dtypes."""
     p = params.get("params", params)
     if family == "t5":
         return _t5(cfg, p)
+    if family == "vit":
+        return _vit(cfg, p)
     if family not in ("llama", "gpt2"):
-        raise ValueError(f"unknown family {family!r} (gpt2 | llama | t5)")
+        raise ValueError(f"unknown family {family!r} (gpt2 | llama | t5 | vit)")
     sd: Dict[str, torch.Tensor] = {}
     if family == "llama":
         sd["embed.weight"] = _t(p["embed"]["embedding"])

@@ -22,6 +22,7 @@ from .layers import (
     Linear,
     default_attention,
     make_norm,
+    run_block,
 )
 
 
@@ -52,7 +53,7 @@ class GPT2Model(nn.Module):
         pos = torch.arange(S, device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
         for blk in self.blocks:
-            x = blk(x, segment_ids=segment_ids)
+            x = run_block(cfg, blk, x, segment_ids=segment_ids)
         x = self.final_norm(x)
         if self.lm_head is None:
             logits = self.wte.attend(x.to(cfg.param_dtype))

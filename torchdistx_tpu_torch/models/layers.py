@@ -12,7 +12,10 @@ identical weights:
 * attention softmaxes in float32 with ``-1e30`` masking, the causal mask
   is ``tril(k=T-S)`` (the last query aligned with the last key);
 * RoPE rotates split **halves** of the head dim, not interleaved pairs;
-* GELU is the tanh approximation.
+* GELU is the tanh approximation;
+* the mixture of experts routes as the JAX ``MoEMLP`` does (capacity
+  from the token count, token-major slots, one-hot dispatch and combine
+  einsums), so the same tokens are dropped.
 
 Initial values follow the distributions of the flax initializers the
 JAX modules use (LeCun truncated normal for dense kernels, zeros for
@@ -30,6 +33,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.segments import normalize_segment_ids
 from .configs import TransformerConfig
@@ -336,23 +340,153 @@ class MLP(nn.Module):
         return self.w_down(F.gelu(self.w_up(x), approximate="tanh"))
 
 
+def moe_capacity(moe, n_tokens: int) -> int:
+    """Rows of each expert's buffer when ``n_tokens`` tokens are routed
+    under ``moe`` (a ``MoEConfig``): the JAX ``MoEMLP``'s formula, in
+    Python floats."""
+    return max(1, int(math.ceil(n_tokens * moe.top_k / moe.n_experts * 1.25)))
+
+
+class MoEMLP(nn.Module):
+    """Capacity-based token-choice mixture of experts (the Switch/GShard
+    dispatch of the JAX package's ``MoEMLP``): an f32 router, top-k gates
+    renormalized, each (token, choice) given a slot in its expert's
+    buffer of ``capacity`` rows in token-major order (pairs past it are
+    dropped), then one-hot dispatch and combine einsums around SwiGLU
+    experts.  The expert weights keep the JAX layout, ``[E, d, ff]`` and
+    ``[E, ff, d]``.
+
+    Each call stores which of this rank's (token, choice) pairs found a
+    slot as ``kept`` ([T, k] bool) and the load-balancing loss (GShard
+    eq. 4) as ``aux``,
+    keeping only the last, as the JAX module's keep-last ``sow`` does: a
+    recompute under ``remat="full"`` overwrites it with the same value and
+    the loss, already formed, counts it once.  :func:`router_aux_loss`
+    sums it over a model.
+
+    ``parallel`` is None on one device.  On a mesh the train step sets it
+    (``parallel.spmd.ExpertParallel``): capacity, slots and the loss are
+    then global over the data shards of the batch, and this rank holds
+    and runs only its slice of the experts."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d, ff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+        self.router = Linear(d, E, False, dtype=torch.float32,
+                             param_dtype=torch.float32, device=device)
+        kw = dict(dtype=cfg.param_dtype, device=device)
+        self.w_gate = self._experts(E, d, ff, kw)
+        self.w_up = self._experts(E, d, ff, kw)
+        self.w_down = self._experts(E, ff, d, kw)
+        self.parallel = None
+        self.kept: Optional[torch.Tensor] = None
+        self.aux: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def _experts(E: int, n_in: int, n_out: int, kw) -> nn.Parameter:
+        """An ``[E, n_in, n_out]`` stack, drawn as soon as it is created:
+        a replay of the recording then holds one full stack at a time.
+        flax's lecun_normal on such a kernel takes the expert dim as
+        receptive field: fan_in = E * n_in."""
+        w = nn.Parameter(torch.empty(E, n_in, n_out, **kw))
+        trunc_normal_(w, math.sqrt(1.0 / (E * n_in)) / _TRUNC_STD)
+        return w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        moe, par, dt = self.cfg.moe, self.parallel, x.dtype
+        B, S, D = x.shape
+        T, E, k = B * S, moe.n_experts, moe.top_k
+        xt = x.reshape(T, D)
+        probs = torch.softmax(self.router(xt), dim=-1)  # [T, E] f32
+        gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [T, k]
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+        with torch.no_grad():
+            onehot = F.one_hot(gate_idx, E)  # [T, k, E]
+            flat = onehot.reshape(T * k, E)
+            counts = flat.sum(0)
+            if par is None:
+                before, total, n_tok = 0, counts, T
+            else:
+                before, total = par.route_counts(counts)
+                n_tok = T * par.n_data
+            capacity = moe_capacity(moe, n_tok)
+            # slot of each (token, choice) in its expert's buffer
+            pos = ((flat.cumsum(0) - 1 + before).reshape(T, k, E)
+                   * onehot).sum(-1)
+            self.kept = pos < capacity  # [T, k]: False where dropped
+            slot = torch.where(self.kept, pos, capacity)
+            po = F.one_hot(slot, capacity + 1)[..., :capacity].to(dt)
+            eo = onehot.to(dt)  # [T, k, E]
+            lo, n = (0, E) if par is None else (par.expert_offset, par.n_local)
+            eo_local = eo[..., lo:lo + n]
+            disp = torch.einsum("tke,tkc->tec", eo_local, po)  # 0/1
+
+        gates = gate_vals.to(dt)
+        if par is not None:
+            xt, gates = par.enter(xt), par.enter(gates)
+        comb = torch.einsum("tke,tkc->tec", eo_local * gates[..., None], po)
+        expert_in = torch.einsum("tec,td->ecd", disp, xt)  # [E, C, d]
+        h = F.silu(torch.einsum("ecd,edf->ecf", expert_in, self.w_gate.to(dt)))
+        h = h * torch.einsum("ecd,edf->ecf", expert_in, self.w_up.to(dt))
+        expert_out = torch.einsum("ecf,efd->ecd", h, self.w_down.to(dt))
+        out = torch.einsum("tec,ecd->td", comb, expert_out)
+        if par is not None:
+            out = par.leave(out)
+
+        me = probs.sum(0)
+        if par is not None:
+            me = par.sum_data(me)
+        me = me / n_tok
+        ce = (total.float() / n_tok).to(dt)  # fraction routed per expert
+        self.aux = (me * ce).sum() * E * moe.router_aux_weight
+        return out.reshape(B, S, D)
+
+
+def router_aux_loss(model: nn.Module) -> torch.Tensor:
+    """The sum of the last load-balancing loss of every :class:`MoEMLP`
+    in ``model`` (0 without one), as the JAX trainer sums the ``losses``
+    collection."""
+    terms = [m.aux.float() for m in model.modules()
+             if isinstance(m, MoEMLP) and m.aux is not None]
+    if not terms:
+        p = next(model.parameters(), None)
+        return torch.zeros((), device=None if p is None else p.device)
+    return torch.stack(terms).sum()
+
+
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; its MLP is a :class:`MoEMLP` named
+    ``moe`` when the config has ``moe`` set.  ``causal`` is an argument of
+    ``forward`` (False for encoders: T5's and ViT's)."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  attn_fn: AttnFn = default_attention):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not ported yet (ROADMAP, "
-                "Queue A: attention flavors and the remaining families)"
-            )
         self.norm_0 = make_norm(cfg, device)
         self.attn = Attention(cfg, device, attn_fn)
         self.norm_1 = make_norm(cfg, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe is not None:
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, *, angles=None, causal=True, segment_ids=None):
         x = x + self.attn(self.norm_0(x), angles=angles, causal=causal,
                           segment_ids=segment_ids)
-        return x + self.mlp(self.norm_1(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        return x + ffn(self.norm_1(x))
+
+
+def run_block(cfg: TransformerConfig, blk: nn.Module, x: torch.Tensor,
+              **kwargs) -> torch.Tensor:
+    """``blk(x, **kwargs)`` under ``cfg.remat``: with ``"full"`` and
+    gradients on, through ``torch.utils.checkpoint`` (non-reentrant), the
+    counterpart of flax's ``nn.remat(Block)``: only the block's input is
+    kept, and its forward runs again in the backward."""
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', not {cfg.remat!r}")
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(blk, x, use_reentrant=False, **kwargs)
+    return blk(x, **kwargs)

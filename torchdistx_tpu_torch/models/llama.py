@@ -2,7 +2,10 @@
 
 One :class:`~.layers.Block` per layer in an ``nn.ModuleList`` (the JAX
 package stacks them with ``nn.scan``; :func:`.convert.from_flax_params`
-unstacks its weights onto this layout).
+unstacks its weights onto this layout), each rematerialized in the
+backward when ``cfg.remat == "full"``.  Also serves Mixtral: a config with
+``moe`` set gives blocks with the capacity-based MoE MLP
+(:func:`.mixtral.make_mixtral`).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .layers import (
     Linear,
     default_attention,
     make_norm,
+    run_block,
     rope_frequencies,
 )
 
@@ -55,7 +59,8 @@ class LlamaModel(nn.Module):
         angles = rope_frequencies(cfg.head_size, tokens.shape[1],
                                   cfg.rope_theta, device=tokens.device)
         for blk in self.blocks:
-            x = blk(x, angles=angles, segment_ids=segment_ids)
+            x = run_block(cfg, blk, x, angles=angles,
+                          segment_ids=segment_ids)
         x = self.final_norm(x)
         if self.lm_head is None:
             logits = self.embed.attend(x.to(cfg.param_dtype))

@@ -15,8 +15,7 @@ take the head counts from the model's config and replicate such a dim
 (with the reference's warning) whatever ``H·hd`` allows.
 
 All rules degrade gracefully: indivisible dims fall back to replication
-with a warning (parallel/sharding.py).  The mixture-of-experts rules and
-``vit_plan`` come with those families.
+with a warning (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -95,14 +94,20 @@ def _block_rules(fsdp: Optional[str], tp: Optional[str], attns: str):
 
 
 def decoder_lm_plan(cfg, *, fsdp: Optional[str] = "fsdp",
-                    tp: Optional[str] = "tp") -> ShardingPlan:
-    """Plan for the port's Llama / GPT-2 modules of ``cfg`` (a
+                    tp: Optional[str] = "tp",
+                    ep: Optional[str] = "ep") -> ShardingPlan:
+    """Plan for the port's Llama / GPT-2 / Mixtral modules of ``cfg`` (a
     ``TransformerConfig``: its head counts decide the attention dims).
 
     Pass ``tp=None`` (etc.) to drop an axis entirely when building a plan
     for a mesh that intentionally lacks it — no absent-axis warnings."""
     rules, head_rules = _block_rules(fsdp, tp, "attn")
     rules += [
+        # MoE experts [E, d, ff] / [E, ff, d] (the JAX layout), the router
+        # [E, d] (the JAX [d, E] kernel's P(fsdp, None), transposed)
+        (r".*moe\.w_(gate|up)", P(ep, fsdp, tp)),
+        (r".*moe\.w_down", P(ep, tp, fsdp)),
+        (r".*moe\.router\.weight", P(None, fsdp)),
         # embeddings / head
         (r".*(embed|wte)\.weight", P(tp, fsdp)),
         (r".*wpe\.weight", P(None, fsdp)),
@@ -110,6 +115,23 @@ def decoder_lm_plan(cfg, *, fsdp: Optional[str] = "fsdp",
         # norms and everything else: replicated (default)
     ]
     heads = (cfg.n_heads, cfg.kv_heads)
+    return HeadShardingPlan(rules, head_rules, lambda name: heads)
+
+
+def vit_plan(cfg, *, fsdp: Optional[str] = "fsdp",
+             tp: Optional[str] = "tp") -> ShardingPlan:
+    """2D plan for the port's ViT module of ``cfg`` (a ``VisionConfig``):
+    the shared block rules and the vision stem — the conv weight
+    ``[d, C, P, P]`` over tp on its output channels (the RGB dim is 3,
+    never divisible), positions over fsdp, the head ``[n_classes, d]`` as
+    the JAX ``[d, n_classes]`` kernel's ``P(fsdp, tp)``, transposed."""
+    rules, head_rules = _block_rules(fsdp, tp, "attn")
+    rules += [
+        (r".*patch_embed\.weight", P(tp)),
+        (r".*pos_embed", P(None, None, fsdp)),
+        (r".*head\.weight", P(tp, fsdp)),
+    ]
+    heads = (cfg.encoder.n_heads, cfg.encoder.kv_heads)
     return HeadShardingPlan(rules, head_rules, lambda name: heads)
 
 

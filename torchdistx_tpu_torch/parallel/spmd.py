@@ -27,6 +27,20 @@ and :func:`shard_module` rebuilds the module around them:
 
 A layout that no style or FSDP2 placement gives raises with the
 parameter's name and its spec; nothing falls back to replication.
+
+Expert weights (a ``MoEMLP``'s ``w_gate``/``w_up``/``w_down``, ``[E, d,
+ff]``/``[E, ff, d]``) are split over ``ep`` (the expert dim) and ``tp``
+(the ``ff`` dim) by hand, not by DTensor: the parameter is this rank's
+``[E/ep, d, ff/tp]`` block as a plain tensor, FSDP2 shards that block
+over the data axes like any other parameter, and the module runs with
+an :class:`ExpertParallel`: the routing is global over the data shards
+of the batch (capacity and slots from every shard's counts, one
+all-gather; the load-balancing mean through an autograd all-reduce), the
+expert region is entered with an identity whose backward all-reduces
+over ``ep`` and ``tp``, and left with an all-reduce of the partial
+output whose backward is the identity (Megatron's pair of conjugate
+operators).  Every rank of an ``ep``/``tp`` group sees the same tokens,
+as the batch is sharded over the data axes only.
 """
 
 from __future__ import annotations
@@ -42,6 +56,10 @@ from torch import nn
 from .sharding import PartitionSpec, mesh_shape, spec_str
 
 DATA_AXES = ("dp", "fsdp")
+# Axes a MoEMLP splits its experts over by hand, and the dim of each
+# expert weight they shard.
+_EXPERT_DIMS = {"w_gate": {"ep": 0, "tp": 2}, "w_up": {"ep": 0, "tp": 2},
+                "w_down": {"ep": 0, "tp": 1}}
 # Attention and MLP projections that pair up: the inputs column-parallel,
 # the output row-parallel, the heads or the hidden units local in between.
 _PAIRS = {"Attention": (("wq", "wk", "wv"), "wo"),
@@ -169,6 +187,155 @@ def data_axes(mesh, batch_axes: Sequence[str] = DATA_AXES) -> Tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a in batch_axes)
 
 
+class _EnterRegion(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``groups``
+    (each rank of the expert region holds a part of it)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        for group in ctx.groups:
+            dist.all_reduce(grad, group=group)
+        return grad, None
+
+
+class _LeaveRegion(torch.autograd.Function):
+    """The sum over ``groups`` forward (each rank holds a partial output);
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        t = t.contiguous().clone()
+        for group in groups:
+            dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@dataclass
+class ExpertParallel:
+    """A ``MoEMLP``'s place on a mesh: ``data_groups`` (major first, the
+    data axes of size > 1) and ``data_index`` place this rank's rows among
+    the ``n_data`` shards of the batch; ``groups`` are the ``ep`` and
+    ``tp`` groups that split the experts, ``expert_offset`` and
+    ``n_local`` this rank's experts."""
+
+    data_groups: list
+    data_index: int
+    n_data: int
+    groups: list
+    expert_offset: int
+    n_local: int
+
+    def route_counts(self, counts: torch.Tensor):
+        """``(before, total)`` from this rank's (token, choice) pairs per
+        expert ``[E]``: the pairs of the data shards before this one (the
+        offset of its slots in token-major order) and of all of them."""
+        rows = counts[None]
+        for group in reversed(self.data_groups):
+            parts = [torch.empty_like(rows)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, rows, group=group)
+            rows = torch.cat(parts)
+        return rows[:self.data_index].sum(0), rows.sum(0)
+
+    def sum_data(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the data shards, differentiable (its backward sums
+        the gradient too)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        for group in self.data_groups:
+            t = all_reduce(t, group=group)
+        return t
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        return _EnterRegion.apply(t, self.groups) if self.groups else t
+
+    def leave(self, t: torch.Tensor) -> torch.Tensor:
+        return _LeaveRegion.apply(t, self.groups) if self.groups else t
+
+
+def data_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's place among the data shards of the batch over
+    ``axes`` (the first one major), as ``make_train_step``'s
+    ``shard_batch`` cuts the rows."""
+    shape = mesh_shape(mesh)
+    where = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    idx = 0
+    for a in axes:
+        idx = idx * shape[a] + where[a]
+    return idx
+
+
+def _experts(module: nn.Module) -> Dict[str, nn.Module]:
+    """The ``MoEMLP`` modules by qualified name."""
+    from ..models.layers import MoEMLP
+
+    return {n: m for n, m in module.named_modules() if isinstance(m, MoEMLP)}
+
+
+def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims]
+                 ) -> Dict[str, AxisDims]:
+    """``{expert weight: {axis: dim}}`` of the ``ep``/``tp`` splits done by
+    hand.  Raises where the plan puts ep on another dim than the expert
+    dim or tp on another than ``ff``, splits the three weights of one
+    MoE layer over different axes, or shards any other parameter over
+    ``ep``."""
+    ndim = {n: p.ndim for n, p in module.named_parameters()}
+    manual: Dict[str, AxisDims] = {}
+    for prefix in _experts(module):
+        for w, want in _EXPERT_DIMS.items():
+            name = f"{prefix}.{w}" if prefix else w
+            d = dims[name]
+            split = {a: i for a, i in d.items() if a in want}
+            bad = [a for a, i in split.items() if want[a] != i]
+            if bad:
+                raise ValueError(
+                    f"expert parallelism: `{name}` has spec "
+                    f"{_spec(d, ndim[name])}: ep must shard dim 0 and tp dim "
+                    f"{want['tp']}")
+            manual[name] = split
+    for name, d in dims.items():
+        if "ep" in d and name not in manual:
+            raise ValueError(f"`{name}` has spec {_spec(d, ndim[name])}: "
+                             f"only expert weights shard over ep")
+    for prefix in _experts(module):
+        splits = {tuple(sorted(manual[f"{prefix}.{w}" if prefix else w]))
+                  for w in _EXPERT_DIMS}
+        if len(splits) != 1:
+            raise ValueError(f"`{prefix}`: w_gate, w_up and w_down must be "
+                             f"split over the same axes, not {splits}")
+    return manual
+
+
+def _set_expert_parallel(module: nn.Module, mesh, manual, batch_axes) -> None:
+    """Give each ``MoEMLP`` its :class:`ExpertParallel` on ``mesh``."""
+    shape = mesh_shape(mesh)
+    where = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    baxes = data_axes(mesh, batch_axes)
+    idx = data_index(mesh, baxes)
+    data_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
+    for prefix, mod in _experts(module).items():
+        split = manual[f"{prefix}.w_gate" if prefix else "w_gate"]
+        E = mod.cfg.moe.n_experts
+        n_ep = shape["ep"] if "ep" in split else 1
+        mod.parallel = ExpertParallel(
+            data_groups=data_groups, data_index=idx,
+            n_data=math.prod(shape[a] for a in baxes),
+            groups=[mesh.get_group(a) for a in ("ep", "tp")
+                    if a in split and shape[a] > 1],
+            expert_offset=(where["ep"] if "ep" in split else 0) * (E // n_ep),
+            n_local=E // n_ep)
+
+
 def _blocks(module: nn.Module) -> List[nn.Module]:
     """The transformer blocks FSDP2 wraps one by one."""
     from ..models.layers import Block
@@ -180,22 +347,27 @@ def _blocks(module: nn.Module) -> List[nn.Module]:
 class ShardedModule:
     """What :func:`shard_module` did: each parameter's ``{axis: tensor
     dim}`` by name, the parameters left replicated over the data axes
-    (``replicated``), the groups their gradients are summed over and the
-    number of data ranks."""
+    (``replicated``), the groups their gradients are summed over, the
+    number of data ranks and, by name, the number of blocks an expert
+    weight is split into by hand (``split``: over ep and tp)."""
 
     dims: Dict[str, AxisDims]
     replicated: List[nn.Parameter]
     groups: list
     n_data: int
+    split: Dict[str, int]
 
 
-def shard_module(module: nn.Module, mesh) -> ShardedModule:
+def shard_module(module: nn.Module, mesh,
+                 batch_axes: Sequence[str] = DATA_AXES) -> ShardedModule:
     """Lay ``module``'s bound keyed values (DTensors on ``mesh``) out for
-    training: tensor parallelism over ``mesh["tp"]`` and FSDP2 over the
-    data axes, adopting each value's local tensor as the parameter's
-    shard (see the module docstring).  In place."""
+    training: tensor parallelism over ``mesh["tp"]``, FSDP2 over the
+    data axes and the experts split by hand over ``ep`` and ``tp``,
+    adopting each value's local tensor as the parameter's shard (see the
+    module docstring); ``batch_axes`` are the axes the batch is sharded
+    over, which the MoE routing gathers over.  In place."""
     from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.parallel import parallelize_module
 
     names = tuple(mesh.mesh_dim_names)
@@ -217,21 +389,28 @@ def shard_module(module: nn.Module, mesh) -> ShardedModule:
         if isinstance(b, DTensor):
             raise NotImplementedError(f"buffer `{name}` is a DTensor: sharded "
                                       f"buffers are not carried yet")
-    # 2. Meta parameters of the global shapes, ties kept.
+    manual = _manual_dims(module, dims)
+    # 2. Meta parameters of the global shapes (an expert weight's: its
+    # ep/tp block), ties kept.
     meta: Dict[int, nn.Parameter] = {}
-    for mod in module.modules():
+    for mod_name, mod in module.named_modules():
         for k, p in mod._parameters.items():
             if p is None:
                 continue
             if id(p) not in meta:
+                size = list(p.shape)
+                for a, d in manual.get(f"{mod_name}.{k}" if mod_name else k,
+                                       {}).items():
+                    size[d] //= shape[a]
                 meta[id(p)] = nn.Parameter(
-                    torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                    torch.empty(size, dtype=p.dtype, device="meta"),
                     requires_grad=p.requires_grad)
             mod._parameters[k] = meta[id(p)]
     # 3. Tensor parallelism, then FSDP2 over the data axes, each
     # parameter on the dim it has fsdp on; the rest ignored by FSDP2.
     if "tp" in names:
-        styles = tp_styles(module, dims)
+        styles = tp_styles(module, {n: d for n, d in dims.items()
+                                    if n not in manual})
         if styles:
             parallelize_module(module, mesh["tp"], styles)
     replicated_names = {n for n, d in dims.items()
@@ -252,6 +431,12 @@ def shard_module(module: nn.Module, mesh) -> ShardedModule:
         fsdp_mesh = (mesh["dp", "fsdp"] if shape.get("dp", 1) > 1
                      else mesh["fsdp"])
         for blk in _blocks(module):
+            if hasattr(blk, "moe"):
+                # the router and the experts, plain tensors, in a group of
+                # their own, apart from the block's tensor-parallel ones
+                fully_shard(blk.moe, mesh=fsdp_mesh,
+                            shard_placement_fn=placement,
+                            ignored_params=ignored)
             fully_shard(blk, mesh=fsdp_mesh, shard_placement_fn=placement,
                         ignored_params=ignored)
         fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=placement,
@@ -267,7 +452,9 @@ def shard_module(module: nn.Module, mesh) -> ShardedModule:
             continue
         value = values[key]
         got = layout_of(p, mesh)
-        if got != tuple(value.placements):
+        want = tuple(Replicate() if a in manual.get(key, {}) else pl
+                     for a, pl in zip(names, value.placements))
+        if got != want:
             raise ValueError(
                 f"`{name}` has spec {_spec(dims[name], p.ndim)}, placed "
                 f"{tuple(value.placements)}; tensor parallelism and FSDP2 "
@@ -282,10 +469,12 @@ def shard_module(module: nn.Module, mesh) -> ShardedModule:
         if key in replicated_names:
             replicated.append(new)
     module.load_state_dict(state, strict=False, assign=True)
+    _set_expert_parallel(module, mesh, manual, batch_axes)
     dp = [a for a in DATA_AXES if a in names]
     groups = [mesh.get_group(a) for a in dp if shape[a] > 1]
+    split = {n: math.prod(shape[a] for a in d) for n, d in manual.items()}
     return ShardedModule(dims, replicated, groups,
-                         math.prod(shape[a] for a in dp))
+                         math.prod(shape[a] for a in dp), split)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -316,11 +505,14 @@ def reduce_replicated_grads(sharded: ShardedModule) -> None:
             offset += g.numel()
 
 
-def global_grad_norm(params: Iterable[nn.Parameter], mesh) -> torch.Tensor:
+def global_grad_norm(params: Iterable[nn.Parameter], mesh,
+                     split: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The L2 norm of every gradient, each counted once however it is
     sharded or replicated: each rank sums the squares of its local
     shards, divided by the number of ranks holding the same shard, and
-    one all-reduce over the mesh adds them up."""
+    one all-reduce over the mesh adds them up.  ``split`` gives, per
+    parameter, the blocks it is split into by hand besides its DTensor
+    placements (an expert weight's ep x tp; 1 otherwise)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if mesh.size() != dist.get_world_size():
@@ -328,11 +520,12 @@ def global_grad_norm(params: Iterable[nn.Parameter], mesh) -> torch.Tensor:
                          f"{dist.get_world_size()} ranks; the port's meshes "
                          f"span the whole group")
     total = None
-    for p in params:
+    params = list(params)
+    for p, n_split in zip(params, split or [1] * len(params)):
         g = p.grad
         if g is None:
             continue
-        copies = mesh.size()
+        copies = mesh.size() // n_split
         if isinstance(g, DTensor):
             for i, pl in enumerate(g.placements):
                 if not isinstance(pl, Replicate):

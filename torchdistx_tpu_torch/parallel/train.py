@@ -5,11 +5,12 @@ PyTorch runs eagerly, so the step is a plain function: forward, the
 loss, ``backward`` (through the flash kernels' backward when the model's
 ``attn_fn`` is ``make_flash_attention()``), the global gradient norm, and
 an AdamW update in place.  Over a ``DeviceMesh`` the module takes the
-keyed values' layout with tensor parallelism and FSDP2
-(:mod:`.spmd`), the batch is split over the data axes, and the metrics
-are reduced to the global ones on every rank.  The pipeline schedules
-(A11), sequence parallelism (A10), mixture-of-experts (A9) and
-``train_elastic`` (A12) are not ported yet and raise.  With telemetry on
+keyed values' layout with tensor parallelism, FSDP2 and expert
+parallelism (:mod:`.spmd`), the batch is split over the data axes, and
+the metrics are reduced to the global ones on every rank.  A
+mixture-of-experts model adds its router's load-balancing loss to the
+cross-entropy.  The pipeline schedules (A11), sequence parallelism (A10)
+and ``train_elastic`` (A12) are not ported yet and raise.  With telemetry on
 (:func:`..observe.enabled`) the step is wrapped by
 :func:`_instrument_step`.
 """
@@ -27,7 +28,7 @@ from .. import observe
 from .._device import resolve_device
 from ..fake import is_fake
 from ..models.configs import TransformerConfig
-from ..models.layers import AttnFn, Linear
+from ..models.layers import AttnFn, Linear, moe_capacity, router_aux_loss
 from ..observe.step import H100_PEAK_FLOPS  # noqa: F401 — re-exported
 from .pipeline import valid_next_token_mask
 
@@ -76,18 +77,35 @@ def train_step_flops(model: nn.Module, cfg: TransformerConfig, batch: int,
                      seq: int) -> float:
     """Model FLOPs of one step on [batch, seq] tokens: 6 per weight of
     every matrix product per token (2 forward, 4 backward; a tied head
-    counts its embedding), plus causal attention's 6·L·B·H·S²·D (QKᵀ and
-    PV over half the square, forward and backward)."""
+    counts its embedding; a MoE router is one), plus causal attention's
+    6·L·B·H·S²·D (QKᵀ and PV over half the square, forward and backward).
+
+    A mixture of experts adds, per layer with T tokens, E experts of C
+    rows (:func:`moe_capacity`) and top-k routing: the expert products,
+    6 per expert weight per row (``3·E·d·ff`` weights over ``C`` rows,
+    empty rows included, as the products run over them); the dispatch
+    einsum, 2·T·E·C·d forward and 2·T·E·C·d for the input's gradient; the
+    combine einsum, 2·T·E·C·d forward and twice that backward (the gates'
+    and the expert outputs' gradients); and the one-hot products that
+    build the dispatch and combine tensors, 2·T·E·C·k each and 2·T·E·C·k
+    for the gates' gradient.  Rematerialized forwards are not model
+    FLOPs and are not counted."""
     n = sum(m.weight.numel() for m in model.modules() if isinstance(m, Linear))
     if cfg.tie_embeddings:
         n += cfg.vocab_size * cfg.d_model
     attn = 6.0 * cfg.n_layers * batch * cfg.n_heads * seq * seq * cfg.head_size
-    return 6.0 * n * batch * seq + attn
+    flops = 6.0 * n * batch * seq + attn
+    if cfg.moe is not None:
+        T, E, k = batch * seq, cfg.moe.n_experts, cfg.moe.top_k
+        C = moe_capacity(cfg.moe, T)
+        per_layer = (6.0 * 3 * E * cfg.d_model * cfg.d_ff * C
+                     + 10.0 * T * E * C * cfg.d_model + 6.0 * T * E * C * k)
+        flops += cfg.n_layers * per_layer
+    return flops
 
 
 # Mesh axes the port does not carry yet, and the ROADMAP item of each.
 _UNPORTED_AXES = {"sp": "sequence parallelism: ROADMAP A10",
-                  "ep": "expert parallelism: ROADMAP A9",
                   "pp": "pipeline parallelism: ROADMAP A11"}
 
 
@@ -110,20 +128,23 @@ def make_train_step(
       state ``{"model", "params", "opt", "step"}``; ``optimizer`` is a
       factory over the parameters (default: :func:`default_optimizer`);
     * ``train_step(state, tokens, segment_ids=None) -> (state, metrics)``
-      updates the state in place; ``metrics`` holds ``loss``, ``ce``,
-      ``aux`` (0: no MoE yet) and ``grad_norm`` (the global L2 norm of
-      the gradients, unclipped, as ``optax.global_norm``) as 0-d device
-      tensors, so the loop stays asynchronous until a value is read;
+      updates the state in place; ``metrics`` holds ``loss`` (``ce +
+      aux``), ``ce``, ``aux`` (the MoE router's load-balancing loss,
+      :func:`..models.layers.router_aux_loss`; 0 without experts) and
+      ``grad_norm`` (the global L2 norm of the gradients, unclipped, as
+      ``optax.global_norm``) as 0-d device tensors, so the loop stays
+      asynchronous until a value is read;
     * ``shard_batch(tokens)`` puts a [B, S] batch on the device.
 
-    With ``mesh`` (a ``DeviceMesh`` of ``dp``, ``fsdp`` and ``tp`` axes),
-    ``init_state`` takes a module bound to the keyed values
+    With ``mesh`` (a ``DeviceMesh`` of ``dp``, ``fsdp``, ``ep`` and ``tp``
+    axes), ``init_state`` takes a module bound to the keyed values
     ``materialize_module_cuda(mesh=mesh, plan=...)`` gave and lays it out
-    as they are placed, with tensor parallelism and FSDP2
-    (:func:`.spmd.shard_module`); ``shard_batch``
-    gives this rank its rows of the global batch over ``batch_axes``
-    (replicated over ``tp``); the metrics are the global ones, equal on
-    every rank.  The device is the mesh's.
+    as they are placed, with tensor parallelism, FSDP2 and the experts
+    split over ``ep`` and ``tp`` (:func:`.spmd.shard_module`);
+    ``shard_batch`` gives this rank its rows of the global batch over
+    ``batch_axes`` (replicated over ``ep`` and ``tp``); the MoE routing
+    is global over the whole batch, as on one device; the metrics are the
+    global ones, equal on every rank.  The device is the mesh's.
 
     A model's attention is set by its constructor (``make_llama(cfg,
     attn_fn=...)``).  ``attn_fn`` here is the JAX signature's attention
@@ -136,9 +157,6 @@ def make_train_step(
     if pipeline:
         raise NotImplementedError(
             "pipeline schedules are not ported yet: ROADMAP A11")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "mixture-of-experts training is not ported yet: ROADMAP A9")
     make_opt = optimizer or default_optimizer
     if mesh is None:
         dev, n_batch = resolve_device(device), 1
@@ -174,15 +192,15 @@ def _single_device(dev: torch.device, make_opt):
         opt.zero_grad(set_to_none=True)
         args = (tokens,) if segment_ids is None else (tokens, segment_ids)
         ce = lm_cross_entropy(module(*args), tokens, segment_ids)
-        aux = torch.zeros((), device=ce.device)
+        aux = router_aux_loss(module)
         loss = ce + aux
         loss.backward()
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in state["params"] if p.grad is not None])
         opt.step()
         state["step"] += 1
-        return state, {"loss": loss.detach(), "ce": ce.detach(), "aux": aux,
-                       "grad_norm": grad_norm}
+        return state, {"loss": loss.detach(), "ce": ce.detach(),
+                       "aux": aux.detach(), "grad_norm": grad_norm}
 
     def shard_batch(tokens) -> torch.Tensor:
         return torch.as_tensor(tokens).to(dev, torch.long)
@@ -197,6 +215,7 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
     from .sharding import mesh_shape
     from .spmd import (
         data_axes,
+        data_index,
         global_grad_norm,
         reduce_replicated_grads,
         shard_module,
@@ -207,9 +226,9 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         if axis in names:
             raise NotImplementedError(
                 f"mesh axis {axis!r}: {item} (not ported yet)")
-    if not names or any(a not in ("dp", "fsdp", "tp") for a in names):
-        raise ValueError(f"make_train_step takes a mesh of named dp, fsdp "
-                         f"and tp axes, not {mesh}")
+    if not names or any(a not in ("dp", "fsdp", "ep", "tp") for a in names):
+        raise ValueError(f"make_train_step takes a mesh of named dp, fsdp, "
+                         f"ep and tp axes, not {mesh}")
     if torch.device(device).type != mesh.device_type:
         raise ValueError(f"device {device!r} differs from the mesh's "
                          f"device type {mesh.device_type!r}")
@@ -234,14 +253,16 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         return t
 
     def init_state(module: nn.Module) -> dict:
-        sharded = shard_module(module, mesh)
-        params = list(module.parameters())
+        sharded = shard_module(module, mesh, batch_axes)
+        named = list(module.named_parameters())
+        params = [p for _, p in named]
         by_mesh: dict = {}
         for p in params:
             by_mesh.setdefault(getattr(p, "device_mesh", None), []).append(p)
         return {"model": module, "params": params,
                 "opt": make_opt([{"params": ps} for ps in by_mesh.values()]),
-                "step": 0, "sharded": sharded}
+                "step": 0, "sharded": sharded,
+                "split": [sharded.split.get(n, 1) for n, _ in named]}
 
     def train_step(state: dict, tokens: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None):
@@ -259,13 +280,17 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         # FSDP2 and reduce_replicated_grads average the gradients over
         # the data ranks; this rank's share of the global mean, times the
         # number of batch shards, averages to the global mean's gradient.
-        (nll_sum * (n_batch / total)).backward()
+        # The router loss is global already: its mean's all-reduce sums
+        # the gradient over the data ranks in the backward, which the
+        # average takes back out.
+        aux = router_aux_loss(module)
+        (nll_sum * (n_batch / total) + aux).backward()
         reduce_replicated_grads(state["sharded"])
-        grad_norm = global_grad_norm(state["params"], mesh)
+        grad_norm = global_grad_norm(state["params"], mesh, state["split"])
         opt.step()
         state["step"] += 1
         ce = all_sum(nll_sum.detach()) / total
-        aux = torch.zeros((), device=ce.device)
+        aux = aux.detach()
         return state, {"loss": ce + aux, "ce": ce, "aux": aux,
                        "grad_norm": grad_norm}
 
@@ -274,10 +299,7 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         if t.shape[0] % n_batch:
             raise ValueError(f"batch of {t.shape[0]} rows does not divide "
                              f"over {baxes} ({n_batch} shards)")
-        where = dict(zip(names, mesh.get_coordinate()))
-        idx = 0
-        for a in baxes:
-            idx = idx * shape[a] + where[a]
+        idx = data_index(mesh, baxes)
         rows = t.shape[0] // n_batch
         return t[idx * rows:(idx + 1) * rows].to(dev, torch.long)
 
