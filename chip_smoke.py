@@ -59,7 +59,27 @@ user calls, and checks what comes out.  One JSON object per line:
    ``torch.profiler``: tick wall ms, device ms, the host's launch calls
    (``cudaGraphLaunch`` counted) and the paged-decode and merge
    kernels' device time and launches per tick, named apart;
-5. the flash kernels (forward, dq, dk/dv) against
+5. the serving engine's fault handling on the captured programs
+   (``serve_chaos``): the feature mix of 3 again on each f32 replica,
+   under one fault plan that fires a fault deferred to a chunk boundary
+   of the 150-token prompt, one deferred to a verify tick, one on a
+   plain tick, a slow tick, and a flapping entry (duty 0.5, firing on
+   the second replica): every entry fired, requests requeued, tokens
+   equal to the oracle and final logits within 1e-4, each position
+   streamed once, no program rebuilt or recaptured, the paged-decode
+   launches equal to layers x plain ticks, every request's ledger
+   stages summing to its end-to-end latency within 1e-6 s, the flight
+   bundles valid (``chaos_injected``, ``serve_fault``), no page in use
+   after ``drain``; ``compile@1=raise`` on an engine with nothing
+   captured, at its first lazy build, and a forward raising inside its
+   capture leaving no graph and no stream capturing; then full-depth
+   llama3-8b bf16 on 4 lanes with speculation and the prefix cache off:
+   two faults mid-decode and tokens bitwise equal to the fault-free
+   run, the
+   health states ``spin_up_replica`` walked, the decode tick ms and
+   tokens/s with telemetry off and on (ledger and SLO windows), and one
+   ``flight_dump``'s ms and bytes;
+6. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
    at head dims 32, 64 and 128, ViT's non-causal S 197 (float32 within
@@ -81,12 +101,12 @@ user calls, and checks what comes out.  One JSON object per line:
    (``scaled_dot_product_attention`` forward and its autograd backward,
    which the port never calls) and the bound; lse within 1e-5 relative
    everywhere;
-6. float32 training of gpt2-125m (full size), flash attention against
+7. float32 training of gpt2-125m (full size), flash attention against
    ``default_attention`` on the same weights and batches: each step-0
    gradient leaf within 1e-4 normwise, the key biases' gradient (0 in
    exact arithmetic) below 1e-5 of the key weights', every step's loss
    within 1e-3, 12 x 3 launches of each flash kernel;
-7. the training main path at llama3-8b width, 2 layers, bf16 compute:
+8. the training main path at llama3-8b width, 2 layers, bf16 compute:
    first-step latency (deferred_init -> materialize on the card ->
    train step -> first loss on the host) in a fresh process, host RSS
    growth, 5 losses below the first, step ms, tokens/s, MFU, peak device
@@ -94,7 +114,7 @@ user calls, and checks what comes out.  One JSON object per line:
    the same model on ``default_attention`` (loss, gradient norm and each
    gradient leaf), and one step's device time by kernel under
    ``torch.profiler``;
-8. the flash kernels with a bias, and the d(bias) kernel, against the
+9. the flash kernels with a bias, and the d(bias) kernel, against the
    plain versions on the card: the bias cases of ``tests/test_ops.py``
    and cases for d(bias)'s ring of rows (one plane for 16 rows with GQA,
    ragged S and T with T % 4 != 0 at D = 128, segments, causal with T >
@@ -108,22 +128,22 @@ user calls, and checks what comes out.  One JSON object per line:
    yardstick (``scaled_dot_product_attention(attn_mask=bias)`` forward
    and its autograd backward with the bias's gradient, backend named)
    and the bound;
-9. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
+10. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
    flash kernels against ``default_attention`` on the same weights and
    batch, logits within 1e-4 and each gradient leaf within 1e-4
    normwise, the relative-position tables (whose only gradient is
    d(bias)) named;
-10. the T5 main path: T5-11B width with 2 + 2 layers, bf16 compute, B = 8,
+11. the T5 main path: T5-11B width with 2 + 2 layers, bf16 compute, B = 8,
     enc 512, dec 114, deferred_init -> materialize on the card -> 4
     steps of ``lm_cross_entropy`` and ``default_optimizer``: first-step
     latency in a fresh process, host RSS growth, step ms, tokens/s, MFU,
     peak device memory, the launches per step (forward 6, of them 4 with
     the bias; dq and dk/dv 6; d(bias) 4), one step against
     ``default_attention`` and one profiled step;
-11. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
+12. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
     process — seconds and host RSS growth — and one forward at B = 1 on
     the flash kernels with finite logits;
-12. the keyed, sharded materializer (``cuda_bridge``) on gpt2-125m, f32:
+13. the keyed, sharded materializer (``cuda_bridge``) on gpt2-125m, f32:
     the same seed twice bitwise equal, seed 1 moving every random entry;
     against eager construction on the card equal names, shapes and
     dtypes, the entries that draw nothing bitwise equal, the random
@@ -134,27 +154,27 @@ user calls, and checks what comes out.  One JSON object per line:
     bit and covering them; a real one-rank ``DeviceMesh`` (NCCL, world
     size 1, an in-memory store) equal to ``mesh=None``; the recording
     still fake afterwards;
-13. full-depth llama3-8b recorded in f32, materialized as bf16 under
+14. full-depth llama3-8b recorded in f32, materialized as bf16 under
     ``decoder_lm_plan`` on a one-rank mesh in a fresh process: seconds
     from ``deferred_init`` to every value resident, bytes, GB/s, host
     RSS growth (below a quarter of the bytes) and device-memory growth
     (at most the bytes plus twice the largest entry at its recorded
     dtype), beside the eager route's cold bring-up from phase 4;
-14. the training main path through the keyed materializer in a fresh
+15. the training main path through the keyed materializer in a fresh
     process: 2-layer llama3-8b width, [2, 2048], deferred_init ->
     ``materialize_module_cuda`` -> ``bind_values`` -> ``make_train_step``
     -> the first loss on the host: seconds, host RSS growth (below a
     quarter of the parameter bytes), one launch of each flash kernel per
     layer, the loss within 1e-3 relative of the same step on
     ``default_attention`` from the same recording's values;
-15. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
+16. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
     (tensor parallelism and FSDP2 over the keyed values), gpt2-125m in
     f32, 3 steps against ``mesh=None`` from the same values: losses and
     gradient norms within 1e-6 relative, each parameter within 1e-6
     normwise after the 3 steps (the key biases, whose gradient is zero
     in exact arithmetic, within AdamW's step bound), and whether they
     came out bitwise;
-16. the sharded training main path in a fresh process: 2-layer
+17. the sharded training main path in a fresh process: 2-layer
     llama3-8b width, bf16 parameters, [2, 2048], deferred_init ->
     ``materialize_module_cuda(mesh={fsdp: 1, tp: 1}, plan=
     decoder_lm_plan)`` -> ``bind_values`` -> ``make_train_step(mesh=)``
@@ -167,7 +187,7 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the loss within 1e-3 relative of ``mesh=None``'s, one
     ``train.step`` span per instrumented step, the ``tdx.train.mfu``
     gauge and the counted FLOPs within 1 % of ``train_step_flops``;
-17. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
+18. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
     2048], on the flash kernels: deferred_init -> materialize on the
     card -> ``make_train_step``, 5 steps on one batch (losses finite and
     falling, 1 launch of each flash kernel per layer and step), step ms,
@@ -178,36 +198,36 @@ user calls, and checks what comes out.  One JSON object per line:
     1e-3, each gradient leaf within 5e-2 normwise); one profiled step with the
     dispatch and combine einsums, the expert GEMMs and the one-hot
     products apart;
-18. its keyed values (f32): each of the 8 coordinates of a virtual
+19. its keyed values (f32): each of the 8 coordinates of a virtual
     ``{ep: 2, fsdp: 2, tp: 2}`` under ``decoder_lm_plan`` equal to its
     slice of the unsharded values bit for bit, and a one-rank NCCL
     ``{ep: 1, fsdp: 1, tp: 1}`` mesh equal to ``mesh=None``;
-19. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
+20. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
     holds in bf16) recorded as fakes and coordinate ep = 0 of a virtual
     ``{ep: 8}`` materialized in bf16 in a fresh process: seconds,
     GB/s, host RSS growth (below a quarter of the local bytes) and
     device-memory growth (at most the local bytes plus twice the largest
     entry at its recorded dtype);
-20. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
+21. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
     fsdp: 1, tp: 1}`` mesh in a fresh process: the first loss within
     1e-3 of ``mesh=None``'s, counted FLOPs within 1 % of
-    ``train_step_flops``, RSS and device growth as in 16;
-21. 2-layer llama3-70b width (``remat="full"`` from the preset), bf16
+    ``train_step_flops``, RSS and device growth as in 17;
+22. 2-layer llama3-70b width (``remat="full"`` from the preset), bf16
     parameters, [1, 8192]: one step with ``remat="none"`` and one with
     ``"full"`` from the same keyed values, losses and gradient norms
     within 1e-6 (leaves bitwise equal counted), the flash forward twice
     per layer and step under ``"full"``, the peak device memory of a
     later step lower under ``"full"``, both step times;
-22. ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
+23. ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
     one step against ``default_attention`` (logits within 1e-4, each
     gradient leaf within 1e-4 normwise); full-depth vit-l16, bf16
     compute, B 32 at 224 x 224: the gradients on a fresh batch against
-    ``default_attention``'s under the limits of 7 before training (the
+    ``default_attention``'s under the limits of 8 before training (the
     key biases, zero in exact arithmetic, held against the key weights'
     gradient), each path's error against the same step in f32 compute,
     then 5 label cross-entropy steps, step ms, images/s, MFU and peak
     device memory;
-23. the kernels line: per kernel its launches on the main path, its error
+24. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
@@ -216,7 +236,7 @@ user calls, and checks what comes out.  One JSON object per line:
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-24. last: ``{"ok": true, "device": {...}}``.
+25. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -230,8 +250,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import itertools
@@ -245,7 +267,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from torchdistx_tpu_torch import _graph, deferred_init, is_fake, materialize_module
+from torchdistx_tpu_torch import _graph, chaos, deferred_init, is_fake, materialize_module
+from torchdistx_tpu_torch import config as tdx_config
+from torchdistx_tpu_torch import observe
 from torchdistx_tpu_torch.cuda_bridge import (
     bind_values,
     materialize_module_cuda,
@@ -272,6 +296,7 @@ from torchdistx_tpu_torch.models.layers import (
     router_aux_loss,
 )
 from torchdistx_tpu_torch.models.plans import decoder_lm_plan
+from torchdistx_tpu_torch.observe import flightrec, health, reqledger
 from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
 from torchdistx_tpu_torch.ops import make_flash_attention
@@ -313,6 +338,7 @@ from torchdistx_tpu_torch.serve import (
     oracle_generate,
     spin_up_replica,
 )
+from torchdistx_tpu_torch.serve.programs import ServeProgram
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = H100_PEAK_FLOPS  # dense, no TF32
@@ -750,7 +776,7 @@ def phase_kernel(dev, flush, build: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the flash kernels against their plain versions
+# phase 6: the flash kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -1337,7 +1363,7 @@ def phase_flash_kernel(dev, flush, build: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the flash kernels with a bias, and the d(bias) kernel
+# phase 9: the flash kernels with a bias, and the d(bias) kernel
 # ---------------------------------------------------------------------------
 
 BIAS_CASES = (  # name, shape, causal, bias planes (H or 1), segments
@@ -1727,9 +1753,11 @@ def phase_features_f32(dev) -> list:
         graph = serve_counted(name, eng, cfg, reqs)
         out = graph["out"]
         worst = 0.0
+        wants = {}
         for r in reqs:
             want, want_logits = oracle_generate(eng.model, r.tokens,
                                                 r.max_new_tokens, r.eos_id)
+            wants[r.rid] = (want, want_logits)
             if out.get(r.rid) != want:
                 raise AssertionError(
                     f"{name} {r.rid}: engine {out.get(r.rid)} != oracle {want}")
@@ -1788,6 +1816,8 @@ def phase_features_f32(dev) -> list:
                "graph_pool_bytes": eng.graph_pool_bytes()}
         emit(row)
         rows.append(row)
+        # serve_chaos serves the mix again on this replica.
+        KEPT_REPLICAS[name] = (eng, cfg, wants)
         del eng, eager_eng
         torch.cuda.empty_cache()
     return rows
@@ -2093,13 +2123,428 @@ def phase_bf16_full(dev):
                              lengths=lengths, dtype=torch.bfloat16,
                              n_pages=scfg.n_pages,
                              maxp=eng.scfg.max_pages_per_seq)
+    KEPT_REPLICAS["bf16"] = eng  # serve_chaos serves on its weights
     del eng, spec_eng
     torch.cuda.empty_cache()
     return row, main_args
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the training path
+# phase 5: the serving engine's fault handling on the captured programs
+# ---------------------------------------------------------------------------
+
+# Replicas the serving phases leave for ``serve_chaos`` (popped there):
+# the f32 feature replicas with their oracle results, the bf16 replica.
+KEPT_REPLICAS: dict = {}
+# Every (component, state) ``spin_up_replica`` reported in this process.
+HEALTH_WALK: list = []
+# The serve-side fault kinds ``serve_chaos`` fires on each f32 replica,
+# each at the first step whose state gives it something to hit.
+SERVE_FAULTS = ("raise", "raise:chunk", "raise:verify", "slow:0.01")
+# A flapping entry at one step of the shared plan, 3 steps past the
+# later replica's count at the start: its duty cycle 0.5 fires on every
+# second match, so the first replica passes it and the second fires it.
+FLAP_AHEAD = 3
+
+
+def record_health_walk() -> None:
+    """Record every state report (the engine reports through
+    ``observe.health.set_state``, looked up at each call)."""
+    original = health.set_state
+
+    def recording(component, state):
+        HEALTH_WALK.append((component, state))
+        original(component, state)
+
+    health.set_state = recording
+
+
+def chaos_drive(eng, reqs, plan, flap_step: int) -> dict:
+    """Serve ``reqs`` to the end one step at a time.  After each step,
+    the first kind of ``SERVE_FAULTS`` whose moment has come is added to
+    ``plan`` for the next step: ``raise`` after a decode tick with lanes
+    still decoding (a replica whose drafter is warm may verify at every
+    tick), ``raise:chunk`` while a lane is between two chunks of its
+    prompt, ``raise:verify`` after a verify tick, then ``slow``.
+    Records the step at which a deferred verify fault entered the verify
+    path (after drafting and page growth), and the kind of tick before
+    the plain ``raise``."""
+    streamed, verify_hit, raise_after = {}, [], []
+    eng.on_token = lambda rid, tok: streamed.setdefault(rid, []).append(tok)
+    spec_step = eng._spec_decode_step
+
+    def watched_spec_step():
+        if eng._pending_verify_faults:
+            verify_hit.append(eng._step_no)
+        return spec_step()
+
+    eng._spec_decode_step = watched_spec_step
+    todo = list(SERVE_FAULTS)
+    try:
+        for r in reqs:
+            eng.submit(r)
+        while eng.waiting or eng.active:
+            verify = eng.spec_verify_ticks
+            plain = eng.decode_steps - verify
+            eng.step()
+            nxt = eng._step_no + 1
+            if not todo or nxt == flap_step:
+                continue
+            did_verify = eng.spec_verify_ticks > verify
+            did_plain = eng.decode_steps - eng.spec_verify_ticks > plain
+            moment = {
+                "raise": (did_plain or did_verify) and bool(eng.active),
+                "raise:chunk": any(lane.prefilling and lane.length > 0
+                                   for lane in eng.active.values()),
+                "raise:verify": did_verify,
+                "slow:0.01": True,
+            }
+            for kind in todo:
+                if moment[kind]:
+                    k, _, arg = kind.partition(":")
+                    plan.add(chaos.Fault("serve", nxt, k, arg or None))
+                    todo.remove(kind)
+                    if kind == "raise":
+                        raise_after.append("plain" if did_plain else "verify")
+                    break
+    finally:
+        del eng._spec_decode_step
+        eng.on_token = None
+    if todo:
+        raise AssertionError(f"no moment came for {todo}")
+    return {"streamed": streamed, "verify_hit": verify_hit,
+            "raise_after": raise_after[0]}
+
+
+def ledger_gaps(rids) -> dict:
+    """Per rid: |sum of its four ledger stages - its end-to-end latency|,
+    from the unrounded accumulators."""
+    done = {rec.rid: rec for rec in reqledger._RECENT_DONE}
+    return {rid: abs(sum(done[rid].acc.values()) - done[rid].e2e_s)
+            for rid in rids}
+
+
+def flight_bundles(flight_dir) -> list:
+    docs = []
+    for name in sorted(os.listdir(flight_dir),
+                       key=lambda n: int(n.split("-")[2])):
+        with open(os.path.join(flight_dir, name)) as f:
+            docs.append(json.load(f))
+    bad = {d["reason"]: flightrec.validate(d) for d in docs
+           if flightrec.validate(d)}
+    if bad:
+        raise AssertionError(f"flight bundles fail validate: {bad}")
+    return docs
+
+
+def phase_serve_chaos_f32(dev) -> list:
+    """The feature mix again on each f32 replica of ``serve_features_f32``
+    (its captured programs, drained), under one shared plan that fires
+    each serve-side fault kind on each replica and the flapping entry on
+    the second; then ``compile@1=raise`` on an engine with no program
+    captured yet (no ``warmup()``), which fires at its first lazy build,
+    before the capture opens.  Telemetry, the ledger and the flight
+    recorder are on."""
+    t0 = time.perf_counter()
+    rows = []
+    names = ("gpt2-125m", "llama3-8b@2-layers")
+    flap_step = max(KEPT_REPLICAS[n][0]._step_no for n in names) + FLAP_AHEAD
+    plan = chaos.install(f"serve@{flap_step}=flap:0.5")
+    flight_dir = tempfile.mkdtemp(prefix="tdx-flight-")
+    observe.enable(True)
+    try:
+        with tdx_config.override(flight_dir=flight_dir):
+            for name in names:
+                eng, cfg, wants = KEPT_REPLICAS.pop(name)
+                rows.append(chaos_on_replica(name, eng, cfg, wants, plan,
+                                             flap_step))
+                if name == "gpt2-125m":
+                    rows.append(chaos_on_first_capture(name, eng, cfg, wants,
+                                                       dev))
+                    chaos.install(plan)  # the shared plan, for the next
+                del eng
+                torch.cuda.empty_cache()
+        left = [f.spec() for f in plan.pending() if f.kind != "flap"]
+        flap = plan.faults[0]
+        if left or flap.hits != 2 or plan.fired.count(flap.spec()) != 1:
+            raise AssertionError(f"plan: pending {left}, flap matched "
+                                 f"{flap.hits}, fired {plan.fired}")
+        docs = flight_bundles(flight_dir)
+        reasons = [d["reason"] for d in docs]
+        if not {"chaos_injected", "serve_fault"} <= set(reasons):
+            raise AssertionError(f"flight dump reasons {reasons}")
+        row = {"phase": "serve_chaos", "part": "plan", "fired": plan.fired,
+               "flight_dumps": len(docs),
+               "flight_reasons": sorted(set(reasons)),
+               "flight_bundles_valid": True,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        rows.append(row)
+    finally:
+        observe.enable(None)
+        observe.reset()
+        chaos.clear()
+        KEPT_REPLICAS.clear()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    return rows
+
+
+def chaos_on_replica(name, eng, cfg, wants, plan, flap_step) -> dict:
+    programs = {k: (p, p.graph) for k, p in eng._programs.items()}
+    graphs = captured(eng)
+    # The mix as serve_features_f32 served it: a cold drafter (a warm one
+    # verifies at every tick, and no plain tick would run the kernel),
+    # the arrivals counted from this replica's present step.
+    eng._drafter = type(eng._drafter)()
+    reqs = [dataclasses.replace(r, arrival_step=r.arrival_step + eng._step_no)
+            for r in feature_requests(cfg.vocab_size, seed=17)]
+    before = observe.counter("tdx.serve.preempted_requests").value
+    plain0 = eng.decode_steps - eng.spec_verify_ticks
+    fired0 = len(plan.fired)
+    paged_attention.launches = 0
+    drive = chaos_drive(eng, reqs, plan, flap_step)
+    torch.cuda.synchronize()
+    launches = paged_attention.launches
+    plain = eng.decode_steps - eng.spec_verify_ticks - plain0
+    preempted = observe.counter("tdx.serve.preempted_requests").value - before
+    out = {r.rid: eng.results[r.rid] for r in reqs}
+    worst = 0.0
+    for r in reqs:
+        want, want_logits = wants[r.rid]
+        if out[r.rid] != want:
+            raise AssertionError(
+                f"{name} {r.rid}: engine {out[r.rid]} != oracle {want}")
+        err = float(np.abs(eng.final_logits[r.rid] - want_logits).max())
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} {r.rid}: final logits off by {err}")
+    if drive["streamed"] != out:
+        raise AssertionError(f"{name}: a position streamed twice or never")
+    if not preempted > 0:
+        raise AssertionError(f"{name}: no request was requeued")
+    if launches != cfg.n_layers * plain:
+        raise AssertionError(
+            f"{name}: {launches} kernel launches != {cfg.n_layers} layers x "
+            f"{plain} plain decode ticks")
+    now = {k: (p, p.graph) for k, p in eng._programs.items()}
+    if now != programs or captured(eng) != graphs:
+        raise AssertionError(f"{name}: a program was rebuilt or recaptured")
+    if not drive["verify_hit"]:
+        raise AssertionError(f"{name}: the verify fault missed the verify path")
+    gaps = ledger_gaps([r.rid for r in reqs])
+    if not max(gaps.values()) <= 1e-6:
+        raise AssertionError(f"{name}: ledger stages off e2e by {gaps}")
+    chunk_aborts = [rid for rid in out
+                    if _chunk_then_abort(reqledger.summary(rid)["events"])]
+    if not chunk_aborts:
+        raise AssertionError(f"{name}: the chunk fault hit no chunk boundary")
+    eng.drain()
+    if eng.kv.pages_in_use != 0:
+        raise AssertionError(
+            f"{name}: {eng.kv.pages_in_use} pages in use after drain")
+    row = {"phase": "serve_chaos", "part": "f32", "model": name,
+           "requests": len(reqs), "token_exact": True,
+           "max_final_logit_err": worst,
+           "faults_fired": plan.fired[fired0:],
+           "preempted_requests": preempted,
+           "verify_fault_step": drive["verify_hit"][0],
+           "raise_after_tick": drive["raise_after"],
+           "chunk_fault_requeued": chunk_aborts,
+           "plain_ticks": plain, "paged_decode_launches": launches,
+           "graphs": graphs, "programs_rebuilt": 0,
+           "ledger_max_stage_gap_s": max(gaps.values()),
+           "slo_counts": {m: w.total_count
+                          for m, w in eng.slo.windows.items()},
+           "pages_in_use_after_drain": 0}
+    emit(row)
+    return row
+
+
+def _chunk_then_abort(events) -> bool:
+    kinds = [e["k"] for e in events]
+    return any(a == "chunk" and b == "abort" for a, b in zip(kinds, kinds[1:]))
+
+
+def chaos_on_first_capture(name, eng, cfg, wants, dev) -> dict:
+    """``compile@1=raise`` on an engine over the same weights with no
+    program built: the fault fires at the first lazy build, in the first
+    prefill, before its capture opens; the request is requeued with its
+    pages freed, and the next tick captures and serves."""
+    ceng = ServeEngine(eng.family, cfg, eng.model, serve_cfg=FEATURES_SERVE,
+                       device=dev, slo_name="serve-first-capture")
+    reqs = feature_requests(cfg.vocab_size, seed=17)[:3]
+    plan = chaos.install("compile@1=raise")
+    try:
+        before = ceng.preemptions
+        out = ceng.run(reqs)
+    finally:
+        chaos.clear()
+    if plan.fired != ["compile@1=raise"] or not ceng.preemptions > before:
+        raise AssertionError(f"{name}: compile fault {plan.fired}, "
+                             f"{ceng.preemptions} preemptions")
+    for r in reqs:
+        if out[r.rid] != wants[r.rid][0]:
+            raise AssertionError(f"{name} {r.rid}: {out[r.rid]} != oracle")
+    graphs = captured(ceng)
+    if graphs != len(ceng._programs) or not graphs:
+        raise AssertionError(f"{name}: {graphs} of {len(ceng._programs)} "
+                             f"lazily built programs captured")
+    failed_capture_ends(ceng)
+    ceng.drain()
+    if ceng.kv.pages_in_use != 0:
+        raise AssertionError(f"{name}: pages left after the compile fault")
+    row = {"phase": "serve_chaos", "part": "first_capture", "model": name,
+           "fired": plan.fired, "preemptions": ceng.preemptions,
+           "token_exact": True, "graphs_captured_lazily": graphs,
+           "failed_capture_ends": True, "pages_in_use_after_drain": 0}
+    emit(row)
+    del ceng
+    return row
+
+
+def failed_capture_ends(eng) -> None:
+    """A forward that raises inside its capture leaves no graph, no
+    stream capturing and the engine's current stream as it was; the next
+    capture on the same side stream and pool works and replays."""
+    spec = eng._specs["cow"]
+    cow = eng._fns["cow"]
+    calls = []
+
+    def raising(*args):
+        calls.append(len(calls))
+        if len(calls) == 2:  # after the warm-up run: inside the capture
+            raise RuntimeError("raised inside the capture")
+        return cow(*args)
+
+    stream = torch.cuda.current_stream(eng.device)
+    prog = ServeProgram(spec, raising, (eng.k_pages, eng.v_pages))
+    try:
+        prog.capture(eng._graph_pool, eng._capture_stream)
+    except RuntimeError as e:
+        if "inside the capture" not in str(e):
+            raise
+    else:
+        raise AssertionError("the capture swallowed the forward's error")
+    if (prog.graph is not None or torch.cuda.is_current_stream_capturing()
+            or torch.cuda.current_stream(eng.device) != stream):
+        raise AssertionError("a failed capture left a graph or a stream "
+                             "capturing")
+    again = ServeProgram(spec, cow, (eng.k_pages, eng.v_pages))
+    again.capture(eng._graph_pool, eng._capture_stream)
+    again(np.asarray([0], np.int32), np.asarray([0], np.int32))
+    torch.cuda.synchronize(eng.device)
+
+
+def phase_serve_chaos_bf16(dev, main_row) -> dict:
+    """Full-depth llama3-8b bf16 on the replica ``serve_bf16_full``
+    brought up, 4 lanes on captured graphs, speculation and the prefix
+    cache off (a requeued request re-prefills its prompt through the same
+    program as before: with either on, the rerun may take a chunk or
+    verify path that rounds otherwise in bf16): two ``serve@N=raise``
+    faults mid-decode give tokens bitwise equal to the same engine's
+    fault-free run.  Then what the hooks cost: decode tick ms and
+    tokens/s with telemetry off and with telemetry, ledger and SLO on,
+    and one ``flight_dump``'s ms and bytes (medians of three interleaved
+    runs of each mode)."""
+    t0 = time.perf_counter()
+    eng = KEPT_REPLICAS.pop("bf16")
+    try:
+        walk = [s for c, s in HEALTH_WALK if c == "serve"]
+        if walk[-3:] != ["spin_up", "warming", "serving"] or \
+                health.snapshot()["states"]["serve"]["state"] != "serving":
+            raise AssertionError(f"health walk {walk}")
+        scfg = dataclasses.replace(BF16_SERVE, prefix_cache=False)
+        cfg = eng.cfg
+        e2 = ServeEngine("llama", cfg, eng.model, serve_cfg=scfg, device=dev,
+                         slo_name="serve-chaos-bf16")
+        e2.warmup()
+
+        def reqs(tag):
+            return [Request(f"{r.rid}-{tag}", r.tokens,
+                            max_new_tokens=r.max_new_tokens)
+                    for r in bf16_requests(cfg.vocab_size)]
+
+        def served(tag):
+            """decode_tokens_per_s on a fresh response log; the tokens."""
+            e2.results.clear()
+            figures = decode_tokens_per_s(e2, reqs(tag))
+            return figures, {rid[:-len(tag) - 1]: toks
+                             for rid, toks in e2.results.items()}
+
+        observe.enable(False)
+        clean, clean_tokens = served("clean")
+        step0 = e2._step_no
+        plan = chaos.install(f"serve@{step0 + 4}=raise;serve@{step0 + 11}=raise")
+        try:
+            preempted = e2.preemptions
+            _, fault_tokens = served("fault")
+        finally:
+            chaos.clear()
+        if plan.pending() or not e2.preemptions - preempted >= 8:
+            raise AssertionError(f"bf16 faults {plan.fired}, "
+                                 f"{e2.preemptions - preempted} requeued")
+        if fault_tokens != clean_tokens:
+            raise AssertionError(
+                f"bf16 tokens after faults differ: {fault_tokens} != "
+                f"{clean_tokens}")
+        # What the hooks cost, the two modes interleaved three times (the
+        # host's load moves a tick by more than the hooks do).
+        runs = {"off": [], "on": []}
+        for i in range(3):
+            for mode in runs:
+                observe.enable(mode == "on")
+                runs[mode].append(served(f"{mode}{i}")[0])
+        off, on = ({k: float(np.median([r[k] for r in runs[mode]]))
+                    for k in ("tick_ms", "tokens_per_s")}
+                   for mode in ("off", "on"))
+        flight_dir = tempfile.mkdtemp(prefix="tdx-flight-")
+        try:
+            with tdx_config.override(flight_dir=flight_dir):
+                t = time.perf_counter()
+                path = observe.flight_dump("hook_cost", replica="bf16")
+                dump_ms = (time.perf_counter() - t) * 1e3
+                dump_bytes = os.path.getsize(path)
+                with open(path) as f:
+                    doc = json.load(f)
+        finally:
+            shutil.rmtree(flight_dir, ignore_errors=True)
+        if flightrec.validate(doc):
+            raise AssertionError(f"flight dump {flightrec.validate(doc)}")
+        row = {"phase": "serve_chaos", "part": "bf16", "model": "llama3-8b",
+               "n_layers": cfg.n_layers, "lanes": scfg.max_batch,
+               "prefix_cache": False, "spec_decode": False,
+               "faults_fired": plan.fired,
+               "requeued": e2.preemptions - preempted,
+               "tokens_bitwise_equal_fault_free": True,
+               "health_walk": walk[-3:],
+               "decode_tick_ms_serve_bf16_full": main_row["decode_tick_ms"],
+               "decode_tick_ms_clean": clean["tick_ms"],
+               "decode_tick_ms_telemetry_off": off["tick_ms"],
+               "decode_tokens_per_s_telemetry_off": off["tokens_per_s"],
+               "decode_tick_ms_telemetry_on": on["tick_ms"],
+               "decode_tokens_per_s_telemetry_on": on["tokens_per_s"],
+               "decode_tick_ms_runs": {m: [r["tick_ms"] for r in v]
+                                       for m, v in runs.items()},
+               "ledger_requests": reqledger.requests_report()["finished"],
+               "slo": e2.slo.snapshot(),
+               "flight_dump_ms": dump_ms, "flight_dump_bytes": dump_bytes,
+               "flight_dump_events": len(doc["events"]),
+               "device": doc["env"].get("device"),
+               "driver": doc["env"].get("driver"),
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        del e2
+        return row
+    finally:
+        observe.enable(None)
+        observe.reset()
+        KEPT_REPLICAS.clear()
+        del eng
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the training path
 # ---------------------------------------------------------------------------
 
 # Step-0 gradients, flash against plain attention, per leaf:
@@ -2457,7 +2902,7 @@ def phase_train_bf16_full(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 9 to 11: T5 forward and backward from deferred init
+# phases 10 to 12: T5 forward and backward from deferred init
 # ---------------------------------------------------------------------------
 
 
@@ -2810,7 +3255,7 @@ def phase_t5_11b_full_depth() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 12 to 14: the keyed, sharded materializer (cuda_bridge)
+# phases 13 to 15: the keyed, sharded materializer (cuda_bridge)
 # ---------------------------------------------------------------------------
 
 # Keyed draws against eager construction's on the card: the std of a
@@ -3108,7 +3553,7 @@ def phase_first_step_materialized() -> dict:
     return row
 
 # ---------------------------------------------------------------------------
-# phases 15 and 16: the sharded train step (tensor parallelism and FSDP2)
+# phases 16 and 17: the sharded train step (tensor parallelism and FSDP2)
 # ---------------------------------------------------------------------------
 
 # One-rank meshes run the sharded path's code (TP styles, fully_shard,
@@ -3399,7 +3844,7 @@ def phase_first_step_sharded() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 17 to 22: Mixtral's mixture of experts, full rematerialization and
+# phases 18 to 23: Mixtral's mixture of experts, full rematerialization and
 # ViT
 # ---------------------------------------------------------------------------
 
@@ -4207,6 +4652,7 @@ def main() -> int:
     flush = L2Flush(dev)
     failures = []
     main_row, main_args = None, None
+    record_health_walk()
 
     def run(name, fn, *a):
         try:
@@ -4225,9 +4671,11 @@ def main() -> int:
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
     run("serve_f32_exact", phase_exact_f32, dev)
     run("serve_features_f32", phase_features_f32, dev)
+    run("serve_chaos_f32", phase_serve_chaos_f32, dev)
     res = run("serve_bf16_full", phase_bf16_full, dev)
     if res is not None:
         main_row, main_args = res
+        run("serve_chaos_bf16", phase_serve_chaos_bf16, dev, main_row)
     run("train_f32_exact", phase_train_f32_exact, dev)
     train_row = run("train_bf16_full", phase_train_bf16_full, dev)
     run("t5_f32_exact", phase_t5_f32_exact, dev)

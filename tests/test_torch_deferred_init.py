@@ -24,6 +24,10 @@ from torchdistx_tpu_torch.models import LLAMA3_8B, TINY, TINY_GPT2
 from torchdistx_tpu_torch.serve import engine as serve_engine
 from torchdistx_tpu_torch.serve import make_model, spin_up_replica
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 MODELS = {"llama": TINY, "gpt2": TINY_GPT2}
 
 

@@ -38,6 +38,10 @@ from torchdistx_tpu_torch.ops.flash_attention import (
     launches,
 )
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ATOL = {"float32": 1e-5, "bfloat16": 3e-2}

@@ -34,6 +34,10 @@ from torchdistx_tpu_torch.ops.flash_attention import (
     launches,
 )
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 ATOL = 1e-5
 
 CASES = {  # shape, causal, bias shape (by letters), segment ids

@@ -17,6 +17,10 @@ from torchdistx_tpu_torch import fsdp
 from torchdistx_tpu_torch._graph import ReplayTarget
 from torchdistx_tpu_torch.models import TINY_GPT2, make_gpt2
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 
 port_deferred_init_mod = sys.modules["torchdistx_tpu_torch.deferred_init"]
 

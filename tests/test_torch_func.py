@@ -22,6 +22,10 @@ from torchdistx_tpu.deferred_init import (
 )
 from torchdistx_tpu.fake import fake_mode, is_fake
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 
 class TestTorchFunc:
     def test_func_on_real_tensors_after_fake_use(self):

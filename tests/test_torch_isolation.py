@@ -33,7 +33,11 @@ def test_importing_the_port_loads_no_jax():
         "torchdistx_tpu_torch.ops, torchdistx_tpu_torch.models, "
         "torchdistx_tpu_torch.models.plans, torchdistx_tpu_torch.parallel, "
         "torchdistx_tpu_torch.cuda_bridge, torchdistx_tpu_torch.hf, "
-        "torchdistx_tpu_torch.fsdp, chip_smoke\n"
+        "torchdistx_tpu_torch.fsdp, torchdistx_tpu_torch.chaos, "
+        "torchdistx_tpu_torch.observe.flightrec, "
+        "torchdistx_tpu_torch.observe.reqledger, "
+        "torchdistx_tpu_torch.observe.slo, "
+        "torchdistx_tpu_torch.observe.health, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'torchdistx_tpu'))\n"
         "print(bad)\n"
@@ -46,6 +50,11 @@ def test_importing_the_port_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # The chaos package and the serve stack's observe modules are scanned.
+    scanned = {str(f.relative_to(PORT)) for f in files if f.is_relative_to(PORT)}
+    assert {"chaos/plan.py", "chaos/inject.py", "chaos/__init__.py",
+            "observe/flightrec.py", "observe/reqledger.py", "observe/slo.py",
+            "observe/health.py"} <= scanned
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -19,6 +19,10 @@ from torchdistx_tpu_torch.serve.kv_cache import (
     init_pools,
 )
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 SHAPE = dict(n_layers=2, kv_heads=2, head_dim=8, page_size=4, n_pages=12)
 MAX_PAGES = 8
 

@@ -33,6 +33,10 @@ from torchdistx_tpu_torch.parallel import (
 from torchdistx_tpu_torch.parallel.mesh import _ordered_axes
 from torchdistx_tpu_torch.parallel.sharding import mesh_shape
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 # Dims over two axes in both orders (the first named is the major one).
 TWO_AXIS_PLAN = ShardingPlan([
     (r".*w[qkv]\.weight", P(("tp", "fsdp"), None)),
@@ -45,6 +49,7 @@ TWO_AXIS_PLAN = ShardingPlan([
 def _check_rank(rank: int, world: int, init_file: str, meshes) -> None:
     from torch.distributed.tensor import DTensor
 
+    torch.set_num_threads(1)  # the ranks share the test worker's cores
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     warnings.simplefilter("ignore")  # indivisible dims and absent axes

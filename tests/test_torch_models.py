@@ -33,6 +33,10 @@ from torchdistx_tpu_torch.serve.programs import (
     make_model,
 )
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 SHAPES = {
     "llama": dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
                   n_kv_heads=2, d_ff=64, max_seq_len=64),
@@ -52,8 +56,8 @@ def port_model_from_flax(family, seed=0):
     """(flax model, flax params, port model) on identical f32 weights."""
     jcfg, tcfg = configs(family)
     flax_model = (make_llama if family == "llama" else make_gpt2)(jcfg)
-    params = flax_model.init(jax.random.PRNGKey(seed),
-                             jnp.zeros((1, 8), jnp.int32))
+    params = jax.jit(flax_model.init)(jax.random.PRNGKey(seed),
+                                      jnp.zeros((1, 8), jnp.int32))
     params = jax.tree.map(np.asarray, params)
     model = make_model(family, tcfg, device="cpu")
     model.load_state_dict(from_flax_params(family, tcfg, params))
@@ -64,7 +68,7 @@ def port_model_from_flax(family, seed=0):
 def test_forward_matches_flax(family):
     flax_model, params, model = port_model_from_flax(family)
     tokens = np.random.RandomState(0).randint(0, 128, (2, 11)).astype(np.int32)
-    want = np.asarray(flax_model.apply(params, jnp.asarray(tokens)))
+    want = np.asarray(jax.jit(flax_model.apply)(params, jnp.asarray(tokens)))
     with torch.no_grad():
         got = model(torch.from_numpy(tokens).long()).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape

@@ -38,6 +38,10 @@ from torchdistx_tpu_torch.ops.flash_attention import visible_pairs
 from torchdistx_tpu_torch.parallel import make_train_step
 from torchdistx_tpu_torch.parallel.train import train_step_flops
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 MASKED = ("ts", "dur", "pid", "tid")
 
 

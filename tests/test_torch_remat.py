@@ -36,6 +36,10 @@ from torchdistx_tpu_torch.models import (
 from torchdistx_tpu_torch.models.layers import default_attention, router_aux_loss
 from torchdistx_tpu_torch.parallel.train import lm_cross_entropy
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 FAMILIES = {"gpt2": (make_gpt2, "tiny-gpt2"), "llama": (make_llama, "tiny"),
             "mixtral": (make_mixtral, "tiny-moe"), "vit": (make_vit, "tiny-vit")}
@@ -149,14 +153,14 @@ def test_remat_matches_jax_remat():
     jcfg = JAX_PRESETS["tiny"].replace(remat="full")
     cfg = PRESETS["tiny"].replace(remat="full")
     jmodel = jax_make_llama(jcfg)
-    params = jax.tree.map(np.asarray, jmodel.init(
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
         jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32)))
     model = make_llama(cfg, device="cpu")
     model.load_state_dict(from_flax_params("llama", cfg, params))
     tokens = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, 16))
     loss_fn = lambda p: jax_ce(jmodel.apply(p, jnp.asarray(tokens)),  # noqa: E731
                                jnp.asarray(tokens))
-    want_loss, grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     t = torch.from_numpy(tokens)
     loss = lm_cross_entropy(model(t), t)
     loss.backward()

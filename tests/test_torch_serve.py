@@ -4,9 +4,11 @@ identical float32 weights (carried across by ``from_flax_params``).
 Every request's tokens must equal the JAX ``oracle_generate`` (the
 unbatched, no-cache greedy reference over the flax model) and its final
 logits must agree within atol 1e-4 (the same math summed in another
-order); through batching, staggered arrivals, EOS, page-exhaustion
-preemption and a prompt longer than the largest bucket (chunked
-prefill).  Prefix caching and speculative decoding are on by default,
+order); the reference comes from ``test_torch_jax_oracle.JaxOracle``,
+which that file holds against ``oracle_generate`` itself on this file's
+first request (``FIRST_REQUEST``); through batching, staggered arrivals,
+EOS and page-exhaustion preemption (a prompt longer than the largest
+bucket and the bring-up: ``test_torch_serve_spin_up.py``).  Prefix caching and speculative decoding are on by default,
 as in the JAX package.  The JAX ``ServeEngine``, with both off, serves
 the preemption requests once beside the port's engine with both off:
 equal tokens, equal preemption count.  The configs are those of
@@ -21,13 +23,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from test_torch_jax_oracle import JaxOracle, flax_params
 from torchdistx_tpu import observe
 from torchdistx_tpu.models import TransformerConfig as JaxConfig
-from torchdistx_tpu.models import make_gpt2, make_llama
 from torchdistx_tpu.serve import ServeConfig as JaxServeConfig
 from torchdistx_tpu.serve import ServeEngine as JaxServeEngine
 from torchdistx_tpu.serve import Request as JaxRequest
-from torchdistx_tpu.serve import oracle_generate as jax_oracle_generate
 from torchdistx_tpu_torch.models import TransformerConfig, from_flax_params
 from torchdistx_tpu_torch.serve import (
     Request,
@@ -35,8 +36,11 @@ from torchdistx_tpu_torch.serve import (
     ServeEngine,
     make_model,
     oracle_generate,
-    spin_up_replica,
 )
+
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
 
 SHAPES = {
     "llama": dict(vocab_size=128, d_model=32, n_layers=2, n_heads=4,
@@ -47,23 +51,23 @@ SHAPES = {
 }
 SERVE = dict(max_batch=2, page_size=8, n_pages=16, max_pages_per_seq=3,
              prefill_buckets=(8, 16))
+# The first request this file serves (prompt, new tokens).
+FIRST_REQUEST = ([5, 9, 2], 6)
 # A pool too small for two long generations: forces preemption.
 TIGHT = dict(max_batch=2, page_size=4, n_pages=7, max_pages_per_seq=6,
              prefill_buckets=(8,))
 
 
 class Pair:
-    """One family's flax model + params and the port's model on the same
-    f32 weights."""
+    """One family's flax params and the port's model on the same f32
+    weights, with the JAX reference memoized per request."""
 
     def __init__(self, family):
         self.family = family
         self.jcfg = JaxConfig(dtype=jnp.float32, **SHAPES[family])
         self.tcfg = TransformerConfig(dtype=torch.float32, **SHAPES[family])
-        flax_model = (make_llama if family == "llama" else make_gpt2)(self.jcfg)
-        params = flax_model.init(jax.random.PRNGKey(0),
-                                 jnp.zeros((1, 8), jnp.int32))
-        self.params = jax.tree.map(np.asarray, params)
+        self.params = flax_params(family, self.jcfg)
+        self.oracle = JaxOracle(family, self.jcfg, self.params)
         self.model = make_model(family, self.tcfg, device="cpu")
         self.model.load_state_dict(
             from_flax_params(family, self.tcfg, self.params))
@@ -75,9 +79,8 @@ class Pair:
 
     def check_against_jax_oracle(self, eng, reqs, out):
         for r in reqs:
-            want, want_logits = jax_oracle_generate(
-                self.family, self.jcfg, self.params, r.tokens,
-                r.max_new_tokens, r.eos_id)
+            want, want_logits = self.oracle(r.tokens, r.max_new_tokens,
+                                            r.eos_id)
             assert out[r.rid] == want, (r.rid, out[r.rid], want)
             np.testing.assert_allclose(eng.final_logits[r.rid], want_logits,
                                        atol=1e-4, err_msg=r.rid)
@@ -90,7 +93,8 @@ def pair(request):
 
 def test_batched_engine_matches_jax_oracle(pair):
     reqs = [
-        Request("a", [5, 9, 2], max_new_tokens=6),
+        Request("a", list(FIRST_REQUEST[0]),
+                max_new_tokens=FIRST_REQUEST[1]),
         Request("b", [17, 3, 3, 8, 1, 101], max_new_tokens=5),
         Request("c", [7] * 11, max_new_tokens=4),
     ]
@@ -116,8 +120,7 @@ def test_staggered_arrivals_match_jax_oracle(pair):
 
 
 def test_eos_retires_early(pair):
-    first = jax_oracle_generate(pair.family, pair.jcfg, pair.params,
-                                [5, 9, 2], 1)[0][0]
+    first = pair.oracle([5, 9, 2], 1)[0][0]
     eng = pair.engine(**SERVE)
     out = eng.run([Request("e", [5, 9, 2], max_new_tokens=6, eos_id=first)])
     assert out["e"] == [first]  # retired at the first token, in prefill
@@ -157,38 +160,3 @@ def test_preemption_matches_jax_engine(pair):
         observe.enable(None)
     assert jout == out
     assert jpreempt == eng.preemptions
-
-
-def test_unported_features_raise(pair):
-    """What the port once refused now serves: ``prefix_cache=True`` and
-    ``spec_decode=True`` construct an engine, and a prompt longer than
-    the largest bucket prefills in chunks, equal to the JAX oracle."""
-    for knobs in (dict(prefix_cache=True), dict(spec_decode=True)):
-        eng = pair.engine(**knobs, **SERVE)
-        for name, value in knobs.items():
-            assert getattr(eng.scfg, name) is value
-    eng = pair.engine(**SERVE)
-    req = Request("long", [(5 * i + 1) % 128 for i in range(17)],
-                  max_new_tokens=2)
-    out = eng.run([req])
-    assert eng.prefill_chunks == 2  # 16 + 1 tokens through chunk-16/-8
-    pair.check_against_jax_oracle(eng, [req], out)
-
-
-def test_spin_up_replica_on_cpu_serves():
-    """Bring-up through deferred init onto the CPU (asked for), then
-    serving equal to the port's oracle; without CUDA the default device
-    raises instead of falling back."""
-    eng = spin_up_replica("tiny", device="cpu", seed=3,
-                          serve_cfg=ServeConfig(**SERVE))
-    assert all(p.device.type == "cpu" for p in eng.model.parameters())
-    reqs = [Request("t0", [4, 8, 15, 16], max_new_tokens=5),
-            Request("t1", [23, 42], max_new_tokens=4)]
-    out = eng.run(reqs)
-    for r in reqs:
-        want, logits = oracle_generate(eng.model, r.tokens, r.max_new_tokens)
-        assert out[r.rid] == want
-        np.testing.assert_allclose(eng.final_logits[r.rid], logits, atol=1e-4)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            spin_up_replica("tiny")

@@ -46,6 +46,10 @@ from torchdistx_tpu_torch.models import plans
 from torchdistx_tpu_torch.parallel import sharding
 from torchdistx_tpu_torch.parallel.sharding import PartitionSpec as P
 
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
+
 MESHES = [{"fsdp": 8}, {"fsdp": 2, "tp": 4}, {"dp": 2, "fsdp": 2, "tp": 2},
           {"tp": 8}]
 FAMILIES = {"gpt2": (make_gpt2, TINY_GPT2), "llama": (make_llama, TINY),

@@ -15,6 +15,9 @@ the same numpy-seeded batches:
 * deferred init → ``materialize_module(device="cpu")`` → ``train_step``
   runs on the CPU with no kernel launched.
 
+The step's options (unported ones raise, the attention function, the
+CUDA default): ``test_torch_train_options.py``.
+
 Tolerances: gradients 1e-5 absolute and losses / gradient norms 1e-5
 relative — the same float32 math in both frameworks, summed in another
 order; AdamW (the same hyperparameters on both sides) moves each weight
@@ -42,18 +45,19 @@ from torchdistx_tpu.parallel.train import make_train_step as jax_make_train_step
 from torchdistx_tpu_torch import deferred_init, is_fake, materialize_module
 from torchdistx_tpu_torch.models import (
     TINY,
-    TINY_MOE,
     TransformerConfig,
     from_flax_params,
     make_gpt2,
     make_llama,
-    make_mixtral,
 )
-from torchdistx_tpu_torch.models.layers import default_attention
 from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops.flash_attention import launches
 from torchdistx_tpu_torch.parallel import lm_cross_entropy, make_train_step
 from torchdistx_tpu_torch.parallel.train import train_step_flops
+
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
 
 SHAPES = {  # head dim 16: a size the flash kernels take
     "llama": dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4,
@@ -194,70 +198,3 @@ def test_deferred_init_to_first_step_on_cpu():
             if n_.endswith("weight") and "norm" not in n_ and "embed" not in n_)
     assert flops == 6 * n * 32 + 6 * cfg.n_layers * 2 * cfg.n_heads * 16 ** 2 \
         * cfg.head_size
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(pipeline=True), "A11"),
-    (dict(attn_fn=default_attention), "A11"),
-    (dict(mesh={"fsdp": 1, "sp": 1}), "A10"),
-    (dict(mesh={"ep": 1, "tp": 1}), None),
-    (dict(mesh={"pp": 1, "fsdp": 1}), "A11"),
-    (dict(mesh={"fsdp": 1}, moe=True), None),
-    (dict(mesh={"fsdp": 1}, pipeline=True), "A11"),
-], ids=["pipeline", "attn-fn", "mesh-sp", "mesh-ep", "mesh-pp", "mesh-moe",
-        "mesh-pipeline"])
-def test_unported_options_raise(kw, what):
-    """Options and mesh axes the port does not carry yet raise, naming
-    their ROADMAP item (meshes: one gloo rank, an in-memory store); the
-    ``ep`` axis and a MoE config (``what`` None), ported with ROADMAP A9,
-    are taken."""
-    import torch.distributed as dist
-
-    from torchdistx_tpu_torch.parallel import make_mesh
-
-    kw = dict(kw)
-    moe = kw.pop("moe", False)
-    cfg = TINY_MOE if moe else TINY
-    model = (make_mixtral if moe else make_llama)(cfg, device="cpu")
-    axes = kw.pop("mesh", None)
-    if axes is None:
-        with pytest.raises(NotImplementedError, match=what):
-            make_train_step(model, cfg, device="cpu", **kw)
-        return
-    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                            world_size=1)
-    try:
-        mesh = make_mesh(axes, device_type="cpu")
-        if what is None:
-            make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
-        else:
-            with pytest.raises(NotImplementedError, match=what):
-                make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
-    finally:
-        dist.destroy_process_group()
-
-
-def test_moe_config_raises():
-    """Training takes a MoE config (ROADMAP A9); serving one still raises,
-    as the JAX engine refuses MoE decode."""
-    from torchdistx_tpu_torch.serve.programs import make_model
-
-    model = make_mixtral(TINY_MOE, device="cpu")
-    make_train_step(model, TINY_MOE, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_model("llama", TINY_MOE, device="cpu")
-
-
-def test_attn_fn_override_and_cuda_default():
-    """An ``attn_fn`` override raises (attention is the model
-    constructor's; the JAX argument feeds the pipelined path, A11) and
-    leaves the model untouched; the default device is the GPU, which
-    raises where there is none."""
-    model = make_llama(TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(model, TINY, attn_fn=make_flash_attention(),
-                        device="cpu")
-    assert all(b.attn.attn_fn is default_attention for b in model.blocks)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            make_train_step(model, TINY)

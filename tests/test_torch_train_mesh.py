@@ -33,6 +33,7 @@ axes and options raising are in ``test_torch_train.py``.
 No JAX at module level: the spawned ranks import this module.
 """
 
+import functools
 import json
 import warnings
 
@@ -61,6 +62,10 @@ from torchdistx_tpu_torch.parallel import (
 )
 from torchdistx_tpu_torch.parallel.sharding import mesh_shape
 from torchdistx_tpu_torch.parallel.spmd import layout_of
+
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
 
 WORLD, B, S, STEPS = 4, 8, 32, 4
 LR = 3e-4  # default_optimizer's
@@ -134,15 +139,26 @@ def _layouts(model, values, full, plan, mesh) -> dict:
     return out
 
 
-def _case(family: str, axes: dict, packed: bool) -> dict:
+@functools.lru_cache(maxsize=None)
+def _reference(family: str, packed: bool):
+    """The keyed unsharded values of ``family`` and the ``mesh=None``
+    trajectory from them (once per rank, shared by the meshes)."""
     make, cfg = FAMILIES[family]
     batches, seg = _batches(cfg.vocab_size), _packed() if packed else None
     ref = deferred_init(make, cfg, device="cpu")
     full = materialize_module_cuda(ref, device="cpu")
     bind_values(ref, full)
     full = {n: t.clone() for n, t in full.items()}  # training moves them
-    ref_state, ref_losses, ref_norms = _trajectory(
+    _, ref_losses, ref_norms = _trajectory(
         *make_train_step(ref, cfg, device="cpu"), ref, batches, seg)
+    want = {n: p.detach() for n, p in ref.named_parameters()}
+    return full, ref_losses, ref_norms, want
+
+
+def _case(family: str, axes: dict, packed: bool) -> dict:
+    make, cfg = FAMILIES[family]
+    batches, seg = _batches(cfg.vocab_size), _packed() if packed else None
+    full, ref_losses, ref_norms, want = _reference(family, packed)
     mesh = make_mesh(axes, device_type="cpu")
     plan = decoder_lm_plan(cfg)
     model = deferred_init(make, cfg, device="cpu")
@@ -159,10 +175,9 @@ def _case(family: str, axes: dict, packed: bool) -> dict:
 
     _, losses, norms = _trajectory(init, train_step, shard_batch, model,
                                    batches, seg)
-    want = dict(ref.named_parameters())
     final = {}
     for name, p in model.named_parameters():
-        got, w = _full(p.detach()), want[name].detach()
+        got, w = _full(p.detach()), want[name]
         final[name] = {"rel": float((got - w).norm() / w.norm().clamp_min(1e-30)),
                        "max_abs": float((got - w).abs().max())}
     return {"layouts": layouts, "losses": losses, "norms": norms,
@@ -223,6 +238,7 @@ def _batch_checks() -> dict:
 
 
 def _rank(rank: int, world: int, tmp: str, npz: str) -> None:
+    torch.set_num_threads(1)  # the ranks share the test worker's cores
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
                             rank=rank, world_size=world)
     warnings.simplefilter("ignore")  # indivisible dims, absent axes

@@ -29,6 +29,7 @@ the routing is global over the data axes.  No JAX at module level: the
 spawned ranks import this module.
 """
 
+import functools
 import json
 import warnings
 
@@ -44,6 +45,10 @@ from torchdistx_tpu_torch.models import TINY_MOE, decoder_lm_plan, make_mixtral
 from torchdistx_tpu_torch.models.layers import MoEMLP
 from torchdistx_tpu_torch.parallel import local_shard, make_mesh, make_train_step
 from torchdistx_tpu_torch.parallel.sharding import PartitionSpec, mesh_shape
+
+# Six xdist workers share the machine's cores: keep torch's intra-op
+# pool small so they do not oversubscribe it.
+torch.set_num_threads(2)
 
 WORLD, B, S, STEPS = 4, 8, 32, 3
 RTOL = 1e-6
@@ -85,11 +90,20 @@ def _full(p: torch.Tensor) -> torch.Tensor:
     return p.full_tensor() if hasattr(p, "full_tensor") else p
 
 
-def _case(axes: dict) -> dict:
+@functools.lru_cache(maxsize=None)
+def _reference():
+    """The ``mesh=None`` run from the keyed unsharded values (once per
+    rank, shared by the meshes): its trajectory and final parameters."""
     ref = deferred_init(make_mixtral, CFG, device="cpu")
     bind_values(ref, materialize_module_cuda(ref, device="cpu"))
     _, ref_losses, ref_norms, ref_dropped = _trajectory(
         *make_train_step(ref, CFG, device="cpu", optimizer=_sgd), ref)
+    want = {n: p.detach() for n, p in ref.named_parameters()}
+    return ref_losses, ref_norms, ref_dropped, want
+
+
+def _case(axes: dict) -> dict:
+    ref_losses, ref_norms, ref_dropped, want = _reference()
     mesh = make_mesh(axes, device_type="cpu")
     plan = decoder_lm_plan(CFG)
     model = deferred_init(make_mixtral, CFG, device="cpu")
@@ -108,10 +122,9 @@ def _case(axes: dict) -> dict:
     _, losses, norms, dropped = _trajectory(init, train_step, shard_batch,
                                             model)
     shape, coord = mesh_shape(mesh), mesh.get_coordinate()
-    want = dict(ref.named_parameters())
     final = {}
     for name, p in model.named_parameters():
-        w = want[name].detach()
+        w = want[name]
         if ".moe.w_" in name:  # this rank's ep/tp block of the experts
             spec = plan.spec_for(name, tuple(w.shape), mesh)
             w = local_shard(w, PartitionSpec(*(a if a in ("ep", "tp") else None
@@ -130,6 +143,7 @@ def _case(axes: dict) -> dict:
 
 
 def _rank(rank: int, world: int, tmp: str) -> None:
+    torch.set_num_threads(1)  # the ranks share the test worker's cores
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
                             rank=rank, world_size=world)
     warnings.simplefilter("ignore")  # the batch replicated on {ep, tp}

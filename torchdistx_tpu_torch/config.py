@@ -1,6 +1,7 @@
-"""Runtime configuration (the port's own copy of the telemetry and
-serving knobs of ``torchdistx_tpu/config.py``): resolved from environment variables once
-at import and overridable per scope::
+"""Runtime configuration (the port's own copy of the telemetry, serving,
+chaos and flight-recorder knobs of ``torchdistx_tpu/config.py``):
+resolved from environment variables once at import and overridable per
+scope::
 
     import torchdistx_tpu_torch.config as tdx_config
     print(tdx_config.get())                # effective config
@@ -22,6 +23,23 @@ Environment variables (read at first import):
                         paths without the tokens are used verbatim), so
                         concurrent hosts and subprocesses of one run cannot
                         clobber each other's file.
+``TDX_FLIGHT_DIR``      Directory for flight-recorder post-mortem dumps
+                        (:mod:`torchdistx_tpu_torch.observe.flightrec`):
+                        when set, a bounded ring of recent telemetry events
+                        is kept per process and dumped atomically there on
+                        chaos injections, serve faults and preemptions, and
+                        unhandled exceptions ("" disables).  ``%h``/``%p``
+                        expand like ``TDX_METRICS_PATH``.  The ring holds
+                        the last ``TDX_FLIGHT_EVENTS`` events (default
+                        4096), read once at import.
+``TDX_METRICS_EXPORT_S``
+                        Period (seconds) of the background metrics-exporter
+                        thread: when > 0, the counter registry (and the
+                        serve SLO percentile gauges) are re-exported to
+                        ``TDX_METRICS_PATH`` every interval (0 disables).
+``TDX_FAULT_PLAN``      Deterministic fault-injection plan
+                        (:mod:`torchdistx_tpu_torch.chaos`), e.g.
+                        ``"serve@4=raise;compile@1=raise"`` ("" disables).
 ``TDX_PREFILL_CHUNK``   Default chunk-size cap for serving chunked prefill
                         (:mod:`torchdistx_tpu_torch.serve`): max prompt
                         tokens a lane prefills per engine tick.  0
@@ -41,6 +59,14 @@ Environment variables (read at first import):
                         bucket).  A host-side scheduling knob: the
                         ``verify-<k>`` programs are fixed by
                         ``ServeConfig.spec_buckets``, not by this value.
+``TDX_REQUEST_LEDGER``  "0" disables the per-request attribution ledger
+                        (:mod:`torchdistx_tpu_torch.observe.reqledger`):
+                        each request's typed event timeline and its
+                        queue/prefill/decode/guardrail latency split.  On
+                        by default (it runs only while telemetry is on).
+``TDX_LEDGER_EVENTS``   Per-request event-timeline cap (default 128): older
+                        events are dropped (and counted) once a request's
+                        timeline is full.
 ======================  ====================================================
 """
 
@@ -59,18 +85,28 @@ __all__ = ["Config", "bind", "expand_path", "get", "override"]
 class Config:
     trace_dir: Optional[str] = None
     metrics_path: Optional[str] = None
+    flight_dir: Optional[str] = None
+    metrics_export_s: float = 0.0
+    fault_plan: Optional[str] = None
     prefill_chunk: int = 0
     spec_decode: bool = True
     spec_k: int = 4
+    request_ledger: bool = True
+    ledger_events: int = 128
 
 
 def _from_env() -> Config:
     return Config(
         trace_dir=os.environ.get("TDX_TRACE_DIR", "") or None,
         metrics_path=os.environ.get("TDX_METRICS_PATH", "") or None,
+        flight_dir=os.environ.get("TDX_FLIGHT_DIR", "") or None,
+        metrics_export_s=float(os.environ.get("TDX_METRICS_EXPORT_S", "0")),
+        fault_plan=os.environ.get("TDX_FAULT_PLAN", "") or None,
         prefill_chunk=int(os.environ.get("TDX_PREFILL_CHUNK", "0")),
         spec_decode=os.environ.get("TDX_SPEC_DECODE", "1") != "0",
         spec_k=int(os.environ.get("TDX_SPEC_K", "4")),
+        request_ledger=os.environ.get("TDX_REQUEST_LEDGER", "1") != "0",
+        ledger_events=int(os.environ.get("TDX_LEDGER_EVENTS", "128")),
     )
 
 
@@ -82,8 +118,8 @@ def expand_path(path: Optional[str]) -> Optional[str]:
     """Expand the multi-process template tokens in a telemetry path:
     ``%h`` → short hostname, ``%p`` → pid.  Opt-in — a path without the
     tokens is returned verbatim.  Applied at WRITE time by
-    ``observe.flush``, so one config value fans out correctly across
-    hosts and subprocesses."""
+    ``observe.flush``, the metrics exporter and the flight recorder, so
+    one config value fans out correctly across hosts and subprocesses."""
     if not path or "%" not in path:
         return path
     if "%h" in path:

@@ -76,6 +76,25 @@ def op_seed(seed: int, key_nr: int) -> int:
     return _splitmix64(_splitmix64(seed & _MASK64) ^ key_nr)
 
 
+def _retryable_errors() -> tuple:
+    """Exception types a caller may retry in this process (the serving
+    engine requeues its lanes on them): the chaos ``raise`` / ``flap``
+    error and ``torch.cuda.OutOfMemoryError``, which the caching
+    allocator raises before any kernel runs and which leaves the CUDA
+    context valid.
+
+    A sticky CUDA error (an illegal address or a device-side assert,
+    ``torch.AcceleratorError`` or a ``RuntimeError`` naming ``CUDA
+    error``) is NOT here: it poisons the context, every later call
+    (graph replays included) fails the same way, so a retry can only
+    loop.  It propagates with its original message; recovering from it
+    takes a new process (ROADMAP C5).  The JAX package retries every
+    ``XlaRuntimeError``; the port cannot."""
+    from ..chaos import InjectedRuntimeError
+
+    return (InjectedRuntimeError, torch.cuda.OutOfMemoryError)
+
+
 @functools.lru_cache(maxsize=None)
 def _generator_overload(func):
     """``func``, or the overload of its packet that takes the same

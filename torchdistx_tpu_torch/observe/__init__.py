@@ -17,6 +17,10 @@ Activation (see :mod:`torchdistx_tpu_torch.config`):
 * ``TDX_METRICS_PATH`` / ``override(metrics_path=...)`` — flush the
   counter registry there: Prometheus text format when the path ends in
   ``.prom``, JSON-lines otherwise;
+* ``TDX_FLIGHT_DIR`` / ``override(flight_dir=...)`` — arm the flight
+  recorder (:mod:`.flightrec`): a bounded ring of recent events, dumped
+  as a post-mortem bundle on chaos injections, serve faults and
+  preemptions, and unhandled exceptions;
 * :func:`enable` — force telemetry on/off programmatically (tests, tools).
 
 Quick tour::
@@ -29,9 +33,14 @@ Quick tour::
     observe.gauge("tdx.train.tokens_per_s").set(52_000)
     observe.flush()          # write trace/metrics files now
 
+The serve stack reports through :mod:`.reqledger` (per-request
+timelines and the queue / prefill / decode / guardrail split),
+:mod:`.slo` (latency percentile windows and the periodic exporter,
+``TDX_METRICS_EXPORT_S``) and :mod:`.health` (bring-up states).
+
 The trace files read like the JAX package's, so ``tools/tdx_trace.py``
-summarizes them too.  The flight recorder, health endpoints, HTTP
-daemon, request ledger and SLO exporter are not ported yet.
+summarizes them too.  The HTTP daemon that serves the probes live is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -41,9 +50,9 @@ import os
 import threading
 from typing import Optional
 
-from . import costmodel, tracectx
+from . import costmodel, flightrec, health, reqledger, slo, tracectx
 from .metrics import Counter, Counters, Gauge, Histogram
-from .spans import Span, Tracer, _NOOP_SPAN, set_drop_hook
+from .spans import Span, Tracer, _NOOP_SPAN, set_drop_hook, set_flight_feed
 from .step import StepMeter, peak_tflops_for
 from .tracectx import trace_context
 
@@ -60,13 +69,19 @@ __all__ = [
     "counters",
     "enable",
     "enabled",
+    "flight_dump",
+    "flightrec",
     "flush",
     "gauge",
+    "health",
     "histogram",
     "instant",
     "peak_tflops_for",
+    "reqledger",
     "reset",
+    "slo",
     "span",
+    "stop_background",
     "trace_context",
     "tracectx",
     "tracer",
@@ -78,7 +93,10 @@ _COUNTERS = Counters(on_sample=lambda name, value: _TRACER.counter_sample(name, 
 _FORCED: Optional[bool] = None
 _flush_lock = threading.Lock()
 _autoflush_armed = False
+_atexit_registered = False
+_flight_armed = False
 _last_counters_sig: Optional[str] = None
+_config = None  # cached module ref: enabled() is on every hook's path
 
 # Silent span loss is counted: every event the tracer's bounded export
 # buffer evicts increments tdx.observe.dropped_events.
@@ -89,14 +107,18 @@ set_drop_hook(
 
 def enabled() -> bool:
     """Whether telemetry is being collected: forced on via :func:`enable`,
-    or the effective config carries a ``trace_dir`` or ``metrics_path``.
-    THE gate every instrumentation point checks first; keep it cheap."""
+    or the effective config carries a ``trace_dir``, ``metrics_path`` or
+    ``flight_dir``.  THE gate every instrumentation point checks first;
+    keep it cheap."""
     if _FORCED is not None:
         return _FORCED
-    from .. import config
+    global _config
+    if _config is None:
+        from .. import config as _config_mod
 
-    cfg = config.get()
-    return bool(cfg.trace_dir or cfg.metrics_path)
+        _config = _config_mod
+    cfg = _config.get()
+    return bool(cfg.trace_dir or cfg.metrics_path or cfg.flight_dir)
 
 
 def enable(on: Optional[bool] = True) -> None:
@@ -204,27 +226,62 @@ def flush(
     return written
 
 
+def flight_dump(reason: str, **context) -> Optional[str]:
+    """Dump a flight-recorder post-mortem bundle (no-op returning None
+    when no ``TDX_FLIGHT_DIR`` is configured): the one call every
+    failure path makes; see :mod:`.flightrec`."""
+    if not flightrec.armed():
+        return None
+    return flightrec.dump(reason, **context)
+
+
 def reset() -> None:
-    """Drop all collected events and metric values (tests)."""
+    """Drop all collected events, metric values, the flight ring and the
+    request ledger (tests)."""
     global _last_counters_sig
     _TRACER.clear()
     _COUNTERS.clear()
     costmodel.reset()
+    flightrec.clear()
+    reqledger.reset()
     _last_counters_sig = None
 
 
 def _arm_autoflush() -> None:
     # Registered on the first emission, not at import: a process that
     # never records anything must not add an exit hook.
-    global _autoflush_armed
+    global _autoflush_armed, _atexit_registered, _flight_armed
+    if not _flight_armed and flightrec.armed():
+        # First emission under a bound flight dir: tee the tracer into
+        # the recorder's ring and install the unhandled-exception
+        # dumper.  The tee stays for the process (a ring fed outside an
+        # armed scope is ignored: dump() re-checks the config).
+        _flight_armed = True
+        set_flight_feed(flightrec.feed)
+        flightrec.install_crash_hooks()
     if _autoflush_armed:
         return
     _autoflush_armed = True
-    atexit.register(_atexit_flush)
+    if not _atexit_registered:
+        # Registered once for the process, even across stop_background():
+        # re-arming must not stack duplicate hooks.
+        _atexit_registered = True
+        atexit.register(_atexit_flush)
     # Adopt the cross-process trace context now — the first telemetry
     # emission is exactly when a spawned child starts producing spans,
     # so its inherited flow edge binds to its first real work.
     tracectx.adopt(_TRACER)
+    # The periodic exporter (no-op unless TDX_METRICS_EXPORT_S > 0;
+    # ServeEngine re-calls it to attach its SLO windows).
+    slo.ensure_exporter()
+
+
+def stop_background() -> None:
+    """Stop and join the periodic exporter and de-latch the arming flag
+    so the NEXT emission can re-arm it (tests, orderly shutdown)."""
+    global _autoflush_armed
+    slo.stop_exporter()
+    _autoflush_armed = False
 
 
 def _atexit_flush() -> None:
@@ -232,3 +289,7 @@ def _atexit_flush() -> None:
         flush()
     except Exception:
         pass  # exit paths never raise from telemetry
+    try:
+        stop_background()
+    except Exception:
+        pass

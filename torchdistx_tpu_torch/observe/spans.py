@@ -28,17 +28,24 @@ _MAX_EVENTS = 200_000
 _EPOCH0 = time.time()
 _PERF0 = time.perf_counter()
 
-# Cross-module hook, installed by the port's observe package (this module
-# stays import-cycle-free): `_drop_hook` reports export-buffer evictions
-# so silent span loss becomes the `tdx.observe.dropped_events` counter.
-# A plain module global read once per record — a None check, no
-# indirection cost when unused.
+# Cross-module hooks, installed by the port's observe package (this module
+# stays import-cycle-free): `_flight_feed` tees every recorded event into
+# the flight recorder's independent ring when one is armed; `_drop_hook`
+# reports export-buffer evictions so silent span loss becomes the
+# `tdx.observe.dropped_events` counter.  Plain module globals read once
+# per record — None checks, no indirection cost when unused.
+_flight_feed = None
 _drop_hook = None
 
 # Set by observe.tracectx when a trace context is minted/adopted: stamped
 # into the Chrome export as a process label so a merged Perfetto view
 # groups every process of one causal run under the same trace id.
 _trace_label: Optional[str] = None
+
+
+def set_flight_feed(fn) -> None:
+    global _flight_feed
+    _flight_feed = fn
 
 
 def set_drop_hook(fn) -> None:
@@ -264,10 +271,12 @@ class Tracer:
                 self.dropped += 1  # deque evicts the oldest on append
                 dropped = True
             self.events.append(event)
-        # Outside the tracer lock: the hook takes its own (counter) lock
-        # and must not nest under this one.
+        # Outside the tracer lock: the hooks take their own (counter,
+        # ring) locks and must not nest under this one.
         if dropped and _drop_hook is not None:
             _drop_hook(1)
+        if _flight_feed is not None:
+            _flight_feed(event)
 
     # -- export ----------------------------------------------------------
 

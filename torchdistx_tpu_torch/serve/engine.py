@@ -50,7 +50,16 @@ When the pool cannot cover a lane's growth the engine **preempts** the
 youngest lane (frees its pages, requeues the whole request at the front
 of the queue; greedy decode regenerates it identically), the vLLM
 recompute-preemption policy: page exhaustion costs latency, never a
-wrong or dropped response.
+wrong or dropped response.  The chaos ``serve`` site fires at the top of
+every step (``raise:chunk`` deferred to the next prefill-chunk boundary,
+``raise:verify`` to the next verify tick), and the ``lower`` / ``cache``
+/ ``compile`` sites at each lazy program build, before its capture
+opens; a retryable fault mid-batch (the chaos error, a CUDA out of
+memory: ``cuda_bridge.materialize._retryable_errors``) requeues every
+active lane the same way.  The
+programs stay as they were captured: the next tick replays them, none is
+rebuilt or run eagerly.  A sticky CUDA error is not retryable and
+propagates.
 
 **Replica bring-up** (:func:`spin_up_replica`) is the deferred-init story
 end to end: the port's :func:`~..deferred_init.deferred_init` records the
@@ -65,15 +74,24 @@ names: ``tdx.serve.*`` counters (``prefills``, ``prefill_tokens``,
 ``cow_copies``, ``decode_steps``, ``requests_completed``,
 ``preempted_requests``), histograms (``ttft_s``, ``queue_wait_s``,
 ``token_latency_s``), gauges (``queue_depth``, ``active_requests``,
-``tokens_per_s``, ``prefix_nodes``, ``prefix_hit_rate``, ``spec_*``)
-and ``serve.step`` / ``serve.prefill`` / ``serve.spin_up`` spans.  Plain
+``tokens_per_s``, ``prefix_nodes``, ``prefix_hit_rate``, ``spec_*``),
+``serve.step`` / ``serve.prefill`` / ``serve.spin_up`` spans and
+``serve.fault`` / ``serve.preempt`` / ``serve.cancel`` instants.  Plain
 integer attributes (``prefills``, ``decode_steps``, ``preemptions``,
 ``prefill_chunks``, ``cow_copies``, ``prefix_hits``,
 ``prefix_tokens_reused``, ``spec_*``) count the same events per engine.
+Each request's timeline and latency split go to the request ledger
+(:mod:`..observe.reqledger`); TTFT, per-token latency and queue wait
+feed the engine's SLO windows (:class:`~..observe.slo.ServeSLO`,
+published as ``tdx.serve.slo.*_p{50,95,99}_s``); a step fault or a
+page-exhaustion preemption dumps the flight recorder
+(``TDX_FLIGHT_DIR``); :func:`spin_up_replica` walks its health
+component through ``spin_up`` -> ``warming`` -> ``serving``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -82,10 +100,13 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import observe
+from .. import chaos, observe
 from .._device import resolve_device
+from ..cuda_bridge.materialize import _retryable_errors
 from ..deferred_init import deferred_init, materialize_module
 from ..models import PRESETS, TransformerConfig
+from ..observe import reqledger
+from ..observe import slo as _slo
 from ..ops.paged_attention import build_kernel
 from .kv_cache import OutOfPages, PagedKVCache, init_pools
 from .prefix import NgramDrafter, PrefixCache
@@ -100,6 +121,8 @@ from .programs import (
 )
 
 __all__ = ["Request", "ServeEngine", "oracle_generate", "spin_up_replica"]
+
+_log = logging.getLogger("torchdistx_tpu_torch")
 
 
 @dataclass
@@ -142,7 +165,10 @@ class ServeEngine:
 
     On the card each program is captured as a CUDA graph at its first
     use (:meth:`warmup` captures them all); ``cuda_graphs=False`` runs
-    them eagerly instead.  A capture or replay that fails raises."""
+    them eagerly instead.  A capture or replay that fails raises; a
+    retryable fault in a step requeues the step's lanes.  ``slo_name``
+    names the engine's SLO windows (a fleet gives each replica its
+    own)."""
 
     def __init__(
         self,
@@ -157,6 +183,7 @@ class ServeEngine:
         on_complete: Optional[Callable[[str, List[int], np.ndarray],
                                        None]] = None,
         on_cancel: Optional[Callable[[str, List[int], bool], None]] = None,
+        slo_name: str = "serve",
     ):
         self.device = resolve_device(device)
         self.family = family
@@ -188,6 +215,12 @@ class ServeEngine:
         self._capture_stream = (torch.cuda.Stream(self.device)
                                 if self.cuda_graphs else None)
         self.capture_seconds = 0.0
+        # Chunk-boundary chaos faults (``serve@N=raise:chunk``) are
+        # deferred here by step() and fired BETWEEN prefill chunks; the
+        # same for ``raise:verify``, fired right before the next verify
+        # tick.
+        self._pending_chunk_faults: List[chaos.Fault] = []
+        self._pending_verify_faults: List[chaos.Fault] = []
         self._drafter: Optional[NgramDrafter] = (
             NgramDrafter() if self.scfg.spec_decode else None)
         self.spec_drafted = 0       # draft tokens sent to verify
@@ -211,16 +244,30 @@ class ServeEngine:
         self.cow_copies = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
+        self._retryable = _retryable_errors()
+        self.slo = _slo.ServeSLO(name=slo_name)
+        # Live percentile export; no-op unless TDX_METRICS_EXPORT_S > 0
+        # (the first engine's SLO wins the exporter slot).
+        _slo.ensure_exporter(self.slo)
+        # Handle resolved once: the decode tick is the hot path.
+        self._tok_hist = observe.histogram(
+            "tdx.serve.token_latency_s",
+            buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0),
+        )
 
     # -- programs -----------------------------------------------------------
 
     def _program(self, name: str) -> ServeProgram:
         """The program ``name``, built (and on the card captured) at its
-        first use."""
+        first use.  The chaos ``lower`` / ``cache`` / ``compile`` sites
+        (group 1, as the JAX engine's lazy compile takes them) fire
+        before the build, never inside a capture."""
         prog = self._programs.get(name)
         if prog is None:
             if self.k_pages is None:
                 raise RuntimeError("release_kv() dropped this engine's pool")
+            for site in ("lower", "cache", "compile"):
+                chaos.maybe_inject(site, 1)
             spec = self._specs[name]
             prog = ServeProgram(spec, self._fns[spec.kind],
                                 (self.k_pages, self.v_pages))
@@ -285,6 +332,12 @@ class ServeEngine:
         # a requeued request keeps its original deadline.
         if req.deadline_s is not None and not hasattr(req, "_deadline_t"):
             req._deadline_t = req._submit_t + req.deadline_s
+        # Ledger anchor: the first enqueue wins (a requeue hop only logs a
+        # dispatch).
+        reqledger.on_enqueue(req.rid, priority=req.priority,
+                             deadline_s=req.deadline_s,
+                             n_prompt=len(req.tokens))
+        reqledger.on_event(req.rid, "dispatch", replica=self.slo.name)
         self.waiting.append(req)
         self._gauges()
 
@@ -359,7 +412,9 @@ class ServeEngine:
             self.cancelled[rid] = list(lane.generated)
             observe.instant("serve.cancel", category="serve", rid=rid,
                             reason=reason, step=self._step_no,
-                            tokens=len(lane.generated))
+                            tokens=len(lane.generated),
+                            flow=reqledger.flow_id(rid))
+            reqledger.on_abort(rid, replica=self.slo.name, reason=reason)
             self._gauges()
             return list(lane.generated)
         for req in list(self.waiting):
@@ -367,7 +422,9 @@ class ServeEngine:
                 self.waiting.remove(req)
                 self.cancelled[rid] = []
                 observe.instant("serve.cancel", category="serve", rid=rid,
-                                reason=reason, step=self._step_no, tokens=0)
+                                reason=reason, step=self._step_no, tokens=0,
+                                flow=reqledger.flow_id(rid))
+                reqledger.on_abort(rid, replica=self.slo.name, reason=reason)
                 self._gauges()
                 return []
         return None
@@ -389,7 +446,12 @@ class ServeEngine:
             was_active = any(lane.req.rid == rid
                              for lane in self.active.values())
             toks = self.cancel(rid, reason="deadline")
-            if toks is not None and self.on_cancel is not None:
+            if toks is None:  # pragma: no cover — rid just enumerated
+                continue
+            # Terminal for the ledger: spent prefill/decode time becomes
+            # guardrail time (the cancel above ended the attempt).
+            reqledger.on_reject(rid, reason="deadline", tokens=len(toks))
+            if self.on_cancel is not None:
                 self.on_cancel(rid, toks, was_active)
 
     def install_params(self, params: Mapping[str, torch.Tensor], *,
@@ -443,8 +505,10 @@ class ServeEngine:
         return len(self.waiting) + len(self.active)  # coarse fallback
 
     def step(self) -> None:
-        """One engine tick: deadlines -> chunked-prefill advance ->
-        admission (+prefill) -> one batched decode step -> retirement."""
+        """One engine tick: chaos site -> deadlines -> chunked-prefill
+        advance -> admission (+prefill) -> one batched decode step ->
+        retirement.  A retryable fault mid-batch requeues every active
+        lane (recompute preemption); any other error propagates."""
         self._step_no += 1
         if self._t0 is None:
             self._t0 = time.perf_counter()
@@ -452,13 +516,58 @@ class ServeEngine:
             "serve.step", category="serve", step=self._step_no,
             active=len(self.active), waiting=len(self.waiting),
         ):
-            self._expire_deadlines()
-            self._advance_prefill()
-            self._admit()
-            self._decode_step()
+            try:
+                self._take_serve_faults()
+                self._expire_deadlines()
+                self._advance_prefill()
+                self._admit()
+                if self._pending_chunk_faults:
+                    # A chunk fault due on a step with no chunk boundary
+                    # to defer to still fires (a plan's fault is never
+                    # silently dropped).
+                    chaos.execute(self._pending_chunk_faults.pop(0))
+                self._decode_step()
+                if self._pending_verify_faults:
+                    # Same for a verify fault on a step with no verify
+                    # tick (spec off, no decodable lanes).
+                    chaos.execute(self._pending_verify_faults.pop(0))
+            except self._retryable as e:
+                _log.warning(
+                    "serve: step %d fault (%s: %s); requeueing %d active "
+                    "requests", self._step_no, type(e).__name__,
+                    str(e)[:120], len(self.active),
+                )
+                observe.instant("serve.fault", category="serve",
+                                step=self._step_no, error=type(e).__name__)
+                # Persist the ring before the requeue rewrites the
+                # engine's state (no-op without TDX_FLIGHT_DIR).
+                observe.flight_dump(
+                    "serve_fault", step=self._step_no,
+                    error=f"{type(e).__name__}: {e}"[:300],
+                    active=len(self.active), waiting=len(self.waiting),
+                )
+                for slot in list(self.active):
+                    self._preempt(slot, reason="fault")
         self._gauges()
 
     # -- admission / prefill ------------------------------------------------
+
+    def _take_serve_faults(self) -> None:
+        """The serve chaos site, taken by hand instead of through
+        :func:`chaos.maybe_inject`: ``raise:chunk`` faults are DEFERRED
+        to the next prefill-chunk boundary, ``raise:verify`` to the next
+        speculative verify tick (after drafts were taken and capacity
+        extended); everything else executes now."""
+        plan = chaos.active_plan()
+        if plan is None:
+            return
+        for fault in plan.take("serve", self._step_no):
+            if fault.kind == "raise" and fault.arg == "chunk":
+                self._pending_chunk_faults.append(fault)
+            elif fault.kind == "raise" and fault.arg == "verify":
+                self._pending_verify_faults.append(fault)
+            else:
+                chaos.execute(fault)
 
     def _free_slot(self) -> Optional[int]:
         for s in range(self.scfg.max_batch):
@@ -500,10 +609,13 @@ class ServeEngine:
         when it is a fresh prompt that fits one chunk, else chunk by
         chunk across engine ticks (``_advance_prefill``)."""
         L = len(req.tokens)
+        # Queue wait = submit -> lane and pages granted; a requeued
+        # request measures from its ORIGINAL submit.
         sub = getattr(req, "_submit_t", None)
         if sub is not None:
-            observe.histogram("tdx.serve.queue_wait_s").observe(
-                time.perf_counter() - sub)
+            wait = time.perf_counter() - sub
+            observe.histogram("tdx.serve.queue_wait_s").observe(wait)
+            self.slo.observe_queue_wait(wait)
         sid = self._next_seq
         self._next_seq += 1
         if shared:
@@ -520,6 +632,8 @@ class ServeEngine:
             self.prefix_tokens_reused += start
             observe.counter("tdx.serve.prefix_hits").inc()
             observe.counter("tdx.serve.prefix_tokens_reused").inc(start)
+        reqledger.on_admit(req.rid, replica=self.slo.name,
+                           prefix_tokens=start)
         lane = _Lane(req=req, seq_id=sid, slot=slot, length=start,
                      admitted_step=self._step_no, prefilling=True,
                      spec_k=self.scfg.spec_k)
@@ -539,14 +653,26 @@ class ServeEngine:
                         toks, np.asarray([L], np.int32), row)
                     logits = logits.float().cpu().numpy()
                     lane.length = L
+                    reqledger.on_event(req.rid, "prefill", bucket=bucket,
+                                       n=L, replica=self.slo.name)
                 else:
                     logits = self._run_chunk(lane)  # None: more chunks
         except BaseException:
             # The request left the queue and holds pages but is not in
-            # `active`: undo both, so a failed program costs no leaked
-            # pages or lost request, then let the error through.
+            # `active`, where step()'s fault handler cannot see it: undo
+            # both, so a failed program (a device fault, a chaos fault at
+            # the lazy build) costs latency, never leaked pages or a lost
+            # request, then let the error through.
             self.kv.free(sid)
             self.waiting.appendleft(req)
+            self.preemptions += 1
+            observe.counter("tdx.serve.preempted_requests").inc()
+            observe.instant("serve.preempt", category="serve",
+                            rid=req.rid, reason="prefill_fault",
+                            step=self._step_no,
+                            flow=reqledger.flow_id(req.rid))
+            reqledger.on_abort(req.rid, replica=self.slo.name,
+                               reason="prefill_fault")
             raise
         self.active[slot] = lane
         self.prefills += 1
@@ -578,6 +704,8 @@ class ServeEngine:
         lane.length = s + n
         self.prefill_chunks += 1
         observe.counter("tdx.serve.prefill_chunks").inc()
+        reqledger.on_chunk(req.rid, bucket=bucket, n_tokens=n,
+                           replica=self.slo.name)
         if lane.length >= L:
             return logits.float().cpu().numpy()
         return None
@@ -606,6 +734,7 @@ class ServeEngine:
                                  np.asarray([dst], np.int32))
             self.cow_copies += 1
             observe.counter("tdx.serve.cow_copies").inc()
+            reqledger.on_cow(lane.req.rid, replica=self.slo.name)
 
     def _youngest_other(self, lane: _Lane) -> Optional[int]:
         others = [s for s in self.active if s != lane.slot]
@@ -616,11 +745,15 @@ class ServeEngine:
     def _advance_prefill(self) -> None:
         """One chunk for every mid-prefill lane: chunked prefill
         interleaves with decode at engine-tick granularity, so a long
-        prompt cannot lock the batch out for its whole prefill."""
+        prompt cannot lock the batch out for its whole prefill.  A
+        deferred ``raise:chunk`` chaos fault fires HERE, between
+        chunks."""
         for slot in sorted(self.active):
             lane = self.active.get(slot)
             if lane is None or not lane.prefilling:
                 continue
+            if self._pending_chunk_faults:
+                chaos.execute(self._pending_chunk_faults.pop(0))
             logits = self._run_chunk(lane)
             if logits is not None:
                 self._finish_prefill(lane, logits)
@@ -644,8 +777,9 @@ class ServeEngine:
         self._emit(lane, int(np.argmax(logits)), logits)
         sub = getattr(req, "_submit_t", None)
         if first_delivery and sub is not None:
-            observe.histogram("tdx.serve.ttft_s").observe(
-                time.perf_counter() - sub)
+            ttft = time.perf_counter() - sub
+            observe.histogram("tdx.serve.ttft_s").observe(ttft)
+            self.slo.observe_ttft(ttft)
 
     # -- decode ---------------------------------------------------------------
 
@@ -718,8 +852,16 @@ class ServeEngine:
         logits = logits.float().cpu().numpy()
         # Every lane's next token took this step's wall time: one sample
         # per lane.
-        observe.histogram("tdx.serve.token_latency_s").observe(
-            time.perf_counter() - t_step, n=len(slots))
+        dt = time.perf_counter() - t_step
+        n_lanes = len(slots)
+        self._tok_hist.observe(dt, n=n_lanes)
+        self.slo.observe_token_latency(dt, n=n_lanes)
+        if reqledger.enabled():
+            # One coalesced timeline event per decode stretch per lane;
+            # the gate is hoisted so the off path costs one check a tick.
+            for slot in slots:
+                reqledger.on_decode(self.active[slot].req.rid,
+                                    n_lanes=n_lanes, replica=self.slo.name)
         for slot in slots:
             lane = self.active.get(slot)
             if lane is None:  # pragma: no cover — nothing retires mid-loop
@@ -781,7 +923,7 @@ class ServeEngine:
         argmaxes plus one corrected (or bonus) token, then KV rollback
         retracts the rejected positions."""
         drafts = self._drafts_for(self._decodable())
-        if not any(drafts.values()):
+        if not any(drafts.values()) and not self._pending_verify_faults:
             # Nothing proposed (cold drafter): plain decode is the same
             # tick at width 1, without the rollback.
             self._plain_decode_step()
@@ -798,6 +940,12 @@ class ServeEngine:
         slots = self._decodable()
         if not slots:
             return
+        if self._pending_verify_faults:
+            # The deferred ``raise:verify`` chaos fault: after drafting
+            # and capacity growth, before the verify call; step()'s
+            # handler requeues lanes whose pages already cover draft
+            # positions, and frees them all.
+            chaos.execute(self._pending_verify_faults.pop(0))
         t_step = time.perf_counter()
         kb = self.scfg.spec_bucket_for(
             max(len(drafts.get(s, ())) for s in slots) or 1)
@@ -810,6 +958,8 @@ class ServeEngine:
         logits = self._program(f"verify-{kb}")(tokens, start, end, table)
         logits = logits.float().cpu().numpy()
         dt = time.perf_counter() - t_step
+        n_lanes = len(slots)
+        ledger_on = reqledger.enabled()
         total_emitted = 0
         for slot in slots:
             lane = self.active.get(slot)
@@ -838,6 +988,10 @@ class ServeEngine:
                     lane.spec_k = min(lane.spec_k + 1, self.scfg.spec_k)
                 elif accepted * 2 < len(d):
                     lane.spec_k = max(1, lane.spec_k - 1)
+            if ledger_on:
+                reqledger.on_spec(lane.req.rid, drafted=len(d),
+                                  accepted=accepted, emitted=len(emitted),
+                                  n_lanes=n_lanes, replica=self.slo.name)
             # Token-level rollback: the verify tick wrote K/V for every
             # position in [length, length + len(d)]; those past the
             # accepted prefix hold rejected drafts.
@@ -850,8 +1004,10 @@ class ServeEngine:
                     break  # retired (eos / budget); KV already freed
         self.spec_verify_ticks += 1
         if total_emitted:
-            observe.histogram("tdx.serve.token_latency_s").observe(
-                dt, n=total_emitted)
+            # Every token delivered this tick took the tick's wall time:
+            # one sample per token.
+            self._tok_hist.observe(dt, n=total_emitted)
+            self.slo.observe_token_latency(dt, n=total_emitted)
         self.decode_steps += 1
         observe.counter("tdx.serve.decode_steps").inc()
 
@@ -887,6 +1043,8 @@ class ServeEngine:
         self.results[lane.req.rid] = list(lane.generated)
         self.final_logits[lane.req.rid] = np.asarray(logits, np.float32)
         observe.counter("tdx.serve.requests_completed").inc()
+        reqledger.on_finish(lane.req.rid, replica=self.slo.name,
+                            tokens=len(lane.generated))
         if self.on_complete is not None:
             self.on_complete(lane.req.rid, list(lane.generated),
                              self.final_logits[lane.req.rid])
@@ -900,7 +1058,19 @@ class ServeEngine:
         self.preemptions += 1
         observe.counter("tdx.serve.preempted_requests").inc()
         observe.instant("serve.preempt", category="serve",
-                        rid=lane.req.rid, reason=reason, step=self._step_no)
+                        rid=lane.req.rid, reason=reason,
+                        step=self._step_no,
+                        flow=reqledger.flow_id(lane.req.rid))
+        reqledger.on_abort(lane.req.rid, replica=self.slo.name,
+                           reason=reason)
+        # Fault-driven preemptions already dumped at the step level with
+        # the whole batch's context; page-exhaustion preemptions dump
+        # here (throttled per reason inside the recorder).
+        if reason != "fault":
+            observe.flight_dump(
+                "serve_preempt", rid=lane.req.rid, preempt_reason=reason,
+                step=self._step_no, pages_in_use=self.kv.pages_in_use,
+            )
 
     # -- telemetry ----------------------------------------------------------
 
@@ -922,6 +1092,21 @@ class ServeEngine:
             observe.gauge("tdx.serve.spec_accepted").set(self.spec_accepted)
             observe.gauge("tdx.serve.spec_accept_rate").set(
                 round(self.spec_accepted / self.spec_drafted, 4))
+        if reqledger.enabled():
+            reqledger.occupancy_sample(
+                replica=self.slo.name,
+                decode_busy=len(self.active),
+                decode_lanes=self.scfg.max_batch,
+                kv_pages_free=self.kv.free_pages,
+                kv_pages_shared=self.kv.shared_pages,
+                prefix_hit_rate=self.prefix.hit_rate(),
+                queue_depth=len(self.waiting),
+            )
+        # Percentile publication sorts the windows: refresh every 32
+        # ticks and whenever the loop drains (the periodic exporter also
+        # republishes on its own clock).
+        if self._step_no % 32 == 0 or not (self.waiting or self.active):
+            self.slo.publish()
 
 
 # ---------------------------------------------------------------------------
@@ -944,6 +1129,8 @@ def spin_up_replica(
     seed: int = 0,
     param_dtype: Optional[torch.dtype] = None,
     device="cuda",
+    health_component: str = "serve",
+    slo_name: str = "serve",
 ) -> ServeEngine:
     """Bring up one serving replica on ``device``: ``deferred_init`` the
     model (fakes claiming ``device``, zero storage) -> materialize the
@@ -955,11 +1142,16 @@ def spin_up_replica(
     ``model`` is a preset name (family inferred from it) or a
     :class:`TransformerConfig` (then pass ``family``).  ``param_dtype``
     is the dtype the parameters are stored in (default: the config's);
-    compute runs in the config's ``dtype``."""
+    compute runs in the config's ``dtype``.
+
+    ``health_component`` walks ``spin_up`` -> ``warming`` -> ``serving``
+    in :mod:`..observe.health` (no router may send work before
+    ``serving``); ``slo_name`` names the engine's SLO windows."""
     dev = resolve_device(device)
     cfg, family = _resolve_model(model, family)
     if param_dtype is not None:
         cfg = cfg.replace(param_dtype=param_dtype)
+    observe.health.set_state(health_component, "spin_up")
     with observe.span("serve.spin_up", category="serve",
                       family=family) as sp:
         t0 = time.perf_counter()
@@ -967,12 +1159,14 @@ def spin_up_replica(
         torch.manual_seed(seed)
         net = materialize_module(fake, device=dev).eval()
         engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg,
-                             device=dev)
+                             device=dev, slo_name=slo_name)
         if dev.type == "cuda":
             build_kernel()
             torch.cuda.synchronize(dev)
         engine.bring_up_seconds = time.perf_counter() - t0
+        observe.health.set_state(health_component, "warming")
         engine.warmup()
+        observe.health.set_state(health_component, "serving")
         sp.set(seconds=round(engine.bring_up_seconds, 3),
                capture_s=round(engine.capture_seconds, 3))
     return engine

@@ -520,12 +520,21 @@ class ServeProgram:
             self._fn(*args)  # warm-up: real launches, counted as such
         before = (paged_attention.launches, paged_attention.merge_launches)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = self._fn(*args)
-        torch.cuda.current_stream(stream.device).wait_stream(stream)
-        self._launches = (paged_attention.launches - before[0],
-                          paged_attention.merge_launches - before[1])
-        paged_attention.launches, paged_attention.merge_launches = before
+        current = torch.cuda.current_stream(stream.device)
+        try:
+            # torch.cuda.graph ends the capture in its exit whatever the
+            # forward raised, and the outer scope restores the current
+            # stream even if ending it fails: no stream is ever left
+            # capturing, which would fail every later call on it.  A
+            # failed capture keeps no graph.
+            with torch.cuda.stream(current):
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    out = self._fn(*args)
+        finally:
+            current.wait_stream(stream)
+            self._launches = (paged_attention.launches - before[0],
+                              paged_attention.merge_launches - before[1])
+            paged_attention.launches, paged_attention.merge_launches = before
         self.graph, self._out = graph, out
 
     def __call__(self, *operands: np.ndarray) -> Optional[torch.Tensor]:
