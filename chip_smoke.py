@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one
 NVIDIA GPU: decoder LMs, Mixtral's mixture of experts, ViT and the T5
-encoder-decoder, the keyed, sharded materializer and the sharded train
-step (one-rank meshes).
+encoder-decoder, the keyed, sharded materializer, the sharded train
+step (one-rank meshes) and sequence parallelism (ranks spawned on the
+one card over gloo).
 
     python3 chip_smoke.py
 
@@ -227,7 +228,26 @@ user calls, and checks what comes out.  One JSON object per line:
     gradient), each path's error against the same step in f32 compute,
     then 5 label cross-entropy steps, step ms, images/s, MFU and peak
     device memory;
-24. the kernels line: per kernel its launches on the main path, its error
+24. sequence parallelism, as spawned gloo ranks sharing the card (NCCL
+    takes one rank a card; their times are not step times): ring-flash
+    attention over sp 4 at llama3-8b's attention geometry (B 1, S 16384,
+    H 32, KV 8, D 128, causal, bf16), each rank's output and dq, dk, dv
+    against its chunk of single-device ``flash_attention`` on the whole
+    sequence (normwise within 1e-2), f32 at S 2048 against an f64
+    evaluation of the plain version (1e-5 x max(1, |plain|)), the port's
+    roundings and the JAX package's against f64 in bf16 at S 2048, the
+    forward, dq and dk/dv launched r + 1 times on rank r (the future
+    blocks skipped), and the same call on a one-rank NCCL ``{sp: 1}``
+    mesh; with T5-11B's encoder bias (H 128, S 2048, f32 bias rows [128,
+    512, 2048] a rank, non-causal), d(bias) included, 4 launches of each
+    kernel a rank; Ulysses with the flash kernels inside at the llama
+    geometry; the train step at 2-layer llama3-8b width, bf16 parameters,
+    [1, 8192] over sp 2: 3 losses falling, each within 1e-3 of the same
+    model and sequence whole in one process, the launches per rank and
+    step, the C3 check against plain attention on a fresh sequence
+    (loss and grad norm 1e-3, each leaf 5e-2), and the step on a
+    one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh with its ms;
+25. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
@@ -236,7 +256,7 @@ user calls, and checks what comes out.  One JSON object per line:
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-25. last: ``{"ok": true, "device": {...}}``.
+26. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -321,7 +341,9 @@ from torchdistx_tpu_torch.parallel import (
     fsdp_plan,
     gspmd_2d_plan,
     make_mesh,
+    make_ring_flash_attention,
     make_train_step,
+    make_ulysses_attention,
     placements_for,
 )
 from torchdistx_tpu_torch.parallel.sharding import spec_str
@@ -4633,6 +4655,580 @@ def vs_reference(names, flash, plain, ref) -> dict:
             "flash_over_plain_worst": [ratio, f[ratio] / p[ratio]]}
 
 
+# ---------------------------------------------------------------------------
+# phases 24 to 28: sequence parallelism (ROADMAP A10)
+# ---------------------------------------------------------------------------
+
+# Several ranks on one card: NCCL refuses two ranks on one device, so the
+# sp rings run as spawned processes over gloo (the port's collectives
+# stage a gloo group's device tensors through host memory where gloo
+# does not take them).  Their times are not step times: none is kept.
+SP_RANKS = 4
+SP_TIMEOUT_S = 420
+# llama3-8b's attention geometry, 16384 tokens over sp 4 (4096 a rank).
+SP_ATTN = dict(B=1, S=16384, H=32, KV=8, D=128)
+# The same heads at 2048 tokens: f32 against an f64 evaluation, and bf16
+# with the JAX package's roundings against the port's.
+SP_SMALL = dict(B=1, S=2048, H=32, KV=8, D=128)
+# T5-11B's encoder self-attention: 128 heads of 128, an f32 bias, 2048
+# tokens over sp 4 (the bias is [128, 512, 2048] a rank).
+SP_BIAS = dict(B=1, S=2048, H=128, KV=128, D=128)
+# The sp train step: llama3-8b width, 2 layers, bf16 parameters, one
+# [1, 8192] sequence over sp 2.
+TRAIN_SP_CFG = TRAIN_CFG
+TRAIN_SP_RANKS, TRAIN_SP_SEQ, TRAIN_SP_STEPS = 2, 8192, 3
+TRAIN_SP_MESH = {"fsdp": 1, "sp": 1}
+C3_LLAMA_LEAF = 1.739e-2  # llama's worst leaf in train_bf16_full, PERF.md §6
+
+
+def _sp_rank(rank: int, world: int, tmp: str, func: str, args) -> None:
+    """Rank ``rank`` of a gloo group of ``world`` processes on the one
+    card: ``chip_smoke.<func>(rank, world, dev, *args)``, its JSON result
+    written to ``tmp``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world)
+    try:
+        out = globals()[func](rank, world, dev, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def sp_spawn(func: str, world: int, *args) -> list:
+    """``func`` in ``world`` spawned ranks on the one card (the kernels are
+    built already, so no rank builds); each rank's result, in rank order.
+    Raises with a rank's traceback, or past ``SP_TIMEOUT_S``."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_sp_rank, args=(world, tmp, func, args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + SP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{func}: ranks still running after "
+                                       f"{SP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        out = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                out.append(json.load(f))
+    return out
+
+
+def sp_inputs(seed: int, *, B, S, H, KV, D, dtype, dev):
+    """q, do [B, S, H, D] and k, v [B, S, KV, D] on the card from a torch
+    seed: the same values in every rank."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=g, device=dev).to(dtype)
+                   for h in (H, KV, KV, H))
+    return q, k, v, do
+
+
+def seq_chunk(x: torch.Tensor, rank: int, world: int, dim: int = 1):
+    s = x.shape[dim] // world
+    return x.narrow(dim, rank * s, s)
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def sp_grads(attn, q, k, v, do, rank, world, causal, bias=None) -> dict:
+    """This rank's output and gradients through ``attn`` on its chunks
+    (the bias: its rows), with the flash launches of that call alone."""
+    xs = [seq_chunk(x, rank, world).detach().clone().requires_grad_()
+          for x in (q, k, v)]
+    kw = {}
+    if bias is not None:
+        kw["bias"] = seq_chunk(bias, rank, world).detach().clone() \
+            .requires_grad_()
+    torch.cuda.synchronize()
+    reset_flash_launches()
+    out = attn(*xs, causal=causal, **kw)
+    out.backward(seq_chunk(do, rank, world))
+    torch.cuda.synchronize()
+    res = {"out": out.detach(), "dq": xs[0].grad, "dk": xs[1].grad,
+           "dv": xs[2].grad, "launches": dict(flash_launches)}
+    if bias is not None:
+        res["dbias"] = kw["bias"].grad
+    return res
+
+
+def whole_grads(q, k, v, do, causal, bias=None) -> dict:
+    """Single-device ``flash_attention`` on the whole sequence."""
+    from torchdistx_tpu_torch.ops import flash_attention
+
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    kw = {}
+    if bias is not None:
+        kw["bias"] = bias.detach().clone().requires_grad_()
+    out = flash_attention(*xs, causal=causal, **kw)
+    out.backward(do)
+    res = {"out": out.detach(), "dq": xs[0].grad, "dk": xs[1].grad,
+           "dv": xs[2].grad}
+    if bias is not None:
+        res["dbias"] = kw["bias"].grad
+    return res
+
+
+def vs_whole(got: dict, want: dict, rank: int, world: int, limit: float,
+             what: str) -> dict:
+    """Normwise error of each of this rank's results against its chunk of
+    the whole-sequence ones (the bias gradient: its rows); raises past
+    ``limit``."""
+    errs = {}
+    for key in ("out", "dq", "dk", "dv", "dbias"):
+        if key in got:
+            errs[key] = rel_norm(got[key], seq_chunk(want[key], rank, world))
+    bad = {k: e for k, e in errs.items() if not e <= limit}
+    if bad:
+        raise AssertionError(f"{what}, rank {rank}: {bad} > {limit} "
+                             f"(normwise)")
+    return errs
+
+
+def want_launches(rank: int, world: int, causal: bool, dbias: bool) -> dict:
+    """Each kernel's launches in one forward and backward on this rank:
+    the blocks at or before the diagonal under causal masking (the future
+    ones are skipped), all of them otherwise."""
+    n = rank + 1 if causal else world
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "flash_dbias": n if dbias else 0}
+
+
+def check_launches(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: flash launches {got} != {want}")
+
+
+def ring_reference_rounding(qh, kh, vh, do, ring, causal: bool):
+    """The ring with the JAX package's roundings (``ring_flash.py:91``,
+    ``:181``): each block's output rounded to q's dtype before the merge,
+    delta taken from the rounded output.  ``(out, dq, dk, dv)``."""
+    from torchdistx_tpu_torch.parallel.ring_flash import (
+        _merge,
+        ring_flash_backward,
+    )
+
+    o = torch.zeros(qh.shape, dtype=torch.float32, device=qh.device)
+    lse = torch.full(qh.shape[:2], -1e30, device=qh.device)
+    k_cur, v_cur = kh, vh
+    for i in range(ring.n):
+        src = (ring.idx - i) % ring.n
+        kind = ring.kind(src, causal)
+        if kind is not None:
+            out_i, lse_i = flash_forward(qh, k_cur, v_cur, causal=kind)
+            o, lse = _merge(o, lse, out_i.float(), lse_i)
+        if i < ring.n - 1:
+            k_cur, v_cur = ring.rotate(k_cur, v_cur)
+    out = o.to(qh.dtype)
+    delta = (do.float() * out.float()).sum(-1)
+    dq, dk, dv, _ = ring_flash_backward(qh, kh, vh, do, lse, delta, ring,
+                                        causal)
+    return out, dq, dk, dv
+
+
+def raw(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> the kernels' [B*H, S, D]."""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+
+def plain64(q, k, v, do, causal) -> dict:
+    """The plain versions in float64 on the whole sequence, at the raw
+    layout: out, dq, dk, dv."""
+    q, k, v, do = (raw(x).double() for x in (q, k, v, do))
+    out, lse = flash_forward_reference(q, k, v, causal)
+    delta = (do * out).sum(-1)
+    dq, dk, dv = flash_backward_reference(q, k, v, do, lse, delta, causal)
+    return {"out": out, "dq": dq, "dk": dk, "dv": dv}
+
+
+def f32_vs_f64(got: dict, want: dict, rank: int, world: int) -> dict:
+    """|ring - plain64| <= 1e-5 x max(1, |plain64|) on this rank's rows of
+    the raw layout; raises past it."""
+    errs = {}
+    for key in ("out", "dq", "dk", "dv"):
+        g = raw(got[key]).double()
+        w = seq_chunk(want[key], rank, world)
+        err = ((g - w).abs() / w.abs().clamp_min(1.0)).max().item()
+        errs[key] = err
+    bad = {k: e for k, e in errs.items() if not e <= ATOL[torch.float32]}
+    if bad:
+        raise AssertionError(f"f32 ring vs f64 plain, rank {rank}: {bad}")
+    return errs
+
+
+def sp_attention_rank(rank: int, world: int, dev) -> dict:
+    """The three sp attention phases on this rank (see
+    ``phase_ring_flash_sp``, ``phase_ring_flash_bias_sp`` and
+    ``phase_ulysses_sp``)."""
+    from torchdistx_tpu_torch.parallel.ring_flash import Ring
+
+    mesh = make_mesh({"sp": world}, device_type="cuda")
+    ring_fn = make_ring_flash_attention(mesh)
+    out = {}
+    t0 = time.perf_counter()
+    # ring_flash_sp: llama3-8b geometry, bf16, causal.
+    q, k, v, do = sp_inputs(70, dtype=torch.bfloat16, dev=dev, **SP_ATTN)
+    got = sp_grads(ring_fn, q, k, v, do, rank, world, True)
+    check_launches(got["launches"], want_launches(rank, world, True, False),
+                   "ring_flash_sp")
+    whole = whole_grads(q, k, v, do, True)
+    row = {"launches": got["launches"],
+           "err_vs_whole": vs_whole(got, whole, rank, world, BF16_NORM_RTOL,
+                                    "ring_flash_sp")}
+    # ulysses_sp: the same call through Ulysses with the flash kernels.
+    uly = make_ulysses_attention(mesh, inner_attn=make_flash_attention())
+    u_got = sp_grads(uly, q, k, v, do, rank, world, True)
+    check_launches(u_got["launches"], want_launches(0, world, True, False),
+                   "ulysses_sp")
+    out["ulysses_sp"] = {"launches": u_got["launches"],
+                         "err_vs_whole": vs_whole(u_got, whole, rank, world,
+                                                  BF16_NORM_RTOL,
+                                                  "ulysses_sp")}
+    del q, k, v, do, got, whole, u_got
+    # f32 at 2048 tokens against an f64 evaluation of the plain version.
+    q, k, v, do = sp_inputs(71, dtype=torch.float32, dev=dev, **SP_SMALL)
+    got = sp_grads(ring_fn, q, k, v, do, rank, world, True)
+    check_launches(got["launches"], want_launches(rank, world, True, False),
+                   "ring_flash_sp f32")
+    want = plain64(q, k, v, do, True)
+    row["f32_err_vs_f64"] = f32_vs_f64(got, want, rank, world)
+    # bf16 at 2048 tokens: the port's roundings (block outputs merged in
+    # f32, delta from the merged f32 output) and the JAX package's
+    # (each block's output rounded, delta from the rounded output),
+    # both against an f64 evaluation on the same bf16 inputs.
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    got = sp_grads(ring_fn, q, k, v, do, rank, world, True)
+    want = plain64(q, k, v, do, True)
+    chunks = [raw(seq_chunk(x, rank, world)) for x in (q, k, v, do)]
+    ref_out, ref_dq, ref_dk, ref_dv = ring_reference_rounding(
+        *chunks, Ring(mesh, "sp"), True)
+
+    def errs(out_, dq, dk, dv):
+        return {key: rel_norm(val.double(), seq_chunk(want[key], rank, world))
+                for key, val in (("out", out_), ("dq", dq), ("dk", dk),
+                                 ("dv", dv))}
+
+    # both returned in the inputs' dtype, as each package returns them
+    row["c2_bf16_vs_f64"] = {
+        "port": errs(*(raw(got[x]) for x in ("out", "dq", "dk", "dv"))),
+        "jax_rounding": errs(ref_out, *(g.to(torch.bfloat16)
+                                        for g in (ref_dq, ref_dk, ref_dv)))}
+    del q, k, v, do, got, want
+    row["seconds"] = time.perf_counter() - t0
+    out["ring_flash_sp"] = row
+    # ring_flash_bias_sp: T5-11B's encoder geometry with the f32 bias.
+    t0 = time.perf_counter()
+    q, k, v, do = sp_inputs(72, dtype=torch.bfloat16, dev=dev, **SP_BIAS)
+    S, H = SP_BIAS["S"], SP_BIAS["H"]
+    bias = torch.randn(H, S, S, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(73))
+    got = sp_grads(ring_fn, q, k, v, do, rank, world, False, bias=bias)
+    check_launches(got["launches"], want_launches(rank, world, False, True),
+                   "ring_flash_bias_sp")
+    whole = whole_grads(q, k, v, do, False, bias=bias)
+    out["ring_flash_bias_sp"] = {
+        "launches": got["launches"],
+        "bias_rows_bytes": seq_chunk(bias, rank, world).numel() * 4,
+        "err_vs_whole": vs_whole(got, whole, rank, world, BF16_NORM_RTOL,
+                                 "ring_flash_bias_sp"),
+        "seconds": time.perf_counter() - t0}
+    return out
+
+
+def spawn_sp_attention() -> list:
+    t0 = time.perf_counter()
+    ranks = sp_spawn("sp_attention_rank", SP_RANKS)
+    for r in ranks:
+        r["spawn_seconds"] = time.perf_counter() - t0
+    return ranks
+
+
+def one_rank_ring(dev) -> dict:
+    """``make_ring_flash_attention`` on a one-rank NCCL ``{sp: 1}`` mesh at
+    the llama3-8b geometry against ``flash_attention`` on the same
+    inputs: one block, no P2P."""
+    one_rank_group()
+    try:
+        mesh = make_mesh({"sp": 1}, device_type="cuda")
+        q, k, v, do = sp_inputs(70, dtype=torch.bfloat16, dev=dev, **SP_ATTN)
+        got = sp_grads(make_ring_flash_attention(mesh), q, k, v, do, 0, 1,
+                       True)
+        check_launches(got["launches"], want_launches(0, 1, True, False),
+                       "ring_flash_sp on {sp: 1}")
+        whole = whole_grads(q, k, v, do, True)
+        errs = vs_whole(got, whole, 0, 1, BF16_NORM_RTOL, "{sp: 1}")
+        bitwise = all(torch.equal(got[x], whole[x])
+                      for x in ("out", "dq", "dk", "dv"))
+    finally:
+        dist.destroy_process_group()
+    return {"mesh": {"sp": 1}, "backend": "nccl", "err_vs_whole": errs,
+            "bitwise": bitwise, "launches": got["launches"]}
+
+
+def phase_ring_flash_sp(ranks: list, dev) -> dict:
+    """Ring-flash attention over sp 4 spawned ranks at llama3-8b's
+    attention geometry (B 1, S 16384, H 32, KV 8, D 128, causal, bf16):
+    each rank's output and dq, dk, dv against its chunk of single-device
+    ``flash_attention`` on the whole sequence (normwise within
+    BF16_NORM_RTOL); f32 at S 2048 against an f64 evaluation of the plain
+    version (1e-5 x max(1, |plain|)); the port's roundings and the JAX
+    package's against f64 in bf16 at S 2048; the forward, dq and dk/dv
+    kernels launched r + 1 times on rank r (the future blocks skipped);
+    and the same call on a one-rank NCCL ``{sp: 1}`` mesh."""
+    rows = [r["ring_flash_sp"] for r in ranks]
+    row = {"phase": "ring_flash_sp", **SP_ATTN, "dtype": "bfloat16",
+           "causal": True, "sp": SP_RANKS,
+           "backend": "gloo (spawned ranks on one card)",
+           "limit": f"||ring - whole|| / ||whole|| <= {BF16_NORM_RTOL}; f32 "
+                    f"{ATOL[torch.float32]} x max(1, |f64 plain|)",
+           "launches_by_rank": [r["launches"] for r in rows],
+           "err_vs_whole_by_rank": [r["err_vs_whole"] for r in rows],
+           "f32_S2048_err_vs_f64_by_rank": [r["f32_err_vs_f64"]
+                                            for r in rows],
+           "bf16_S2048_vs_f64_by_rank": [r["c2_bf16_vs_f64"] for r in rows],
+           "seconds": max(r["seconds"] for r in rows),
+           "spawn_seconds": ranks[0]["spawn_seconds"],
+           "one_rank_nccl": one_rank_ring(dev)}
+    emit(row)
+    return row
+
+
+def phase_ring_flash_bias_sp(ranks: list) -> dict:
+    """Ring-flash attention with T5-11B's encoder bias over sp 4 spawned
+    ranks (H 128, D 128, S 2048, non-causal, bf16, f32 bias rows [128,
+    512, 2048] a rank): output, dq, dk, dv and d(bias) against single-
+    device flash with the bias on the whole sequence (normwise within
+    BF16_NORM_RTOL), every kernel launched 4 times a rank."""
+    rows = [r["ring_flash_bias_sp"] for r in ranks]
+    row = {"phase": "ring_flash_bias_sp", **SP_BIAS, "dtype": "bfloat16",
+           "bias": [SP_BIAS["H"], SP_BIAS["S"] // SP_RANKS, SP_BIAS["S"]],
+           "causal": False, "sp": SP_RANKS,
+           "limit": f"||ring - whole|| / ||whole|| <= {BF16_NORM_RTOL}",
+           "launches_by_rank": [r["launches"] for r in rows],
+           "err_vs_whole_by_rank": [r["err_vs_whole"] for r in rows],
+           "bias_rows_bytes": rows[0]["bias_rows_bytes"],
+           "seconds": max(r["seconds"] for r in rows)}
+    emit(row)
+    return row
+
+
+def phase_ulysses_sp(ranks: list) -> dict:
+    """Ulysses over sp 4 spawned ranks with the flash kernels inside, at
+    the ring_flash_sp geometry, against single-device flash (normwise
+    within BF16_NORM_RTOL): one launch of each kernel a rank."""
+    rows = [r["ulysses_sp"] for r in ranks]
+    row = {"phase": "ulysses_sp", **SP_ATTN, "dtype": "bfloat16",
+           "causal": True, "sp": SP_RANKS,
+           "inner_attn": "make_flash_attention()",
+           "limit": f"||ulysses - whole|| / ||whole|| <= {BF16_NORM_RTOL}",
+           "launches_by_rank": [r["launches"] for r in rows],
+           "err_vs_whole_by_rank": [r["err_vs_whole"] for r in rows]}
+    emit(row)
+    return row
+
+
+def train_sp_batches():
+    """The [1, 8192] training sequence and a fresh one for the C3 check."""
+    rng = np.random.RandomState(41)
+    return (rng.randint(0, TRAIN_SP_CFG.vocab_size, (1, TRAIN_SP_SEQ)),
+            rng.randint(0, TRAIN_SP_CFG.vocab_size, (1, TRAIN_SP_SEQ)))
+
+
+def grouped_plain_attention(q, k, v, *, causal=True, bias=None,
+                            segment_ids=None):
+    """``default_attention`` one kv head's group at a time: the same
+    function, with an [S, S] f32 logit plane per query head of one group
+    alive at once rather than of all 32."""
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([default_attention(q[:, :, j * G:(j + 1) * G],
+                                        k[:, :, j:j + 1], v[:, :, j:j + 1],
+                                        causal=causal)
+                      for j in range(k.shape[2])], 2)
+
+
+def sp_model(mesh, dev):
+    """2-layer llama3-8b width on the ring-flash attention over ``mesh``,
+    bound to its keyed bf16 values, and its train step."""
+    cfg = TRAIN_SP_CFG
+    model = deferred_init(make_llama, cfg,
+                          attn_fn=make_ring_flash_attention(mesh), device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, mesh=mesh, plan=decoder_lm_plan(cfg), seed=0,
+        param_dtype=torch.bfloat16))
+    init_state, train_step, shard_batch = make_train_step(
+        model, cfg, device=dev, mesh=mesh)
+    return model, init_state(model), train_step, shard_batch
+
+
+def train_sp_rank(rank: int, world: int, dev) -> dict:
+    """The sp train step on this rank: 3 steps on the [1, 8192] sequence
+    (each step's flash launches), then the C3 check: the gradients (summed
+    over sp) on a fresh sequence, and, on rank 0 once the other ranks
+    have freed the card, the same model's plain-attention gradients on
+    the whole fresh sequence."""
+    mesh = make_mesh({"sp": world}, device_type="cuda")
+    t0 = time.perf_counter()
+    model, state, train_step, shard_batch = sp_model(mesh, dev)
+    batch_np, fresh_np = train_sp_batches()
+    batch = shard_batch(batch_np)
+    losses, launches = [], []
+    for _ in range(TRAIN_SP_STEPS):
+        torch.cuda.synchronize()
+        reset_flash_launches()
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        launches.append(dict(flash_launches))
+    peak = torch.cuda.max_memory_allocated()
+    # The C3 check: an update at rate 0 leaves the gradients, summed over
+    # sp, at the trained weights.
+    state["opt"] = torch.optim.SGD(state["params"], lr=0.0)
+    torch.cuda.empty_cache()
+    state, metrics = train_step(state, shard_batch(fresh_np))
+    out = {"losses": losses, "launches": launches,
+           "max_memory_allocated_bytes": peak,
+           "fresh_loss": float(metrics["loss"]),
+           "fresh_grad_norm": float(metrics["grad_norm"])}
+    names = [n for n, _ in model.named_parameters()]
+    grads = ([p.grad.to("cpu") for p in state["params"]] if rank == 0
+             else None)
+    dist.barrier()
+    for p in state["params"]:
+        p.grad = None
+    if rank != 0:
+        del model, state
+        torch.cuda.empty_cache()
+    dist.barrier()  # the other ranks' memory is free
+    if rank == 0:
+        for a in attention_modules(model):
+            a.attn_fn = grouped_plain_attention
+        fresh = torch.as_tensor(fresh_np, device=dev)
+        loss = lm_cross_entropy(model(fresh), fresh)
+        loss.backward()
+        p_grads = [p.grad for p in state["params"]]
+        # in f32, as the step's global_grad_norm (bf16 gradients)
+        p_gn = math.sqrt(sum(float(g.float().square().sum())
+                             for g in p_grads))
+        out["vs_plain"] = vs_plain(
+            names, (out["fresh_loss"], loss.item()),
+            (out["fresh_grad_norm"], p_gn), grads, p_grads)
+        out["vs_plain"].pop("grad_by_leaf")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def whole_sequence_losses(dev) -> list:
+    """The same model and [1, 8192] sequence in this process, whole, on
+    the flash kernels (``mesh=None``, the same keyed values)."""
+    cfg = TRAIN_SP_CFG
+    model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, seed=0, param_dtype=torch.bfloat16))
+    init_state, train_step, shard_batch = make_train_step(model, cfg,
+                                                          device=dev)
+    state = init_state(model)
+    batch = shard_batch(train_sp_batches()[0])
+    losses = []
+    for _ in range(TRAIN_SP_STEPS):
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+    del model, state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def one_rank_train_sp(dev) -> dict:
+    """The sp step on a one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh: its
+    losses and step ms on this card."""
+    mesh = mesh_group_up(dev, TRAIN_SP_MESH)
+    try:
+        model, state, train_step, shard_batch = sp_model(mesh, dev)
+        batch = shard_batch(train_sp_batches()[0])
+        losses, step_s = [], []
+        reset_flash_launches()
+        for _ in range(TRAIN_SP_STEPS + 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t)
+        launches = dict(flash_launches)
+        del model, state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    step = float(np.median(step_s[1:]))
+    return {"mesh": TRAIN_SP_MESH, "backend": "nccl", "losses": losses,
+            "step_ms": step * 1e3, "step_ms_samples": [x * 1e3 for x in step_s],
+            "tokens_per_s": TRAIN_SP_SEQ / step, "flash_launches": launches}
+
+
+def phase_train_sp(dev) -> dict:
+    """The sp train step at llama3-8b width (2 layers, bf16 parameters,
+    one [1, 8192] sequence) over sp 2 spawned ranks: 3 losses, equal on
+    both ranks, falling, each within BF16_LOSS_RTOL of the same model and
+    sequence whole in one process on the flash kernels; the launches per
+    rank and step (2 layers x (r + 1) of each kernel); the C3 check (the
+    sp gradients on a fresh sequence against plain attention's on the
+    same weights: loss, gradient norm, worst leaf within
+    BF16_GRAD_RTOL), printed beside llama's 1.739e-2; then the step on a
+    one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh with its step ms."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    whole = whole_sequence_losses(dev)
+    ranks = sp_spawn("train_sp_rank", TRAIN_SP_RANKS)
+    spawn_s = time.perf_counter() - t0
+    losses = ranks[0]["losses"]
+    for r, out in enumerate(ranks):
+        if out["losses"] != losses:
+            raise AssertionError(f"rank {r} losses {out['losses']} != "
+                                 f"rank 0's {losses}")
+        want = {k: TRAIN_SP_CFG.n_layers * (r + 1) for k in FLASH_REPLACES}
+        want["flash_dbias"] = 0
+        for step in out["launches"]:
+            check_launches(step, want, f"train_sp rank {r}")
+    if not all(math.isfinite(x) for x in losses) \
+            or not all(x < losses[0] for x in losses[1:]):
+        raise AssertionError(f"train_sp losses do not fall: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, whole)]
+    if not max(rel) <= BF16_LOSS_RTOL:
+        raise AssertionError(f"train_sp losses {losses} vs whole sequence "
+                             f"{whole}: {rel} > {BF16_LOSS_RTOL}")
+    c3 = ranks[0]["vs_plain"]
+    one_rank = one_rank_train_sp(dev)
+    row = {"phase": "train_sp", "model": "llama3-8b",
+           "n_layers": TRAIN_SP_CFG.n_layers,
+           "dtype": "bfloat16 compute, bfloat16 parameters",
+           "batch": [1, TRAIN_SP_SEQ], "sp": TRAIN_SP_RANKS,
+           "backend": "gloo (spawned ranks on one card; no step times)",
+           "losses": losses, "whole_sequence_losses": whole,
+           "loss_rel_diff": rel, "loss_limit": BF16_LOSS_RTOL,
+           "launches_by_rank": [out["launches"][0] for out in ranks],
+           "max_memory_allocated_bytes_by_rank":
+               [out["max_memory_allocated_bytes"] for out in ranks],
+           "c3_vs_plain": c3,
+           "c3_worst_leaf": c3["grad_worst_leaf"],
+           "c3_llama_leaf_train_bf16_full": C3_LLAMA_LEAF,
+           "one_rank_nccl": one_rank,
+           "seconds": time.perf_counter() - t0, "spawn_seconds": spawn_s}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4693,6 +5289,13 @@ def main() -> int:
     run("mixtral_first_step_sharded", phase_mixtral_first_step_sharded)
     remat_row = run("remat_70b", phase_remat_70b, dev)
     vit_row = run("vit_train", phase_vit_train, dev)
+    sp_ranks = run("sp_attention_ranks", spawn_sp_attention)
+    if sp_ranks is not None:
+        ring_row = run("ring_flash_sp", phase_ring_flash_sp, sp_ranks, dev)
+        bias_sp_row = run("ring_flash_bias_sp", phase_ring_flash_bias_sp,
+                          sp_ranks)
+        run("ulysses_sp", phase_ulysses_sp, sp_ranks)
+    train_sp_row = run("train_sp", phase_train_sp, dev)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -4741,6 +5344,11 @@ def main() -> int:
             "launches_remat_70b_path":
                 remat_row["full"]["flash_launches_first_step"][name],
             "launches_vit_l16_path": vit_row["flash_launches"][name],
+            "launches_ring_sp_path": {
+                "ring_flash_sp_by_rank":
+                    [r[name] for r in ring_row["launches_by_rank"]],
+                "train_sp_by_rank_per_step":
+                    [r[name] for r in train_sp_row["launches_by_rank"]]},
             **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},
@@ -4760,6 +5368,9 @@ def main() -> int:
         "name": "flash_dbias", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": DBIAS_REPLACES,
         "launches": t5_row["flash_launches"]["flash_dbias"],
+        "launches_ring_sp_path": {
+            "ring_flash_bias_sp_by_rank":
+                [r["flash_dbias"] for r in bias_sp_row["launches_by_rank"]]},
         **numbers(t5_flash["kernels"]["flash_dbias"]),
         "library_backend": t5_flash["library_backend"], "shape": t5_shape,
     })

@@ -29,7 +29,7 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("kw,what", [
     (dict(pipeline=True), "A11"),
     (dict(attn_fn=default_attention), "A11"),
-    (dict(mesh={"fsdp": 1, "sp": 1}), "A10"),
+    (dict(mesh={"fsdp": 1, "sp": 1}), None),
     (dict(mesh={"ep": 1, "tp": 1}), None),
     (dict(mesh={"pp": 1, "fsdp": 1}), "A11"),
     (dict(mesh={"fsdp": 1}, moe=True), None),
@@ -40,7 +40,7 @@ def test_unported_options_raise(kw, what):
     """Options and mesh axes the port does not carry yet raise, naming
     their ROADMAP item (meshes: one gloo rank, an in-memory store); the
     ``ep`` axis and a MoE config (``what`` None), ported with ROADMAP A9,
-    are taken."""
+    and the ``sp`` axis, ported with A10, are taken."""
     import torch.distributed as dist
 
     from torchdistx_tpu_torch.parallel import make_mesh

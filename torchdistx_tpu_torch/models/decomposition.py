@@ -20,10 +20,23 @@ from torch import nn
 __all__ = [
     "DecodeDecomposition",
     "apply_final_norm",
+    "chunk_positions",
     "decoder_head_logits",
     "positional_token_embed",
     "token_embed",
 ]
+
+
+def chunk_positions(seq_shard, length: int, device=None) -> torch.Tensor:
+    """[length] absolute positions of a sequence chunk: ``seq_shard =
+    (index, count)`` says the input is chunk ``index`` of ``count`` equal
+    chunks of the sequence (a sequence-parallel rank's), so it starts at
+    ``index * length``."""
+    index, count = seq_shard
+    if not 0 <= index < count:
+        raise ValueError(f"seq_shard {tuple(seq_shard)}: index outside "
+                         f"[0, count)")
+    return torch.arange(index * length, (index + 1) * length, device=device)
 
 
 def token_embed(cfg, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

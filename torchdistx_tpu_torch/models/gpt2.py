@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -12,6 +12,7 @@ from .configs import TransformerConfig
 from .decomposition import (
     DecodeDecomposition,
     apply_final_norm,
+    chunk_positions,
     decoder_head_logits,
     positional_token_embed,
 )
@@ -43,14 +44,19 @@ class GPT2Model(nn.Module):
             param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, tokens: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None, *,
+                seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """tokens [B, S] int → logits [B, S, vocab] in f32.
 
         ``segment_ids`` [B, S] (optional) mask cross-document attention
-        for packed-sequence training."""
+        for packed-sequence training.  ``seq_shard = (index, count)``:
+        ``tokens`` is chunk ``index`` of ``count`` equal chunks of the
+        sequence, whose ``wpe`` rows are those of its absolute positions
+        (``LlamaModel.forward`` has the details)."""
         cfg = self.cfg
         S = tokens.shape[1]
-        pos = torch.arange(S, device=tokens.device)
+        pos = (torch.arange(S, device=tokens.device) if seq_shard is None
+               else chunk_positions(seq_shard, S, tokens.device))
         x = self.wte(tokens) + self.wpe(pos)[None]
         for blk in self.blocks:
             x = run_block(cfg, blk, x, segment_ids=segment_ids)

@@ -10,7 +10,7 @@ backward when ``cfg.remat == "full"``.  Also serves Mixtral: a config with
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +19,7 @@ from .configs import TransformerConfig
 from .decomposition import (
     DecodeDecomposition,
     apply_final_norm,
+    chunk_positions,
     decoder_head_logits,
     token_embed,
 )
@@ -49,15 +50,25 @@ class LlamaModel(nn.Module):
             param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, tokens: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None, *,
+                seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """tokens [B, S] int → logits [B, S, vocab] in f32.
 
         ``segment_ids`` [B, S] (optional) mask cross-document attention
-        for packed-sequence training."""
+        for packed-sequence training.  ``seq_shard = (index, count)``
+        says ``tokens`` is chunk ``index`` of ``count`` equal chunks of
+        the sequence (a sequence-parallel rank's, with the model's
+        ``attn_fn`` over that axis): rope rotates at the chunk's absolute
+        positions, gathered as :meth:`decode_decomposition` gathers them.
+        ``None``: the whole sequence, from position 0."""
         cfg = self.cfg
         x = self.embed(tokens)
-        angles = rope_frequencies(cfg.head_size, tokens.shape[1],
-                                  cfg.rope_theta, device=tokens.device)
+        if seq_shard is None:
+            angles = rope_frequencies(cfg.head_size, tokens.shape[1],
+                                      cfg.rope_theta, device=tokens.device)
+        else:
+            angles = self.decode_decomposition().angles_at(chunk_positions(
+                seq_shard, tokens.shape[1], tokens.device))
         for blk in self.blocks:
             x = run_block(cfg, blk, x, angles=angles,
                           segment_ids=segment_ids)

@@ -16,11 +16,14 @@ tables get their gradient from the d(bias) kernel.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .configs import EncDecConfig, TransformerConfig
+from .decomposition import chunk_positions
 from .layers import (
     MLP,
     AttnFn,
@@ -75,10 +78,19 @@ class RelativePositionBias(nn.Module):
     def reset_parameters(self) -> None:
         nn.init.normal_(self.embedding, std=1.0)
 
-    def forward(self, qlen: int, klen: int) -> torch.Tensor:
+    def forward(self, qlen: int, klen: int,
+                seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """[H, qlen, klen] f32; with ``seq_shard = (index, count)`` the
+        rows of query chunk ``index`` of ``count`` (``qlen`` and ``klen``
+        being the chunks' lengths) against every key column, [H, qlen,
+        count * klen], from their relative positions."""
         dev = self.embedding.device
-        ctx = torch.arange(qlen, device=dev)[:, None]
-        mem = torch.arange(klen, device=dev)[None, :]
+        if seq_shard is None:
+            ctx = torch.arange(qlen, device=dev)[:, None]
+            mem = torch.arange(klen, device=dev)[None, :]
+        else:
+            ctx = chunk_positions(seq_shard, qlen, dev)[:, None]
+            mem = torch.arange(seq_shard[1] * klen, device=dev)[None, :]
         buckets = _relative_buckets(
             mem - ctx, bidirectional=self.bidirectional,
             num_buckets=self.num_buckets, max_distance=self.max_distance)
@@ -143,26 +155,36 @@ class T5Model(nn.Module):
             param_dtype=dec.param_dtype, device=device)
 
     def forward(self, enc_tokens: torch.Tensor, dec_tokens: torch.Tensor,
-                segment_ids=None) -> torch.Tensor:
+                segment_ids=None, *,
+                seq_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """enc_tokens [B, S_enc], dec_tokens [B, S_dec] → logits [B, S_dec,
         vocab] in f32.
 
         ``segment_ids`` (optional) is an ``(enc_seg [B, S_enc], dec_seg
         [B, S_dec])`` pair for packed batches: encoder self-attention masks
         by enc ids, decoder self-attention by dec ids, and cross-attention
-        pairs each decoder position with its own document's encoder span."""
+        pairs each decoder position with its own document's encoder span.
+
+        ``seq_shard = (index, count)`` says both token tensors (and the
+        segment ids) are chunk ``index`` of ``count`` equal chunks of their
+        sequences (a sequence-parallel rank's, with the model's ``attn_fn``
+        over that axis): each stack's bias is then its chunk's rows against
+        every key column, [H, s, count * s], computed from the relative
+        positions.  ``None``: the whole sequences."""
         cfg = self.cfg
         enc_segs = dec_segs = None
         if segment_ids is not None:
             enc_segs, dec_segs = segment_ids
         e = self.shared_embed(enc_tokens)
-        ebias = self.enc_relpos(enc_tokens.shape[1], enc_tokens.shape[1])
+        ebias = self.enc_relpos(enc_tokens.shape[1], enc_tokens.shape[1],
+                                seq_shard)
         for blk in self.enc_blocks:
             e = blk(e, ebias, enc_segs)
         e = self.enc_norm(e)
 
         d = self.shared_embed(dec_tokens)
-        dbias = self.dec_relpos(dec_tokens.shape[1], dec_tokens.shape[1])
+        dbias = self.dec_relpos(dec_tokens.shape[1], dec_tokens.shape[1],
+                                seq_shard)
         for blk in self.dec_blocks:
             d = blk(d, e, dbias, dec_segs, enc_segs)
         d = self.dec_norm(d)

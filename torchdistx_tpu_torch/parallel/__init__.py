@@ -1,11 +1,14 @@
 """Training, meshes and sharding plans: the loss and the train step (on
-one device, or over a mesh with tensor parallelism and FSDP2:
-:mod:`.spmd`), ``make_mesh`` over ``torch.distributed``'s
-``DeviceMesh``, and the name → PartitionSpec plans the materializer
-places shards by."""
+one device, or over a mesh with tensor parallelism, FSDP2 and sequence
+parallelism: :mod:`.spmd`), ``make_mesh`` over ``torch.distributed``'s
+``DeviceMesh``, the name → PartitionSpec plans the materializer places
+shards by, and the sequence-parallel attentions (ring-flash, the dense
+ring and Ulysses) over a mesh's ``sp`` axis."""
 
 from .mesh import DEFAULT_AXIS_ORDER, VirtualMesh, make_mesh, single_device_mesh
 from .pipeline import valid_next_token_mask
+from .ring_attention import make_ring_attention
+from .ring_flash import make_ring_flash_attention, ring_flash_attention
 from .sharding import (
     CallableShardingPlan,
     PartitionSpec,
@@ -19,6 +22,7 @@ from .sharding import (
     spec_str,
 )
 from .train import lm_cross_entropy, make_train_step
+from .ulysses import make_ulysses_attention
 
 __all__ = [
     "DEFAULT_AXIS_ORDER",
@@ -31,10 +35,14 @@ __all__ = [
     "lm_cross_entropy",
     "local_shard",
     "make_mesh",
+    "make_ring_attention",
+    "make_ring_flash_attention",
     "make_train_step",
+    "make_ulysses_attention",
     "parse_spec_str",
     "placements_for",
     "plan_digest",
+    "ring_flash_attention",
     "single_device_mesh",
     "spec_str",
     "valid_next_token_mask",

@@ -505,6 +505,16 @@ def reduce_replicated_grads(sharded: ShardedModule) -> None:
             offset += g.numel()
 
 
+def sum_grads(params: Iterable[nn.Parameter], group) -> None:
+    """Sum every parameter's local gradient over ``group`` in place (the
+    ranks of a sequence-parallel axis each hold a part of it)."""
+    from .collectives import all_reduce_
+
+    for p in params:
+        if p.grad is not None:
+            all_reduce_(_local(p.grad), group)
+
+
 def global_grad_norm(params: Iterable[nn.Parameter], mesh,
                      split: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The L2 norm of every gradient, each counted once however it is

@@ -7,9 +7,12 @@ loss, ``backward`` (through the flash kernels' backward when the model's
 an AdamW update in place.  Over a ``DeviceMesh`` the module takes the
 keyed values' layout with tensor parallelism, FSDP2 and expert
 parallelism (:mod:`.spmd`), the batch is split over the data axes, and
-the metrics are reduced to the global ones on every rank.  A
-mixture-of-experts model adds its router's load-balancing loss to the
-cross-entropy.  The pipeline schedules (A11), sequence parallelism (A10)
+the metrics are reduced to the global ones on every rank.  An ``sp``
+axis splits the sequence: each rank runs the model on its chunk (with a
+sequence-parallel ``attn_fn`` such as ``make_ring_flash_attention``),
+its loss is its share of the global mean and the gradients are summed
+over ``sp``.  A mixture-of-experts model adds its router's
+load-balancing loss to the cross-entropy.  The pipeline schedules (A11)
 and ``train_elastic`` (A12) are not ported yet and raise.  With telemetry on
 (:func:`..observe.enabled`) the step is wrapped by
 :func:`_instrument_step`.
@@ -105,8 +108,7 @@ def train_step_flops(model: nn.Module, cfg: TransformerConfig, batch: int,
 
 
 # Mesh axes the port does not carry yet, and the ROADMAP item of each.
-_UNPORTED_AXES = {"sp": "sequence parallelism: ROADMAP A10",
-                  "pp": "pipeline parallelism: ROADMAP A11"}
+_UNPORTED_AXES = {"pp": "pipeline parallelism: ROADMAP A11"}
 
 
 def make_train_step(
@@ -136,8 +138,8 @@ def make_train_step(
       asynchronous until a value is read;
     * ``shard_batch(tokens)`` puts a [B, S] batch on the device.
 
-    With ``mesh`` (a ``DeviceMesh`` of ``dp``, ``fsdp``, ``ep`` and ``tp``
-    axes), ``init_state`` takes a module bound to the keyed values
+    With ``mesh`` (a ``DeviceMesh`` of ``dp``, ``fsdp``, ``ep``, ``sp``
+    and ``tp`` axes), ``init_state`` takes a module bound to the keyed values
     ``materialize_module_cuda(mesh=mesh, plan=...)`` gave and lays it out
     as they are placed, with tensor parallelism, FSDP2 and the experts
     split over ``ep`` and ``tp`` (:func:`.spmd.shard_module`);
@@ -145,6 +147,17 @@ def make_train_step(
     ``batch_axes`` (replicated over ``ep`` and ``tp``); the MoE routing
     is global over the whole batch, as on one device; the metrics are the
     global ones, equal on every rank.  The device is the mesh's.
+
+    With an ``sp`` axis, ``shard_batch`` also cuts each row into ``sp``
+    equal chunks and gives this rank its chunk plus the next position's
+    token ([B_local, S/sp + 1]; -1 past the sequence's end), so a
+    chunk's last position is scored against the next chunk's first
+    token; the same for ``segment_ids``.  The model runs on the chunk
+    with ``seq_shard=(index, sp)`` (its positions) and must be built with
+    a sequence-parallel ``attn_fn`` over the mesh (``sp`` > 1); the loss
+    is the sum of every rank's valid targets over their global count and
+    the gradients are summed over ``sp`` (the parameters are replicated
+    there).  A mixture of experts is not split over ``sp``.
 
     A model's attention is set by its constructor (``make_llama(cfg,
     attn_fn=...)``).  ``attn_fn`` here is the JAX signature's attention
@@ -158,18 +171,19 @@ def make_train_step(
         raise NotImplementedError(
             "pipeline schedules are not ported yet: ROADMAP A11")
     make_opt = optimizer or default_optimizer
+    seq = None
     if mesh is None:
         dev, n_batch = resolve_device(device), 1
         init_state, train_step, shard_batch = _single_device(dev, make_opt)
     else:
-        dev, n_batch, (init_state, train_step, shard_batch) = _over_mesh(
-            mesh, device, batch_axes, make_opt)
+        dev, n_batch, seq, (init_state, train_step, shard_batch) = \
+            _over_mesh(mesh, device, batch_axes, make_opt)
     if observe.enabled():
         # Decided at build time: with telemetry off the raw step is
         # returned and the loop stays asynchronous.
         train_step = _instrument_step(train_step, cfg, dev,
                                       1 if mesh is None else mesh.size(),
-                                      n_batch)
+                                      n_batch, seq)
     return init_state, train_step, shard_batch
 
 
@@ -210,8 +224,7 @@ def _single_device(dev: torch.device, make_opt):
 
 def _over_mesh(mesh, device, batch_axes, make_opt):
     """The mesh path of :func:`make_train_step`."""
-    import torch.distributed as dist
-
+    from .collectives import all_reduce_
     from .sharding import mesh_shape
     from .spmd import (
         data_axes,
@@ -219,6 +232,7 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         global_grad_norm,
         reduce_replicated_grads,
         shard_module,
+        sum_grads,
     )
 
     names = tuple(mesh.mesh_dim_names or ())
@@ -226,9 +240,10 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         if axis in names:
             raise NotImplementedError(
                 f"mesh axis {axis!r}: {item} (not ported yet)")
-    if not names or any(a not in ("dp", "fsdp", "ep", "tp") for a in names):
+    if not names or any(a not in ("dp", "fsdp", "ep", "sp", "tp")
+                        for a in names):
         raise ValueError(f"make_train_step takes a mesh of named dp, fsdp, "
-                         f"ep and tp axes, not {mesh}")
+                         f"ep, sp and tp axes, not {mesh}")
     if torch.device(device).type != mesh.device_type:
         raise ValueError(f"device {device!r} differs from the mesh's "
                          f"device type {mesh.device_type!r}")
@@ -236,7 +251,10 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
            if mesh.device_type == "cuda" else torch.device(mesh.device_type))
     shape = mesh_shape(mesh)
     baxes = data_axes(mesh, batch_axes)
-    if not baxes and mesh.size() > 1:
+    seq = "sp" in names
+    n_sp = shape.get("sp", 1)
+    sp_idx = mesh.get_local_rank("sp") if seq else 0
+    if not baxes and mesh.size() // n_sp > 1:
         warnings.warn(
             f"make_train_step: none of batch_axes={tuple(batch_axes)} is on "
             f"the mesh (axes: {names}); the batch will be REPLICATED on "
@@ -246,13 +264,18 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
     for a in baxes:
         n_batch *= shape[a]
     batch_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
+    sp_group = mesh.get_group("sp") if n_sp > 1 else None
+    # The groups a metric sums over: the data shards and the chunks.
+    sum_groups = batch_groups + ([sp_group] if sp_group else [])
 
     def all_sum(t: torch.Tensor) -> torch.Tensor:
-        for group in batch_groups:
-            dist.all_reduce(t, group=group)
+        for group in sum_groups:
+            all_reduce_(t, group)
         return t
 
     def init_state(module: nn.Module) -> dict:
+        if seq:
+            _check_seq_parallel(module, n_sp)
         sharded = shard_module(module, mesh, batch_axes)
         named = list(module.named_parameters())
         params = [p for _, p in named]
@@ -268,15 +291,19 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
                    segment_ids: Optional[torch.Tensor] = None):
         module, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
-        args = (tokens,) if segment_ids is None else (tokens, segment_ids)
-        nll = _token_nll(module(*args), tokens)
-        if segment_ids is None:
-            total = float(nll.numel() * n_batch)
-            nll_sum = nll.sum()
+        if seq:
+            nll_sum, total = _chunk_nll(module, tokens, segment_ids,
+                                        (sp_idx, n_sp), all_sum)
         else:
-            valid = valid_next_token_mask(segment_ids)
-            nll_sum = (nll * valid).sum()
-            total = all_sum(valid.sum()).clamp_min(1.0)
+            args = (tokens,) if segment_ids is None else (tokens, segment_ids)
+            nll = _token_nll(module(*args), tokens)
+            if segment_ids is None:
+                total = float(nll.numel() * n_batch)
+                nll_sum = nll.sum()
+            else:
+                valid = valid_next_token_mask(segment_ids)
+                nll_sum = (nll * valid).sum()
+                total = all_sum(valid.sum()).clamp_min(1.0)
         # FSDP2 and reduce_replicated_grads average the gradients over
         # the data ranks; this rank's share of the global mean, times the
         # number of batch shards, averages to the global mean's gradient.
@@ -286,6 +313,9 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
         aux = router_aux_loss(module)
         (nll_sum * (n_batch / total) + aux).backward()
         reduce_replicated_grads(state["sharded"])
+        if sp_group is not None:
+            # Each chunk's backward gives its share of every gradient.
+            sum_grads(state["params"], sp_group)
         grad_norm = global_grad_norm(state["params"], mesh, state["split"])
         opt.step()
         state["step"] += 1
@@ -301,9 +331,71 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
                              f"over {baxes} ({n_batch} shards)")
         idx = data_index(mesh, baxes)
         rows = t.shape[0] // n_batch
-        return t[idx * rows:(idx + 1) * rows].to(dev, torch.long)
+        t = t[idx * rows:(idx + 1) * rows]
+        if seq:
+            t = _chunk_with_next(t, sp_idx, n_sp)
+        return t.to(dev, torch.long)
 
-    return dev, n_batch, (init_state, train_step, shard_batch)
+    def sp_sum(x: float) -> float:
+        t = torch.tensor([x], dtype=torch.float64, device=dev)
+        return float(all_reduce_(t, sp_group)) if sp_group else x
+
+    return (dev, n_batch, (n_sp, sp_sum) if seq else None,
+            (init_state, train_step, shard_batch))
+
+
+def _chunk_with_next(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """Chunk ``index`` of ``count`` of each row of ``t`` [B, S], followed by
+    the next position's entry (-1 past the row's end): [B, S/count + 1]."""
+    B, S = t.shape
+    if S % count:
+        raise ValueError(f"sequence of {S} tokens does not split into "
+                         f"{count} equal chunks over sp")
+    s = S // count
+    nxt = t[:, (index + 1) * s:(index + 1) * s + 1]
+    if nxt.shape[1] == 0:
+        nxt = torch.full((B, 1), -1, dtype=t.dtype)
+    return torch.cat([t[:, index * s:(index + 1) * s], nxt], 1)
+
+
+def _chunk_nll(module: nn.Module, tokens: torch.Tensor, segment_ids,
+               seq_shard, all_sum):
+    """``(sum of this chunk's valid next-token NLLs, the global count of
+    valid targets)`` for ``shard_batch``'s [B, s + 1] chunks: the model
+    runs on the first s columns at the chunk's positions; a target is
+    valid where it exists (>= 0) and, with packed ids, stays inside its
+    document (:func:`valid_next_token_mask` on the chunk and the next
+    id)."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    args = (inputs,) if segment_ids is None else (inputs, segment_ids[:, :-1])
+    logits = module(*args, seq_shard=seq_shard)
+    V = logits.shape[-1]
+    nll = F.cross_entropy(logits.float().reshape(-1, V),
+                          targets.clamp_min(0).reshape(-1),
+                          reduction="none").view(targets.shape)
+    valid = (targets >= 0).float()
+    if segment_ids is not None:
+        valid = valid * valid_next_token_mask(segment_ids)
+    return (nll * valid).sum(), all_sum(valid.sum()).clamp_min(1.0)
+
+
+def _check_seq_parallel(module: nn.Module, n_sp: int) -> None:
+    """An ``sp`` mesh needs every attention layer to attend across the
+    chunks and no expert routing split over them."""
+    from ..models.layers import Attention, CrossAttention, MoEMLP
+
+    for name, m in module.named_modules():
+        if isinstance(m, MoEMLP):
+            raise NotImplementedError(
+                f"`{name}`: a mixture of experts over an sp mesh would route "
+                f"each chunk apart; not ported")
+        if n_sp > 1 and isinstance(m, (Attention, CrossAttention)) \
+                and getattr(m.attn_fn, "seq_parallel", None) is None:
+            raise ValueError(
+                f"`{name}`: the mesh splits the sequence over sp ({n_sp}), "
+                f"but this layer's attn_fn sees only its chunk; build the "
+                f"model with make_ring_flash_attention(mesh) (or the ring or "
+                f"Ulysses attention)")
 
 
 # Batch shapes whose FLOPs are counted; past this, new shapes use the
@@ -312,7 +404,7 @@ _COUNTED_SHAPES_MAX = 8
 
 
 def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
-                     n_ranks: int, n_batch: int):
+                     n_ranks: int, n_batch: int, seq=None):
     """Per-step telemetry around a train step: a ``train.step`` span plus
     ``tdx.train.tokens_per_s`` and MFU gauges, via
     :class:`..observe.StepMeter`.  Each step synchronizes the device so
@@ -329,7 +421,12 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
     The peak is the card's peak times the ranks, and the FLOPs are this
     rank's count times the ranks (each rank counts its own shards;
     ``n_batch`` data shards carry the global batch): whole-mesh work over
-    the whole mesh's peak.  On a card whose peak is unknown (and on the
+    the whole mesh's peak.  ``seq = (n_sp, sp_sum)`` on a mesh with an
+    ``sp`` axis: the batch holds this rank's chunks plus the next token
+    (``shard_batch``), so the tokens are ``n_sp`` chunks' worth, and the
+    chunks' counts differ (causal attention sees more keys late in the
+    sequence), so they are summed over ``sp`` (``sp_sum``) before the
+    other axes multiply them.  On a card whose peak is unknown (and on the
     CPU) MFU is left out."""
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     chip_peak = observe.peak_tflops_for(kind, cfg.dtype)
@@ -346,7 +443,10 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
         nonlocal n_params
         if n_params is None:
             n_params = sum(p.numel() for p in state["params"])
-        ntok = tokens.numel() * n_batch
+        if seq is None:
+            ntok = tokens.numel() * n_batch
+        else:
+            ntok = tokens.shape[0] * (tokens.shape[1] - 1) * seq[0] * n_batch
         meter.tokens_per_step = ntok
         shape = (tuple(tokens.shape), str(tokens.dtype), segment_ids is None)
         count = shape not in counted and len(counted) < _COUNTED_SHAPES_MAX
@@ -357,7 +457,11 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
         if count:
             out, costs = observe.costmodel.program_costs(
                 step_fn, state, tokens, segment_ids)
-            flops = counted[shape] = costs["flops"] * n_ranks
+            if seq is None:
+                flops = costs["flops"] * n_ranks
+            else:
+                flops = seq[1](costs["flops"]) * n_ranks / seq[0]
+            counted[shape] = flops
             observe.costmodel.note_program_memory(costs)
             meter.flops_per_step, meter.flops_source = flops, "counted"
             if meter._span is not None:
