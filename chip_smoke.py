@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one
 NVIDIA GPU: decoder LMs, Mixtral's mixture of experts, ViT and the T5
 encoder-decoder, the keyed, sharded materializer, the sharded train
-step (one-rank meshes) and sequence parallelism (ranks spawned on the
-one card over gloo).
+step (one-rank meshes), sequence and pipeline parallelism (ranks
+spawned on the one card over gloo).
 
     python3 chip_smoke.py
 
@@ -247,16 +247,31 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the C3 check against plain attention on a fresh sequence
     (loss and grad norm 1e-3, each leaf 5e-2), and the step on a
     one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh with its ms;
-25. the kernels line: per kernel its launches on the main path, its error
+25. pipeline parallelism (``train_pp``), the stages as spawned gloo
+    ranks sharing the card: 4-layer llama3-8b width, bf16 parameters, [8,
+    2048] in 4 microbatches over pp 2, each rank materializing only its
+    own layers (device growth at most their bytes, the replicated ones'
+    and twice the largest entry); GPipe, 1F1B and interleaved 1F1B (2
+    chunks of one layer a rank), 3 steps each: losses equal on both
+    ranks, falling, within 1e-3 of the same model whole in one process
+    with the same 4-microbatch accumulation, 2 layers x 4 microbatches of
+    each flash kernel per rank and step (none of d(bias) or paged
+    decode), 1F1B's peak device memory below GPipe's on stage 0; the C3
+    check on a fresh batch (1F1B against plain attention: loss and grad
+    norm 1e-3, each leaf 5e-2); gpt2-125m f32 (tied head) under 1F1B
+    against ``mesh=None`` (losses 1e-5, each leaf 1e-4 normwise); then
+    each schedule on a one-rank NCCL ``{pp: 1}`` mesh (2 layers) with its
+    step ms beside ``train_bf16_full``'s;
+26. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
-    Mixtral, 70B-remat and ViT paths; paged decode at the serving
+    Mixtral, 70B-remat, ViT, sp and pp paths; paged decode at the serving
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-26. last: ``{"ok": true, "device": {...}}``.
+27. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -344,7 +359,9 @@ from torchdistx_tpu_torch.parallel import (
     make_ring_flash_attention,
     make_train_step,
     make_ulysses_attention,
+    pipeline_plan_overrides,
     placements_for,
+    stage_layers,
 )
 from torchdistx_tpu_torch.parallel.sharding import spec_str
 from torchdistx_tpu_torch.parallel.train import (
@@ -5229,6 +5246,384 @@ def phase_train_sp(dev) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism: stages as spawned ranks on the one card
+# ---------------------------------------------------------------------------
+
+# The pipelined train step: llama3-8b width, depth cut to 4 layers, bf16
+# parameters, a [8, 2048] batch in 4 microbatches over pp 2 (two layers,
+# or two chunks of one layer, a stage).
+TRAIN_PP_CFG = LLAMA3_8B.replace(n_layers=4)
+TRAIN_PP_RANKS, TRAIN_PP_STEPS = 2, 3
+TRAIN_PP_BATCH, TRAIN_PP_SEQ, TRAIN_PP_MB, TRAIN_PP_CHUNKS = 8, 2048, 4, 2
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+# The f32 case: gpt2-125m (tied head) under 1F1B against mesh=None.
+PP_F32_CFG = PRESETS["gpt2-125m"].replace(dtype=torch.float32)
+PP_F32_BATCH, PP_F32_SEQ = 8, 512
+PP_F32_LOSS_RTOL = 1e-5
+# The one-rank NCCL {pp: 1} mesh: 2 layers, timed.
+PP_ONE_RANK_STEPS = 5
+
+
+def train_pp_batches():
+    """The [8, 2048] training batch and a fresh one for the C3 check."""
+    rng = np.random.RandomState(61)
+    shape = (TRAIN_PP_BATCH, TRAIN_PP_SEQ)
+    return (rng.randint(0, TRAIN_PP_CFG.vocab_size, shape),
+            rng.randint(0, TRAIN_PP_CFG.vocab_size, shape))
+
+
+def pp_f32_batches() -> list:
+    rng = np.random.RandomState(62)
+    return [rng.randint(0, PP_F32_CFG.vocab_size, (PP_F32_BATCH, PP_F32_SEQ))
+            for _ in range(TRAIN_PP_STEPS)]
+
+
+def pp_stage_model(make, cfg, mesh, dev, sched, param_dtype):
+    """This stage's keyed values of ``make(cfg)`` (the other stages' layers
+    stay fake) and what materializing them cost the card: the bytes kept,
+    the resident and peak growth, and the largest entry at its recorded
+    dtype."""
+    model = deferred_init(make, cfg, device=dev)
+    fakes = named_fake_tensors(model)
+    plan = pipeline_plan_overrides(
+        decoder_lm_plan(cfg), cfg.n_layers,
+        n_chunks=TRAIN_PP_CHUNKS if sched == "interleaved" else 1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    values = materialize_module_cuda(model, mesh=mesh, plan=plan, seed=0,
+                                     param_dtype=param_dtype)
+    torch.cuda.synchronize()
+    stage = mesh.get_local_rank("pp")
+    own = {i for ls in stage_layers(cfg.n_layers, mesh.size(), stage,
+                                    plan.n_chunks) for i in ls}
+    want = {n for n in fakes if plan.stage_of(n, mesh) in (None, stage)}
+    if set(values) != want or not all(
+            int(n.split(".")[1]) in own for n in values
+            if n.startswith("blocks.")):
+        raise AssertionError(f"stage {stage} materialized "
+                             f"{sorted(set(values) ^ want)[:4]} wrongly")
+    kept = sum(v.numel() * v.element_size() for v in values.values())
+    largest = max(f.numel() * f.element_size() for f in fakes.values())
+    growth = torch.cuda.memory_allocated() - before
+    peak = torch.cuda.max_memory_allocated() - before
+    limit = kept + 2 * largest
+    if not (growth <= limit and peak <= limit):
+        raise AssertionError(f"stage {stage}: device growth {growth} (peak "
+                             f"{peak}) > {limit}")
+    bind_values(model, values, strict=False)
+    return model, {"kept_bytes": kept, "device_growth_bytes": growth,
+                   "device_peak_growth_bytes": peak,
+                   "largest_entry_bytes": largest, "limit_bytes": limit,
+                   "layers": sorted(own)}
+
+
+def pp_step(model, cfg, mesh, dev, sched, attn_fn, optimizer=None):
+    init_state, train_step, shard_batch = make_train_step(
+        model, cfg, device=dev, mesh=mesh, pipeline=True,
+        pipeline_schedule=sched, n_microbatches=TRAIN_PP_MB,
+        n_chunks=TRAIN_PP_CHUNKS, attn_fn=attn_fn, optimizer=optimizer)
+    return init_state(model), train_step, shard_batch
+
+
+def pp_vs_plain(model, mesh, dev, fresh_np) -> dict:
+    """The C3 check on a stage: the pipelined 1F1B gradients on a fresh
+    batch with the flash kernels and with plain attention, on the same
+    trained weights (SGD at rate 0 leaves them).  Each rank holds its own
+    layers' and the replicated leaves; the loss and norm are global."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    runs = {}
+    for name, attn in (("flash", make_flash_attention()),
+                       ("plain", grouped_plain_attention)):
+        state, train_step, shard_batch = pp_step(
+            model, TRAIN_PP_CFG, mesh, dev, "1f1b", attn,
+            optimizer=lambda ps: torch.optim.SGD(ps, lr=0.0))
+        state, metrics = train_step(state, shard_batch(fresh_np))
+        runs[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                      [p.grad.to("cpu") for p in state["params"]])
+        leaves = [names[id(p)] for p in state["params"]]
+        for p in state["params"]:
+            p.grad = None
+        del state
+        torch.cuda.empty_cache()
+    (lf, gf, flash), (lp, gp, plain) = runs["flash"], runs["plain"]
+    row = vs_plain(leaves, (lf, lp), (gf, gp), flash, plain)
+    row.pop("grad_by_leaf")
+    return row
+
+
+def pp_f32_rank(mesh, dev, tmp) -> dict:
+    """gpt2-125m (f32, tied head) under 1F1B over pp from this stage's
+    keyed values: each step's loss against ``mesh=None``'s and each of
+    this stage's gradient leaves (the replicated ones summed over the
+    stages) normwise; the key biases (zero gradient in exact arithmetic)
+    held against their key weights' gradients instead."""
+    ref = torch.load(f"{tmp}/gpt2_ref.pt")
+    model, mat = pp_stage_model(make_gpt2, PP_F32_CFG, mesh, dev, "1f1b",
+                                None)
+    state, train_step, shard_batch = pp_step(
+        model, PP_F32_CFG, mesh, dev, "1f1b", make_flash_attention())
+    names = {id(p): n for n, p in model.named_parameters()}
+    losses, worst, zero_rel = [], [], 0.0
+    for i, b in enumerate(pp_f32_batches()):
+        state, metrics = train_step(state, shard_batch(b))
+        losses.append(float(metrics["loss"]))
+        leaves = [names[id(p)] for p in state["params"]]
+        got = {n: p.grad for n, p in zip(leaves, state["params"])}
+        key_bias = {n for n in leaves if n.endswith("attn.wk.bias")}
+        errs = leaf_errors([n for n in leaves if n not in key_bias],
+                           [got[n] for n in leaves if n not in key_bias],
+                           [ref["grads"][i][n] for n in leaves
+                            if n not in key_bias])
+        w = max(errs, key=errs.get)
+        worst.append([w, errs[w]])
+        for n in key_bias:
+            wk = n.replace("wk.bias", "wk.weight")
+            zero_rel = max(zero_rel, got[n].norm().item()
+                           / got[wk].norm().item(),
+                           ref["grads"][i][n].norm().item()
+                           / ref["grads"][i][wk].norm().item())
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    if not max(rel) <= PP_F32_LOSS_RTOL:
+        raise AssertionError(f"gpt2 f32 1f1b losses {losses} vs mesh=None "
+                             f"{ref['losses']}: {rel}")
+    if not max(e for _, e in worst) <= F32_GRAD_RTOL:
+        raise AssertionError(f"gpt2 f32 1f1b gradient leaves {worst} > "
+                             f"{F32_GRAD_RTOL} (normwise)")
+    if not zero_rel <= F32_ZERO_GRAD_RTOL:
+        raise AssertionError(f"key-bias gradients {zero_rel} of the key "
+                             f"weights' > {F32_ZERO_GRAD_RTOL}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "mesh_none_losses": ref["losses"],
+            "loss_rel_diff": rel, "loss_limit": PP_F32_LOSS_RTOL,
+            "grad_worst_leaf_by_step": worst, "grad_limit": F32_GRAD_RTOL,
+            "key_bias_grad_over_key_weight_grad": zero_rel,
+            "key_bias_limit": F32_ZERO_GRAD_RTOL, "materialize": mat}
+
+
+def train_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
+    """One pipeline stage: for each schedule, this stage's keyed bf16
+    values (its layers only), 3 steps on the [8, 2048] batch (each step's
+    flash launches and peak device memory), then, after 1F1B's, the C3
+    check on a fresh batch; then the gpt2-125m f32 1F1B case."""
+    mesh = make_mesh({"pp": world}, device_type="cuda")
+    batch_np, fresh_np = train_pp_batches()
+    t0 = time.perf_counter()
+    out = {"schedules": {}}
+    for sched in PP_SCHEDULES:
+        model, mat = pp_stage_model(make_llama, TRAIN_PP_CFG, mesh, dev, sched,
+                                    torch.bfloat16)
+        state, train_step, shard_batch = pp_step(
+            model, TRAIN_PP_CFG, mesh, dev, sched, make_flash_attention())
+        batch = shard_batch(batch_np)
+        losses, launches, peaks, step_s = [], [], [], []
+        for _ in range(TRAIN_PP_STEPS):
+            torch.cuda.synchronize()
+            reset_flash_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t)
+            launches.append(dict(flash_launches))
+            peaks.append(torch.cuda.max_memory_allocated())
+        row = {"losses": losses, "launches": launches,
+               "max_memory_allocated_bytes_by_step": peaks,
+               "step_s_gloo": step_s, "materialize": mat,
+               "grad_norm": float(metrics["grad_norm"])}
+        state = None  # the optimizer's moments
+        torch.cuda.empty_cache()
+        if sched == "1f1b":
+            row["vs_plain"] = pp_vs_plain(model, mesh, dev, fresh_np)
+        del model
+        torch.cuda.empty_cache()
+        out["schedules"][sched] = row
+    out["gpt2_f32_1f1b"] = pp_f32_rank(mesh, dev, tmp)
+    out["paged_decode_launches"] = paged_attention.launches
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pp_whole_losses(dev) -> list:
+    """The same model, batch and values in this process, whole, on the
+    flash kernels: each step the 4 microbatches' summed next-token NLLs
+    over the batch's count of targets, accumulated, then AdamW."""
+    cfg = TRAIN_PP_CFG
+    model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, seed=0, param_dtype=torch.bfloat16, device=dev))
+    opt = default_optimizer(list(model.parameters()))
+    batch = torch.as_tensor(train_pp_batches()[0], device=dev)
+    denom = TRAIN_PP_BATCH * (TRAIN_PP_SEQ - 1)
+    losses = []
+    for _ in range(TRAIN_PP_STEPS):
+        opt.zero_grad(set_to_none=True)
+        ce = 0.0
+        for mb in batch.chunk(TRAIN_PP_MB):
+            logits = model(mb)
+            nll = F.cross_entropy(
+                logits[:, :-1].reshape(-1, cfg.vocab_size),
+                mb[:, 1:].reshape(-1), reduction="sum") / denom
+            nll.backward()
+            ce += float(nll)
+            del logits, nll
+        opt.step()
+        losses.append(ce)
+    del model, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+def pp_f32_reference(dev, tmp: str) -> list:
+    """gpt2-125m (f32) on ``mesh=None`` from the same keyed values: each
+    step's loss and gradients, saved for the stages."""
+    model = deferred_init(make_gpt2, PP_F32_CFG,
+                          attn_fn=make_flash_attention(), device=dev)
+    bind_values(model, materialize_module_cuda(model, seed=0, device=dev))
+    init_state, train_step, shard_batch = make_train_step(
+        model, PP_F32_CFG, device=dev)
+    state = init_state(model)
+    names = [n for n, _ in model.named_parameters()]
+    ref = {"losses": [], "grads": []}
+    for b in pp_f32_batches():
+        state, metrics = train_step(state, shard_batch(b))
+        ref["losses"].append(float(metrics["loss"]))
+        ref["grads"].append({n: p.grad.to("cpu")
+                             for n, p in zip(names, state["params"])})
+    torch.save(ref, f"{tmp}/gpt2_ref.pt")
+    del model, state
+    torch.cuda.empty_cache()
+    return ref["losses"]
+
+
+def one_rank_train_pp(dev, train_row) -> dict:
+    """Each schedule on a one-rank NCCL ``{pp: 1}`` mesh (one stage, every
+    layer; the interleaved ring sends to itself): 2-layer llama3-8b
+    width, bf16 parameters, the [8, 2048] batch in 4 microbatches, step
+    ms beside ``train_bf16_full``'s unpipelined step."""
+    cfg = TRAIN_CFG
+    mesh = mesh_group_up(dev, {"pp": 1})
+    out = {}
+    try:
+        batch_np = train_pp_batches()[0]
+        for sched in PP_SCHEDULES:
+            model, _ = pp_stage_model(make_llama, cfg, mesh, dev, sched,
+                                      torch.bfloat16)
+            state, train_step, shard_batch = pp_step(
+                model, cfg, mesh, dev, sched, make_flash_attention())
+            batch = shard_batch(batch_np)
+            losses, step_s = [], []
+            reset_flash_launches()
+            for _ in range(PP_ONE_RANK_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+                step_s.append(time.perf_counter() - t)
+            launches = dict(flash_launches)
+            want = {k: cfg.n_layers * TRAIN_PP_MB * PP_ONE_RANK_STEPS
+                    for k in FLASH_REPLACES}
+            want["flash_dbias"] = 0
+            check_launches(launches, want, f"train_pp {{pp: 1}} {sched}")
+            step = float(np.median(step_s[1:]))
+            out[sched] = {"losses": losses, "step_ms": step * 1e3,
+                          "step_ms_samples": [x * 1e3 for x in step_s],
+                          "tokens_per_s": TRAIN_PP_BATCH * TRAIN_PP_SEQ / step,
+                          "flash_launches": launches}
+            del model, state
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["train_bf16_full_unpipelined"] = None if train_row is None else {
+        k: train_row[k] for k in ("step_ms", "tokens_per_s", "batch", "dtype")}
+    return {"mesh": {"pp": 1}, "backend": "nccl", "n_layers": cfg.n_layers,
+            "batch": [TRAIN_PP_BATCH, TRAIN_PP_SEQ],
+            "n_microbatches": TRAIN_PP_MB, "schedules": out}
+
+
+def phase_train_pp(dev, train_row) -> dict:
+    """The pipelined train step at llama3-8b width (4 layers, bf16
+    parameters, [8, 2048] in 4 microbatches) over pp 2 spawned ranks,
+    under GPipe, 1F1B and interleaved 1F1B (2 chunks of one layer a
+    rank): 3 losses a schedule, equal on both ranks, falling, each within
+    BF16_LOSS_RTOL of the same model whole in one process with the same
+    accumulation; 2 layers x 4 microbatches of each flash kernel per rank
+    and step (no recompute), none of d(bias) or paged decode; 1F1B's peak
+    below GPipe's on stage 0; each rank's device growth from its keyed
+    values within its layers' and the replicated bytes plus twice the
+    largest entry; the C3 check (1F1B gradients on a fresh batch against
+    plain attention's); gpt2-125m f32 under 1F1B against ``mesh=None``
+    (losses 1e-5, leaves 1e-4); then each schedule's step ms on a
+    one-rank NCCL ``{pp: 1}`` mesh."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    whole = pp_whole_losses(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        f32_ref = pp_f32_reference(dev, tmp)
+        ranks = sp_spawn("train_pp_rank", TRAIN_PP_RANKS, tmp)
+    spawn_s = time.perf_counter() - t0
+    per_rank = TRAIN_PP_CFG.n_layers // TRAIN_PP_RANKS * TRAIN_PP_MB
+    want = {k: per_rank for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    rows = {}
+    for sched in PP_SCHEDULES:
+        by_rank = [out["schedules"][sched] for out in ranks]
+        losses = by_rank[0]["losses"]
+        for r, row in enumerate(by_rank):
+            if row["losses"] != losses:
+                raise AssertionError(f"{sched}: rank {r} losses "
+                                     f"{row['losses']} != rank 0's {losses}")
+            for step in row["launches"]:
+                check_launches(step, want, f"train_pp {sched} rank {r}")
+        if not all(math.isfinite(x) for x in losses) \
+                or not all(x < losses[0] for x in losses[1:]):
+            raise AssertionError(f"train_pp {sched} losses do not fall: "
+                                 f"{losses}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, whole)]
+        if not max(rel) <= BF16_LOSS_RTOL:
+            raise AssertionError(f"train_pp {sched} losses {losses} vs "
+                                 f"whole {whole}: {rel} > {BF16_LOSS_RTOL}")
+        rows[sched] = {
+            "losses": losses, "loss_rel_diff": rel,
+            "launches_by_rank": [row["launches"][0] for row in by_rank],
+            "peak_bytes_by_rank": [max(row["max_memory_allocated_bytes_by_step"]
+                                       [1:]) for row in by_rank],
+            "materialize_by_rank": [row["materialize"] for row in by_rank],
+            "step_s_gloo_by_rank": [row["step_s_gloo"] for row in by_rank]}
+    if any(out["paged_decode_launches"] for out in ranks):
+        raise AssertionError("paged decode launched on the pipeline path")
+    gpipe0 = rows["gpipe"]["peak_bytes_by_rank"][0]
+    f1b0 = rows["1f1b"]["peak_bytes_by_rank"][0]
+    if not f1b0 < gpipe0:
+        raise AssertionError(f"stage 0 peak under 1f1b {f1b0} not below "
+                             f"gpipe's {gpipe0}")
+    c3 = [out["schedules"]["1f1b"]["vs_plain"] for out in ranks]
+    worst = max((c["grad_worst_leaf"] for c in c3), key=lambda w: w[1])
+    one_rank = one_rank_train_pp(dev, train_row)
+    row = {"phase": "train_pp", "model": "llama3-8b",
+           "n_layers": TRAIN_PP_CFG.n_layers,
+           "dtype": "bfloat16 compute, bfloat16 parameters",
+           "batch": [TRAIN_PP_BATCH, TRAIN_PP_SEQ],
+           "n_microbatches": TRAIN_PP_MB, "pp": TRAIN_PP_RANKS,
+           "n_chunks_interleaved": TRAIN_PP_CHUNKS,
+           "backend": "gloo (spawned ranks on one card; no step times)",
+           "whole_model_losses": whole, "loss_limit": BF16_LOSS_RTOL,
+           "schedules": rows,
+           "stage0_peak_bytes": {"gpipe": gpipe0, "1f1b": f1b0},
+           "c3_vs_plain_by_rank": c3, "c3_worst_leaf": worst,
+           "c3_llama_leaf_train_bf16_full": C3_LLAMA_LEAF,
+           "gpt2_f32_1f1b_by_rank": [out["gpt2_f32_1f1b"] for out in ranks],
+           "gpt2_f32_mesh_none_losses": f32_ref,
+           "one_rank_nccl": one_rank,
+           "rank_seconds": [out["seconds"] for out in ranks],
+           "seconds": time.perf_counter() - t0, "spawn_seconds": spawn_s}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5296,6 +5691,7 @@ def main() -> int:
                           sp_ranks)
         run("ulysses_sp", phase_ulysses_sp, sp_ranks)
     train_sp_row = run("train_sp", phase_train_sp, dev)
+    train_pp_row = run("train_pp", phase_train_pp, dev, train_row)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -5349,6 +5745,10 @@ def main() -> int:
                     [r[name] for r in ring_row["launches_by_rank"]],
                 "train_sp_by_rank_per_step":
                     [r[name] for r in train_sp_row["launches_by_rank"]]},
+            "launches_pp_path": {
+                f"train_pp_{sched}_by_rank_per_step":
+                    [r[name] for r in row["launches_by_rank"]]
+                for sched, row in train_pp_row["schedules"].items()},
             **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},

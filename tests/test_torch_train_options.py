@@ -1,5 +1,6 @@
 """The train step's options: those not ported yet raise, the attention
-function comes from the model, the device defaults to CUDA.
+function comes from the model (``attn_fn=`` sets only a pipeline's), the
+device defaults to CUDA.
 
 Kept apart from ``test_torch_train.py`` so that neither file holds more
 than 9 tests: pytest-xdist's ``--dist loadfile`` starts the files with
@@ -27,20 +28,25 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(pipeline=True), "A11"),
-    (dict(attn_fn=default_attention), "A11"),
+    (dict(pipeline=True), (ValueError, "needs a mesh with a 'pp' axis")),
+    (dict(attn_fn=default_attention), (ValueError, "constructor")),
     (dict(mesh={"fsdp": 1, "sp": 1}), None),
     (dict(mesh={"ep": 1, "tp": 1}), None),
-    (dict(mesh={"pp": 1, "fsdp": 1}), "A11"),
+    (dict(mesh={"pp": 1, "fsdp": 1}, pipeline=True),
+     (NotImplementedError, "A11.2")),
     (dict(mesh={"fsdp": 1}, moe=True), None),
-    (dict(mesh={"fsdp": 1}, pipeline=True), "A11"),
+    (dict(mesh={"fsdp": 1}, pipeline=True),
+     (ValueError, "needs a mesh with a 'pp' axis")),
 ], ids=["pipeline", "attn-fn", "mesh-sp", "mesh-ep", "mesh-pp", "mesh-moe",
         "mesh-pipeline"])
 def test_unported_options_raise(kw, what):
     """Options and mesh axes the port does not carry yet raise, naming
-    their ROADMAP item (meshes: one gloo rank, an in-memory store); the
-    ``ep`` axis and a MoE config (``what`` None), ported with ROADMAP A9,
-    and the ``sp`` axis, ported with A10, are taken."""
+    their ROADMAP item (meshes: one gloo rank, an in-memory store): a
+    pipeline over ``pp`` with ``fsdp`` (A11.2).  Misused options raise
+    ``ValueError``: a pipeline without a ``pp`` mesh axis, ``attn_fn``
+    without a pipeline.  The ``ep`` axis and a MoE config (``what``
+    None), ported with ROADMAP A9, and the ``sp`` axis, ported with A10,
+    are taken; a pipeline alone (A11) in ``test_torch_pipeline*.py``."""
     import torch.distributed as dist
 
     from torchdistx_tpu_torch.parallel import make_mesh
@@ -51,7 +57,7 @@ def test_unported_options_raise(kw, what):
     model = (make_mixtral if moe else make_llama)(cfg, device="cpu")
     axes = kw.pop("mesh", None)
     if axes is None:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(what[0], match=what[1]):
             make_train_step(model, cfg, device="cpu", **kw)
         return
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
@@ -61,7 +67,7 @@ def test_unported_options_raise(kw, what):
         if what is None:
             make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
         else:
-            with pytest.raises(NotImplementedError, match=what):
+            with pytest.raises(what[0], match=what[1]):
                 make_train_step(model, cfg, device="cpu", mesh=mesh, **kw)
     finally:
         dist.destroy_process_group()
@@ -79,12 +85,12 @@ def test_moe_config_raises():
 
 
 def test_attn_fn_override_and_cuda_default():
-    """An ``attn_fn`` override raises (attention is the model
-    constructor's; the JAX argument feeds the pipelined path, A11) and
+    """An ``attn_fn`` override without a pipeline raises (attention is the
+    model constructor's; the JAX argument sets the pipelined stages') and
     leaves the model untouched; the default device is the GPU, which
     raises where there is none."""
     model = make_llama(TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="constructor"):
         make_train_step(model, TINY, attn_fn=make_flash_attention(),
                         device="cpu")
     assert all(b.attn.attn_fn is default_attention for b in model.blocks)

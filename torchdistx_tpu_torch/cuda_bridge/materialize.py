@@ -28,6 +28,10 @@ the eager :func:`..deferred_init.materialize_module`:
 ``param_dtype`` casts floating ``nn.Parameter`` entries after their
 recorded-precision init; buffers keep their recorded dtype.  Tied
 weights are one entry.
+
+Under a :class:`..parallel.sharding.StageShardingPlan` a pipeline stage
+materializes only the block layers it owns (and the entries every stage
+holds): the other stages' layers are never drawn or allocated on it.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..parallel.mesh import VirtualMesh
 from ..parallel.sharding import (
     PartitionSpec,
     ShardingPlan,
+    StageShardingPlan,
     local_shard,
     mesh_shape,
     placements_for,
@@ -246,7 +251,12 @@ def materialize_params_cuda(
     ``mesh``: ``None`` (full tensors), a ``DeviceMesh`` (``DTensor``s
     holding this rank's shard, placed by ``plan`` — replicated where it
     has no rule) or a :class:`..parallel.mesh.VirtualMesh` (the plain
-    local shards of its coordinate).  RNG uses per-op generators keyed by
+    local shards of its coordinate).  With a
+    :class:`..parallel.sharding.StageShardingPlan` the result holds only
+    the entries of this rank's pipeline stage and those every stage
+    holds; a stage-owned entry is a plain tensor (this rank's shard over
+    the mesh's other axes), as no DTensor over the whole mesh describes
+    a tensor that only one stage holds.  RNG uses per-op generators keyed by
     ``seed`` and the op's ``key_nr``, so gathered shards equal the
     unsharded values bit for bit on any mesh of the same device type.
 
@@ -262,14 +272,38 @@ def _materialize(fakes, cast, mesh, plan, seed, param_dtype, device):
     """The shared body of the entry points: ``cast`` names the entries
     ``param_dtype`` applies to."""
     dev = _place(mesh, device)
-    specs = {}
+    specs, owned = {}, set()
     if mesh is not None:
         plan = plan or ShardingPlan()
+        if isinstance(plan, StageShardingPlan):
+            fakes, owned = _stage_entries(fakes, plan, mesh)
         specs = {n: plan.spec_for(n, tuple(f.shape), mesh)
                  for n, f in fakes.items()}
     finish = _finisher(mesh, specs, cast if param_dtype is not None else (),
-                       param_dtype)
+                       param_dtype, owned)
     return _replay(fakes, dev, seed, finish)
+
+
+def _stage_entries(fakes, plan: StageShardingPlan, mesh):
+    """``(entries, owned)``: the entries this rank's pipeline stage
+    materializes — those it owns and those every stage holds — and the
+    names of the owned ones."""
+    shape = mesh_shape(mesh)
+    if plan.axis not in shape:
+        raise ValueError(f"the plan gives layers to stages over "
+                         f"{plan.axis!r}; mesh axes are {tuple(shape)}")
+    if isinstance(mesh, VirtualMesh):
+        stage = mesh.coordinate[list(shape).index(plan.axis)]
+    else:
+        stage = mesh.get_local_rank(plan.axis)
+    kept, owned = {}, set()
+    for name, fake in fakes.items():
+        owner = plan.stage_of(name, mesh)
+        if owner is None or owner == stage:
+            kept[name] = fake
+        if owner == stage:
+            owned.add(name)
+    return kept, owned
 
 
 def _contiguous_stride(shape) -> Tuple[int, ...]:
@@ -280,11 +314,12 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
     return tuple(reversed(stride))
 
 
-def _finisher(mesh, specs, cast, param_dtype):
+def _finisher(mesh, specs, cast, param_dtype, owned=frozenset()):
     """``(name, full) -> kept value``: this rank's (or this virtual
     coordinate's) local shard, cast where asked, in its own compact
     storage — the full tensor is freed when the run drops it — and on a
-    ``DeviceMesh`` wrapped as a DTensor of the full shape."""
+    ``DeviceMesh`` wrapped as a DTensor of the full shape, unless a
+    pipeline stage owns it (``owned``)."""
     coord = None
     if isinstance(mesh, VirtualMesh):
         coord = mesh.coordinate
@@ -301,7 +336,7 @@ def _finisher(mesh, specs, cast, param_dtype):
             local = local.to(param_dtype)
         if not _is_compact(local):
             local = local.clone(memory_format=torch.contiguous_format)
-        if coord is None or isinstance(mesh, VirtualMesh):
+        if coord is None or isinstance(mesh, VirtualMesh) or name in owned:
             return local
         from torch.distributed.tensor import DTensor
 
@@ -357,11 +392,13 @@ def materialize_module_cuda(
                                    param_dtype=param_dtype, device=device)
 
 
-def bind_values(module: torch.nn.Module, values: Dict[str, torch.Tensor]) -> None:
+def bind_values(module: torch.nn.Module, values: Dict[str, torch.Tensor], *,
+                strict: bool = True) -> None:
     """Swap each fake parameter and buffer of ``module`` for its value in
     ``values`` (as :func:`materialize_module_cuda` returns them, keyed by
     :func:`named_fake_tensors`' names); tied entries share one
-    ``nn.Parameter``.
+    ``nn.Parameter``.  ``strict=False`` leaves the entries ``values``
+    lacks fake (a pipeline stage's values hold only its own layers).
 
     Values are bound as they come: on a ``DeviceMesh`` each parameter is
     an ``nn.Parameter`` around its DTensor, this rank's shard and no more
@@ -369,9 +406,9 @@ def bind_values(module: torch.nn.Module, values: Dict[str, torch.Tensor]) -> Non
     takes over into its tensor-parallel and FSDP2 layout."""
     fakes = named_fake_tensors(module)
     missing = [n for n in fakes if n not in values]
-    if missing:
+    if missing and strict:
         raise KeyError(f"no value for {missing[:4]} ({len(missing)} entries)")
-    by_id = {id(t): values[n] for n, t in fakes.items()}
+    by_id = {id(t): values[n] for n, t in fakes.items() if n in values}
     made: dict = {}
     for mod in module.modules():
         for d, is_param in ((mod._parameters, True), (mod._buffers, False)):

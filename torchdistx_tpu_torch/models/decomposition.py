@@ -1,11 +1,13 @@
-"""How a decoder LM maps onto the serving runtime (counterpart of
-``torchdistx_tpu/models/decomposition.py``).
+"""How a model maps onto the pipeline runner and the serving runtime
+(counterpart of ``torchdistx_tpu/models/decomposition.py``).
 
-Decode feeds ONE token per batch lane at that lane's own absolute
-offset, so the serving programs need the model cut into position-explicit
-pieces: embed, the per-layer blocks, rotary angles at given positions,
-and the head.  Each family exports its own :class:`DecodeDecomposition`;
-the serving programs consume it blindly.
+Both cut the model into embed, the per-layer blocks, the positional side
+input and the head.  The pipeline runner (:mod:`..parallel.pipeline`)
+runs the embed on the first stage, each stage's own blocks, and the head
+on the last: :class:`PipelineDecomposition`.  Decode feeds ONE token per
+batch lane at that lane's own absolute offset, so the serving programs
+need position-explicit pieces: :class:`DecodeDecomposition`.  Each
+family exports its own; the runners consume them blindly.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 __all__ = [
     "DecodeDecomposition",
+    "PipelineDecomposition",
     "apply_final_norm",
     "chunk_positions",
     "decoder_head_logits",
@@ -84,3 +87,29 @@ class DecodeDecomposition:
     angles_at: Callable[[torch.Tensor], Optional[torch.Tensor]]
     # activations [B, S, d_model] -> f32 logits [B, S, vocab]
     head: Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PipelineDecomposition:
+    """A model cut into the pieces the pipeline runner runs.
+
+    The JAX package's ``block_params`` (a scan-stacked parameter tree the
+    plan shards over ``pp``) is ``blocks`` here, the model's own
+    ``nn.ModuleList``: a stage runs the blocks it owns
+    (:func:`..parallel.sharding.stage_layers`), in order."""
+
+    # inputs (tokens [B, S] or images [B, H, W, C]) -> [B, S, d_model]
+    embed: Callable[[torch.Tensor], torch.Tensor]
+    # the per-layer blocks, in order
+    blocks: nn.ModuleList
+    # sequence length -> rope angles [S, head_dim/2] threaded to every
+    # block, or None for families with learned positions
+    angles: Callable[[int], Optional[torch.Tensor]]
+    # activations [B, S, d_model] -> f32 logits ([B, S, vocab] or
+    # [B, n_classes])
+    head: Callable[[torch.Tensor], torch.Tensor]
+    # block attention masking (False for encoders, e.g. ViT)
+    causal: bool = True
+    # the activations' length where the model fixes it (ViT's patches and
+    # class token); None: the input's sequence length
+    seq_len: Optional[int] = None

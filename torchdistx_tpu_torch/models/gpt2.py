@@ -11,6 +11,7 @@ from torch import nn
 from .configs import TransformerConfig
 from .decomposition import (
     DecodeDecomposition,
+    PipelineDecomposition,
     apply_final_norm,
     chunk_positions,
     decoder_head_logits,
@@ -66,6 +67,25 @@ class GPT2Model(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.float()
+
+    def pipeline_decomposition(self) -> PipelineDecomposition:
+        """For the pipeline runner: wte + wpe embedding, the blocks, the
+        final norm and the tied (or untied) head."""
+        cfg = self.cfg
+
+        def embed(tokens):
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            return positional_token_embed(cfg, self.wte.weight,
+                                          self.wpe.weight, tokens, pos[None])
+
+        def angles(S):
+            return None  # learned absolute positions, applied at embed
+
+        def head(x):
+            x = apply_final_norm(self.final_norm, x)
+            return decoder_head_logits(cfg, x, self.wte.weight, self.lm_head)
+
+        return PipelineDecomposition(embed, self.blocks, angles, head)
 
     def decode_decomposition(self) -> DecodeDecomposition:
         """Learned positions gathered at the EXPLICIT per-lane offsets (a

@@ -18,6 +18,7 @@ from torch import nn
 from .configs import TransformerConfig
 from .decomposition import (
     DecodeDecomposition,
+    PipelineDecomposition,
     apply_final_norm,
     chunk_positions,
     decoder_head_logits,
@@ -78,6 +79,26 @@ class LlamaModel(nn.Module):
         else:
             logits = self.lm_head(x)
         return logits.float()
+
+    def pipeline_decomposition(self) -> PipelineDecomposition:
+        """For the pipeline runner: :meth:`forward`'s embed → blocks →
+        final norm and head, the head through
+        :func:`.decomposition.decoder_head_logits` as the JAX package's
+        decomposition runs it."""
+        cfg = self.cfg
+
+        def embed(tokens):
+            return token_embed(cfg, self.embed.weight, tokens)
+
+        def angles(S):
+            return rope_frequencies(cfg.head_size, S, cfg.rope_theta,
+                                    device=self.embed.weight.device)
+
+        def head(x):
+            x = apply_final_norm(self.final_norm, x)
+            return decoder_head_logits(cfg, x, self.embed.weight, self.lm_head)
+
+        return PipelineDecomposition(embed, self.blocks, angles, head)
 
     def decode_decomposition(self) -> DecodeDecomposition:
         """Position-explicit embed and rope, same block/head structure as

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import VisionConfig
+from .decomposition import PipelineDecomposition, apply_final_norm
 from .layers import (
     _TRUNC_STD,
     AttnFn,
@@ -86,21 +87,36 @@ class ViTModel(nn.Module):
         self.head = Linear(enc.d_model, cfg.n_classes, True, dtype=enc.dtype,
                            param_dtype=enc.param_dtype, device=device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images [B, H, W, C] → class logits [B, n_classes] in f32."""
+    def _embed(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, C] → patches with the class token and learned
+        positions [B, seq_len, d]."""
         cfg = self.cfg
-        enc = cfg.encoder
         _check_patch_divisible(cfg, images)
         x = self.patch_embed(images)
         if cfg.pool == "cls":
             B, _, D = x.shape
             x = torch.cat([self.cls.to(x.dtype).expand(B, 1, D), x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
-        for blk in self.blocks:
-            x = run_block(enc, blk, x, causal=False)
-        x = self.final_norm(x)
-        x = x[:, 0] if cfg.pool == "cls" else x.mean(dim=1)
+        return x + self.pos_embed.to(x.dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm, pooling and the linear head: f32 logits."""
+        x = apply_final_norm(self.final_norm, x)
+        x = x[:, 0] if self.cfg.pool == "cls" else x.mean(dim=1)
         return self.head(x).float()
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, C] → class logits [B, n_classes] in f32."""
+        x = self._embed(images)
+        for blk in self.blocks:
+            x = run_block(self.cfg.encoder, blk, x, causal=False)
+        return self._head(x)
+
+    def pipeline_decomposition(self) -> PipelineDecomposition:
+        """For the pipeline runner: the image embed, the non-causal
+        blocks, the pooled classifier head."""
+        return PipelineDecomposition(self._embed, self.blocks,
+                                     lambda S: None, self._head,
+                                     causal=False, seq_len=self.cfg.seq_len)
 
 
 def make_vit(cfg: VisionConfig, attn_fn: AttnFn = default_attention,

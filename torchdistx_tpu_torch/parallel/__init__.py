@@ -1,18 +1,27 @@
 """Training, meshes and sharding plans: the loss and the train step (on
 one device, or over a mesh with tensor parallelism, FSDP2 and sequence
-parallelism: :mod:`.spmd`), ``make_mesh`` over ``torch.distributed``'s
-``DeviceMesh``, the name → PartitionSpec plans the materializer places
-shards by, and the sequence-parallel attentions (ring-flash, the dense
-ring and Ulysses) over a mesh's ``sp`` axis."""
+parallelism: :mod:`.spmd`, or as pipeline stages: :mod:`.pipeline`),
+``make_mesh`` over ``torch.distributed``'s ``DeviceMesh``, the name →
+PartitionSpec plans the materializer places shards by, and the
+sequence-parallel attentions (ring-flash, the dense ring and Ulysses)
+over a mesh's ``sp`` axis."""
 
 from .mesh import DEFAULT_AXIS_ORDER, VirtualMesh, make_mesh, single_device_mesh
-from .pipeline import valid_next_token_mask
+from .pipeline import (
+    pipeline_plan_overrides,
+    pipeline_train_1f1b,
+    pipeline_train_gpipe,
+    pipeline_train_interleaved,
+    pipelined_decoder_apply,
+    valid_next_token_mask,
+)
 from .ring_attention import make_ring_attention
 from .ring_flash import make_ring_flash_attention, ring_flash_attention
 from .sharding import (
     CallableShardingPlan,
     PartitionSpec,
     ShardingPlan,
+    StageShardingPlan,
     fsdp_plan,
     gspmd_2d_plan,
     local_shard,
@@ -20,6 +29,7 @@ from .sharding import (
     placements_for,
     plan_digest,
     spec_str,
+    stage_layers,
 )
 from .train import lm_cross_entropy, make_train_step
 from .ulysses import make_ulysses_attention
@@ -29,6 +39,7 @@ __all__ = [
     "CallableShardingPlan",
     "PartitionSpec",
     "ShardingPlan",
+    "StageShardingPlan",
     "VirtualMesh",
     "fsdp_plan",
     "gspmd_2d_plan",
@@ -40,10 +51,16 @@ __all__ = [
     "make_train_step",
     "make_ulysses_attention",
     "parse_spec_str",
+    "pipeline_plan_overrides",
+    "pipeline_train_1f1b",
+    "pipeline_train_gpipe",
+    "pipeline_train_interleaved",
+    "pipelined_decoder_apply",
     "placements_for",
     "plan_digest",
     "ring_flash_attention",
     "single_device_mesh",
     "spec_str",
+    "stage_layers",
     "valid_next_token_mask",
 ]

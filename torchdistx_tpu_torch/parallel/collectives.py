@@ -9,8 +9,9 @@ one vocabulary.  An axis of size 1 is the identity: nothing is sent.
 
 ``all_gather``, ``all_to_all`` and the ring shifts are differentiable
 (their backward runs the conjugate collective: a reduce-scatter, the
-inverse all-to-all, the opposite shift); ``psum`` and
-``reduce_scatter`` are not.
+inverse all-to-all, the opposite shift); ``psum``, ``reduce_scatter``
+and ``stage_exchange`` (a pipeline tick's transfers, whose schedule
+walks the backward itself) are not.
 
 On a gloo group, device tensors go through host buffers for the
 operations gloo does not take on CUDA tensors (:data:`GLOO_CUDA`
@@ -236,3 +237,65 @@ def send_prev(tensors: Sequence[torch.Tensor], mesh, axis: str):
     """Shift to the previous rank without wraparound: the last rank
     receives zeros."""
     return _shifted(tensors, mesh, axis, -1, False)
+
+
+def stage_exchange(mesh, axis: str, *, to_next=None, to_prev=None,
+                   from_prev=None, from_next=None, wrap: bool = False):
+    """One pipeline tick's point-to-point transfers along ``axis``: the
+    ring shifts' sends and receives (:func:`send_next`,
+    :func:`send_prev`), each made only where a schedule has one.
+
+    ``to_next`` goes to the rank after this one, ``to_prev`` to the one
+    before.  ``from_prev`` / ``from_next`` give the shape, dtype and
+    device of what arrives from those ranks (their values are not read),
+    or None where nothing does.  Each rank must be given exactly the
+    transfers its neighbours make, so both read them from one schedule
+    table; a send with no matching receive leaves both ranks waiting.
+    ``wrap`` joins the last rank to the first (the interleaved
+    schedule's ring); a one-rank ring sends to itself.  Returns
+    ``(got_prev, got_next)``, None where nothing was received.
+
+    Transfers towards the next rank carry tag 0 and towards the previous
+    tag 1, and each rank posts them in that order, so two ranks that are
+    each other's next and previous (a ring of two) match them by tag on
+    gloo.  NCCL, which ignores tags, would have to match them by that
+    order; no run has sent them between NCCL ranks yet (one card holds
+    one NCCL rank, and a one-rank ring sends nothing)."""
+    n, idx = axis_size(mesh, axis), axis_index(mesh, axis)
+    with_next = to_next is not None or from_next is not None
+    with_prev = to_prev is not None or from_prev is not None
+    if not wrap and (with_next and idx == n - 1 or with_prev and idx == 0):
+        raise ValueError(f"stage_exchange: rank {idx} of {n} has no "
+                         f"neighbour there on an unwrapped {axis!r}")
+    if n == 1:  # a ring of one: what leaves arrives back
+        return (None if from_prev is None else to_next,
+                None if from_next is None else to_prev)
+    group = axis_group(mesh, axis)
+    tensors = [t for t in (to_next, to_prev, from_prev, from_next)
+               if t is not None]
+    staged = any(_staged("p2p", group, t) for t in tensors)
+    ops = []
+
+    def send(t, shift, tag):
+        src = t.detach().cpu() if staged else t.detach().contiguous()
+        ops.append(dist.P2POp(dist.isend, src, _peer(group, n, idx, shift),
+                              group, tag))
+
+    def recv(like, shift, tag):
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, buf, _peer(group, n, idx, shift),
+                              group, tag))
+        return buf
+
+    if to_next is not None:
+        send(to_next, 1, 0)
+    got_prev = None if from_prev is None else recv(from_prev, -1, 0)
+    if to_prev is not None:
+        send(to_prev, -1, 1)
+    got_next = None if from_next is None else recv(from_next, 1, 1)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return (None if got_prev is None else got_prev.to(from_prev.device),
+            None if got_next is None else got_next.to(from_next.device))

@@ -8,7 +8,9 @@ name, a tuple of names (the first named is the major one), or ``None``
 :class:`~.mesh.VirtualMesh` or a plain ``{axis: size}`` mapping — so plans
 resolve and test without a process group.  :func:`placements_for` and
 :func:`local_shard` turn a resolved spec into DTensor placements and into
-one mesh coordinate's slice of a full tensor.
+one mesh coordinate's slice of a full tensor.  A
+:class:`StageShardingPlan` gives each block layer to one pipeline stage
+whole (:func:`stage_layers`).
 """
 
 from __future__ import annotations
@@ -276,6 +278,76 @@ class CallableShardingPlan(ShardingPlan):
         shape_map = mesh_shape(mesh)
         return _validate_spec(name, shape, self._fn(name, shape, shape_map),
                               shape_map)
+
+
+# -- pipeline stages -------------------------------------------------------
+
+
+def _chunk_size(n_layers: int, pp: int, n_chunks: int) -> int:
+    K = pp * n_chunks
+    if n_layers % K:
+        raise ValueError(f"pp * n_chunks ({pp} * {n_chunks}) must divide "
+                         f"the layer count ({n_layers})")
+    return n_layers // K
+
+
+def stage_layers(n_layers: int, pp: int, stage: int,
+                 n_chunks: int = 1) -> List[List[int]]:
+    """The layers pipeline stage ``stage`` of ``pp`` owns, per local chunk.
+
+    The layers are cut into ``K = pp * n_chunks`` chunks of ``n_layers /
+    K`` consecutive layers, and global chunk ``k`` lives on stage ``k %
+    pp`` as its local chunk ``k // pp`` (the JAX package's
+    ``_interleave_perm``).  With one chunk, stage ``s`` owns layers
+    ``[s L/pp, (s + 1) L/pp)``."""
+    lc = _chunk_size(n_layers, pp, n_chunks)
+    return [list(range((j * pp + stage) * lc, (j * pp + stage + 1) * lc))
+            for j in range(n_chunks)]
+
+
+def layer_stage(layer: int, n_layers: int, pp: int, n_chunks: int = 1) -> int:
+    """The stage that owns ``layer`` (:func:`stage_layers`): its chunk
+    modulo ``pp``."""
+    return (layer // _chunk_size(n_layers, pp, n_chunks)) % pp
+
+
+# An entry of block layer <i>: every family names its blocks ``blocks``
+# (the decomposition's ``blocks``, whose index the pipeline runner owns
+# layers by).
+_BLOCK_ENTRY = re.compile(r"(?:.*\.)?blocks\.(\d+)\..*")
+
+
+class StageShardingPlan(ShardingPlan):
+    """``base``'s placements, with each block layer owned whole by one
+    pipeline stage over ``axis``: the port's counterpart of the JAX
+    package's ``pipeline_plan_overrides``.
+
+    The reference puts the scan-stacked layer dim of every block weight on
+    ``P("pp")``.  Here the blocks are separate entries
+    (``blocks.<i>.…``), so a spec over ``pp`` would cut dim 0 of one
+    layer's weight instead; this plan names an owner instead
+    (:meth:`stage_of`, by :func:`layer_stage`).  The materializer draws
+    and keeps a stage-owned entry only on the ranks of its stage, as this
+    rank's shard of ``base``'s spec over the other axes; every other
+    entry is placed by ``base``, replicated over ``axis``."""
+
+    def __init__(self, base: ShardingPlan, n_layers: int, *,
+                 axis: str = "pp", n_chunks: int = 1):
+        super().__init__()
+        self.base, self.n_layers = base, n_layers
+        self.axis, self.n_chunks = axis, n_chunks
+
+    def spec_for(self, name, shape, mesh=None):
+        return self.base.spec_for(name, shape, mesh)
+
+    def stage_of(self, name: str, mesh) -> Optional[int]:
+        """The stage that owns entry ``name`` on ``mesh``, or None for an
+        entry every stage holds."""
+        m = _BLOCK_ENTRY.fullmatch(name)
+        if m is None:
+            return None
+        pp = mesh_shape(mesh).get(self.axis, 1)
+        return layer_stage(int(m.group(1)), self.n_layers, pp, self.n_chunks)
 
 
 # -- from a spec to a layout ----------------------------------------------

@@ -11,10 +11,12 @@ the metrics are reduced to the global ones on every rank.  An ``sp``
 axis splits the sequence: each rank runs the model on its chunk (with a
 sequence-parallel ``attn_fn`` such as ``make_ring_flash_attention``),
 its loss is its share of the global mean and the gradients are summed
-over ``sp``.  A mixture-of-experts model adds its router's
-load-balancing loss to the cross-entropy.  The pipeline schedules (A11)
-and ``train_elastic`` (A12) are not ported yet and raise.  With telemetry on
-(:func:`..observe.enabled`) the step is wrapped by
+over ``sp``.  A ``pp`` axis with ``pipeline=True`` runs the blocks as
+pipeline stages (:mod:`.pipeline`: GPipe, 1F1B or interleaved 1F1B),
+each rank updating its own layers and the replicated embed and head.  A
+mixture-of-experts model adds its router's load-balancing loss to the
+cross-entropy.  ``train_elastic`` (A12) is not ported yet.  With
+telemetry on (:func:`..observe.enabled`) the step is wrapped by
 :func:`_instrument_step`.
 """
 
@@ -33,7 +35,7 @@ from ..fake import is_fake
 from ..models.configs import TransformerConfig
 from ..models.layers import AttnFn, Linear, moe_capacity, router_aux_loss
 from ..observe.step import H100_PEAK_FLOPS  # noqa: F401 — re-exported
-from .pipeline import valid_next_token_mask
+from .pipeline import SCHEDULES, valid_next_token_mask
 
 OptimizerFactory = Callable[[Iterable], torch.optim.Optimizer]
 
@@ -107,8 +109,11 @@ def train_step_flops(model: nn.Module, cfg: TransformerConfig, batch: int,
     return flops
 
 
-# Mesh axes the port does not carry yet, and the ROADMAP item of each.
-_UNPORTED_AXES = {"pp": "pipeline parallelism: ROADMAP A11"}
+# Mesh axes a pipeline does not combine with yet, and the ROADMAP item
+# of the combination (every axis is ported on its own).
+_UNPORTED_WITH_PP = {
+    a: f"pipeline parallelism combined with {a!r}: ROADMAP A11.2"
+    for a in ("fsdp", "ep", "sp", "tp")}
 
 
 def make_train_step(
@@ -121,6 +126,10 @@ def make_train_step(
     mesh=None,
     batch_axes=("dp", "fsdp"),
     pipeline: bool = False,
+    pipeline_axis: str = "pp",
+    pipeline_schedule: str = "gpipe",
+    n_microbatches: int = 4,
+    n_chunks: int = 2,
 ):
     """Build ``(init_state, train_step, shard_batch)`` for a decoder LM.
 
@@ -159,20 +168,53 @@ def make_train_step(
     the gradients are summed over ``sp`` (the parameters are replicated
     there).  A mixture of experts is not split over ``sp``.
 
+    With ``pipeline=True`` and a mesh of a ``pipeline_axis`` (``pp``)
+    and optionally ``dp``, the blocks run as pipeline stages under
+    ``pipeline_schedule``: ``"gpipe"`` (every microbatch forward, then
+    every backward), ``"1f1b"`` (one forward and one backward per tick)
+    or ``"interleaved"`` (``n_chunks`` chunks of layers per stage), over
+    ``n_microbatches`` microbatches of this rank's rows (:mod:`.pipeline`).
+    ``init_state`` takes a module bound to this stage's values
+    (``materialize_module_cuda(mesh=mesh, plan=pipeline_plan_overrides(
+    plan, n_layers, n_chunks=...))`` and ``bind_values(strict=False)``:
+    the other stages' layers stay fake) or a whole one, and updates this
+    stage's layers and the replicated embed and head, whose gradients are
+    summed over ``pp``; over ``dp`` the rows are split and every gradient
+    summed.  The metrics are the global ones, equal on every rank.  The
+    JAX signature's ``pipeline_executor`` has no counterpart: eager
+    torch has no second program to pick.  ``pp`` with ``fsdp``,
+    ``ep``, ``sp`` or ``tp`` raises (ROADMAP A11.2), as does a mixture of
+    experts over ``dp`` (its routing would be split).
+
     A model's attention is set by its constructor (``make_llama(cfg,
-    attn_fn=...)``).  ``attn_fn`` here is the JAX signature's attention
-    of the pipelined path, which is not ported yet, and raises."""
-    if attn_fn is not None:
-        raise NotImplementedError(
-            "make_train_step(attn_fn=) feeds the pipeline schedules, not "
-            "ported yet (ROADMAP A11); pass attn_fn to the model's "
-            "constructor")
-    if pipeline:
-        raise NotImplementedError(
-            "pipeline schedules are not ported yet: ROADMAP A11")
+    attn_fn=...)``).  ``attn_fn`` here sets the pipelined stages'
+    attention, as the JAX package's does; without ``pipeline`` it
+    raises."""
+    if pipeline_schedule not in SCHEDULES:
+        raise ValueError(f"pipeline_schedule must be 'gpipe', '1f1b' or "
+                         f"'interleaved', got {pipeline_schedule!r}")
+    if pipeline_schedule != "gpipe" and not pipeline:
+        # Training the dense path while the caller believes they asked
+        # for 1F1B would invalidate whatever they measure.
+        raise ValueError(f"pipeline_schedule={pipeline_schedule!r} requires "
+                         f"pipeline=True (got pipeline=False).")
+    if attn_fn is not None and not pipeline:
+        raise ValueError(
+            "make_train_step(attn_fn=) sets the pipelined stages' attention "
+            "(pipeline=True); without a pipeline the attention is the "
+            "model's: pass attn_fn to its constructor")
     make_opt = optimizer or default_optimizer
     seq = None
-    if mesh is None:
+    if pipeline:
+        if mesh is None or pipeline_axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"pipeline=True needs a mesh with a "
+                             f"{pipeline_axis!r} axis (make_mesh)")
+        dev, n_batch, stages, (init_state, train_step, shard_batch) = \
+            _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt,
+                           pipeline_axis, pipeline_schedule, n_microbatches,
+                           n_chunks if pipeline_schedule == "interleaved"
+                           else 1, attn_fn)
+    elif mesh is None:
         dev, n_batch = resolve_device(device), 1
         init_state, train_step, shard_batch = _single_device(dev, make_opt)
     else:
@@ -183,7 +225,8 @@ def make_train_step(
         # returned and the loop stays asynchronous.
         train_step = _instrument_step(train_step, cfg, dev,
                                       1 if mesh is None else mesh.size(),
-                                      n_batch, seq)
+                                      n_batch, seq,
+                                      stages if pipeline else None)
     return init_state, train_step, shard_batch
 
 
@@ -236,10 +279,9 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
     )
 
     names = tuple(mesh.mesh_dim_names or ())
-    for axis, item in _UNPORTED_AXES.items():
-        if axis in names:
-            raise NotImplementedError(
-                f"mesh axis {axis!r}: {item} (not ported yet)")
+    if "pp" in names:
+        raise ValueError("a 'pp' mesh axis runs the blocks as pipeline "
+                         "stages: pass pipeline=True")
     if not names or any(a not in ("dp", "fsdp", "ep", "sp", "tp")
                         for a in names):
         raise ValueError(f"make_train_step takes a mesh of named dp, fsdp, "
@@ -344,6 +386,139 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
             (init_state, train_step, shard_batch))
 
 
+def _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt, axis,
+                   schedule, n_microbatches, n_chunks, attn_fn):
+    """The pipeline path of :func:`make_train_step`."""
+    from .collectives import all_reduce_
+    from .pipeline import (
+        StageSchedule,
+        default_decomposition,
+        light_params,
+        stage_params,
+    )
+    from .spmd import data_axes, data_index
+
+    names = tuple(mesh.mesh_dim_names)
+    for a in names:
+        if a in _UNPORTED_WITH_PP:
+            raise NotImplementedError(
+                f"mesh axis {a!r}: {_UNPORTED_WITH_PP[a]} (not ported yet)")
+        if a not in (axis, "dp"):
+            raise ValueError(f"a pipelined step takes a mesh of {axis!r} "
+                             f"and 'dp' axes, not {mesh}")
+    if torch.device(device).type != mesh.device_type:
+        raise ValueError(f"device {device!r} differs from the mesh's "
+                         f"device type {mesh.device_type!r}")
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    baxes = data_axes(mesh, [a for a in batch_axes if a == "dp"])
+    n_batch = mesh.size(names.index("dp")) if baxes else 1
+    if cfg.moe is not None and n_batch > 1:
+        raise NotImplementedError(
+            "a mixture of experts over a pipeline's dp axis would route "
+            "each rank's rows apart: ROADMAP A11.2")
+    dp_group = mesh.get_group("dp") if n_batch > 1 else None
+    n_pp = mesh.size(names.index(axis))
+    pp_group = mesh.get_group(axis) if n_pp > 1 else None
+    decomp = default_decomposition(model)
+    sched = StageSchedule(cfg, decomp, mesh, schedule=schedule,
+                          n_microbatches=n_microbatches, n_chunks=n_chunks,
+                          axis_name=axis)
+
+    def init_state(module: nn.Module) -> dict:
+        if module is not model:
+            raise ValueError("init_state takes the module make_train_step "
+                             "was built for")
+        _localize(module)
+        params = stage_params(module, decomp, mesh, axis, n_chunks)
+        if any(is_fake(p) for p in params):
+            raise ValueError(
+                "init_state needs this stage's layers and the replicated "
+                "parameters materialized; bind them first")
+        off = {str(p.device) for p in params if p.device != dev}
+        if off:
+            raise ValueError(f"parameters on {sorted(off)}, not on {dev}")
+        # stage_params lists this stage's layers' parameters first.
+        n_own = len(params) - len(light_params(module, decomp))
+        return {"model": module, "params": params, "opt": make_opt(params),
+                "step": 0, "n_own": n_own}
+
+    def train_step(state: dict, tokens: torch.Tensor,
+                   segment_ids: Optional[torch.Tensor] = None):
+        module, opt = state["model"], state["opt"]
+        opt.zero_grad(set_to_none=True)
+        # The global count of valid targets, before any backward.
+        if segment_ids is None:
+            denom = float(tokens.shape[0] * n_batch * (tokens.shape[1] - 1))
+        else:
+            denom = valid_next_token_mask(segment_ids).sum()
+            if dp_group is not None:
+                all_reduce_(denom, dp_group)
+            denom = denom.clamp_min(1.0)
+        metrics = sched.train(module, tokens, attn_fn=attn_fn,
+                              segment_ids=segment_ids, denom=denom)
+        params = state["params"]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if dp_group is not None:
+            # Each rank's loss is its share of the global sum.
+            for p in params:
+                all_reduce_(p.grad, dp_group)
+            for k in ("loss", "ce"):
+                all_reduce_(metrics[k], dp_group)
+        # The norm: this stage's layers summed over pp, the replicated
+        # parameters (equal on every stage) once; each square summed in
+        # f32 by the reduction, with no f32 copy of a gradient.
+        own = state["n_own"]
+        sq = [torch.linalg.vector_norm(p.grad, dtype=torch.float32).square()
+              for p in params]
+        sq_own = torch.stack(sq[:own]).sum() if own else torch.zeros(
+            (), device=dev)
+        if pp_group is not None:
+            all_reduce_(sq_own, pp_group)
+        grad_norm = (sq_own + torch.stack(sq[own:]).sum()).sqrt()
+        opt.step()
+        state["step"] += 1
+        return state, {"loss": metrics["loss"], "ce": metrics["ce"],
+                       "aux": metrics["aux"], "grad_norm": grad_norm}
+
+    def shard_batch(tokens) -> torch.Tensor:
+        t = torch.as_tensor(tokens)
+        if t.shape[0] % n_batch:
+            raise ValueError(f"batch of {t.shape[0]} rows does not divide "
+                             f"over {baxes} ({n_batch} shards)")
+        rows = t.shape[0] // n_batch
+        idx = data_index(mesh, baxes) if baxes else 0
+        return t[idx * rows:(idx + 1) * rows].to(dev, torch.long)
+
+    def pp_sum(x: float) -> float:
+        t = torch.tensor([x], dtype=torch.float64, device=dev)
+        return float(all_reduce_(t, pp_group)) if pp_group else x
+
+    return dev, n_batch, (n_pp, pp_sum), (init_state, train_step, shard_batch)
+
+
+def _localize(module: nn.Module) -> None:
+    """Swap each DTensor parameter or buffer of ``module`` for its local
+    tensor: a pipelined stage runs plain tensors (the replicated entries
+    a keyed materialization gives as DTensors hold the whole value)."""
+    from torch.distributed.tensor import DTensor
+
+    made: dict = {}
+    for mod in module.modules():
+        for d, is_param in ((mod._parameters, True), (mod._buffers, False)):
+            for k, t in d.items():
+                if not isinstance(t, DTensor):
+                    continue
+                if id(t) not in made:
+                    local = t.to_local().detach()
+                    made[id(t)] = nn.Parameter(
+                        local, requires_grad=t.requires_grad) \
+                        if is_param else local
+                d[k] = made[id(t)]
+
+
 def _chunk_with_next(t: torch.Tensor, index: int, count: int) -> torch.Tensor:
     """Chunk ``index`` of ``count`` of each row of ``t`` [B, S], followed by
     the next position's entry (-1 past the row's end): [B, S/count + 1]."""
@@ -404,7 +579,7 @@ _COUNTED_SHAPES_MAX = 8
 
 
 def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
-                     n_ranks: int, n_batch: int, seq=None):
+                     n_ranks: int, n_batch: int, seq=None, stages=None):
     """Per-step telemetry around a train step: a ``train.step`` span plus
     ``tdx.train.tokens_per_s`` and MFU gauges, via
     :class:`..observe.StepMeter`.  Each step synchronizes the device so
@@ -426,8 +601,10 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
     (``shard_batch``), so the tokens are ``n_sp`` chunks' worth, and the
     chunks' counts differ (causal attention sees more keys late in the
     sequence), so they are summed over ``sp`` (``sp_sum``) before the
-    other axes multiply them.  On a card whose peak is unknown (and on the
-    CPU) MFU is left out."""
+    other axes multiply them.  ``stages = (n_pp, pp_sum)`` on a pipeline:
+    each stage counts its own layers (the first its embed, the last its
+    head), so the counts are summed over ``pp`` the same way.  On a card
+    whose peak is unknown (and on the CPU) MFU is left out."""
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     chip_peak = observe.peak_tflops_for(kind, cfg.dtype)
     meter = observe.StepMeter(
@@ -457,10 +634,11 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
         if count:
             out, costs = observe.costmodel.program_costs(
                 step_fn, state, tokens, segment_ids)
-            if seq is None:
+            split = seq or stages
+            if split is None:
                 flops = costs["flops"] * n_ranks
             else:
-                flops = seq[1](costs["flops"]) * n_ranks / seq[0]
+                flops = split[1](costs["flops"]) * n_ranks / split[0]
             counted[shape] = flops
             observe.costmodel.note_program_memory(costs)
             meter.flops_per_step, meter.flops_source = flops, "counted"
