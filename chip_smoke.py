@@ -3,7 +3,8 @@
 NVIDIA GPU: decoder LMs, Mixtral's mixture of experts, ViT and the T5
 encoder-decoder, the keyed, sharded materializer, the sharded train
 step (one-rank meshes), sequence and pipeline parallelism (ranks
-spawned on the one card over gloo).
+spawned on the one card over gloo), checkpoints, the elastic loop and
+resharding.
 
     python3 chip_smoke.py
 
@@ -262,16 +263,36 @@ user calls, and checks what comes out.  One JSON object per line:
     against ``mesh=None`` (losses 1e-5, each leaf 1e-4 normwise); then
     each schedule on a one-rank NCCL ``{pp: 1}`` mesh (2 layers) with its
     step ms beside ``train_bf16_full``'s;
-26. the kernels line: per kernel its launches on the main path, its error
+26. checkpoints and the elastic loop (``train_elastic``) on the sharded
+    main path (2-layer llama3-8b width, bf16 parameters, a one-rank NCCL
+    ``{fsdp: 1}`` mesh) under one temporary directory (its disk usage
+    printed first, removed at the end), in fresh processes: a checkpoint
+    every 2 steps, 2 kept; the step-2 save damaged after it committed,
+    step 3 raising, a preemption notice at step 4: ``step_2``
+    quarantined, one restart, a clean exit at step 4, a fresh process
+    resuming to step 6, every step's loss bitwise an uninterrupted run's
+    from the same keyed values, B1-B3 at 2 launches a step; the
+    checkpoint's bytes, a sync save's s and GB/s, its verify and an
+    in-place restore, the step ms while an async save is in flight and
+    without; then ``reshard``: the step-6 checkpoint offline to a
+    device-free ``{fsdp: 2, tp: 2}`` under ``gspmd_2d_plan`` and back to
+    ``{fsdp: 1}`` under ``decoder_lm_plan`` with a 256 MiB chunk budget
+    (below the embedding), bitwise both ways, staging within the budget,
+    the round trip restored onto the card and its next 2 steps bitwise; a
+    checkpoint written by 2 spawned gloo ranks on the card (``{fsdp: 2}``)
+    resumed by one rank through ``needs_reshard`` -> ``restore_resharded``, its
+    steps bitwise an uninterrupted one-rank run's from the same
+    resharded state, reshard s, GB/s and the staging peak;
+27. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
-    Mixtral, 70B-remat, ViT, sp and pp paths; paged decode at the serving
+    Mixtral, 70B-remat, ViT, sp, pp and elastic paths; paged decode at the serving
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-27. last: ``{"ok": true, "device": {...}}``.
+28. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -362,6 +383,7 @@ from torchdistx_tpu_torch.parallel import (
     pipeline_plan_overrides,
     placements_for,
     stage_layers,
+    train_elastic,
 )
 from torchdistx_tpu_torch.parallel.sharding import spec_str
 from torchdistx_tpu_torch.parallel.train import (
@@ -377,7 +399,23 @@ from torchdistx_tpu_torch.serve import (
     oracle_generate,
     spin_up_replica,
 )
+from torchdistx_tpu_torch.reshard import (
+    MeshSpec,
+    last_transfer_peak_bytes,
+    needs_reshard,
+    plan_reshard,
+    reshard_checkpoint,
+    restore_resharded,
+)
 from torchdistx_tpu_torch.serve.programs import ServeProgram
+from torchdistx_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointSaver,
+    iter_payload_files,
+    read_manifest,
+    restore_checkpoint,
+    save_checkpoint,
+    verify_checkpoint,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = H100_PEAK_FLOPS  # dense, no TF32
@@ -1989,15 +2027,15 @@ def cold_bring_up() -> None:
     emit(stats)
 
 
-def run_child(func: str) -> dict:
-    """``chip_smoke.<func>()`` in a child process, which prints its figures
-    as its last JSON line: work there pays the CUDA context and library
-    loads that a new replica or trainer pays.  The kernel libraries are
-    already built on disk by then."""
+def run_child(func: str, *args, timeout: float = 600) -> dict:
+    """``chip_smoke.<func>(*args)`` in a child process, which prints its
+    figures as its last JSON line: work there pays the CUDA context and
+    library loads that a new replica or trainer pays.  The kernel
+    libraries are already built on disk by then."""
     here = os.path.dirname(os.path.abspath(__file__))
-    code = f"import chip_smoke; chip_smoke.{func}()"
+    code = f"import chip_smoke; chip_smoke.{func}(*{args!r})"
     proc = subprocess.run([sys.executable, "-c", code], cwd=here,
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(
             f"{func} exited {proc.returncode}: {proc.stderr[-2000:]}")
@@ -5624,6 +5662,451 @@ def phase_train_pp(dev, train_row) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# train_elastic and reshard: checkpoints, the elastic loop, resharding
+# ---------------------------------------------------------------------------
+
+# The sharded main path (first_step_sharded's): 2-layer llama3-8b width,
+# bf16 parameters, [2, 2048] batches, the one-rank NCCL {fsdp: 1} mesh.
+# Its checkpoint holds the parameters and both AdamW moments in bf16
+# (about 8.9 GB; each write takes ~14 s of the card's machine, so the
+# runs are as short as the checks allow).  The elastic run: 4 steps,
+# drained by the plan's preemption, then 2 more in a fresh process,
+# which saves step 6; the reference runs 8 uninterrupted (the last 2 for
+# the resharded checkpoint).
+ELASTIC_CFG = TRAIN_CFG
+ELASTIC_MESH = {"fsdp": 1}
+ELASTIC_STEPS, ELASTIC_DRAIN_STEP, ELASTIC_REF_STEPS = 6, 4, 8
+# The step-2 save is damaged after it commits; step 3 raises, and the
+# restore finds step 2 corrupt, quarantines it and restores step 0; the
+# notice at step 4 drains the run.
+ELASTIC_PLAN = "save@2=corrupt:truncate;step@3=raise;step@4=preempt"
+ELASTIC_QUARANTINED = "step_2.corrupt"
+ELASTIC_OPTS = {"checkpoint_every": 2, "max_to_keep": 2}
+ASYNC_STEPS = 3
+# The reshard engine's chunk budget: below the 1.05 GB bf16 embedding,
+# so the largest leaves move in slabs.
+RESHARD_CHUNK_MB = 256
+RESHARD_MESH = {"fsdp": 2, "tp": 2}
+# The data axis the 2 spawned gloo ranks train under (FSDP2 over gloo on
+# the card's tensors) before the 1-rank resume.
+TWO_RANK_AXIS, TWO_RANKS, TWO_RANK_STEPS, TWO_RANK_RESUMED = "fsdp", 2, 1, 2
+CHILD_TIMEOUT_S = 900
+
+
+def elastic_batches() -> list:
+    rng = np.random.RandomState(71)
+    return [rng.randint(0, ELASTIC_CFG.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+            for _ in range(ELASTIC_REF_STEPS)]
+
+
+def elastic_model(mesh, dev, seed: int = 0):
+    """2-layer llama3-8b width on the flash kernels, bound to its keyed
+    bf16 values on ``mesh`` (seed 0 is the run's; others are values a
+    restore must overwrite)."""
+    model = deferred_init(make_llama, ELASTIC_CFG,
+                          attn_fn=make_flash_attention(), device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, mesh=mesh, plan=decoder_lm_plan(ELASTIC_CFG), seed=seed,
+        param_dtype=torch.bfloat16))
+    return model
+
+
+def payload_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, rel))
+               for rel in iter_payload_files(path))
+
+
+def launches_per_step(launches: dict, steps: int) -> None:
+    want = {k: ELASTIC_CFG.n_layers * steps for k in FLASH_REPLACES}
+    want["flash_dbias"] = 0
+    check_launches(launches, want, f"{steps} elastic steps")
+
+
+def elastic_first(tmp: str) -> None:
+    """The uninterrupted reference (``ELASTIC_REF_STEPS`` steps), then ``train_elastic``
+    from the same keyed values under ``ELASTIC_PLAN`` until the plan's
+    preemption drains it; prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    mesh = mesh_group_up(dev, ELASTIC_MESH)
+    batches = elastic_batches()
+    try:
+        model = elastic_model(mesh, dev)
+        init_state, train_step, shard_batch = make_train_step(
+            model, ELASTIC_CFG, device=dev, mesh=mesh)
+        state = init_state(model)
+        ref = []
+        for b in batches:
+            state, metrics = train_step(state, shard_batch(b))
+            ref.append(float(metrics["loss"]))
+        del model, state, init_state, train_step
+        torch.cuda.empty_cache()
+        model = elastic_model(mesh, dev)
+        losses, executed = {}, []
+
+        def on_metrics(step, metrics):
+            losses[step] = float(metrics["loss"])
+            executed.append(step)
+
+        reset_flash_launches()
+        chaos.install(ELASTIC_PLAN)
+        t0 = time.perf_counter()
+        try:
+            state, steps, restarts = train_elastic(
+                model, ELASTIC_CFG, batches[:ELASTIC_STEPS], mesh=mesh,
+                device=dev, checkpoint_dir=f"{tmp}/elastic",
+                on_metrics=on_metrics, **ELASTIC_OPTS)
+        finally:
+            chaos.clear()
+        seconds = time.perf_counter() - t0
+        launches = dict(flash_launches)
+    finally:
+        dist.destroy_process_group()
+    emit({"reference_losses": ref, "losses": losses, "steps": steps,
+          "restarts": restarts, "executed_steps": executed,
+          "flash_launches": launches, "seconds": seconds,
+          "dirs": sorted(os.listdir(f"{tmp}/elastic"))})
+
+
+def elastic_resume(tmp: str) -> None:
+    """A fresh process resumes the drained run (``resume=True``) on other
+    values and runs its last 2 steps; then saves step 6 (the checkpoint
+    ``reshard`` takes), timed, and on it a verify and an in-place
+    restore; the step ms without and while an async save is in flight.
+    Prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    mesh = mesh_group_up(dev, ELASTIC_MESH)
+    batches = elastic_batches()
+    try:
+        model = elastic_model(mesh, dev, seed=1)
+        losses = {}
+        reset_flash_launches()
+        t0 = time.perf_counter()
+        state, steps, restarts = train_elastic(
+            model, ELASTIC_CFG, batches[:ELASTIC_STEPS], mesh=mesh, device=dev,
+            checkpoint_dir=f"{tmp}/elastic", resume=True,
+            checkpoint_every=ELASTIC_STEPS + 1,
+            on_metrics=lambda s, m: losses.__setitem__(s, float(m["loss"])))
+        seconds = time.perf_counter() - t0
+        launches = dict(flash_launches)
+        out = {"losses": losses, "steps": steps, "restarts": restarts,
+               "flash_launches": launches, "seconds": seconds}
+        ck = f"{tmp}/elastic/step_{steps}"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_checkpoint(ck, state)
+        save_s = time.perf_counter() - t
+        nbytes = payload_bytes(ck)
+        t = time.perf_counter()
+        ok, reason = verify_checkpoint(ck)
+        verify_s = time.perf_counter() - t
+        if not ok:
+            raise AssertionError(f"a fresh save failed verification: {reason}")
+        t = time.perf_counter()
+        restore_checkpoint(ck, target=state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        _, train_step, shard_batch = make_train_step(
+            model, ELASTIC_CFG, device=dev, mesh=mesh)
+        batch = shard_batch(batches[-1])
+        state, plain_ms = timed_ms(state, train_step, batch, ASYNC_STEPS)
+        saver = AsyncCheckpointSaver()
+        t = time.perf_counter()
+        saver.save(f"{tmp}/timing_async", state)
+        stage_s = time.perf_counter() - t
+        in_flight = []
+        async_ms = []
+        for _ in range(ASYNC_STEPS):
+            state, ms = timed_ms(state, train_step, batch, 1)
+            async_ms += ms
+            in_flight.append(saver._thread is not None
+                             and saver._thread.is_alive())
+        t = time.perf_counter()
+        saver.wait_until_finished()
+        saver.close()
+        commit_s = time.perf_counter() - t
+        ok, reason = verify_checkpoint(f"{tmp}/timing_async")
+        if not ok:
+            raise AssertionError(f"the async save failed verification: "
+                                 f"{reason}")
+        shutil.rmtree(f"{tmp}/timing_async")
+        out.update({
+            "checkpoint_bytes": nbytes, "save_s": save_s,
+            "save_gb_per_s": nbytes / save_s / 1e9, "verify_s": verify_s,
+            "verify_gb_per_s": nbytes / verify_s / 1e9, "restore_s": restore_s,
+            "restore_gb_per_s": nbytes / restore_s / 1e9,
+            "step_ms_no_save": plain_ms, "step_ms_async_save_in_flight":
+            async_ms, "async_save_in_flight_after_step": in_flight,
+            "async_stage_s": stage_s, "async_wait_and_commit_s": commit_s})
+    finally:
+        dist.destroy_process_group()
+    emit(out)
+
+
+def timed_ms(state, train_step, batch, n: int) -> tuple:
+    """``n`` steps, each timed to its end on the card, in ms."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        float(metrics["loss"])
+        out.append((time.perf_counter() - t) * 1e3)
+    return state, out
+
+
+def phase_train_elastic(dev, tmp: str) -> dict:
+    """``train_elastic`` on the sharded main path (2-layer llama3-8b
+    width, bf16 parameters, one-rank NCCL ``{fsdp: 1}``): every 2 steps a
+    checkpoint (max 2 kept); the step-2 save damaged after it committed,
+    step 3 raising, the preemption notice at step 4 (``ELASTIC_PLAN``);
+    a fresh process resumes to step 6.  Quarantined ``step_2.corrupt``,
+    one restart, a clean exit at step 4, every step's loss bitwise the
+    uninterrupted run's from the same keyed values, B1-B3 at 2 launches
+    a step; the checkpoint's bytes, save / verify / restore s and GB/s,
+    and the step ms with and without an async save in flight."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    first = run_child("elastic_first", tmp, timeout=CHILD_TIMEOUT_S)
+    with open(f"{tmp}/elastic/CLEAN_EXIT.json") as f:
+        clean = json.load(f)["step"]
+    second = run_child("elastic_resume", tmp, timeout=CHILD_TIMEOUT_S)
+    ref = first["reference_losses"]
+    losses = {int(k): v for k, v in first["losses"].items()}
+    losses.update({int(k): v for k, v in second["losses"].items()})
+    if (first["steps"], first["restarts"], clean) != (ELASTIC_DRAIN_STEP, 1,
+                                                      ELASTIC_DRAIN_STEP):
+        raise AssertionError(f"elastic run: steps {first['steps']}, "
+                             f"restarts {first['restarts']}, clean exit at "
+                             f"{clean}")
+    if ELASTIC_QUARANTINED not in first["dirs"]:
+        raise AssertionError(f"no {ELASTIC_QUARANTINED}: {first['dirs']}")
+    if second["steps"] != ELASTIC_STEPS:
+        raise AssertionError(f"resumed run ended at {second['steps']}")
+    got = [losses[s] for s in range(1, ELASTIC_STEPS + 1)]
+    if got != ref[:ELASTIC_STEPS]:
+        raise AssertionError(f"elastic losses {got} != uninterrupted "
+                             f"{ref[:ELASTIC_STEPS]}")
+    launches_per_step(first["flash_launches"], len(first["executed_steps"]))
+    launches_per_step(second["flash_launches"],
+                      ELASTIC_STEPS - ELASTIC_DRAIN_STEP)
+    row = {"phase": "train_elastic", "card": nvidia_smi(),
+           "model": "llama3-8b", "n_layers": ELASTIC_CFG.n_layers,
+           "dtype": "bfloat16 compute, bfloat16 parameters",
+           "mesh": ELASTIC_MESH, "backend": "nccl",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "plan": ELASTIC_PLAN,
+           **ELASTIC_OPTS, "losses": got, "losses_bitwise": True,
+           "restarts": first["restarts"], "clean_exit_step": clean,
+           "dirs_after_drain": first["dirs"],
+           "executed_steps": first["executed_steps"],
+           "flash_launches_first": first["flash_launches"],
+           "flash_launches_resumed": second["flash_launches"],
+           "elastic_s": first["seconds"], "resumed_s": second["seconds"],
+           **{k: second[k] for k in (
+               "checkpoint_bytes", "save_s", "save_gb_per_s", "verify_s",
+               "verify_gb_per_s", "restore_s", "restore_gb_per_s",
+               "step_ms_no_save", "step_ms_async_save_in_flight",
+               "async_save_in_flight_after_step", "async_stage_s",
+               "async_wait_and_commit_s")},
+           "reference_losses": ref, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def elastic_writer_rank(rank: int, world: int, dev, tmp: str) -> dict:
+    """A spawned gloo rank: the main path's model on ``{TWO_RANK_AXIS:
+    world}`` from its keyed values, ``TWO_RANK_STEPS`` steps, then a
+    checkpoint (each rank writes its own shards)."""
+    mesh = make_mesh({TWO_RANK_AXIS: world}, device_type="cuda")
+    model = elastic_model(mesh, dev)
+    init_state, train_step, shard_batch = make_train_step(
+        model, ELASTIC_CFG, device=dev, mesh=mesh)
+    state = init_state(model)
+    losses = {}
+    t0 = time.perf_counter()
+    for b in elastic_batches()[:TWO_RANK_STEPS]:
+        state, metrics = train_step(state, shard_batch(b))
+        losses[state["step"]] = float(metrics["loss"])
+    save_checkpoint(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}", state)
+    return {"losses": losses, "seconds": time.perf_counter() - t0}
+
+
+def reshard_resume(tmp: str) -> None:
+    """In a fresh process on the one-rank ``{fsdp: 1}`` mesh, from other
+    keyed values each time: the round-tripped checkpoint restored (the
+    route ``needs_reshard`` picks) and its next 2 steps; the 2-rank
+    checkpoint resumed by ``train_elastic(resume=True)``, which routes
+    it through ``needs_reshard`` -> ``restore_resharded``; then the same
+    resharded state's next steps, uninterrupted (``restore_resharded``
+    timed).  Prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    mesh = mesh_group_up(dev, ELASTIC_MESH)
+    batches = elastic_batches()
+    src = f"{tmp}/two_rank/step_{TWO_RANK_STEPS}"
+    counter = observe.counters().counter("tdx.reshard.elastic_reshards")
+    out = {}
+    try:
+        with tdx_config.override(reshard_chunk_mb=RESHARD_CHUNK_MB):
+            model = elastic_model(mesh, dev, seed=1)
+            init_state, train_step, shard_batch = make_train_step(
+                model, ELASTIC_CFG, device=dev, mesh=mesh)
+            state = init_state(model)
+            back = f"{tmp}/reshard_back"
+            resharded = needs_reshard(back, state)
+            t = time.perf_counter()
+            if resharded:
+                restore_resharded(back, state)
+            else:
+                restore_checkpoint(back, target=state, verify=True)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            step = state["step"]
+            losses = []
+            for b in batches[ELASTIC_STEPS:]:
+                state, metrics = train_step(state, shard_batch(b))
+                losses.append(float(metrics["loss"]))
+            out["round_trip"] = {
+                "losses": losses, "restored_step": step,
+                "route": "restore_resharded" if resharded
+                else "restore_checkpoint", "restore_s": restore_s}
+            del model, state, init_state, train_step
+            torch.cuda.empty_cache()
+            model = elastic_model(mesh, dev, seed=1)
+            losses = {}
+            before = counter.value
+            _, steps, _ = train_elastic(
+                model, ELASTIC_CFG, batches[:TWO_RANK_STEPS + TWO_RANK_RESUMED],
+                mesh=mesh,
+                device=dev, checkpoint_dir=f"{tmp}/two_rank", resume=True,
+                checkpoint_every=100, probe_on_restart=False,
+                on_metrics=lambda s, m: losses.__setitem__(
+                    s, float(m["loss"])))
+            elastic_peak = last_transfer_peak_bytes()
+            resharded = counter.value - before
+            del model
+            torch.cuda.empty_cache()
+            model = elastic_model(mesh, dev, seed=2)
+            init_state, train_step, shard_batch = make_train_step(
+                model, ELASTIC_CFG, device=dev, mesh=mesh)
+            state = init_state(model)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            restore_resharded(src, state)
+            torch.cuda.synchronize()
+            reshard_s = time.perf_counter() - t
+            peak = last_transfer_peak_bytes()
+            ref = []
+            for b in batches[TWO_RANK_STEPS:TWO_RANK_STEPS + TWO_RANK_RESUMED]:
+                state, metrics = train_step(state, shard_batch(b))
+                ref.append(float(metrics["loss"]))
+        out["two_rank"] = {
+            "losses": losses, "steps": steps, "elastic_reshards": resharded,
+            "reference_losses": ref, "reshard_s": reshard_s,
+            "peak_staging_bytes": peak,
+            "elastic_peak_staging_bytes": elastic_peak,
+            "mesh_axes": read_manifest(src)["topology"]["mesh_axes"]}
+    finally:
+        dist.destroy_process_group()
+    emit(out)
+
+
+def phase_reshard(dev, tmp: str, elastic_row) -> dict:
+    """The train_elastic checkpoint (step 6) offline to the device-free
+    ``{fsdp 2, tp 2}`` under ``gspmd_2d_plan`` and back to ``{fsdp 1}``
+    under ``decoder_lm_plan`` (the layout it trains in, so it restores
+    without a reshard), a chunk budget below the largest leaf: each hop
+    bitwise (``reshard_checkpoint`` runs ``verify_reshard`` before it
+    commits the destination), staging within the budget; a checkpoint
+    written by 2 spawned gloo ranks on the card; then in one fresh
+    process the round trip restored onto the card, its next 2 steps
+    bitwise the uninterrupted run's, and the 2-rank checkpoint resumed by
+    one rank through ``needs_reshard`` -> ``restore_resharded``, its
+    steps bitwise an uninterrupted one-rank run's from the same
+    resharded state."""
+    if elastic_row is None:
+        raise RuntimeError("needs train_elastic's checkpoint")
+    t0 = time.perf_counter()
+    budget = RESHARD_CHUNK_MB << 20
+    ck = f"{tmp}/elastic"
+    src = f"{ck}/step_{ELASTIC_STEPS}"
+    for name in os.listdir(ck):  # free the disk: only the last step is needed
+        if name != f"step_{ELASTIC_STEPS}" and os.path.isdir(f"{ck}/{name}"):
+            shutil.rmtree(f"{ck}/{name}")
+    nbytes = payload_bytes(src)
+    plan_2d = plan_reshard(src, gspmd_2d_plan(), MeshSpec(RESHARD_MESH),
+                           chunk_mb=RESHARD_CHUNK_MB)
+    largest = max(lt.nbytes for lt in plan_2d.leaves)
+    if not largest > budget:
+        raise AssertionError(f"budget {budget} not below the largest leaf "
+                             f"{largest}")
+    hops = {}
+    for name, s, plan, mesh in (
+            ("to_2d", src, gspmd_2d_plan(), RESHARD_MESH),
+            ("back", f"{tmp}/reshard_to_2d", decoder_lm_plan(ELASTIC_CFG),
+             ELASTIC_MESH)):
+        observe.enable(True)
+        observe.reset()
+        t = time.perf_counter()
+        try:
+            reshard_checkpoint(s, plan, MeshSpec(mesh), f"{tmp}/reshard_{name}",
+                               chunk_mb=RESHARD_CHUNK_MB)
+        finally:
+            seconds = time.perf_counter() - t
+            spans = {e["name"]: e["dur"] / 1e6 for e in observe.tracer().drain()
+                     if e["ph"] == "X" and e["name"].startswith("reshard.")}
+            observe.enable(None)
+        peak = last_transfer_peak_bytes()
+        if not 0 < peak <= budget:
+            raise AssertionError(f"reshard {name} staged {peak} bytes, "
+                                 f"budget {budget}")
+        hops[name] = {"mesh": mesh, "seconds": seconds,
+                      "gb_per_s": nbytes / seconds / 1e9,
+                      "transfer_s": spans.get("reshard.transfer"),
+                      "verify_reshard_s": spans.get("reshard.verify"),
+                      "peak_staging_bytes": peak, "bitwise": True}
+    shutil.rmtree(f"{tmp}/reshard_to_2d")
+    shutil.rmtree(ck)
+    ranks = sp_spawn("elastic_writer_rank", TWO_RANKS, tmp)
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"ranks disagree: {[r['losses'] for r in ranks]}")
+    two_bytes = payload_bytes(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}")
+    resumed = run_child("reshard_resume", tmp, timeout=CHILD_TIMEOUT_S)
+    trip, two = resumed["round_trip"], resumed["two_rank"]
+    want = elastic_row["reference_losses"][ELASTIC_STEPS:]
+    if trip["losses"] != want or trip["restored_step"] != ELASTIC_STEPS:
+        raise AssertionError(f"round-tripped checkpoint (step "
+                             f"{trip['restored_step']}) trained to "
+                             f"{trip['losses']}, uninterrupted {want}")
+    got = [two["losses"][str(s)] for s in
+           range(TWO_RANK_STEPS + 1, TWO_RANK_STEPS + TWO_RANK_RESUMED + 1)]
+    if two["elastic_reshards"] != 1 or got != two["reference_losses"]:
+        raise AssertionError(f"2 -> 1 rank resume: {two['elastic_reshards']}"
+                             f" reshards, losses {got} vs "
+                             f"{two['reference_losses']}")
+    for peak in (two["peak_staging_bytes"], two["elastic_peak_staging_bytes"]):
+        if not 0 < peak <= 2 * budget:  # the online verify double-buffers
+            raise AssertionError(f"online reshard staged {peak} bytes, "
+                                 f"budget {budget}")
+    shutil.rmtree(f"{tmp}/reshard_back")
+    shutil.rmtree(f"{tmp}/two_rank")
+    row = {"phase": "reshard", "card": nvidia_smi(), "model": "llama3-8b",
+           "n_layers": ELASTIC_CFG.n_layers, "checkpoint_bytes": nbytes,
+           "chunk_budget_bytes": budget, "largest_leaf_bytes": largest,
+           "leaves": len(plan_2d.leaves), "chunks_to_2d": plan_2d.total_chunks,
+           "hops": hops, "round_trip": trip,
+           "two_rank": {"axis": TWO_RANK_AXIS, "ranks": TWO_RANKS,
+                        "backend": "gloo (spawned ranks on one card)",
+                        "checkpoint_bytes": two_bytes,
+                        "losses": ranks[0]["losses"],
+                        "rank_seconds": [r["seconds"] for r in ranks],
+                        **two, "resumed_losses": got,
+                        "reshard_gb_per_s": two_bytes / two["reshard_s"]
+                        / 1e9},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -5692,6 +6175,16 @@ def main() -> int:
         run("ulysses_sp", phase_ulysses_sp, sp_ranks)
     train_sp_row = run("train_sp", phase_train_sp, dev)
     train_pp_row = run("train_pp", phase_train_pp, dev, train_row)
+    ckpt_root = tempfile.mkdtemp(prefix="tdx_ckpt_")
+    try:
+        usage = shutil.disk_usage(ckpt_root)
+        emit({"phase": "checkpoint_disk", "card": smi, "dir": ckpt_root,
+              "total_bytes": usage.total, "used_bytes": usage.used,
+              "free_bytes": usage.free})
+        elastic_row = run("train_elastic", phase_train_elastic, dev, ckpt_root)
+        run("reshard", phase_reshard, dev, ckpt_root, elastic_row)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     if failures:
         return 1
     timing = run("kernels_line", measure, main_args, flush)
@@ -5749,6 +6242,10 @@ def main() -> int:
                 f"train_pp_{sched}_by_rank_per_step":
                     [r[name] for r in row["launches_by_rank"]]
                 for sched, row in train_pp_row["schedules"].items()},
+            "launches_elastic_path": {
+                "drained_run": elastic_row["flash_launches_first"][name],
+                "steps_run": len(elastic_row["executed_steps"]),
+                "resumed_run": elastic_row["flash_launches_resumed"][name]},
             **numbers(main_flash["kernels"][name]),
             "shape": {**main_flash["shape"], "dtype": main_flash["dtype"],
                       "causal": True},

@@ -10,8 +10,11 @@
   ``InjectedRuntimeError``, count ``tdx.chaos.injected{kind}`` and dump
   the flight recorder (a bundle both packages' ``validate`` accept)
   before raising; ``slow`` sleeps; a ``hang`` is cut by
-  ``set_cancel_event``; ``corrupt`` raises ``NotImplementedError`` naming
-  the ROADMAP item that ports its target;
+  ``set_cancel_event``; ``corrupt`` flips the byte the JAX executor flips
+  in a checkpoint's largest payload file at ``save`` / ``restore``,
+  touches no file at ``reshard`` (the engine damages its chunk) and
+  raises ``NotImplementedError`` naming the ROADMAP item that ports its
+  target at the other sites;
 * activation: an installed plan before the config's ``fault_plan``, the
   config's parse cached per text, ``maybe_inject`` a no-op without one.
 """
@@ -137,14 +140,44 @@ def test_slow_sleeps_and_cancel_event_cuts_a_hang():
     assert not th.is_alive() and took and took[0] < 5
 
 
+def _checkpoint(path):
+    """A committed checkpoint of the port's and the JAX package's shape:
+    two payload files, the larger the damage's victim."""
+    path.mkdir()
+    (path / "big.bin").write_bytes(bytes(range(256)) * 8)
+    (path / "small.bin").write_bytes(b"x" * 16)
+    return path
+
+
 @pytest.mark.parametrize("site,item", [
     ("save", "A12"), ("restore", "A12"), ("reshard", "A12"),
     ("cache", "A8"), ("registry", "A8"), ("compile", "A13"),
 ])
-def test_corrupt_names_the_unported_target(site, item):
+def test_corrupt_names_the_unported_target(site, item, tmp_path):
+    """``corrupt`` damages what the port has: at ``save`` / ``restore``
+    the checkpoint's largest payload file, byte for byte as the JAX
+    executor damages it (flip), at ``reshard`` nothing on disk (the
+    engine flips its in-flight chunk); elsewhere it names the ROADMAP
+    item that ports its target."""
     fault = chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        chaos.execute(fault)
+    if item != "A12":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            chaos.execute(fault)
+        return
+    ours, theirs = _checkpoint(tmp_path / "a"), _checkpoint(tmp_path / "b")
+    before = (ours / "big.bin").read_bytes()
+    chaos.execute(fault, path=str(ours))
+    jax_chaos.execute(jax_chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0],
+                      path=str(theirs))
+    for name in ("big.bin", "small.bin"):
+        assert (ours / name).read_bytes() == (theirs / name).read_bytes()
+    after = (ours / "big.bin").read_bytes()
+    if site == "reshard":
+        assert after == before
+    else:
+        assert sum(a != b for a, b in zip(after, before)) == 1
+        with pytest.raises(ValueError, match="target path"):
+            chaos.execute(fault)
 
 
 def test_activation_order_and_the_config_cache():

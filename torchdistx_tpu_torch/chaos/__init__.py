@@ -1,8 +1,9 @@
 """Deterministic fault injection (the port's own copy of
 ``torchdistx_tpu/chaos``).
 
-Every failure mode the serving engine claims to survive can be *injected
-on demand* and proven survived, in CI, on the CPU, deterministically.
+Every failure mode the serving engine and the elastic loop claim to
+survive can be *injected on demand* and proven survived, in CI, on the
+CPU, deterministically.
 Fault plans are keyed by site and step; see :mod:`.plan` for the grammar.
 
 Activation, in precedence order:
@@ -20,8 +21,9 @@ is active: one lock, one attribute read and one config read per site.
              the serving engine survives by requeueing its lanes
 ``hang``     a step that does not return for ``arg`` seconds (default
              3600; :func:`set_cancel_event` cuts it)
-``corrupt``  damage to on-disk state the port does not have yet: raises
-             ``NotImplementedError`` naming its ROADMAP item
+``corrupt``  post-commit checkpoint damage (truncate or bit-flip) at
+             ``save``/``restore``; the in-flight chunk at ``reshard``;
+             elsewhere ``NotImplementedError`` naming its ROADMAP item
 ``slow``     extra seconds at the site
 ``preempt``  SIGTERM to self: the announced preemption notice
 ``flap``     an INTERMITTENT, RECURRING ``raise`` on a duty-cycle
@@ -37,6 +39,7 @@ from typing import List, Optional, Union
 from .inject import (
     InjectedRuntimeError,
     ReplicaPreempted,
+    corrupt_checkpoint,
     execute,
     set_cancel_event,
 )
@@ -51,6 +54,7 @@ __all__ = [
     "SITES",
     "active_plan",
     "clear",
+    "corrupt_checkpoint",
     "execute",
     "install",
     "maybe_inject",

@@ -14,10 +14,14 @@ message names no CUDA error, so the retryable-error contract
 (:func:`..cuda_bridge.materialize._retryable_errors`) can tell it from a
 sticky CUDA error, which it never retries.
 
-``corrupt`` damages on-disk state (checkpoints, compile caches, registry
-artifacts) that the port does not have yet: at every site it raises
-``NotImplementedError`` naming the ROADMAP item that brings the target,
-never silently doing nothing.
+``corrupt`` damages state: at the elastic sites (``step``, ``save``,
+``restore``) the checkpoint directory it is given
+(:func:`corrupt_checkpoint`: its largest payload file truncated or one
+byte flipped); at ``reshard`` the engine's in-flight chunk buffer (the
+engine flips it when it sees the fault fire).  The compile caches,
+registry artifacts and fleet state it would damage at the other sites
+are not in the port yet: there it raises ``NotImplementedError`` naming
+the ROADMAP item that brings the target, never silently doing nothing.
 """
 
 from __future__ import annotations
@@ -27,20 +31,22 @@ import os
 import signal
 import threading
 import time
+import zlib
+from pathlib import Path
 from typing import Optional
 
 from .. import observe
 from .plan import Fault
 
 _HANG_DEFAULT_S = 3600.0  # "never returns" at test scale; cancellable
+_CORRUPT_MODES = ("truncate", "flip")
+# Sites where ``corrupt`` damages a checkpoint directory.
+_CHECKPOINT_SITES = ("step", "save", "restore")
 
-# The ROADMAP item that ports what a ``corrupt`` fault at each site
-# damages: checkpoints and reshard transfers (A12), the artifact registry
-# and its caches (A8), the materializer's compile ladder (A13), the
-# fleet's replicas and rollover (A7).
+# The ROADMAP item that ports what a ``corrupt`` fault at each other site
+# damages: the artifact registry and its caches (A8), the materializer's
+# compile ladder (A13), the fleet's replicas and rollover (A7).
 _CORRUPT_TARGETS = {
-    "step": ("checkpoint", "A12"), "save": ("checkpoint", "A12"),
-    "restore": ("checkpoint", "A12"), "reshard": ("reshard chunk", "A12"),
     "registry": ("artifact registry", "A8"), "cache": ("compile cache", "A8"),
     "lower": ("compile cache", "A13"), "compile": ("compile cache", "A13"),
     "execute": ("compile cache", "A13"), "fleet": ("fleet replica", "A7"),
@@ -85,8 +91,8 @@ def _interruptible_sleep(seconds: float) -> None:
 
 
 def execute(fault: Fault, *, path: Optional[str] = None) -> None:
-    """Perform ``fault``.  ``path`` is the target a ``corrupt`` fault
-    would damage (none exists in the port yet)."""
+    """Perform ``fault``.  ``path`` is the checkpoint directory of the
+    ``save``/``restore`` sites (required by ``corrupt`` there)."""
     observe.counter("tdx.chaos.injected", kind=fault.kind).inc()
     observe.instant(
         "chaos.injected", category="chaos",
@@ -122,6 +128,19 @@ def execute(fault: Fault, *, path: Optional[str] = None) -> None:
         os.kill(os.getpid(), signal.SIGTERM)
         return
     if fault.kind == "corrupt":
+        if fault.site == "reshard":
+            # The reshard engine damages its OWN in-flight chunk buffer
+            # when it sees this fault fire (degrade-never-corrupt: the
+            # bitwise verify stage catches it, and no file — least of all
+            # the source checkpoint — is ever touched).  Nothing to do.
+            return
+        if fault.site in _CHECKPOINT_SITES:
+            if path is None:
+                raise ValueError(
+                    f"corrupt fault needs a target path (the checkpoint "
+                    f"dir): {fault.spec()}")
+            corrupt_checkpoint(path, mode=fault.arg or "truncate")
+            return
         target = _CORRUPT_TARGETS.get(fault.site)
         if target is None:
             raise ValueError(
@@ -132,3 +151,44 @@ def execute(fault: Fault, *, path: Optional[str] = None) -> None:
             f"chaos: {fault.spec()} would damage the {what}, which the "
             f"port does not have yet (ROADMAP {item})")
     raise AssertionError(f"unreachable fault kind {fault.kind!r}")
+
+
+def _damage_file(f: Path, mode: str) -> None:
+    """Apply one deterministic byte-level damage mode to ``f`` in place."""
+    if mode == "truncate":
+        size = f.stat().st_size
+        with open(f, "r+b") as fh:
+            fh.truncate(max(0, size // 2))
+        return
+    with open(f, "r+b") as fh:  # flip
+        data = bytearray(fh.read())
+        if not data:
+            raise ValueError(f"cannot flip a byte of empty file {f}")
+        # Deterministic victim byte: keyed by content, not RNG.
+        i = zlib.crc32(bytes(data)) % len(data)
+        data[i] ^= 0xFF
+        fh.seek(0)
+        fh.write(data)
+
+
+def corrupt_checkpoint(path: "str | Path", mode: str = "truncate") -> str:
+    """Deterministically damage one payload file of a committed checkpoint
+    (post-commit bit-rot / torn-write model).  The victim is the largest
+    payload file — metadata-only damage can slip past a restore that never
+    touches the damaged branch; payload damage cannot.  Returns the
+    relative path of the damaged file.
+    """
+    if mode not in _CORRUPT_MODES:
+        raise ValueError(f"corrupt mode must be one of {_CORRUPT_MODES}, got {mode!r}")
+    path = Path(path)
+    from ..utils.checkpoint import iter_payload_files
+
+    victims = sorted(
+        iter_payload_files(path),
+        key=lambda rel: ((path / rel).stat().st_size, str(rel)),
+    )
+    if not victims:
+        raise FileNotFoundError(f"no payload files to corrupt under {path}")
+    rel = victims[-1]
+    _damage_file(path / rel, mode)
+    return str(rel)

@@ -1,5 +1,6 @@
 """Runtime configuration (the port's own copy of the telemetry, serving,
-chaos and flight-recorder knobs of ``torchdistx_tpu/config.py``):
+chaos, flight-recorder, reshard and logging knobs of
+``torchdistx_tpu/config.py``):
 resolved from environment variables once at import and overridable per
 scope::
 
@@ -67,6 +68,14 @@ Environment variables (read at first import):
 ``TDX_LEDGER_EVENTS``   Per-request event-timeline cap (default 128): older
                         events are dropped (and counted) once a request's
                         timeline is full.
+``TDX_RESHARD_CHUNK_MB`` Host staging budget (MiB, default 64) of one
+                        transfer chunk of the reshard engine
+                        (:mod:`torchdistx_tpu_torch.reshard`): a shard
+                        block over it is read in slabs of at most this
+                        many bytes.
+``TDX_LOG_LEVEL``       Level of the framework logger
+                        (:func:`torchdistx_tpu_torch.utils.get_logger`),
+                        default ``INFO``.
 ======================  ====================================================
 """
 
@@ -93,6 +102,8 @@ class Config:
     spec_k: int = 4
     request_ledger: bool = True
     ledger_events: int = 128
+    reshard_chunk_mb: float = 64.0
+    log_level: str = "INFO"
 
 
 def _from_env() -> Config:
@@ -107,6 +118,8 @@ def _from_env() -> Config:
         spec_k=int(os.environ.get("TDX_SPEC_K", "4")),
         request_ledger=os.environ.get("TDX_REQUEST_LEDGER", "1") != "0",
         ledger_events=int(os.environ.get("TDX_LEDGER_EVENTS", "128")),
+        reshard_chunk_mb=float(os.environ.get("TDX_RESHARD_CHUNK_MB", "64")),
+        log_level=os.environ.get("TDX_LOG_LEVEL", "INFO"),
     )
 
 

@@ -1,32 +1,39 @@
-"""Bring-up states (the port's own copy of the component states of
-``torchdistx_tpu/observe/health.py``), the rows a ``/readyz`` probe
-reads.
+"""Bring-up states and liveness heartbeats (the port's own copy of
+``torchdistx_tpu/observe/health.py``), the rows ``/readyz`` and
+``/healthz`` probes read.  Two small registries, both process-wide and
+thread-safe:
 
-A named component walks an explicit bring-up state machine; the serve
-engine reports ``spin_up`` -> ``warming`` -> ``serving`` around replica
-bring-up (:func:`..serve.spin_up_replica`).  :func:`readiness` is true
-only when every registered component is in a READY state (``serving`` /
-``ready``), so a load balancer cannot route to a replica whose programs
-are still being captured.  A process with no registered components is
-trivially ready.  Components named ``fleet/<r>`` are fleet replicas and
-aggregate: ready iff >= 1 replica is serving, with the per-replica
-states listed in the probe body.  The JAX module's liveness heartbeats
-come with the loops that beat (the elastic loop, ROADMAP A12).
+* **component states** — a named component walks an explicit bring-up
+  state machine; the serve engine reports ``spin_up`` -> ``warming`` ->
+  ``serving`` around replica bring-up (:func:`..serve.spin_up_replica`).
+  :func:`readiness` is true only when every registered component is in a
+  READY state (``serving`` / ``ready``), so a load balancer cannot route
+  to a replica whose programs are still being captured.  A process with
+  no registered components is trivially ready.  Components named
+  ``fleet/<r>`` are fleet replicas and aggregate: ready iff >= 1 replica
+  is serving, with the per-replica states listed in the probe body.
+* **heartbeats** — a loop that can wedge (the elastic step loop,
+  :func:`..utils.run_elastic`, under its step watchdog) beats once per
+  iteration with a period hint; :func:`liveness` is false when any
+  heartbeat is older than its allowance (``max(4 × period_hint, 15 s)``
+  — generous against the watchdog, so one slow step never flaps it).
 
-The registry holds plain floats/strings under one lock: reporting a
-state costs nanoseconds.
+The registries hold plain floats/strings under one lock: reporting a
+state or a beat costs nanoseconds.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 __all__ = [
     "FLEET_PREFIX",
     "READY_STATES",
+    "beat",
     "clear_state",
+    "liveness",
     "readiness",
     "reset",
     "set_info",
@@ -42,8 +49,11 @@ READY_STATES = ("serving", "ready")
 # mid-bring-up (or mid-drain) never 503s a fleet that is still serving.
 FLEET_PREFIX = "fleet/"
 
+_MIN_ALLOWANCE_S = 15.0
+
 _lock = threading.Lock()
 _states: Dict[str, Tuple[str, float]] = {}          # name -> (state, since)
+_beats: Dict[str, Tuple[float, Optional[float]]] = {}  # name -> (t, hint)
 _infos: Dict[str, Dict[str, object]] = {}           # name -> metadata
 
 
@@ -83,8 +93,15 @@ def clear_state(component: str) -> None:
         _infos.pop(component, None)
 
 
+def beat(name: str, period_hint_s: Optional[float] = None) -> None:
+    """One liveness heartbeat; ``period_hint_s`` sizes the staleness
+    allowance (``max(4 × hint, 15 s)``)."""
+    with _lock:
+        _beats[name] = (time.monotonic(), period_hint_s)
+
+
 def snapshot() -> dict:
-    """The component states as one JSON-ready dict."""
+    """States + heartbeat ages as one JSON-ready dict."""
     now = time.monotonic()
     with _lock:
         states = {
@@ -92,7 +109,35 @@ def snapshot() -> dict:
                    **_infos.get(name, {})}
             for name, (st, since) in _states.items()
         }
-    return {"states": states}
+        beats = {
+            name: {
+                "age_s": round(now - t, 3),
+                **({"period_hint_s": hint} if hint is not None else {}),
+            }
+            for name, (t, hint) in _beats.items()
+        }
+    return {"states": states, "heartbeats": beats}
+
+
+def _allowance(hint: Optional[float]) -> float:
+    return max(4.0 * hint, _MIN_ALLOWANCE_S) if hint else _MIN_ALLOWANCE_S
+
+
+def liveness() -> Tuple[bool, dict]:
+    """(alive, detail) for /healthz: alive unless a heartbeat went
+    stale.  A process that never beats is alive by definition — the
+    probe's job is catching a wedged LOOP, not requiring one."""
+    now = time.monotonic()
+    detail = snapshot()
+    stale = {}
+    with _lock:
+        for name, (t, hint) in _beats.items():
+            age = now - t
+            if age > _allowance(hint):
+                stale[name] = round(age, 3)
+    if stale:
+        detail["stale"] = stale
+    return (not stale), detail
 
 
 def readiness() -> Tuple[bool, dict]:
@@ -131,7 +176,8 @@ def readiness() -> Tuple[bool, dict]:
 
 
 def reset() -> None:
-    """Drop all states (tests)."""
+    """Drop all states and heartbeats (tests)."""
     with _lock:
         _states.clear()
+        _beats.clear()
         _infos.clear()

@@ -31,7 +31,7 @@ from .sharding import (
     spec_str,
     stage_layers,
 )
-from .train import lm_cross_entropy, make_train_step
+from .train import lm_cross_entropy, make_train_step, train_elastic
 from .ulysses import make_ulysses_attention
 
 __all__ = [
@@ -49,6 +49,7 @@ __all__ = [
     "make_ring_attention",
     "make_ring_flash_attention",
     "make_train_step",
+    "train_elastic",
     "make_ulysses_attention",
     "parse_spec_str",
     "pipeline_plan_overrides",

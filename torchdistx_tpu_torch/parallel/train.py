@@ -15,8 +15,10 @@ over ``sp``.  A ``pp`` axis with ``pipeline=True`` runs the blocks as
 pipeline stages (:mod:`.pipeline`: GPipe, 1F1B or interleaved 1F1B),
 each rank updating its own layers and the replicated embed and head.  A
 mixture-of-experts model adds its router's load-balancing loss to the
-cross-entropy.  ``train_elastic`` (A12) is not ported yet.  With
-telemetry on (:func:`..observe.enabled`) the step is wrapped by
+cross-entropy.  :func:`train_elastic` runs the step under the elastic
+loop (:func:`..utils.run_elastic`: checkpoints, restarts, the watchdog,
+preemption drain, resume onto another mesh).  With telemetry on
+(:func:`..observe.enabled`) the step is wrapped by
 :func:`_instrument_step`.
 """
 
@@ -230,6 +232,52 @@ def make_train_step(
     return init_state, train_step, shard_batch
 
 
+def train_elastic(
+    model: nn.Module,
+    cfg: TransformerConfig,
+    batches,
+    *,
+    mesh=None,
+    device="cuda",
+    optimizer: Optional[OptimizerFactory] = None,
+    step_options: Optional[dict] = None,
+    **elastic_kw,
+):
+    """:func:`make_train_step` wired into the chaos-hardened elastic loop
+    (counterpart of the JAX package's ``train_elastic``).
+
+    Builds the train step for ``model`` (materialized, or bound to its
+    keyed values on ``mesh``), takes its state with ``init_state`` and
+    runs :func:`..utils.failures.run_elastic` over ``batches`` (each a
+    ``[B, S]`` token array, put on the device by ``shard_batch`` before
+    the step).  All of ``run_elastic``'s hardening rides along — periodic
+    integrity-manifested checkpoints of the module, the optimizer (its
+    step counters included) and the step count, in-place restore on a
+    failure with quarantine fallback, the step watchdog, SIGTERM drain,
+    resume onto another mesh, and :mod:`..chaos` fault plans — as does
+    the telemetry both layers emit.
+
+    ``step_options`` forwards to :func:`make_train_step` (``batch_axes``,
+    the pipeline options, ...); ``elastic_kw`` forwards to
+    ``run_elastic`` (``checkpoint_dir``, ``checkpoint_every``,
+    ``step_deadline``, ``resume``, ``on_metrics``, ...).  Packed
+    ``segment_ids`` are not threaded through: call ``make_train_step``
+    directly for packed batches.
+
+    Returns ``(state, steps_completed, restarts_used)``."""
+    from ..utils.failures import run_elastic
+
+    init_state, train_step, shard_batch = make_train_step(
+        model, cfg, optimizer=optimizer, device=device, mesh=mesh,
+        **(step_options or {}))
+    state = init_state(model)
+
+    def step(state_now, tokens):
+        return train_step(state_now, shard_batch(tokens))
+
+    return run_elastic(step, state, batches, **elastic_kw)
+
+
 def _single_device(dev: torch.device, make_opt):
     def init_state(module: nn.Module) -> dict:
         params = list(module.parameters())
@@ -326,7 +374,7 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
             by_mesh.setdefault(getattr(p, "device_mesh", None), []).append(p)
         return {"model": module, "params": params,
                 "opt": make_opt([{"params": ps} for ps in by_mesh.values()]),
-                "step": 0, "sharded": sharded,
+                "step": 0, "sharded": sharded, "mesh": mesh,
                 "split": [sharded.split.get(n, 1) for n, _ in named]}
 
     def train_step(state: dict, tokens: torch.Tensor,
