@@ -302,6 +302,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -373,6 +374,7 @@ from torchdistx_tpu_torch.ops.flash_attention import (
     reset_launches as reset_flash_launches,
 )
 from torchdistx_tpu_torch.parallel import (
+    PartitionSpec,
     VirtualMesh,
     fsdp_plan,
     gspmd_2d_plan,
@@ -2637,14 +2639,14 @@ F32_ZERO_GRAD_RTOL = 1e-5
 F32_LOSS_ATOL = 1e-3  # the same sums, plus two AdamW updates (loss ~10.9)
 
 
-def leaf_errors(names, got, want) -> dict:
+def leaf_errors(names, got, want, dtype=torch.float64) -> dict:
     """||got - want|| / ||want|| per named gradient leaf (0 where both
-    are exactly 0)."""
+    are exactly 0), computed in ``dtype``."""
     errs = {}
     for name, a, b in zip(names, got, want):
         b = b.to(a.device)
-        d = (a.double() - b.double()).norm().item()
-        n = b.double().norm().item()
+        d = (a.to(dtype) - b.to(dtype)).norm().item()
+        n = b.to(dtype).norm().item()
         errs[name] = d / n if n else (0.0 if d == 0 else math.inf)
     return errs
 
@@ -2886,12 +2888,13 @@ def compare_plain_bf16(state, train_step, shard_batch, dev) -> dict:
     return row
 
 
-def vs_plain(names, losses, grad_norms, grads, p_grads) -> dict:
+def vs_plain(names, losses, grad_norms, grads, p_grads,
+             dtype=torch.float64) -> dict:
     """The bf16 comparison with ``default_attention``'s step: (flash,
-    plain) loss and gradient norm relative, each gradient leaf normwise;
-    raises past the limits."""
+    plain) loss and gradient norm relative, each gradient leaf normwise
+    (in ``dtype``); raises past the limits."""
     (loss, p_loss), (gn, p_gn) = losses, grad_norms
-    errs = leaf_errors(names, grads, p_grads)
+    errs = leaf_errors(names, grads, p_grads, dtype)
     worst = max(errs, key=errs.get)
     worst_attn = max((n for n in errs if ".attn." in n), key=errs.get)
     loss_rel, gn_rel = abs(loss - p_loss) / abs(p_loss), abs(gn - p_gn) / p_gn
@@ -4740,6 +4743,9 @@ def _sp_rank(rank: int, world: int, tmp: str, func: str, args) -> None:
     """Rank ``rank`` of a gloo group of ``world`` processes on the one
     card: ``chip_smoke.<func>(rank, world, dev, *args)``, its JSON result
     written to ``tmp``."""
+    import faulthandler
+
+    faulthandler.enable()  # a rank that dies on a signal shows where
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5663,6 +5669,345 @@ def phase_train_pp(dev, train_row) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_pp_mesh: pipeline stages laid out over the other mesh axes
+# ---------------------------------------------------------------------------
+
+# Each leg runs on 4 gloo ranks on the card, 1F1B: the llama legs
+# at train_pp's configuration (4-layer llama3-8b width, bf16 parameters,
+# [8, 2048] in 4 microbatches), the MoE leg at Mixtral 8x7B width, 2
+# layers, bf16 parameters, [4, 2048] in 2 microbatches.  Steps: 3, but 2
+# where gloo's collectives through the host take ~10 s a step on one
+# card (the stage's gradients summed over sp, FSDP2's gathers, and the
+# C3 check's 2 more), for the script's time limit.
+PP_MESH_LEGS = {"pp2-tp2": {"pp": 2, "tp": 2},
+                "pp2-fsdp2": {"pp": 2, "fsdp": 2},
+                "pp2-sp2": {"pp": 2, "sp": 2},
+                "pp2-ep2": {"pp": 2, "ep": 2}}
+PP_MESH_RANKS = 4
+PP_MESH_STEPS = {"pp2-tp2": 2, "pp2-fsdp2": 2, "pp2-sp2": 2, "pp2-ep2": 3}
+PP_MOE_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=2)
+PP_MOE_BATCH, PP_MOE_MB = 4, 2
+PP_MESH_C3_LEG = "pp2-tp2"
+PP_MESH_ONE_RANK = {"pp": 1, "fsdp": 1, "tp": 1}
+CARD_BYTES = 80e9
+CUDA_CONTEXT_BYTES = 1e9  # a rank's context and allocator slack, reckoned
+
+
+def pp_moe_batch() -> np.ndarray:
+    return np.random.RandomState(63).randint(
+        0, PP_MOE_CFG.vocab_size, (PP_MOE_BATCH, TRAIN_PP_SEQ))
+
+
+def pp_mesh_plan(cfg, leg: str):
+    """The leg's plan: ``decoder_lm_plan``, but on ``{pp 2, tp 2}`` the
+    head whole over tp.  Its column-parallel gather is a DTensor
+    redistribute, i.e. a functional all-gather, which segfaults on CUDA
+    tensors over gloo with torch 2.11 on the H100 (c10d's own all-gathers
+    work); the ranks here share one card, so they talk over gloo.  The CPU tests run the tensor-parallel head over gloo, the
+    one-rank NCCL step on the card."""
+    plan = decoder_lm_plan(cfg)
+    if leg == PP_MESH_C3_LEG:
+        plan.rules.insert(0, (re.compile(r".*lm_head\.weight"),
+                              PartitionSpec(None, "fsdp")))
+    return plan
+
+
+def pp_mesh_leg(leg: str):
+    """(config, model factory, batch, microbatches) of a leg."""
+    if "ep" in PP_MESH_LEGS[leg]:
+        return PP_MOE_CFG, make_mixtral, pp_moe_batch(), PP_MOE_MB
+    return TRAIN_PP_CFG, make_llama, train_pp_batches()[0], TRAIN_PP_MB
+
+
+def pp_mesh_bytes(leg: str, free: int) -> dict:
+    """The leg's device bytes per rank, reckoned before it runs: each
+    stage's parameters, gradients and AdamW's two moments (bf16) split as
+    the axes split them, FSDP2's unsharded gradients held over the
+    microbatches, the activations 1F1B keeps (at most 3 microbatches'
+    graphs on stage 0; ~16 d bf16 values a token and layer, as train_pp's
+    stage 0 peak reads) and the last stage's f32 logits (3 copies: the
+    logits, the softmax and their gradient); then 4 ranks and their CUDA
+    contexts against the card's 80 GB and against ``free``, what this
+    process has left free on the card."""
+    axes = PP_MESH_LEGS[leg]
+    cfg, _, batch, n_mb = pp_mesh_leg(leg)
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts if cfg.moe else 0
+    hd = cfg.head_size
+    attn = d * hd * (2 * cfg.n_heads + 2 * cfg.kv_heads)
+    ffn = 3 * d * ff * (E or 1)
+    split = axes.get("tp", 1) * axes.get("fsdp", 1)
+    layer = attn / split + ffn / (split * axes.get("ep", 1))
+    light = cfg.vocab_size * d / split + cfg.vocab_size * d / (
+        axes.get("fsdp", 1) if leg == PP_MESH_C3_LEG else split)
+    per_stage = cfg.n_layers // axes["pp"]
+    params = per_stage * layer + light
+    state = 4 * 2 * params
+    unsharded_grads = 2 * (per_stage * (attn + ffn / axes.get("ep", 1))
+                           / axes.get("tp", 1) + light * split) \
+        if "fsdp" in axes else 0
+    rows, seq = batch.shape[0] // n_mb, TRAIN_PP_SEQ // axes.get("sp", 1)
+    acts = min(3, n_mb) * per_stage * rows * seq * 16 * d * 2
+    logits = 3 * rows * seq * cfg.vocab_size * 4
+    per_rank = state + unsharded_grads + max(acts, logits + acts / 3)
+    total = PP_MESH_RANKS * (per_rank + CUDA_CONTEXT_BYTES)
+    if total > min(CARD_BYTES, free):
+        raise AssertionError(f"{leg}: {total / 1e9:.1f} GB reckoned for "
+                             f"{PP_MESH_RANKS} ranks > the card's 80 GB or "
+                             f"the {free / 1e9:.1f} GB free")
+    return {"per_rank_bytes": per_rank, "state_bytes": state,
+            "free_bytes": free,
+            "unsharded_grad_bytes": unsharded_grads,
+            "activation_bytes": acts, "logits_bytes": logits,
+            "total_bytes_4_ranks_and_contexts": total}
+
+
+def train_pp_mesh_rank(rank: int, world: int, dev) -> dict:
+    """One rank of every leg, one after another on the same gloo group
+    (a spawn of 4 ranks costs ~16 s before its first step), each leg's
+    memory freed before the next: ``{leg: its row}``."""
+    out = {}
+    for leg in PP_MESH_LEGS:
+        out[leg] = pp_mesh_leg_rank(leg, dev)
+        gc.collect()  # the recording's cycles hold the module's values
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_mesh_leg_rank(leg: str, dev) -> dict:
+    """One rank of a leg: this stage's keyed values laid out over the
+    leg's other axis, its 1F1B steps (each step's losses, flash launches,
+    wall time; the peak device memory); on the C3 leg, the C3 check."""
+    axes = PP_MESH_LEGS[leg]
+    mesh = make_mesh(axes, device_type="cuda")
+    cfg, make, batch_np, n_mb = pp_mesh_leg(leg)
+    t0 = time.perf_counter()
+    attn = (make_ring_flash_attention(mesh) if "sp" in axes
+            else make_flash_attention())
+    model = deferred_init(make, cfg, attn_fn=attn, device=dev)
+    plan = pipeline_plan_overrides(pp_mesh_plan(cfg, leg), cfg.n_layers)
+    bind_values(model, materialize_module_cuda(
+        model, mesh=mesh, plan=plan, seed=0, param_dtype=torch.bfloat16),
+        strict=False)
+    init_state, train_step, shard_batch = make_train_step(
+        model, cfg, device=dev, mesh=mesh, pipeline=True,
+        pipeline_schedule="1f1b", n_microbatches=n_mb)
+    state = init_state(model)
+    batch = shard_batch(batch_np)
+    losses, aux, launches, step_s = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(PP_MESH_STEPS[leg]):
+        torch.cuda.synchronize()
+        reset_flash_launches()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux"]))
+        step_s.append(time.perf_counter() - t)
+        launches.append(dict(flash_launches))
+    out = {"losses": losses, "aux": aux, "launches": launches,
+           "step_s_gloo": step_s, "grad_norm": float(metrics["grad_norm"]),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "stage": mesh.get_local_rank("pp"),
+           "sp_index": mesh.get_local_rank("sp") if "sp" in axes else 0,
+           "paged_decode_launches": paged_attention.launches}
+    if leg == PP_MESH_C3_LEG:
+        # The C3 check: this rank's gradient shards on a fresh half batch
+        # (a row a microbatch) with the flash kernels and with plain
+        # attention, at the trained weights (SGD at rate 0 leaves them);
+        # loss and norm are global.  The leaves are compared on the card
+        # in f32: 4 ranks' f64 copies of them would not fit beside them.
+        state["opt"] = torch.optim.SGD(state["params"], lr=0.0,
+                                       foreach=False)  # DTensors and plain
+        fresh = shard_batch(train_pp_batches()[1][:TRAIN_PP_BATCH // 2])
+        names = {id(p): n for n, p in model.named_parameters()}
+        leaves = [names[id(p)] for p in state["params"]]
+        runs = {}
+        for kind in ("flash", "plain"):
+            if kind == "plain":
+                for a in attention_modules(model):
+                    a.attn_fn = grouped_plain_attention
+            torch.cuda.empty_cache()
+            state, m = train_step(state, fresh)
+            runs[kind] = (float(m["loss"]), float(m["grad_norm"]),
+                          [local_of(p.grad).clone() for p in state["params"]])
+        (lf, gf, flash), (lp, gp, plain) = runs["flash"], runs["plain"]
+        out["vs_plain"] = vs_plain(leaves, (lf, lp), (gf, gp), flash, plain,
+                                   torch.float32)
+        out["vs_plain"].pop("grad_by_leaf")
+        del flash, plain, runs
+    del model, state
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pp_moe_whole_losses(dev) -> list:
+    """The MoE leg's model, batch and values in this process, whole, on
+    the flash kernels: each step the 2 microbatches' summed next-token
+    NLLs over the batch's count of targets plus their router losses
+    averaged, accumulated, then AdamW."""
+    cfg = PP_MOE_CFG
+    model = deferred_init(make_mixtral, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, seed=0, param_dtype=torch.bfloat16, device=dev))
+    opt = default_optimizer(list(model.parameters()))
+    batch = torch.as_tensor(pp_moe_batch(), device=dev)
+    denom = PP_MOE_BATCH * (TRAIN_PP_SEQ - 1)
+    losses = []
+    for _ in range(PP_MESH_STEPS["pp2-ep2"]):
+        opt.zero_grad(set_to_none=True)
+        total = 0.0
+        for mb in batch.chunk(PP_MOE_MB):
+            logits = model(mb)
+            nll = F.cross_entropy(
+                logits[:, :-1].reshape(-1, cfg.vocab_size),
+                mb[:, 1:].reshape(-1), reduction="sum") / denom
+            aux = router_aux_loss(model) / PP_MOE_MB
+            (nll + aux).backward()
+            total += float(nll) + float(aux)
+            del logits, nll, aux
+        opt.step()
+        losses.append(total)
+    del model, opt
+    gc.collect()  # the recording's cycles hold the module's values
+    torch.cuda.empty_cache()
+    return losses
+
+
+def one_rank_pp_mesh(dev, pp_one_rank) -> dict:
+    """The 1F1B pipelined step on a one-rank NCCL ``{pp: 1, fsdp: 1, tp:
+    1}`` mesh (FSDP2 units and tensor-parallel styles around every stage
+    module): 2-layer llama3-8b width, bf16 parameters, the [8, 2048]
+    batch in 4 microbatches, step ms beside ``{pp: 1}``'s (train_pp)."""
+    cfg = TRAIN_CFG
+    mesh = mesh_group_up(dev, PP_MESH_ONE_RANK)
+    try:
+        model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                              device=dev)
+        plan = pipeline_plan_overrides(decoder_lm_plan(cfg), cfg.n_layers)
+        bind_values(model, materialize_module_cuda(
+            model, mesh=mesh, plan=plan, seed=0,
+            param_dtype=torch.bfloat16), strict=False)
+        init_state, train_step, shard_batch = make_train_step(
+            model, cfg, device=dev, mesh=mesh, pipeline=True,
+            pipeline_schedule="1f1b", n_microbatches=TRAIN_PP_MB)
+        state = init_state(model)
+        batch = shard_batch(train_pp_batches()[0])
+        losses, step_s = [], []
+        reset_flash_launches()
+        for _ in range(PP_ONE_RANK_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t)
+        launches = dict(flash_launches)
+        want = {k: cfg.n_layers * TRAIN_PP_MB * PP_ONE_RANK_STEPS
+                for k in FLASH_REPLACES}
+        want["flash_dbias"] = 0
+        check_launches(launches, want, "train_pp_mesh {pp 1, fsdp 1, tp 1}")
+        del model, state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    step = float(np.median(step_s[1:]))
+    return {"mesh": PP_MESH_ONE_RANK, "backend": "nccl", "schedule": "1f1b",
+            "n_layers": cfg.n_layers, "losses": losses, "step_ms": step * 1e3,
+            "step_ms_samples": [x * 1e3 for x in step_s],
+            "tokens_per_s": TRAIN_PP_BATCH * TRAIN_PP_SEQ / step,
+            "flash_launches": launches,
+            "pp1_1f1b_step_ms": None if pp_one_rank is None
+            else pp_one_rank["schedules"]["1f1b"]["step_ms"]}
+
+
+def phase_train_pp_mesh(dev, train_pp_row) -> dict:
+    """Pipeline stages laid out over a second mesh axis, the legs one after
+    another in one spawn of 4 gloo ranks on the card, 1F1B
+    (PP_MESH_STEPS): ``{pp 2, tp 2}``,
+    ``{pp 2, fsdp 2}`` and ``{pp 2, sp 2}`` (ring flash) at train_pp's
+    llama configuration, each within BF16_LOSS_RTOL of train_pp's whole
+    model (``pp_whole_losses``), and ``{pp 2, ep 2}`` at Mixtral 8x7B
+    width (2 layers, [4, 2048] in 2 microbatches) within it of the same
+    model whole in this process with the same microbatches.  Each leg's
+    bytes are reckoned against the card first.  Losses equal on every
+    rank and falling; B1-B3 launched stage layers x microbatches times a
+    rank and step (x (r + 1) on sp rank r), B4 and B5 never; the C3 leaf
+    on the ``{pp 2, tp 2}`` leg; then the one-rank NCCL ``{pp 1, fsdp 1,
+    tp 1}`` step's ms beside ``{pp 1}``'s."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    whole = {"llama": None if train_pp_row is None
+             else train_pp_row["whole_model_losses"]}
+    if whole["llama"] is None:
+        whole["llama"] = pp_whole_losses(dev)
+    whole["moe"] = pp_moe_whole_losses(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parent = torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[0]
+    reckoned = {leg: {**pp_mesh_bytes(leg, free),
+                      "this_process_allocated_bytes": parent}
+                for leg in PP_MESH_LEGS}
+    t = time.perf_counter()
+    by_rank = sp_spawn("train_pp_mesh_rank", PP_MESH_RANKS)
+    spawn_s = time.perf_counter() - t
+    legs = {}
+    for leg, axes in PP_MESH_LEGS.items():
+        cfg, _, batch_np, n_mb = pp_mesh_leg(leg)
+        ranks = [out[leg] for out in by_rank]
+        losses = ranks[0]["losses"]
+        for r, out in enumerate(ranks):
+            if out["losses"] != losses:
+                raise AssertionError(f"{leg}: rank {r} losses {out['losses']}"
+                                     f" != rank 0's {losses}")
+            per = (cfg.n_layers // axes["pp"]) * n_mb * (out["sp_index"] + 1)
+            want = {k: per for k in FLASH_REPLACES}
+            want["flash_dbias"] = 0
+            for step in out["launches"]:
+                check_launches(step, want, f"train_pp_mesh {leg} rank {r}")
+            if out["paged_decode_launches"]:
+                raise AssertionError(f"{leg} rank {r}: paged decode "
+                                     f"launched on the pipeline path")
+        if not all(math.isfinite(x) for x in losses) \
+                or not all(x < losses[0] for x in losses[1:]):
+            raise AssertionError(f"train_pp_mesh {leg} losses do not fall: "
+                                 f"{losses}")
+        ref = whole["moe" if "ep" in axes else "llama"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        if not max(rel) <= BF16_LOSS_RTOL:
+            raise AssertionError(f"train_pp_mesh {leg} losses {losses} vs "
+                                 f"whole {ref}: {rel} > {BF16_LOSS_RTOL}")
+        legs[leg] = {
+            "mesh": axes, "model": "mixtral-8x7b" if "ep" in axes
+            else "llama3-8b", "n_layers": cfg.n_layers,
+            "batch": list(batch_np.shape), "n_microbatches": n_mb,
+            "losses": losses, "aux": ranks[0]["aux"], "whole_losses": ref,
+            "loss_rel_diff": rel,
+            "launches_by_rank_per_step": [out["launches"][0] for out in ranks],
+            "peak_bytes_by_rank": [out["max_memory_allocated_bytes"]
+                                   for out in ranks],
+            "reckoned": reckoned[leg],
+            "step_s_gloo_by_rank": [out["step_s_gloo"] for out in ranks],
+            "rank_seconds": [out["seconds"] for out in ranks]}
+        if leg == PP_MESH_C3_LEG:
+            c3 = [out["vs_plain"] for out in ranks]
+            legs[leg]["c3_vs_plain_by_rank"] = c3
+            legs[leg]["c3_worst_leaf"] = max(
+                (c["grad_worst_leaf"] for c in c3), key=lambda w: w[1])
+    one_rank = one_rank_pp_mesh(
+        dev, None if train_pp_row is None else train_pp_row["one_rank_nccl"])
+    row = {"phase": "train_pp_mesh", "dtype": "bfloat16 compute, bfloat16 "
+           "parameters", "schedule": "1f1b", "steps": PP_MESH_STEPS,
+           "backend": "gloo (spawned ranks on one card; no step times)",
+           "loss_limit": BF16_LOSS_RTOL, "legs": legs,
+           "spawn_seconds": spawn_s, "one_rank_nccl": one_rank,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # train_elastic and reshard: checkpoints, the elastic loop, resharding
 # ---------------------------------------------------------------------------
 
@@ -6175,6 +6520,8 @@ def main() -> int:
         run("ulysses_sp", phase_ulysses_sp, sp_ranks)
     train_sp_row = run("train_sp", phase_train_sp, dev)
     train_pp_row = run("train_pp", phase_train_pp, dev, train_row)
+    train_pp_mesh_row = run("train_pp_mesh", phase_train_pp_mesh, dev,
+                            train_pp_row)
     ckpt_root = tempfile.mkdtemp(prefix="tdx_ckpt_")
     try:
         usage = shutil.disk_usage(ckpt_root)
@@ -6242,6 +6589,13 @@ def main() -> int:
                 f"train_pp_{sched}_by_rank_per_step":
                     [r[name] for r in row["launches_by_rank"]]
                 for sched, row in train_pp_row["schedules"].items()},
+            "launches_pp_mesh_path": {
+                **{f"train_pp_mesh_{leg}_by_rank_per_step":
+                   [r[name] for r in row["launches_by_rank_per_step"]]
+                   for leg, row in train_pp_mesh_row["legs"].items()},
+                "one_rank_pp1_fsdp1_tp1_in_5_steps":
+                    train_pp_mesh_row["one_rank_nccl"]["flash_launches"][
+                        name]},
             "launches_elastic_path": {
                 "drained_run": elastic_row["flash_launches_first"][name],
                 "steps_run": len(elastic_row["executed_steps"]),
@@ -6268,6 +6622,10 @@ def main() -> int:
         "launches_ring_sp_path": {
             "ring_flash_bias_sp_by_rank":
                 [r["flash_dbias"] for r in bias_sp_row["launches_by_rank"]]},
+        "launches_pp_mesh_path": {
+            f"train_pp_mesh_{leg}_by_rank_per_step":
+                [r["flash_dbias"] for r in row["launches_by_rank_per_step"]]
+            for leg, row in train_pp_mesh_row["legs"].items()},
         **numbers(t5_flash["kernels"]["flash_dbias"]),
         "library_backend": t5_flash["library_backend"], "shape": t5_shape,
     })

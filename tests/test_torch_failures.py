@@ -153,3 +153,51 @@ def test_run_elastic_matches_jax(case, tmp_path):
         alive, detail = health.liveness()
         assert alive and "elastic" in detail["heartbeats"]
     assert device_health()["healthy"]
+
+
+def test_live_abandoned_step_raises_without_restoring(tmp_path, monkeypatch):
+    """ROADMAP C9, the contract: a hang that ignores the watchdog's cancel
+    (a wedged step, not an injected fault) still runs past the grace
+    period, so the loop raises naming ``resume=True`` and restores
+    nothing: no checkpoint is read, and the live module keeps the
+    weights of the last step that returned."""
+    import threading
+
+    from torch import nn
+
+    from torchdistx_tpu_torch.utils import checkpoint, failures
+
+    monkeypatch.setattr(failures, "_ABANDONED_GRACE_S", 0.2)
+    reads = []
+    monkeypatch.setattr(checkpoint, "restore_checkpoint",
+                        lambda *a, **k: reads.append(a))
+    model = nn.Linear(4, 4)
+    params = list(model.parameters())
+    first = [p.detach().clone() for p in params]
+    state = {"model": model, "params": params,
+             "opt": torch.optim.SGD(params, lr=0.1), "step": 0}
+    release, calls = threading.Event(), {"n": 0}
+
+    def step(s, b):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            release.wait(30)  # wedged: it never looks at the cancel
+        with torch.no_grad():
+            for p in s["params"]:
+                p.add_(b)
+        s["step"] += 1
+        return s, {}
+
+    batches = [torch.tensor(float(i)) for i in range(1, N_BATCHES + 1)]
+    try:
+        with pytest.raises(RuntimeError, match=r"resume=True"):
+            run_elastic(step, state, batches, checkpoint_dir=str(tmp_path),
+                        checkpoint_every=1, step_deadline=0.5,
+                        probe_on_restart=False)
+        after = [p.detach().clone() for p in params]
+        steps_done = state["step"]
+    finally:
+        release.set()
+    assert reads == [] and calls["n"] == 3 and steps_done == 2
+    for got, p0 in zip(after, first):
+        assert torch.equal(got, p0 + 1.0 + 2.0)

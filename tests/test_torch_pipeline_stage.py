@@ -4,18 +4,20 @@ pipelined train step on a one-rank mesh, and the step's refusals.
 * ``pipeline_plan_overrides`` on ``VirtualMesh`` coordinates: each stage
   holds its own layers whole (layer ``i`` on stage ``i // (L / pp)``;
   with 2 chunks a stage, chunk ``k`` on stage ``k % pp``) and the
-  replicated entries, draws no other stage's layers, and the stages'
-  values put back together equal the unsharded keyed values bitwise
-  (the mesh-invariance promise of ``torchdistx_tpu/__init__.py``);
+  replicated entries, each as its shard of ``decoder_lm_plan``'s spec
+  over the other axes (``{pp 2, fsdp 2, tp 2}``), draws no other
+  stage's layers, and the stages' values equal the unsharded keyed
+  values' shards bitwise (the mesh-invariance promise of
+  ``torchdistx_tpu/__init__.py``);
 * ``make_train_step(pipeline=True)`` on a one-rank gloo ``{pp: 1}`` mesh
   (one stage holding every layer; the interleaved ring of two chunks
   sends to itself), every schedule: 3 AdamW steps within 1e-5 of
   ``mesh=None`` on the same keyed values, with ``attn_fn=`` setting the
   stage's attention for each step, the blocks' own restored after it;
-* ``pp`` combined with ``fsdp``, ``ep``, ``sp`` or ``tp`` raises naming
-  ROADMAP A11.2; a bad ``pipeline_schedule``, a schedule without
-  ``pipeline``, ``pipeline`` without a ``pp`` axis, a ``pp`` axis
-  without ``pipeline`` and ``attn_fn`` without ``pipeline`` raise.
+* a bad ``pipeline_schedule``, a schedule without ``pipeline``,
+  ``pipeline`` without a ``pp`` axis, a ``pp`` axis without ``pipeline``
+  and ``attn_fn`` without ``pipeline`` raise (``pp`` with the other axes
+  trains: ``test_torch_pipeline_mesh*.py``).
 """
 
 import numpy as np
@@ -34,7 +36,11 @@ from torchdistx_tpu_torch.models.plans import decoder_lm_plan
 from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.parallel import VirtualMesh, make_mesh, make_train_step
 from torchdistx_tpu_torch.parallel.pipeline import pipeline_plan_overrides
-from torchdistx_tpu_torch.parallel.sharding import layer_stage, stage_layers
+from torchdistx_tpu_torch.parallel.sharding import (
+    layer_stage,
+    local_shard,
+    stage_layers,
+)
 
 torch.set_num_threads(2)
 
@@ -59,8 +65,10 @@ def _drawing(monkeypatch, seen: set):
 
 
 @pytest.mark.parametrize("axes,n_chunks", [({"pp": 2}, 1), ({"pp": 2}, 2),
-                                           ({"pp": 4, "dp": 2}, 2)],
-                         ids=["pp2", "pp2-chunks2", "pp4-dp2-chunks2"])
+                                           ({"pp": 4, "dp": 2}, 2),
+                                           ({"pp": 2, "fsdp": 2, "tp": 2}, 1)],
+                         ids=["pp2", "pp2-chunks2", "pp4-dp2-chunks2",
+                              "pp2-fsdp2-tp2"])
 def test_stage_owned_materialization(monkeypatch, axes, n_chunks):
     model = _recording()
     full = materialize_module_cuda(model, device="cpu")
@@ -91,7 +99,12 @@ def test_stage_owned_materialization(monkeypatch, axes, n_chunks):
                 assert layer_stage(i, L, pp, n_chunks) == stage
                 assert (i // (L // (pp * n_chunks))) % pp == stage
             gathered.setdefault(n, got[n])
-            assert torch.equal(got[n], full[n]), n  # bitwise, every stage
+            # Bitwise, every stage: this coordinate's shard over the
+            # other axes (the whole entry where they do not shard it).
+            spec = plan.spec_for(n, tuple(full[n].shape), axes)
+            want = local_shard(full[n], spec, axes,
+                               [coord[a] for a in axes])
+            assert torch.equal(got[n], want), n
     assert set(gathered) == set(full)
     # No stage draws another stage's layers: the stages share only the
     # replicated entries' draws, and together they draw what one
@@ -148,10 +161,6 @@ def test_one_rank_pipeline_matches_unsharded(sched):
 
 
 @pytest.mark.parametrize("axes,kw,err,what", [
-    ({"pp": 1, "fsdp": 1}, {}, NotImplementedError, "A11.2"),
-    ({"pp": 1, "ep": 1}, {}, NotImplementedError, "A11.2"),
-    ({"pp": 1, "sp": 1}, {}, NotImplementedError, "A11.2"),
-    ({"pp": 1, "tp": 1}, {}, NotImplementedError, "A11.2"),
     ({"pp": 1}, {"pipeline_schedule": "zero-bubble"}, ValueError, "gpipe"),
     ({"pp": 1}, {"pipeline": False, "pipeline_schedule": "1f1b"}, ValueError,
      "requires pipeline=True"),
@@ -159,8 +168,8 @@ def test_one_rank_pipeline_matches_unsharded(sched):
     ({"pp": 1}, {"pipeline": False}, ValueError, "pass pipeline=True"),
     ({"pp": 1}, {"pipeline": False, "attn_fn": make_flash_attention()},
      ValueError, "constructor"),
-], ids=["fsdp", "ep", "sp", "tp", "schedule", "schedule-no-pipeline",
-        "no-pp-axis", "pp-no-pipeline", "attn-fn-no-pipeline"])
+], ids=["schedule", "schedule-no-pipeline", "no-pp-axis", "pp-no-pipeline",
+        "attn-fn-no-pipeline"])
 def test_pipeline_refusals(axes, kw, err, what):
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)

@@ -32,8 +32,7 @@ torch.set_num_threads(2)
     (dict(attn_fn=default_attention), (ValueError, "constructor")),
     (dict(mesh={"fsdp": 1, "sp": 1}), None),
     (dict(mesh={"ep": 1, "tp": 1}), None),
-    (dict(mesh={"pp": 1, "fsdp": 1}, pipeline=True),
-     (NotImplementedError, "A11.2")),
+    (dict(mesh={"pp": 1, "fsdp": 1}, pipeline=True), None),
     (dict(mesh={"fsdp": 1}, moe=True), None),
     (dict(mesh={"fsdp": 1}, pipeline=True),
      (ValueError, "needs a mesh with a 'pp' axis")),
@@ -41,12 +40,13 @@ torch.set_num_threads(2)
         "mesh-pipeline"])
 def test_unported_options_raise(kw, what):
     """Options and mesh axes the port does not carry yet raise, naming
-    their ROADMAP item (meshes: one gloo rank, an in-memory store): a
-    pipeline over ``pp`` with ``fsdp`` (A11.2).  Misused options raise
-    ``ValueError``: a pipeline without a ``pp`` mesh axis, ``attn_fn``
-    without a pipeline.  The ``ep`` axis and a MoE config (``what``
-    None), ported with ROADMAP A9, and the ``sp`` axis, ported with A10,
-    are taken; a pipeline alone (A11) in ``test_torch_pipeline*.py``."""
+    their ROADMAP item (meshes: one gloo rank, an in-memory store).
+    Misused options raise ``ValueError``: a pipeline without a ``pp`` mesh
+    axis, ``attn_fn`` without a pipeline.  The ``ep`` axis and a MoE
+    config (``what`` None), ported with ROADMAP A9, the ``sp`` axis,
+    ported with A10, and a pipeline over ``pp`` with ``fsdp``, ported with
+    A11.2, are taken; the pipelines themselves in
+    ``test_torch_pipeline*.py``."""
     import torch.distributed as dist
 
     from torchdistx_tpu_torch.parallel import make_mesh

@@ -254,9 +254,11 @@ def materialize_params_cuda(
     local shards of its coordinate).  With a
     :class:`..parallel.sharding.StageShardingPlan` the result holds only
     the entries of this rank's pipeline stage and those every stage
-    holds; a stage-owned entry is a plain tensor (this rank's shard over
-    the mesh's other axes), as no DTensor over the whole mesh describes
-    a tensor that only one stage holds.  RNG uses per-op generators keyed by
+    holds; a stage-owned entry is this rank's shard of the base plan's
+    spec over the mesh's other axes, as a DTensor on the mesh of those
+    axes (the stage's own; a plain tensor where the mesh has no other
+    axis), as no DTensor over the whole mesh describes a tensor that
+    only one stage holds.  RNG uses per-op generators keyed by
     ``seed`` and the op's ``key_nr``, so gathered shards equal the
     unsharded values bit for bit on any mesh of the same device type.
 
@@ -280,7 +282,9 @@ def _materialize(fakes, cast, mesh, plan, seed, param_dtype, device):
         specs = {n: plan.spec_for(n, tuple(f.shape), mesh)
                  for n, f in fakes.items()}
     finish = _finisher(mesh, specs, cast if param_dtype is not None else (),
-                       param_dtype, owned)
+                       param_dtype, owned,
+                       plan.axis if isinstance(plan, StageShardingPlan)
+                       else None)
     return _replay(fakes, dev, seed, finish)
 
 
@@ -314,12 +318,14 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
     return tuple(reversed(stride))
 
 
-def _finisher(mesh, specs, cast, param_dtype, owned=frozenset()):
+def _finisher(mesh, specs, cast, param_dtype, owned=frozenset(),
+              stage_axis: Optional[str] = None):
     """``(name, full) -> kept value``: this rank's (or this virtual
     coordinate's) local shard, cast where asked, in its own compact
     storage — the full tensor is freed when the run drops it — and on a
-    ``DeviceMesh`` wrapped as a DTensor of the full shape, unless a
-    pipeline stage owns it (``owned``)."""
+    ``DeviceMesh`` wrapped as a DTensor of the full shape; an entry a
+    pipeline stage owns (``owned``) on the mesh of the axes other than
+    ``stage_axis`` (plain where there is none)."""
     coord = None
     if isinstance(mesh, VirtualMesh):
         coord = mesh.coordinate
@@ -328,6 +334,11 @@ def _finisher(mesh, specs, cast, param_dtype, owned=frozenset()):
         if coord is None:
             raise ValueError("this rank is not in the mesh")
     shape = mesh_shape(mesh) if mesh is not None else None
+    stage_mesh = None
+    if owned and coord is not None and not isinstance(mesh, VirtualMesh):
+        rest = tuple(a for a in shape if a != stage_axis)
+        if rest:
+            stage_mesh = mesh[rest if len(rest) > 1 else rest[0]]
 
     def finish(name: str, full: torch.Tensor) -> torch.Tensor:
         local = full if mesh is None else local_shard(
@@ -336,12 +347,19 @@ def _finisher(mesh, specs, cast, param_dtype, owned=frozenset()):
             local = local.to(param_dtype)
         if not _is_compact(local):
             local = local.clone(memory_format=torch.contiguous_format)
-        if coord is None or isinstance(mesh, VirtualMesh) or name in owned:
+        if coord is None or isinstance(mesh, VirtualMesh):
             return local
         from torch.distributed.tensor import DTensor
 
+        on, placements = mesh, placements_for(specs[name], mesh)
+        if name in owned:
+            if stage_mesh is None:
+                return local
+            on = stage_mesh
+            placements = tuple(pl for a, pl in zip(shape, placements)
+                               if a != stage_axis)
         return DTensor.from_local(
-            local, mesh, placements_for(specs[name], mesh), run_check=False,
+            local, on, placements, run_check=False,
             shape=full.shape, stride=_contiguous_stride(full.shape))
 
     return finish

@@ -59,16 +59,19 @@ def apply_final_norm(final_norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return final_norm(x)
 
 
-def decoder_head_logits(cfg, x: torch.Tensor, embedding: torch.Tensor,
+def decoder_head_logits(cfg, x: torch.Tensor, embed: nn.Module,
                         lm_head: Optional[nn.Module] = None) -> torch.Tensor:
-    """Tied (``x @ E^T``) or untied dense head, f32 logits.
+    """Tied (``x @ E^T``, through the ``Embed`` module's ``attend``) or
+    untied dense head, f32 logits.  Both go through the modules, so a
+    tensor-parallel or FSDP2 layout of the table or the head runs its
+    hooks (a pipeline stage calls the head outside the model's forward).
 
     The asymmetry is the JAX package's: the tied head casts ``x`` to
     ``param_dtype`` and multiplies in it, the untied head runs in the
     compute dtype (the model's full forward instead attends the tied
     embedding in the compute dtype, as flax's ``Embed.attend`` does)."""
     if cfg.tie_embeddings or lm_head is None:
-        logits = x.to(cfg.param_dtype) @ embedding.T
+        logits = embed.attend(x, dtype=cfg.param_dtype)
     else:
         logits = lm_head(x)
     return logits.float()
@@ -98,13 +101,18 @@ class PipelineDecomposition:
     ``nn.ModuleList``: a stage runs the blocks it owns
     (:func:`..parallel.sharding.stage_layers`), in order."""
 
-    # inputs (tokens [B, S] or images [B, H, W, C]) -> [B, S, d_model]
-    embed: Callable[[torch.Tensor], torch.Tensor]
+    # (inputs (tokens [B, S] or images [B, H, W, C]), seq_shard) ->
+    # [B, S, d_model]; ``seq_shard = (index, count)`` says the tokens are
+    # chunk ``index`` of ``count`` equal chunks of the sequence (a
+    # sequence-parallel rank's), None the whole sequence.  Through the
+    # modules, so a tensor-parallel or FSDP2 table runs its hooks.
+    embed: Callable[..., torch.Tensor]
     # the per-layer blocks, in order
     blocks: nn.ModuleList
-    # sequence length -> rope angles [S, head_dim/2] threaded to every
-    # block, or None for families with learned positions
-    angles: Callable[[int], Optional[torch.Tensor]]
+    # (sequence length, seq_shard) -> rope angles [S, head_dim/2] at the
+    # chunk's absolute positions, threaded to every block, or None for
+    # families with learned positions
+    angles: Callable[..., Optional[torch.Tensor]]
     # activations [B, S, d_model] -> f32 logits ([B, S, vocab] or
     # [B, n_classes])
     head: Callable[[torch.Tensor], torch.Tensor]

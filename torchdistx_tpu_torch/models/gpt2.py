@@ -73,17 +73,18 @@ class GPT2Model(nn.Module):
         final norm and the tied (or untied) head."""
         cfg = self.cfg
 
-        def embed(tokens):
-            pos = torch.arange(tokens.shape[1], device=tokens.device)
-            return positional_token_embed(cfg, self.wte.weight,
-                                          self.wpe.weight, tokens, pos[None])
+        def embed(tokens, seq_shard=None):
+            S = tokens.shape[1]
+            pos = (torch.arange(S, device=tokens.device) if seq_shard is None
+                   else chunk_positions(seq_shard, S, tokens.device))
+            return self.wte(tokens) + self.wpe(pos[None])
 
-        def angles(S):
+        def angles(S, seq_shard=None):
             return None  # learned absolute positions, applied at embed
 
         def head(x):
             x = apply_final_norm(self.final_norm, x)
-            return decoder_head_logits(cfg, x, self.wte.weight, self.lm_head)
+            return decoder_head_logits(cfg, x, self.wte, self.lm_head)
 
         return PipelineDecomposition(embed, self.blocks, angles, head)
 
@@ -101,7 +102,7 @@ class GPT2Model(nn.Module):
 
         def head(x):
             x = apply_final_norm(self.final_norm, x)
-            return decoder_head_logits(cfg, x, self.wte.weight, self.lm_head)
+            return decoder_head_logits(cfg, x, self.wte, self.lm_head)
 
         return DecodeDecomposition(embed, self.blocks, angles_at, head)
 

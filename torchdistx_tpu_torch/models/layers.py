@@ -147,13 +147,15 @@ class Embed(nn.Embedding):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
-    def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """``x @ embedding.T`` in the compute dtype (flax ``Embed.attend``).
+    def attend(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None
+               ) -> torch.Tensor:
+        """``x @ embedding.T`` in ``dtype``, the compute dtype by default
+        (flax ``Embed.attend``).
 
         Under tensor parallelism the weight is a DTensor with the vocab
         over ``tp``: ``x`` enters replicated and the logits leave
         gathered, as a column-parallel head gives them."""
-        dt = self.compute_dtype
+        dt = dtype or self.compute_dtype
         w = self.weight.to(dt)
         if type(w) not in (torch.Tensor, nn.Parameter):
             # Imported here: torch.distributed.tensor pulls in ~500 modules.

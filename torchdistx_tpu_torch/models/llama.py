@@ -87,16 +87,22 @@ class LlamaModel(nn.Module):
         decomposition runs it."""
         cfg = self.cfg
 
-        def embed(tokens):
-            return token_embed(cfg, self.embed.weight, tokens)
+        def embed(tokens, seq_shard=None):
+            return self.embed(tokens)  # rope: the positions enter in angles
 
-        def angles(S):
-            return rope_frequencies(cfg.head_size, S, cfg.rope_theta,
-                                    device=self.embed.weight.device)
+        def angles(S, seq_shard=None):
+            dev = self.embed.weight.device
+            if seq_shard is None:
+                return rope_frequencies(cfg.head_size, S, cfg.rope_theta,
+                                        device=dev)
+            # Row p of the table is position p's whatever its length.
+            return rope_frequencies(cfg.head_size, S * seq_shard[1],
+                                    cfg.rope_theta, device=dev)[
+                chunk_positions(seq_shard, S, dev)]
 
         def head(x):
             x = apply_final_norm(self.final_norm, x)
-            return decoder_head_logits(cfg, x, self.embed.weight, self.lm_head)
+            return decoder_head_logits(cfg, x, self.embed, self.lm_head)
 
         return PipelineDecomposition(embed, self.blocks, angles, head)
 
@@ -119,7 +125,7 @@ class LlamaModel(nn.Module):
 
         def head(x):
             x = apply_final_norm(self.final_norm, x)
-            return decoder_head_logits(cfg, x, self.embed.weight, self.lm_head)
+            return decoder_head_logits(cfg, x, self.embed, self.lm_head)
 
         return DecodeDecomposition(embed, self.blocks, angles_at, head)
 

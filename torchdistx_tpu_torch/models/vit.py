@@ -114,9 +114,16 @@ class ViTModel(nn.Module):
     def pipeline_decomposition(self) -> PipelineDecomposition:
         """For the pipeline runner: the image embed, the non-causal
         blocks, the pooled classifier head."""
-        return PipelineDecomposition(self._embed, self.blocks,
-                                     lambda S: None, self._head,
-                                     causal=False, seq_len=self.cfg.seq_len)
+        def embed(images, seq_shard=None):
+            if seq_shard is not None:
+                raise NotImplementedError(
+                    "ViT's patches are not split over a sequence axis")
+            return self._embed(images)
+
+        return PipelineDecomposition(embed, self.blocks,
+                                     lambda S, seq_shard=None: None,
+                                     self._head, causal=False,
+                                     seq_len=self.cfg.seq_len)
 
 
 def make_vit(cfg: VisionConfig, attn_fn: AttnFn = default_attention,

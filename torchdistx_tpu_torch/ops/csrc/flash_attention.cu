@@ -89,16 +89,21 @@
 //   * the scores (S, and dP in the backward) are computed into registers,
 //     p and ds formed in those fragments, the mask applied only on tiles
 //     that cross the diagonal or a ragged edge (or with segments), and
-//     bf16(p) and the two bf16 parts of ds (hi + lo, ~2^-17 relative)
+//     the two bf16 parts of p and of ds (hi + lo, ~2^-17 relative)
 //     packed straight into the A operands of the next products (a C
 //     fragment of m16n8k16 is half an A fragment); dk/dv computes S^T =
 //     K Q^T so that its keys are the fragments' rows;
 //   * the forward's online softmax runs in the fragments: a thread holds
 //     two rows, a row's max is reduced over the 4 lanes of a quad, and
 //     each thread keeps its share of l (the exact sum of p, for lse) and
-//     of lp (the sum of bf16(p), which O is divided by: O stays a convex
-//     combination of the values it multiplied, so the component they
-//     share passes through exactly and cancels from dP - delta);
+//     of lp (the sum of the bf16 parts hi + lo of p, which O is divided
+//     by: O stays a convex combination of the values it multiplied, so
+//     the component they share passes through exactly and cancels from
+//     dP - delta);
+//   * p is split into hi + lo for P V and P^T dO as ds is: the reference
+//     computes both products in f32, and p rounded once to bf16 (2^-9 of
+//     its size) was the largest bf16 error left in the gradients, 3.9e-2
+//     normwise on a T5-11B-width decoder's key projection;
 //   * dS is split into hi + lo for dS K and dS^T Q: each row of dS sums
 //     to zero in exact arithmetic, which cancels the component shared by
 //     all keys from dq and by all positions' inputs from the key
@@ -782,13 +787,12 @@ struct Dkv {
 // One CTA per (kv row, k tile of BK keys), as in the f32 kernel; each of
 // its 4 warps owns 16 keys and keeps their dK and dV in mma.sync
 // accumulator fragments for the whole walk over (group head g, q tile).
-// Per step: S^T = K Q^T and dP^T = V dO^T (16 keys x BQ queries, in
-// registers; K and V through ldmatrix as the A operand, Q and dO through
-// ldmatrix as the col-major B operand), then p^T and ds^T in those
-// fragments, then dV += P^T dO and dK += dS^T Q, with bf16(p) and the two
-// bf16 parts of ds packed straight from the fragments into A operands (a
-// C fragment of m16n8k16 is half an A fragment of the next product), dO
-// and Q through ldmatrix.trans.  The next step's Q, dO, lse, delta, query
+// Per step: S^T = K Q^T (16 keys x BQ queries, in registers; K through
+// ldmatrix as the A operand, Q as the col-major B operand) and p^T in its
+// fragments, dV += P^T dO; then dP^T = V dO^T and ds^T, dK += dS^T Q;
+// the two bf16 parts of p and of ds are packed straight from the
+// fragments into A operands (a C fragment of m16n8k16 is half an A
+// fragment of the next product), dO and Q through ldmatrix.trans.  The next step's Q, dO, lse, delta, query
 // segment ids and bias tile are in flight (cp.async) while this one
 // computes.
 template <int D>
@@ -921,31 +925,29 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
     const bool masked = p.qseg != nullptr || q0 + BQ > p.S || kw + 16 > p.T ||
                         (p.causal && kw + 15 > q0 + p.T - p.S);
 
-    float s[NQ][4], dp[NQ][4];
+    // P first, then dS, so that only one of S^T and dP^T is computed
+    // while the other's products run: P's hi + lo split needs the room.
+    float s[NQ][4];
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_k[4], a_v[4];
+      uint32_t a_k[4];
       ldsm_x4<false>(a_k, ka + 16 * kk);
-      ldsm_x4<false>(a_v, va + 16 * kk);
 #pragma unroll
       for (int j = 0; j < NQ / 2; ++j) {
-        uint32_t b_q[4], b_do[4];
+        uint32_t b_q[4];
         ldsm_x4<false>(b_q, qs + (16 * j + b_row) * LDT + 16 * kk + b_col);
-        ldsm_x4<false>(b_do, dos + (16 * j + b_row) * LDT + 16 * kk + b_col);
         mma_bf16(s[2 * j], a_k, b_q[0], b_q[1]);
         mma_bf16(s[2 * j + 1], a_k, b_q[2], b_q[3]);
-        mma_bf16(dp[2 * j], a_v, b_do[0], b_do[1]);
-        mma_bf16(dp[2 * j + 1], a_v, b_do[2], b_do[3]);
       }
     }
 
-    // p^T = exp(s*scale [+ bias] - lse) where visible, else 0; ds^T =
-    // p^T (dp^T - delta) scale.  Element e of fragment j: key g + 8(e/2)
-    // of the warp's 16, query 8j + 2t + e%2 of the tile.
+    // p^T = exp(s*scale [+ bias] - lse) where visible, else 0.  Element e
+    // of fragment j: key g + 8(e/2) of the warp's 16, query 8j + 2t + e%2
+    // of the tile.
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -958,19 +960,66 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
         if (masked && !visible(p, q0 + qi, k0 + kl, qseg_s[qi], kseg_s[kl]))
           pr = 0.f;
         s[j][e] = pr;
-        dp[j][e] = pr * (dp[j][e] - delta_s[qi]) * p.scale;
       }
 
-    // dV += P^T dO and dK += dS^T_hi Q + dS^T_lo Q over the tile's
-    // queries: fragments 2kk and 2kk + 1 of S^T are the A operand of k
-    // step kk.
+    // dV += P^T_hi dO + P^T_lo dO over the tile's queries: fragments 2kk
+    // and 2kk + 1 of S^T are the A operand of k step kk.
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a_p[4], a_hi[4], a_lo[4];
+      uint32_t a_hi[4], a_lo[4];
 #pragma unroll
       for (int h = 0; h < 4; ++h) {
         const int j = 2 * kk + (h >> 1), e = 2 * (h & 1);
-        a_p[h] = bf16x2_bits(__floats2bfloat162_rn(s[j][e], s[j][e + 1]));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s[j][e], s[j][e + 1]);
+        a_hi[h] = bf16x2_bits(hi);
+        a_lo[h] = bf16x2_bits(__floats2bfloat162_rn(
+            s[j][e] - __low2float(hi), s[j][e + 1] - __high2float(hi)));
+      }
+#pragma unroll
+      for (int j = 0; j < ND / 2; ++j) {
+        uint32_t b_do[4];
+        ldsm_x4<true>(b_do, dos + (16 * kk + t_row) * LDT + 16 * j + t_col);
+        mma_bf16(dv[2 * j], a_hi, b_do[0], b_do[1]);
+        mma_bf16(dv[2 * j + 1], a_hi, b_do[2], b_do[3]);
+        mma_bf16(dv[2 * j], a_lo, b_do[0], b_do[1]);
+        mma_bf16(dv[2 * j + 1], a_lo, b_do[2], b_do[3]);
+      }
+    }
+
+    // dP^T = V dO^T, then ds^T = p^T (dp^T - delta) scale in its
+    // fragments.
+    float dp[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a_v[4];
+      ldsm_x4<false>(a_v, va + 16 * kk);
+#pragma unroll
+      for (int j = 0; j < NQ / 2; ++j) {
+        uint32_t b_do[4];
+        ldsm_x4<false>(b_do, dos + (16 * j + b_row) * LDT + 16 * kk + b_col);
+        mma_bf16(dp[2 * j], a_v, b_do[0], b_do[1]);
+        mma_bf16(dp[2 * j + 1], a_v, b_do[2], b_do[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + 2 * t + (e & 1);
+        dp[j][e] = s[j][e] * (dp[j][e] - delta_s[qi]) * p.scale;
+      }
+
+    // dK += dS^T_hi Q + dS^T_lo Q.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = 2 * kk + (h >> 1), e = 2 * (h & 1);
         const __nv_bfloat162 hi =
             __floats2bfloat162_rn(dp[j][e], dp[j][e + 1]);
         a_hi[h] = bf16x2_bits(hi);
@@ -979,11 +1028,8 @@ __global__ void __launch_bounds__(Dkv<D>::kThreads, 2)
       }
 #pragma unroll
       for (int j = 0; j < ND / 2; ++j) {
-        uint32_t b_do[4], b_q[4];
-        ldsm_x4<true>(b_do, dos + (16 * kk + t_row) * LDT + 16 * j + t_col);
+        uint32_t b_q[4];
         ldsm_x4<true>(b_q, qs + (16 * kk + t_row) * LDT + 16 * j + t_col);
-        mma_bf16(dv[2 * j], a_p, b_do[0], b_do[1]);
-        mma_bf16(dv[2 * j + 1], a_p, b_do[2], b_do[3]);
         mma_bf16(dk[2 * j], a_hi, b_q[0], b_q[1]);
         mma_bf16(dk[2 * j + 1], a_hi, b_q[2], b_q[3]);
         mma_bf16(dk[2 * j], a_lo, b_q[0], b_q[1]);
@@ -1092,12 +1138,13 @@ __device__ __forceinline__ void k_tile_async(unsigned char* st,
 // One CTA per (query row bh, q tile of BQ rows), longest tiles first, as
 // in the f32 kernel; each of its W warps owns 16 rows and keeps their O
 // (64 f32 registers a thread at D = 128) in mma.sync accumulator
-// fragments for the whole walk over the k tiles, with their Q A-fragments
-// in registers too.  Per k tile: S = Q K^T into registers (K through
+// fragments for the whole walk over the k tiles; their Q A-fragments
+// come from the CTA's shared Q tile each k tile.  Per k tile: S = Q K^T into registers (K through
 // ldmatrix as the col-major B operand), the scale and the bias tile added
 // there, the online softmax in the fragments (a thread holds rows g and
-// g + 8, the 4 lanes of a quad share a row), bf16(p) packed straight into
-// the A operand of O += P V (V through ldmatrix.trans).  The next k
+// g + 8, the 4 lanes of a quad share a row), the two bf16 parts of p
+// packed straight into the A operands of O += P_hi V + P_lo V (V through
+// ldmatrix.trans).  The next k
 // tile's K, V, key segment ids and bias tile are in flight (cp.async)
 // while this one computes.
 template <int D, int W>
@@ -1147,20 +1194,15 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
   const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LDT + ((lane >> 3) & 1) * 8;
   const int t_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDT + (lane >> 4) * 8;
 
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t aq[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4<false>(aq[kk], qs + a_off + 16 * kk);
-
   float o[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   // Per row half h (rows g, g + 8): the running max, the sum of the exact
-  // p (for lse) and the sum of bf16(p) (O's normalizer), each over this
-  // thread's columns (the quad's partial sums share their rescaling).
+  // p (for lse) and the sum of its bf16 parts hi + lo (O's normalizer),
+  // each over this thread's columns (the quad's partial sums share their
+  // rescaling).
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, lp[2] = {0.f, 0.f};
 
   for (int n = 0; n < nk; ++n) {
@@ -1190,14 +1232,19 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // The warp's Q fragment of k step kk, read again each tile: the 32
+      // registers a thread would hold it in are P's hi + lo split's.
+      uint32_t aq[4];
+      ldsm_x4<false>(aq, qs + a_off + 16 * kk);
 #pragma unroll
       for (int j = 0; j < NK / 2; ++j) {
         uint32_t bk[4];
         ldsm_x4<false>(bk, ks + b_off + 16 * j * LDT + 16 * kk);
-        mma_bf16(s[2 * j], aq[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * j + 1], aq[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * j], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], aq, bk[2], bk[3]);
       }
+    }
 
     // x = s*scale [+ bias], -1e30 where not visible (bit 4j + e of `vis`
     // cleared); the tile's row max.  Element e of fragment j: row g +
@@ -1240,11 +1287,10 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
       m[h] = m_new;
     }
 
-    // p = exp(x - m) where visible, else 0; bf16(p) packed straight into
-    // the A operand of P V (fragments 2kk and 2kk + 1 of S are that of k
-    // step kk).
-    uint32_t pa[BK / 16][4];
-    float ps[2] = {0.f, 0.f}, pts[2] = {0.f, 0.f};
+    // p = exp(x - m) where visible, else 0, kept in f32 in the S
+    // fragments (fragments 2kk and 2kk + 1 of S are the A operand of k
+    // step kk of P V).
+    float ps[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -1253,15 +1299,14 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
         float p1 = exp2f((s[j][2 * h + 1] - m[h]) * kLog2e);
         if (!((vis >> (4 * j + 2 * h)) & 1u)) p0 = 0.f;
         if (!((vis >> (4 * j + 2 * h + 1)) & 1u)) p1 = 0.f;
-        const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
-        pa[j / 2][h + 2 * (j & 1)] = bf16x2_bits(pb);
+        s[j][2 * h] = p0;
+        s[j][2 * h + 1] = p1;
         ps[h] += p0 + p1;
-        pts[h] += __low2float(pb) + __high2float(pb);
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] = l[h] * corr[h] + ps[h];
-      lp[h] = lp[h] * corr[h] + pts[h];
+      lp[h] *= corr[h];
     }
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
@@ -1270,21 +1315,41 @@ __global__ void __launch_bounds__(32 * W, W == 4 ? 2 : 1)
       o[j][2] *= corr[1];
       o[j][3] *= corr[1];
     }
+    // O += P_hi V + P_lo V: each k step's two bf16 parts of p (hi =
+    // bf16(p), lo = bf16(p - hi), ~2^-17 relative together) packed into
+    // A operands just before its products, and their sum into lp.
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 2 * kk + (r >> 1), h = r & 1;
+        const __nv_bfloat162 hi =
+            __floats2bfloat162_rn(s[j][2 * h], s[j][2 * h + 1]);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            s[j][2 * h] - __low2float(hi), s[j][2 * h + 1] - __high2float(hi));
+        a_hi[r] = bf16x2_bits(hi);
+        a_lo[r] = bf16x2_bits(lo);
+        lp[h] += (__low2float(hi) + __high2float(hi)) +
+                 (__low2float(lo) + __high2float(lo));
+      }
 #pragma unroll
       for (int j = 0; j < ND / 2; ++j) {
         uint32_t bv[4];
         ldsm_x4<true>(bv, vs + t_off + 16 * kk * LDT + 16 * j);
-        mma_bf16(o[2 * j], pa[kk], bv[0], bv[1]);
-        mma_bf16(o[2 * j + 1], pa[kk], bv[2], bv[3]);
+        mma_bf16(o[2 * j], a_hi, bv[0], bv[1]);
+        mma_bf16(o[2 * j + 1], a_hi, bv[2], bv[3]);
+        mma_bf16(o[2 * j], a_lo, bv[0], bv[1]);
+        mma_bf16(o[2 * j + 1], a_lo, bv[2], bv[3]);
       }
+    }
   }
+  cp_async_wait_all();  // nothing in flight at exit (a CTA that walks no tile)
 
-  // O is normalized by the sum of the P it multiplied (rounded to bf16
-  // for the tensor cores), so it stays a convex combination of the
-  // values: the component they share passes through exactly, and so
-  // cancels from dP - delta in the backward.  lse keeps the exact sum, so
+  // O is normalized by the sum of the P it multiplied (hi + lo, the two
+  // bf16 parts the tensor cores took), so it stays a convex combination
+  // of the values: the component they share passes through exactly, and
+  // so cancels from dP - delta in the backward.  lse keeps the exact sum, so
   // the backward's recomputed P sums to one.  O once, to bf16 (and f32 on
   // request), rows past S left alone.
   const size_t qoff = static_cast<size_t>(bh) * p.S * D;

@@ -255,6 +255,10 @@ def stage_exchange(mesh, axis: str, *, to_next=None, to_prev=None,
     schedule's ring); a one-rank ring sends to itself.  Returns
     ``(got_prev, got_next)``, None where nothing was received.
 
+    On a mesh of several axes ``axis``'s group is this rank's ring: the
+    ranks that share its coordinates on the other axes, so each
+    coordinate's stages exchange on a group of their own.
+
     Transfers towards the next rank carry tag 0 and towards the previous
     tag 1, and each rank posts them in that order, so two ranks that are
     each other's next and previous (a ring of two) match them by tag on

@@ -50,6 +50,18 @@ targets, fixed before any backward (from packed ``segment_ids`` through
 :func:`valid_next_token_mask`).  A mixture of experts adds each
 microbatch's router loss with weight ``1 / n_microbatches``.
 
+The other mesh axes.  A stage's blocks, embed, final norm and head run
+under the dense step's layout on the mesh of the other axes
+(``spmd.shard_module(pipelined=True)``: tensor parallelism over ``tp``,
+FSDP2 units over the data axes, the experts over ``ep``/``tp``); what
+goes over ``pp`` is always the tp-replicated local activation ``[mb,
+S / sp, d]`` (or its cotangent), on one ``pp`` group per coordinate of
+the other axes.  Each FSDP2 unit is told before every backward whether
+it is its chunk's last of the step, so it is gathered once a step, its
+gradients accumulate unsharded, and it is reduced and resharded once.  Over ``sp`` each microbatch is the
+rank's sequence chunk plus the next token, attended by the stages'
+sequence-parallel ``attn_fn``.
+
 The JAX package's ``executor`` knob (``TDX_PP_EXECUTOR``) picks between
 two compiled programs of a schedule; eager torch runs the segments'
 ticks as they come and has nothing to pick, so the port has no such
@@ -68,6 +80,7 @@ from .. import observe
 from ..models.layers import MoEMLP, run_block
 from .collectives import all_reduce_, axis_group, axis_index, axis_size, stage_exchange
 from .sharding import StageShardingPlan, stage_layers
+from .spmd import _local
 
 SCHEDULES = ("gpipe", "1f1b", "interleaved")
 
@@ -115,11 +128,25 @@ def pipeline_plan_overrides(plan, n_layers: int, axis_name: str = "pp",
                              n_chunks=n_chunks)
 
 
-def _mb_ce_sum(logits, tokens, segment_ids, denom):
+def _mb_ce_sum(logits, tokens, segment_ids, denom, chunked: bool = False):
     """Next-token CE of ONE microbatch in SUM form over the GLOBAL valid
     count ``denom``: the microbatches' terms add up to the full-batch
-    mean, so each one's backward can start as soon as its forward ends."""
+    mean, so each one's backward can start as soon as its forward ends.
+
+    ``chunked``: ``tokens`` [B, s + 1] is a sequence-parallel rank's chunk
+    and the next position's token (-1 past the sequence's end), the
+    logits the chunk's: position j is scored against token j + 1 where
+    it exists (and, with packed ids, stays inside its document)."""
     V = logits.shape[-1]
+    if chunked:
+        targets = tokens[:, 1:]
+        nll = nn.functional.cross_entropy(
+            logits.float().reshape(-1, V),
+            targets.clamp_min(0).long().reshape(-1), reduction="none")
+        valid = (targets >= 0).float()
+        if segment_ids is not None:
+            valid = valid * valid_next_token_mask(segment_ids)
+        return (nll * valid.reshape(-1)).sum() / denom
     nll = nn.functional.cross_entropy(
         logits[:, :-1].float().reshape(-1, V),
         tokens[:, 1:].long().reshape(-1), reduction="none")
@@ -152,11 +179,24 @@ class StageSchedule:
     of the activations that arrive.  :meth:`train` runs a step on it.
 
     ``schedule`` is ``"gpipe"``, ``"1f1b"`` or ``"interleaved"``
-    (``n_chunks`` chunks a stage; the others take one)."""
+    (``n_chunks`` chunks a stage; the others take one).  ``seq_shard =
+    (index, count)`` says each microbatch is this rank's chunk of the
+    sequence plus the next position's token (``make_train_step``'s
+    ``shard_batch`` on an ``sp`` mesh): the embed, the rope angles and
+    the loss take the chunk's positions, and the activations exchanged
+    are ``[mb, S / count, d]``.
+
+    On a mesh whose other axes lay the stage's blocks out with FSDP2
+    (``spmd.shard_module(pipelined=True)``), :meth:`sync_units` names the
+    FSDP2 units each chunk's backward runs through; each backward then
+    tells them whether it is the chunk's last of the step, so each unit
+    stays gathered and its gradients accumulate unsharded over the
+    microbatches, and it is reduced and resharded once, whatever the
+    order of the forwards and backwards."""
 
     def __init__(self, cfg, decomp, mesh, *, schedule: str = "gpipe",
                  n_microbatches: int = 4, n_chunks: int = 1,
-                 axis_name: str = "pp"):
+                 axis_name: str = "pp", seq_shard=None):
         if schedule not in SCHEDULES:
             raise ValueError(f"pipeline_schedule must be 'gpipe', '1f1b' or "
                              f"'interleaved', got {schedule!r}")
@@ -170,6 +210,8 @@ class StageSchedule:
                        for ls in stage_layers(len(decomp.blocks), pp, s, v)]
         self.moe = any(isinstance(m, MoEMLP)
                        for c in self.chunks for b in c for m in b.modules())
+        self.seq_shard = None if seq_shard is None else tuple(seq_shard)
+        self.units: Optional[List[list]] = None
         self._angles: Dict[int, Optional[torch.Tensor]] = {}
         n = n_microbatches
         if schedule == "gpipe":
@@ -196,31 +238,52 @@ class StageSchedule:
 
     def angles(self, S: int):
         if S not in self._angles:
-            self._angles[S] = self.decomp.angles(S)
+            self._angles[S] = self.decomp.angles(S, self.seq_shard)
         return self._angles[S]
 
+    def sync_units(self, model: nn.Module) -> None:
+        """Find the FSDP2 units of each local chunk: its blocks, and on the
+        chunks that hold the embed (global chunk 0) or the head (the last)
+        the units outside the blocks."""
+        from torch.distributed.fsdp import FSDPModule
+
+        in_blocks = {id(m) for b in self.decomp.blocks for m in b.modules()}
+        light = [m for m in model.modules()
+                 if isinstance(m, FSDPModule) and id(m) not in in_blocks]
+        self.units = []
+        for j, chunk in enumerate(self.chunks):
+            k = j * self.pp + self.s
+            units = [b for b in chunk if isinstance(b, FSDPModule)]
+            if k in (0, self.K - 1):
+                units += light
+            self.units.append(units)
+
     def train(self, model: nn.Module, tokens, *, attn_fn=None,
-              segment_ids=None, denom=None) -> dict:
+              segment_ids=None, denom=None, loss_scale: float = 1.0) -> dict:
         """One step's gradients on this stage, into its parameters'
         ``.grad`` (the replicated ones summed over ``pp``); returns
         ``{"loss", "ce", "aux"}``, equal on every stage.  ``denom`` is
         the global count of valid targets when the batch is split
-        further (over ``dp``).  Call on every rank of the mesh."""
-        st = _Step(self, tokens, segment_ids, denom, with_loss=True)
+        further (over the data axes or ``sp``), and ``loss_scale`` the
+        weight of the CE's backward (the number of data shards, whose
+        gradients the reductions then average).  Call on every rank of
+        the mesh."""
+        st = _Step(self, tokens, segment_ids, denom, with_loss=True,
+                   loss_scale=loss_scale)
         with _stage_attention(self.chunks, attn_fn):
             _WALKERS[self.schedule](st)
         return st.finish(model)
 
 
 class _InFlight:
-    """One microbatch's state on one chunk between its forward and its
-    backward: the chunk's input, output, router loss and (on the last
+    """One microbatch's state on local chunk ``j`` between its forward and
+    its backward: the chunk's input, output, router loss and (on the last
     chunk) its cross-entropy term."""
 
-    __slots__ = ("x", "y", "aux", "ce")
+    __slots__ = ("x", "y", "aux", "ce", "j")
 
-    def __init__(self, x, y, aux, ce):
-        self.x, self.y, self.aux, self.ce = x, y, aux, ce
+    def __init__(self, x, y, aux, ce, j):
+        self.x, self.y, self.aux, self.ce, self.j = x, y, aux, ce, j
 
 
 class _Step:
@@ -228,7 +291,7 @@ class _Step:
     transfers and the sums of the metrics."""
 
     def __init__(self, sched: StageSchedule, inputs, segment_ids, denom, *,
-                 with_loss: bool):
+                 with_loss: bool, loss_scale: float = 1.0):
         self.sched = sched
         self.pp, self.s, self.K = sched.pp, sched.s, sched.K
         n, B = sched.n_mb, inputs.shape[0]
@@ -238,13 +301,23 @@ class _Step:
         self.n_mb = n
         self.in_mb = inputs.chunk(n)
         self.seg_mb = None if segment_ids is None else segment_ids.chunk(n)
+        chunked = sched.seq_shard is not None
         if with_loss and denom is None:
-            denom = (valid_next_token_mask(segment_ids).sum().clamp_min(1.0)
-                     if segment_ids is not None
-                     else float(B * (inputs.shape[1] - 1)))
+            if chunked:
+                valid = (inputs[:, 1:] >= 0).float()
+                if segment_ids is not None:
+                    valid = valid * valid_next_token_mask(segment_ids)
+                denom = valid.sum().clamp_min(1.0)
+            elif segment_ids is not None:
+                denom = valid_next_token_mask(segment_ids).sum().clamp_min(1.0)
+            else:
+                denom = float(B * (inputs.shape[1] - 1))
         self.denom, self.with_loss = denom, with_loss
+        self.scale = loss_scale
+        # Backwards run per local chunk: the last one reduces its units.
+        self.b_count = [0] * len(sched.chunks)
         cfg, decomp = sched.cfg, sched.decomp
-        S = decomp.seq_len or inputs.shape[1]
+        S = decomp.seq_len or inputs.shape[1] - (1 if chunked else 0)
         # What arrives: a zero-stride view with the activations' shape,
         # dtype and device, holding no memory.
         self.act = torch.empty((), dtype=cfg.dtype, device=inputs.device
@@ -261,19 +334,26 @@ class _Step:
         (global chunk 0, ``inp`` None) or the activation that arrived;
         the last chunk adds the head and the loss."""
         sched = self.sched
+        seq = sched.seq_shard
         if inp is None:
-            x = sched.decomp.embed(self.in_mb[i])
-            if x.shape != self.act.shape or x.dtype != self.act.dtype:
-                raise ValueError(f"the embed gives {tuple(x.shape)} "
-                                 f"{x.dtype}; the stages expect "
+            toks = self.in_mb[i] if seq is None else self.in_mb[i][:, :-1]
+            x = sched.decomp.embed(toks, seq)
+            # A DTensor here would be a layout the stages do not exchange
+            # (a tensor-parallel embed hands on a replicated local tensor).
+            if hasattr(x, "placements") or x.shape != self.act.shape \
+                    or x.dtype != self.act.dtype:
+                raise ValueError(f"the embed gives {type(x).__name__} "
+                                 f"{tuple(x.shape)} {x.dtype}; the stages "
+                                 f"exchange local tensors "
                                  f"{tuple(self.act.shape)} {self.act.dtype}")
         else:
             x = inp.detach().requires_grad_(torch.is_grad_enabled())
         y, aux = x, None
         segs = None if self.seg_mb is None else self.seg_mb[i]
+        blk_segs = segs if segs is None or seq is None else segs[:, :-1]
         for blk in sched.chunks[j]:
             y = run_block(sched.cfg, blk, y, angles=self.angles,
-                          causal=sched.decomp.causal, segment_ids=segs)
+                          causal=sched.decomp.causal, segment_ids=blk_segs)
             if sched.moe:
                 a = blk.moe.aux.float()
                 aux = a if aux is None else aux + a
@@ -283,11 +363,11 @@ class _Step:
         if j * self.pp + self.s == self.K - 1:
             if self.with_loss:
                 ce = _mb_ce_sum(sched.decomp.head(y), self.in_mb[i], segs,
-                                self.denom)
+                                self.denom, chunked=seq is not None)
                 self.ce += ce.detach()
             else:
                 self.outs[i] = sched.decomp.head(y)
-        return _InFlight(x, y, aux, ce)
+        return _InFlight(x, y, aux, ce, j)
 
     def backward(self, rec: _InFlight, dy: Optional[torch.Tensor]):
         """The backward of ``rec``'s graph: from its loss (the last chunk's
@@ -295,10 +375,17 @@ class _Step:
         with weight 1 / n_microbatches.  Returns the cotangent of the
         chunk's input, None for the embed's (it flows into the embed's
         parameters)."""
+        if self.sched.units is not None:
+            self.b_count[rec.j] += 1
+            last = self.b_count[rec.j] == self.n_mb
+            for unit in self.sched.units[rec.j]:
+                unit.set_requires_gradient_sync(last)
+                unit.set_reshard_after_backward(last)
+                unit.set_is_last_backward(last)
         outs, grads = [], []
         if rec.ce is not None:
             outs.append(rec.ce)
-            grads.append(torch.ones_like(rec.ce))
+            grads.append(torch.full_like(rec.ce, self.scale))
         else:
             outs.append(rec.y)
             grads.append(dy)
@@ -329,9 +416,15 @@ class _Step:
         if self.pp > 1:
             group = axis_group(sched.mesh, sched.axis)
             for p in light_params(model, sched.decomp):
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                all_reduce_(p.grad, group)
+                g = p.grad
+                if g is None:
+                    g = p.grad = torch.zeros_like(p)
+                elif getattr(g, "placements", None) not in (
+                        None, getattr(p, "placements", None)):
+                    # A tensor-parallel lookup's gradient comes replicated:
+                    # laid out as its parameter, every stage's line up.
+                    g = p.grad = g.redistribute(p.device_mesh, p.placements)
+                all_reduce_(_local(g), group)
             for t in (self.ce, self.aux):
                 all_reduce_(t, group)
         aux = self.aux / self.n_mb
@@ -340,7 +433,7 @@ class _Step:
 
 def light_params(model: nn.Module, decomp) -> List[nn.Parameter]:
     """The parameters outside the blocks (embed, final norm, head): every
-    stage holds them."""
+    stage holds them (plain, or DTensors of the stage's layout)."""
     in_blocks = {id(p) for p in decomp.blocks.parameters()}
     return [p for p in model.parameters() if id(p) not in in_blocks]
 
@@ -348,7 +441,9 @@ def light_params(model: nn.Module, decomp) -> List[nn.Parameter]:
 def stage_params(model: nn.Module, decomp, mesh, axis_name: str = "pp",
                  n_chunks: int = 1) -> List[nn.Parameter]:
     """The parameters this stage updates: its own blocks' and the
-    replicated ones (:func:`light_params`)."""
+    replicated ones (:func:`light_params`), this stage's first; each as
+    the module holds it (a DTensor or FSDP2's shard on a stage laid out
+    over other axes)."""
     pp, s = axis_size(mesh, axis_name), axis_index(mesh, axis_name)
     own = [p for ls in stage_layers(len(decomp.blocks), pp, s, n_chunks)
            for i in ls for p in decomp.blocks[i].parameters()]

@@ -275,15 +275,17 @@ def data_index(mesh, axes: Sequence[str]) -> int:
     return idx
 
 
-def _experts(module: nn.Module) -> Dict[str, nn.Module]:
-    """The ``MoEMLP`` modules by qualified name."""
+def _experts(module: nn.Module, skip=frozenset()) -> Dict[str, nn.Module]:
+    """The ``MoEMLP`` modules by qualified name, but those in ``skip``
+    (ids of modules left as they are)."""
     from ..models.layers import MoEMLP
 
-    return {n: m for n, m in module.named_modules() if isinstance(m, MoEMLP)}
+    return {n: m for n, m in module.named_modules()
+            if isinstance(m, MoEMLP) and id(m) not in skip}
 
 
-def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims]
-                 ) -> Dict[str, AxisDims]:
+def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims],
+                 skip=frozenset()) -> Dict[str, AxisDims]:
     """``{expert weight: {axis: dim}}`` of the ``ep``/``tp`` splits done by
     hand.  Raises where the plan puts ep on another dim than the expert
     dim or tp on another than ``ff``, splits the three weights of one
@@ -291,7 +293,7 @@ def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims]
     ``ep``."""
     ndim = {n: p.ndim for n, p in module.named_parameters()}
     manual: Dict[str, AxisDims] = {}
-    for prefix in _experts(module):
+    for prefix in _experts(module, skip):
         for w, want in _EXPERT_DIMS.items():
             name = f"{prefix}.{w}" if prefix else w
             d = dims[name]
@@ -307,7 +309,7 @@ def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims]
         if "ep" in d and name not in manual:
             raise ValueError(f"`{name}` has spec {_spec(d, ndim[name])}: "
                              f"only expert weights shard over ep")
-    for prefix in _experts(module):
+    for prefix in _experts(module, skip):
         splits = {tuple(sorted(manual[f"{prefix}.{w}" if prefix else w]))
                   for w in _EXPERT_DIMS}
         if len(splits) != 1:
@@ -316,14 +318,15 @@ def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims]
     return manual
 
 
-def _set_expert_parallel(module: nn.Module, mesh, manual, batch_axes) -> None:
+def _set_expert_parallel(module: nn.Module, mesh, manual, batch_axes,
+                         skip=frozenset()) -> None:
     """Give each ``MoEMLP`` its :class:`ExpertParallel` on ``mesh``."""
     shape = mesh_shape(mesh)
     where = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
     baxes = data_axes(mesh, batch_axes)
     idx = data_index(mesh, baxes)
     data_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
-    for prefix, mod in _experts(module).items():
+    for prefix, mod in _experts(module, skip).items():
         split = manual[f"{prefix}.w_gate" if prefix else "w_gate"]
         E = mod.cfg.moe.n_experts
         n_ep = shape["ep"] if "ep" in split else 1
@@ -359,25 +362,41 @@ class ShardedModule:
 
 
 def shard_module(module: nn.Module, mesh,
-                 batch_axes: Sequence[str] = DATA_AXES) -> ShardedModule:
+                 batch_axes: Sequence[str] = DATA_AXES, *,
+                 skip: Iterable[nn.Module] = (),
+                 pipelined: bool = False) -> ShardedModule:
     """Lay ``module``'s bound keyed values (DTensors on ``mesh``) out for
     training: tensor parallelism over ``mesh["tp"]``, FSDP2 over the
     data axes and the experts split by hand over ``ep`` and ``tp``,
     adopting each value's local tensor as the parameter's shard (see the
     module docstring); ``batch_axes`` are the axes the batch is sharded
-    over, which the MoE routing gathers over.  In place."""
+    over, which the MoE routing gathers over.  In place.
+
+    A pipeline stage lays out its own part on the mesh of its other axes:
+    ``skip`` holds the submodules it leaves as they are (the other
+    stages' blocks, still fake), and with ``pipelined`` the module's own
+    forward never runs (the stage calls its blocks, the embed and the
+    head one by one), so FSDP2 makes each block, and each module outside
+    the blocks that holds a data-sharded parameter, a unit of its own
+    (``Embed.attend`` counts as a forward), not resharded after its
+    forwards: the walker reshards and reduces each at its chunk's last
+    backward."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.parallel import parallelize_module
 
     names = tuple(mesh.mesh_dim_names)
     shape = mesh_shape(mesh)
+    skip_mods = {id(m) for s in skip for m in s.modules()}
+    skipped = {id(p) for s in skip for p in s.parameters()}
     # 1. The bound values, one per tensor (ties share the first name).
     first: Dict[int, str] = {}
     canon: Dict[str, str] = {}
     values: Dict[str, DTensor] = {}
     dims: Dict[str, AxisDims] = {}
     for name, p in module.named_parameters(remove_duplicate=False):
+        if id(p) in skipped:
+            continue
         canon[name] = first.setdefault(id(p), name)
         if not isinstance(p, DTensor) or p.device_mesh != mesh:
             raise ValueError(
@@ -389,11 +408,13 @@ def shard_module(module: nn.Module, mesh,
         if isinstance(b, DTensor):
             raise NotImplementedError(f"buffer `{name}` is a DTensor: sharded "
                                       f"buffers are not carried yet")
-    manual = _manual_dims(module, dims)
+    manual = _manual_dims(module, dims, skip_mods)
     # 2. Meta parameters of the global shapes (an expert weight's: its
     # ep/tp block), ties kept.
     meta: Dict[int, nn.Parameter] = {}
     for mod_name, mod in module.named_modules():
+        if id(mod) in skip_mods:
+            continue
         for k, p in mod._parameters.items():
             if p is None:
                 continue
@@ -430,22 +451,49 @@ def shard_module(module: nn.Module, mesh,
 
         fsdp_mesh = (mesh["dp", "fsdp"] if shape.get("dp", 1) > 1
                      else mesh["fsdp"])
-        for blk in _blocks(module):
+        kw = dict(mesh=fsdp_mesh, shard_placement_fn=placement,
+                  ignored_params=ignored)
+        if pipelined:
+            # Each unit is a root of its own, gathered at its first
+            # forward of a step and kept whole over the microbatches
+            # until its chunk's last backward (the pipeline walker says
+            # which): one all-gather and one reduce-scatter a step.
+            kw["reshard_after_forward"] = False
+        blocks = _blocks(module)
+        for blk in blocks:
+            if id(blk) in skip_mods:
+                continue
             if hasattr(blk, "moe"):
                 # the router and the experts, plain tensors, in a group of
                 # their own, apart from the block's tensor-parallel ones
-                fully_shard(blk.moe, mesh=fsdp_mesh,
-                            shard_placement_fn=placement,
-                            ignored_params=ignored)
-            fully_shard(blk, mesh=fsdp_mesh, shard_placement_fn=placement,
-                        ignored_params=ignored)
-        fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=placement,
-                    ignored_params=ignored)
+                fully_shard(blk.moe, **kw)
+            fully_shard(blk, **kw)
+        if pipelined:
+            from torch.distributed.fsdp import register_fsdp_forward_method
+
+            in_blocks = {id(p) for b in blocks for p in b.parameters()}
+            for mod in module.modules():
+                held = [p for p in mod.parameters(recurse=False)
+                        if id(p) not in in_blocks and p not in ignored]
+                if not held:
+                    continue
+                if mod is module:
+                    raise NotImplementedError(
+                        f"FSDP2 over a pipeline stage: {type(module).__name__}"
+                        f" holds data-sharded parameters itself, and its "
+                        f"forward never runs on a stage")
+                fully_shard(mod, **kw)
+                if hasattr(mod, "attend"):  # a tied head
+                    register_fsdp_forward_method(mod, "attend")
+        else:
+            fully_shard(module, **kw)
     # 4. The new layouts against the values'; the local tensors adopted.
     state: Dict[str, nn.Parameter] = {}
     made: Dict[str, nn.Parameter] = {}
     replicated: List[nn.Parameter] = []
     for name, p in module.named_parameters(remove_duplicate=False):
+        if id(p) in skipped:
+            continue
         key = canon[name]
         if key in made:
             state[name] = made[key]
@@ -469,7 +517,7 @@ def shard_module(module: nn.Module, mesh,
         if key in replicated_names:
             replicated.append(new)
     module.load_state_dict(state, strict=False, assign=True)
-    _set_expert_parallel(module, mesh, manual, batch_axes)
+    _set_expert_parallel(module, mesh, manual, batch_axes, skip_mods)
     dp = [a for a in DATA_AXES if a in names]
     groups = [mesh.get_group(a) for a in dp if shape[a] > 1]
     split = {n: math.prod(shape[a] for a in d) for n, d in manual.items()}
@@ -516,13 +564,16 @@ def sum_grads(params: Iterable[nn.Parameter], group) -> None:
 
 
 def global_grad_norm(params: Iterable[nn.Parameter], mesh,
-                     split: Optional[Sequence[int]] = None) -> torch.Tensor:
+                     split: Optional[Sequence[int]] = None,
+                     holders: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The L2 norm of every gradient, each counted once however it is
     sharded or replicated: each rank sums the squares of its local
-    shards, divided by the number of ranks holding the same shard, and
-    one all-reduce over the mesh adds them up.  ``split`` gives, per
-    parameter, the blocks it is split into by hand besides its DTensor
-    placements (an expert weight's ep x tp; 1 otherwise)."""
+    shards (in f32, with no f32 copy of a gradient), divided by the
+    number of ranks holding the same shard, and one all-reduce over the
+    mesh adds them up.  ``split`` gives, per parameter, the blocks it is
+    split into by hand besides its DTensor placements (an expert weight's
+    ep x tp; 1 otherwise); ``holders`` the ranks that hold it (the whole
+    mesh by default; a pipeline stage's layers only its stage's ranks)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if mesh.size() != dist.get_world_size():
@@ -531,16 +582,18 @@ def global_grad_norm(params: Iterable[nn.Parameter], mesh,
                          f"span the whole group")
     total = None
     params = list(params)
-    for p, n_split in zip(params, split or [1] * len(params)):
+    for p, n_split, n_hold in zip(params, split or [1] * len(params),
+                                  holders or [mesh.size()] * len(params)):
         g = p.grad
         if g is None:
             continue
-        copies = mesh.size() // n_split
+        copies = n_hold // n_split
         if isinstance(g, DTensor):
             for i, pl in enumerate(g.placements):
                 if not isinstance(pl, Replicate):
                     copies //= g.device_mesh.size(i)
-        sq = _local(g).float().square().sum() / copies
+        sq = torch.linalg.vector_norm(_local(g), dtype=torch.float32
+                                      ).square() / copies
         total = sq if total is None else total + sq
     if total is None:
         raise ValueError("no gradients")

@@ -13,7 +13,9 @@ sequence-parallel ``attn_fn`` such as ``make_ring_flash_attention``),
 its loss is its share of the global mean and the gradients are summed
 over ``sp``.  A ``pp`` axis with ``pipeline=True`` runs the blocks as
 pipeline stages (:mod:`.pipeline`: GPipe, 1F1B or interleaved 1F1B),
-each rank updating its own layers and the replicated embed and head.  A
+each rank updating its own layers and the replicated embed and head,
+laid out over the mesh's other axes as the dense step lays out the
+whole model.  A
 mixture-of-experts model adds its router's load-balancing loss to the
 cross-entropy.  :func:`train_elastic` runs the step under the elastic
 loop (:func:`..utils.run_elastic`: checkpoints, restarts, the watchdog,
@@ -111,13 +113,6 @@ def train_step_flops(model: nn.Module, cfg: TransformerConfig, batch: int,
     return flops
 
 
-# Mesh axes a pipeline does not combine with yet, and the ROADMAP item
-# of the combination (every axis is ported on its own).
-_UNPORTED_WITH_PP = {
-    a: f"pipeline parallelism combined with {a!r}: ROADMAP A11.2"
-    for a in ("fsdp", "ep", "sp", "tp")}
-
-
 def make_train_step(
     model: nn.Module,
     cfg: TransformerConfig,
@@ -171,22 +166,26 @@ def make_train_step(
     there).  A mixture of experts is not split over ``sp``.
 
     With ``pipeline=True`` and a mesh of a ``pipeline_axis`` (``pp``)
-    and optionally ``dp``, the blocks run as pipeline stages under
-    ``pipeline_schedule``: ``"gpipe"`` (every microbatch forward, then
-    every backward), ``"1f1b"`` (one forward and one backward per tick)
-    or ``"interleaved"`` (``n_chunks`` chunks of layers per stage), over
-    ``n_microbatches`` microbatches of this rank's rows (:mod:`.pipeline`).
-    ``init_state`` takes a module bound to this stage's values
-    (``materialize_module_cuda(mesh=mesh, plan=pipeline_plan_overrides(
-    plan, n_layers, n_chunks=...))`` and ``bind_values(strict=False)``:
-    the other stages' layers stay fake) or a whole one, and updates this
-    stage's layers and the replicated embed and head, whose gradients are
-    summed over ``pp``; over ``dp`` the rows are split and every gradient
-    summed.  The metrics are the global ones, equal on every rank.  The
-    JAX signature's ``pipeline_executor`` has no counterpart: eager
-    torch has no second program to pick.  ``pp`` with ``fsdp``,
-    ``ep``, ``sp`` or ``tp`` raises (ROADMAP A11.2), as does a mixture of
-    experts over ``dp`` (its routing would be split).
+    and any of ``dp``, ``fsdp``, ``ep``, ``sp`` and ``tp``, the blocks
+    run as pipeline stages under ``pipeline_schedule``: ``"gpipe"``
+    (every microbatch forward, then every backward), ``"1f1b"`` (one
+    forward and one backward per tick) or ``"interleaved"``
+    (``n_chunks`` chunks of layers per stage), over ``n_microbatches``
+    microbatches (:mod:`.pipeline`).  ``init_state`` takes a module bound
+    to this stage's values (``materialize_module_cuda(mesh=mesh,
+    plan=pipeline_plan_overrides(plan, n_layers, n_chunks=...))`` and
+    ``bind_values(strict=False)``: the other stages' layers stay fake),
+    lays the stage's layers and the replicated embed, final norm and head
+    out on the mesh of the other axes as the dense step lays out the
+    whole (:func:`.spmd.shard_module`), and updates them; the embed's and
+    head's gradients are summed over ``pp``.  ``shard_batch`` gives data
+    shard ``r`` the ``r``-th share of each global microbatch (so a
+    mixture of experts routes over the global microbatch, as the
+    reference does) and, over ``sp``, its chunk with the next token.  The
+    metrics are the global ones, equal on every rank.  The JAX
+    signature's ``pipeline_executor`` has no counterpart: eager torch has
+    no second program to pick.  A mixture of experts over ``sp`` raises
+    (ROADMAP A10.1).
 
     A model's attention is set by its constructor (``make_llama(cfg,
     attn_fn=...)``).  ``attn_fn`` here sets the pipelined stages'
@@ -211,7 +210,7 @@ def make_train_step(
         if mesh is None or pipeline_axis not in (mesh.mesh_dim_names or ()):
             raise ValueError(f"pipeline=True needs a mesh with a "
                              f"{pipeline_axis!r} axis (make_mesh)")
-        dev, n_batch, stages, (init_state, train_step, shard_batch) = \
+        dev, n_batch, seq, stages, (init_state, train_step, shard_batch) = \
             _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt,
                            pipeline_axis, pipeline_schedule, n_microbatches,
                            n_chunks if pipeline_schedule == "interleaved"
@@ -436,7 +435,18 @@ def _over_mesh(mesh, device, batch_axes, make_opt):
 
 def _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt, axis,
                    schedule, n_microbatches, n_chunks, attn_fn):
-    """The pipeline path of :func:`make_train_step`."""
+    """The pipeline path of :func:`make_train_step`.
+
+    Each stage lays its part of the model (its blocks, the embed, the
+    final norm and the head) out on the mesh of the other axes as the
+    dense step lays out the whole (:func:`.spmd.shard_module`: tensor
+    parallelism over ``tp``, FSDP2 over the data axes, the experts over
+    ``ep``/``tp``), walks the schedule over ``pp`` and reduces what the
+    dense step reduces: the data axes' gradients averaged (the CE's
+    backward weighted by the number of data shards), the sequence
+    chunks' summed, and the replicated parameters' summed over ``pp``."""
+    import math
+
     from .collectives import all_reduce_
     from .pipeline import (
         StageSchedule,
@@ -444,40 +454,68 @@ def _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt, axis,
         light_params,
         stage_params,
     )
-    from .spmd import data_axes, data_index
+    from .sharding import mesh_shape
+    from .spmd import (
+        data_axes,
+        data_index,
+        global_grad_norm,
+        reduce_replicated_grads,
+        shard_module,
+        sum_grads,
+    )
 
     names = tuple(mesh.mesh_dim_names)
     for a in names:
-        if a in _UNPORTED_WITH_PP:
-            raise NotImplementedError(
-                f"mesh axis {a!r}: {_UNPORTED_WITH_PP[a]} (not ported yet)")
-        if a not in (axis, "dp"):
+        if a not in (axis, "dp", "fsdp", "ep", "sp", "tp"):
             raise ValueError(f"a pipelined step takes a mesh of {axis!r} "
-                             f"and 'dp' axes, not {mesh}")
+                             f"and dp, fsdp, ep, sp and tp axes, not {mesh}")
     if torch.device(device).type != mesh.device_type:
         raise ValueError(f"device {device!r} differs from the mesh's "
                          f"device type {mesh.device_type!r}")
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device(mesh.device_type))
-    baxes = data_axes(mesh, [a for a in batch_axes if a == "dp"])
-    n_batch = mesh.size(names.index("dp")) if baxes else 1
-    if cfg.moe is not None and n_batch > 1:
-        raise NotImplementedError(
-            "a mixture of experts over a pipeline's dp axis would route "
-            "each rank's rows apart: ROADMAP A11.2")
-    dp_group = mesh.get_group("dp") if n_batch > 1 else None
-    n_pp = mesh.size(names.index(axis))
+    shape = mesh_shape(mesh)
+    seq = "sp" in names
+    if seq and cfg.moe is not None:
+        _refuse_moe_over_sp("the model")
+    n_sp = shape.get("sp", 1)
+    sp_idx = mesh.get_local_rank("sp") if seq else 0
+    baxes = data_axes(mesh, batch_axes)
+    n_batch = math.prod(shape[a] for a in baxes)
+    sum_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
+    sp_group = mesh.get_group("sp") if n_sp > 1 else None
+    if sp_group is not None:
+        sum_groups.append(sp_group)
+    n_pp = shape[axis]
     pp_group = mesh.get_group(axis) if n_pp > 1 else None
+    # The stage's own mesh: every axis but pp.
+    rest = tuple(a for a in names if a != axis)
+    stage_mesh = mesh[rest if len(rest) > 1 else rest[0]] if rest else None
     decomp = default_decomposition(model)
     sched = StageSchedule(cfg, decomp, mesh, schedule=schedule,
                           n_microbatches=n_microbatches, n_chunks=n_chunks,
-                          axis_name=axis)
+                          axis_name=axis,
+                          seq_shard=(sp_idx, n_sp) if seq else None)
+
+    def all_sum(t: torch.Tensor) -> torch.Tensor:
+        for group in sum_groups:
+            all_reduce_(t, group)
+        return t
 
     def init_state(module: nn.Module) -> dict:
         if module is not model:
             raise ValueError("init_state takes the module make_train_step "
                              "was built for")
-        _localize(module)
+        if seq:
+            _check_seq_parallel(module, n_sp, attn_fn)
+        own = {id(b) for c in sched.chunks for b in c}
+        sharded = None
+        _stage_values(module, mesh, axis, stage_mesh)
+        if stage_mesh is not None:
+            sharded = shard_module(
+                module, stage_mesh, batch_axes, pipelined=True,
+                skip=[b for b in decomp.blocks if id(b) not in own])
+            sched.sync_units(module)
         params = stage_params(module, decomp, mesh, axis, n_chunks)
         if any(is_fake(p) for p in params):
             raise ValueError(
@@ -488,79 +526,117 @@ def _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt, axis,
             raise ValueError(f"parameters on {sorted(off)}, not on {dev}")
         # stage_params lists this stage's layers' parameters first.
         n_own = len(params) - len(light_params(module, decomp))
-        return {"model": module, "params": params, "opt": make_opt(params),
-                "step": 0, "n_own": n_own}
+        name_of = {id(p): n for n, p in module.named_parameters()}
+        split = [1 if sharded is None else sharded.split.get(name_of[id(p)], 1)
+                 for p in params]
+        holders = [mesh.size() // n_pp] * n_own \
+            + [mesh.size()] * (len(params) - n_own)
+        by_mesh: dict = {}
+        for p in params:
+            by_mesh.setdefault(getattr(p, "device_mesh", None), []).append(p)
+        return {"model": module, "params": params,
+                "opt": make_opt([{"params": ps} for ps in by_mesh.values()]),
+                "step": 0, "sharded": sharded, "split": split,
+                "holders": holders}
 
     def train_step(state: dict, tokens: torch.Tensor,
                    segment_ids: Optional[torch.Tensor] = None):
         module, opt = state["model"], state["opt"]
         opt.zero_grad(set_to_none=True)
         # The global count of valid targets, before any backward.
-        if segment_ids is None:
+        if seq:
+            valid = (tokens[:, 1:] >= 0).float()
+            if segment_ids is not None:
+                valid = valid * valid_next_token_mask(segment_ids)
+            denom = all_sum(valid.sum()).clamp_min(1.0)
+        elif segment_ids is None:
             denom = float(tokens.shape[0] * n_batch * (tokens.shape[1] - 1))
         else:
-            denom = valid_next_token_mask(segment_ids).sum()
-            if dp_group is not None:
-                all_reduce_(denom, dp_group)
-            denom = denom.clamp_min(1.0)
+            denom = all_sum(valid_next_token_mask(segment_ids).sum()
+                            ).clamp_min(1.0)
+        # Each rank's CE is its share of the global sum; weighted by the
+        # data shards, the average over them gives the global gradient.
         metrics = sched.train(module, tokens, attn_fn=attn_fn,
-                              segment_ids=segment_ids, denom=denom)
+                              segment_ids=segment_ids, denom=denom,
+                              loss_scale=float(n_batch))
         params = state["params"]
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if dp_group is not None:
-            # Each rank's loss is its share of the global sum.
-            for p in params:
-                all_reduce_(p.grad, dp_group)
-            for k in ("loss", "ce"):
-                all_reduce_(metrics[k], dp_group)
-        # The norm: this stage's layers summed over pp, the replicated
-        # parameters (equal on every stage) once; each square summed in
-        # f32 by the reduction, with no f32 copy of a gradient.
-        own = state["n_own"]
-        sq = [torch.linalg.vector_norm(p.grad, dtype=torch.float32).square()
-              for p in params]
-        sq_own = torch.stack(sq[:own]).sum() if own else torch.zeros(
-            (), device=dev)
-        if pp_group is not None:
-            all_reduce_(sq_own, pp_group)
-        grad_norm = (sq_own + torch.stack(sq[own:]).sum()).sqrt()
+        if state["sharded"] is not None:
+            reduce_replicated_grads(state["sharded"])
+        if sp_group is not None:
+            # Each chunk's backward gives its share of every gradient.
+            sum_grads(params, sp_group)
+        # This stage's layers counted on its ranks, the replicated
+        # parameters (equal on every stage) once.
+        grad_norm = global_grad_norm(params, mesh, state["split"],
+                                     state["holders"])
         opt.step()
         state["step"] += 1
-        return state, {"loss": metrics["loss"], "ce": metrics["ce"],
+        ce = all_sum(metrics["ce"])
+        return state, {"loss": ce + metrics["aux"], "ce": ce,
                        "aux": metrics["aux"], "grad_norm": grad_norm}
 
     def shard_batch(tokens) -> torch.Tensor:
+        """This rank's rows: microbatch ``i`` of the global batch is its
+        rows ``[i B / n_mb, (i + 1) B / n_mb)``, and data shard ``r`` takes
+        the ``r``-th share of each, so the MoE routing over the data
+        shards sees the global microbatch; then this rank's sequence
+        chunk with the next token over ``sp``."""
         t = torch.as_tensor(tokens)
-        if t.shape[0] % n_batch:
-            raise ValueError(f"batch of {t.shape[0]} rows does not divide "
-                             f"over {baxes} ({n_batch} shards)")
-        rows = t.shape[0] // n_batch
-        idx = data_index(mesh, baxes) if baxes else 0
-        return t[idx * rows:(idx + 1) * rows].to(dev, torch.long)
+        if t.shape[0] % (n_batch * n_microbatches):
+            raise ValueError(
+                f"batch of {t.shape[0]} rows does not divide into "
+                f"{n_microbatches} microbatches over {baxes} ({n_batch} "
+                f"shards)")
+        rows = t.shape[0] // (n_batch * n_microbatches)
+        t = t.reshape(n_microbatches, n_batch, rows, *t.shape[1:])
+        t = t[:, data_index(mesh, baxes)].reshape(-1, *t.shape[3:])
+        if seq:
+            t = _chunk_with_next(t, sp_idx, n_sp)
+        return t.to(dev, torch.long)
 
-    def pp_sum(x: float) -> float:
+    def split_sum(x: float) -> float:
+        """A count summed over the stages and the sequence chunks."""
         t = torch.tensor([x], dtype=torch.float64, device=dev)
-        return float(all_reduce_(t, pp_group)) if pp_group else x
+        for group in (pp_group, sp_group):
+            if group is not None:
+                all_reduce_(t, group)
+        return float(t)
 
-    return dev, n_batch, (n_pp, pp_sum), (init_state, train_step, shard_batch)
+    # The FLOP counts are summed by split_sum; seq gives the tokens' chunks.
+    return (dev, n_batch, (n_sp, None) if seq else None,
+            (n_pp * n_sp, split_sum), (init_state, train_step, shard_batch))
 
 
-def _localize(module: nn.Module) -> None:
-    """Swap each DTensor parameter or buffer of ``module`` for its local
-    tensor: a pipelined stage runs plain tensors (the replicated entries
-    a keyed materialization gives as DTensors hold the whole value)."""
-    from torch.distributed.tensor import DTensor
+def _stage_values(module: nn.Module, mesh, axis: str, stage_mesh) -> None:
+    """Put each value bound to ``module`` on the stage's layout: a DTensor
+    on the whole mesh (an entry every stage holds, replicated over
+    ``axis``) becomes the same local tensor on ``stage_mesh`` (the other
+    axes), or a plain tensor where there is none; a stage-owned entry is
+    on ``stage_mesh`` already.  Buffers become plain local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
 
     made: dict = {}
     for mod in module.modules():
         for d, is_param in ((mod._parameters, True), (mod._buffers, False)):
             for k, t in d.items():
-                if not isinstance(t, DTensor):
+                if not isinstance(t, DTensor) or t.device_mesh != mesh:
                     continue
                 if id(t) not in made:
+                    where = dict(zip(mesh.mesh_dim_names, t.placements))
+                    if not isinstance(where[axis], Replicate):
+                        raise ValueError(
+                            f"`{k}` is placed {tuple(t.placements)} on "
+                            f"{mesh}: a pipeline stage takes the entries "
+                            f"every stage holds replicated over {axis!r}")
                     local = t.to_local().detach()
+                    if is_param and stage_mesh is not None:
+                        local = DTensor.from_local(
+                            local, stage_mesh,
+                            [where[a] for a in stage_mesh.mesh_dim_names],
+                            run_check=False, shape=t.shape, stride=t.stride())
                     made[id(t)] = nn.Parameter(
                         local, requires_grad=t.requires_grad) \
                         if is_param else local
@@ -602,18 +678,25 @@ def _chunk_nll(module: nn.Module, tokens: torch.Tensor, segment_ids,
     return (nll * valid).sum(), all_sum(valid.sum()).clamp_min(1.0)
 
 
-def _check_seq_parallel(module: nn.Module, n_sp: int) -> None:
+def _refuse_moe_over_sp(what: str):
+    raise NotImplementedError(
+        f"{what}: a mixture of experts over an sp mesh would route each "
+        f"chunk apart (its capacity, slots and router loss need the whole "
+        f"sequence): ROADMAP A10.1, not ported yet")
+
+
+def _check_seq_parallel(module: nn.Module, n_sp: int, attn_fn=None) -> None:
     """An ``sp`` mesh needs every attention layer to attend across the
-    chunks and no expert routing split over them."""
+    chunks (``attn_fn``, where given, attends for every layer) and no
+    expert routing split over them."""
     from ..models.layers import Attention, CrossAttention, MoEMLP
 
     for name, m in module.named_modules():
         if isinstance(m, MoEMLP):
-            raise NotImplementedError(
-                f"`{name}`: a mixture of experts over an sp mesh would route "
-                f"each chunk apart; not ported")
+            _refuse_moe_over_sp(f"`{name}`")
         if n_sp > 1 and isinstance(m, (Attention, CrossAttention)) \
-                and getattr(m.attn_fn, "seq_parallel", None) is None:
+                and getattr(attn_fn or m.attn_fn, "seq_parallel",
+                            None) is None:
             raise ValueError(
                 f"`{name}`: the mesh splits the sequence over sp ({n_sp}), "
                 f"but this layer's attn_fn sees only its chunk; build the "
@@ -682,7 +765,7 @@ def _instrument_step(step_fn, cfg: TransformerConfig, dev: torch.device,
         if count:
             out, costs = observe.costmodel.program_costs(
                 step_fn, state, tokens, segment_ids)
-            split = seq or stages
+            split = stages or seq
             if split is None:
                 flops = costs["flops"] * n_ranks
             else:

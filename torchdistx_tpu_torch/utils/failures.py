@@ -40,7 +40,13 @@ What differs from the JAX loop, all from PyTorch's in-place state:
   and returns without running the step), and before an in-place restore
   the loop waits for it to end; if it does not within the grace period,
   the loop raises instead of restoring under a live writer (relaunch
-  with ``resume=True``).
+  with ``resume=True``).  This is the contract (ROADMAP C9), not a gap:
+  the JAX loop may restore beside a running step because its arrays are
+  immutable, but an eager step holds the live module and optimizer
+  themselves, so a restore into fresh storage would still take the
+  step's ``.grad`` writes into the rebound parameters and its
+  ``opt.step()`` into a module the next step trains, and a Python thread
+  cannot be killed.
 * The default ``retry_on`` is the port's retryable set
   (:func:`..cuda_bridge.materialize._retryable_errors`: the chaos error
   and ``torch.cuda.OutOfMemoryError``), never a bare ``RuntimeError``: a
@@ -703,9 +709,11 @@ def run_elastic(
         if t.is_alive():
             raise RuntimeError(
                 f"run_elastic: the step abandoned by the watchdog is still "
-                f"running after {_ABANDONED_GRACE_S}s and could write the "
-                f"live model under an in-place restore; relaunch with "
-                f"resume=True")
+                f"running after {_ABANDONED_GRACE_S}s; it holds the live "
+                f"module and optimizer and its thread cannot be stopped, so "
+                f"nothing is restored under it: restart the process and "
+                f"call run_elastic(..., resume=True) to continue from the "
+                f"last verified checkpoint")
 
     def _drain_now() -> bool:
         """Drain on the preemption notice; returns whether the final
