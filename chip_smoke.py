@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one
 NVIDIA GPU: decoder LMs, Mixtral's mixture of experts, ViT and the T5
 encoder-decoder, the keyed, sharded materializer, the sharded train
-step (one-rank meshes), sequence and pipeline parallelism (ranks
-spawned on the one card over gloo), checkpoints, the elastic loop and
-resharding.
+step (one-rank meshes), sequence and pipeline parallelism and a
+mixture of experts over the sequence ring (ranks spawned on the one card
+over gloo), checkpoints, the elastic loop and resharding, and the serve
+fleet with its chaos, autoscaler and blue-green rollover.
 
     python3 chip_smoke.py
 
@@ -243,7 +244,7 @@ user calls, and checks what comes out.  One JSON object per line:
     512, 2048] a rank, non-causal), d(bias) included, 4 launches of each
     kernel a rank; Ulysses with the flash kernels inside at the llama
     geometry; the train step at 2-layer llama3-8b width, bf16 parameters,
-    [1, 8192] over sp 2: 3 losses falling, each within 1e-3 of the same
+    [1, 8192] over sp 2: 2 losses falling, each within 1e-3 of the same
     model and sequence whole in one process, the launches per rank and
     step, the C3 check against plain attention on a fresh sequence
     (loss and grad norm 1e-3, each leaf 5e-2), and the step on a
@@ -253,7 +254,7 @@ user calls, and checks what comes out.  One JSON object per line:
     2048] in 4 microbatches over pp 2, each rank materializing only its
     own layers (device growth at most their bytes, the replicated ones'
     and twice the largest entry); GPipe, 1F1B and interleaved 1F1B (2
-    chunks of one layer a rank), 3 steps each: losses equal on both
+    chunks of one layer a rank), 2 steps each: losses equal on both
     ranks, falling, within 1e-3 of the same model whole in one process
     with the same 4-microbatch accumulation, 2 layers x 4 microbatches of
     each flash kernel per rank and step (none of d(bias) or paged
@@ -264,14 +265,14 @@ user calls, and checks what comes out.  One JSON object per line:
     each schedule on a one-rank NCCL ``{pp: 1}`` mesh (2 layers) with its
     step ms beside ``train_bf16_full``'s;
 26. checkpoints and the elastic loop (``train_elastic``) on the sharded
-    main path (2-layer llama3-8b width, bf16 parameters, a one-rank NCCL
+    main path at 1 layer (llama3-8b width, bf16 parameters, a one-rank NCCL
     ``{fsdp: 1}`` mesh) under one temporary directory (its disk usage
     printed first, removed at the end), in fresh processes: a checkpoint
     every 2 steps, 2 kept; the step-2 save damaged after it committed,
     step 3 raising, a preemption notice at step 4: ``step_2``
     quarantined, one restart, a clean exit at step 4, a fresh process
     resuming to step 6, every step's loss bitwise an uninterrupted run's
-    from the same keyed values, B1-B3 at 2 launches a step; the
+    from the same keyed values, B1-B3 at 1 launch a step; the
     checkpoint's bytes, a sync save's s and GB/s, its verify and an
     in-place restore, the step ms while an async save is in flight and
     without; then ``reshard``: the step-6 checkpoint offline to a
@@ -283,16 +284,38 @@ user calls, and checks what comes out.  One JSON object per line:
     resumed by one rank through ``needs_reshard`` -> ``restore_resharded``, its
     steps bitwise an uninterrupted one-rank run's from the same
     resharded state, reshard s, GB/s and the staging peak;
-27. the kernels line: per kernel its launches on the main path, its error
+27. the serve fleet (``fleet``, printed after ``serve_chaos``): replicas
+    of 4-layer llama3-8b width in float32 on threads of this process,
+    2 started, a storm of 32 requests scaling the fleet to 3, then
+    ``fleet@2=raise`` killing replica 2 mid-batch (its lanes requeued
+    onto the survivors), idle scale-down to 2, a blue-green rollover to
+    a checkpoint of the same config at another seed (saved under a
+    temporary directory) under 8 more requests: every request equal to
+    the unbatched oracle of the weights that served it (tokens exact,
+    final logits within 1e-4), both versions serving, the canary's
+    gate passed, no page leaked, no program recaptured, the paged-decode
+    kernel launched layers x (plain decode ticks + captures after its
+    count's reset) times; spin-up and capture s per replica, the roll's
+    s per stage, the checkpoint's save s, the peak device memory;
+28. a mixture of experts over the sp ring (``train_moe_sp``, printed
+    after ``train_pp_mesh``): Mixtral 8x7B width, 2 layers, bf16
+    parameters, [2, 2048] over 4 spawned gloo ranks ``{sp 2, ep 2}``
+    with ring flash attention, 2 steps, against the same keyed values
+    whole on one rank: losses equal on every rank and within 1e-3 of
+    the whole sequence's, the pairs dropped at capacity the whole
+    sequence's at every step, B1-B3 launched layers x (s + 1) times a
+    step on sp rank s, each rank's peak;
+29. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
-    Mixtral, 70B-remat, ViT, sp, pp and elastic paths; paged decode at the serving
+    Mixtral, 70B-remat, ViT, sp, pp, MoE-over-sp and elastic paths; paged
+    decode (with its launches on the fleet path) at the serving
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-28. last: ``{"ok": true, "device": {...}}``.
+30. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -395,6 +418,7 @@ from torchdistx_tpu_torch.parallel.train import (
     train_step_flops,
 )
 from torchdistx_tpu_torch.serve import (
+    FleetConfig,
     Request,
     ServeConfig,
     ServeEngine,
@@ -4734,7 +4758,7 @@ SP_BIAS = dict(B=1, S=2048, H=128, KV=128, D=128)
 # The sp train step: llama3-8b width, 2 layers, bf16 parameters, one
 # [1, 8192] sequence over sp 2.
 TRAIN_SP_CFG = TRAIN_CFG
-TRAIN_SP_RANKS, TRAIN_SP_SEQ, TRAIN_SP_STEPS = 2, 8192, 3
+TRAIN_SP_RANKS, TRAIN_SP_SEQ, TRAIN_SP_STEPS = 2, 8192, 2
 TRAIN_SP_MESH = {"fsdp": 1, "sp": 1}
 C3_LLAMA_LEAF = 1.739e-2  # llama's worst leaf in train_bf16_full, PERF.md §6
 
@@ -5136,7 +5160,7 @@ def sp_model(mesh, dev):
 
 
 def train_sp_rank(rank: int, world: int, dev) -> dict:
-    """The sp train step on this rank: 3 steps on the [1, 8192] sequence
+    """The sp train step on this rank: 2 steps on the [1, 8192] sequence
     (each step's flash launches), then the C3 check: the gradients (summed
     over sp) on a fresh sequence, and, on rank 0 once the other ranks
     have freed the card, the same model's plain-attention gradients on
@@ -5240,7 +5264,7 @@ def one_rank_train_sp(dev) -> dict:
 
 def phase_train_sp(dev) -> dict:
     """The sp train step at llama3-8b width (2 layers, bf16 parameters,
-    one [1, 8192] sequence) over sp 2 spawned ranks: 3 losses, equal on
+    one [1, 8192] sequence) over sp 2 spawned ranks: 2 losses, equal on
     both ranks, falling, each within BF16_LOSS_RTOL of the same model and
     sequence whole in one process on the flash kernels; the launches per
     rank and step (2 layers x (r + 1) of each kernel); the C3 check (the
@@ -5298,7 +5322,7 @@ def phase_train_sp(dev) -> dict:
 # parameters, a [8, 2048] batch in 4 microbatches over pp 2 (two layers,
 # or two chunks of one layer, a stage).
 TRAIN_PP_CFG = LLAMA3_8B.replace(n_layers=4)
-TRAIN_PP_RANKS, TRAIN_PP_STEPS = 2, 3
+TRAIN_PP_RANKS, TRAIN_PP_STEPS = 2, 2
 TRAIN_PP_BATCH, TRAIN_PP_SEQ, TRAIN_PP_MB, TRAIN_PP_CHUNKS = 8, 2048, 4, 2
 PP_SCHEDULES = ("gpipe", "1f1b", "interleaved")
 # The f32 case: gpt2-125m (tied head) under 1F1B against mesh=None.
@@ -5449,7 +5473,7 @@ def pp_f32_rank(mesh, dev, tmp) -> dict:
 
 def train_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
     """One pipeline stage: for each schedule, this stage's keyed bf16
-    values (its layers only), 3 steps on the [8, 2048] batch (each step's
+    values (its layers only), 2 steps on the [8, 2048] batch (each step's
     flash launches and peak device memory), then, after 1F1B's, the C3
     check on a fresh batch; then the gpt2-125m f32 1F1B case."""
     mesh = make_mesh({"pp": world}, device_type="cuda")
@@ -5592,7 +5616,7 @@ def phase_train_pp(dev, train_row) -> dict:
     """The pipelined train step at llama3-8b width (4 layers, bf16
     parameters, [8, 2048] in 4 microbatches) over pp 2 spawned ranks,
     under GPipe, 1F1B and interleaved 1F1B (2 chunks of one layer a
-    rank): 3 losses a schedule, equal on both ranks, falling, each within
+    rank): 2 losses a schedule, equal on both ranks, falling, each within
     BF16_LOSS_RTOL of the same model whole in one process with the same
     accumulation; 2 layers x 4 microbatches of each flash kernel per rank
     and step (no recompute), none of d(bias) or paged decode; 1F1B's peak
@@ -5684,7 +5708,7 @@ PP_MESH_LEGS = {"pp2-tp2": {"pp": 2, "tp": 2},
                 "pp2-sp2": {"pp": 2, "sp": 2},
                 "pp2-ep2": {"pp": 2, "ep": 2}}
 PP_MESH_RANKS = 4
-PP_MESH_STEPS = {"pp2-tp2": 2, "pp2-fsdp2": 2, "pp2-sp2": 2, "pp2-ep2": 3}
+PP_MESH_STEPS = {"pp2-tp2": 2, "pp2-fsdp2": 2, "pp2-sp2": 2, "pp2-ep2": 2}
 PP_MOE_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=2)
 PP_MOE_BATCH, PP_MOE_MB = 4, 2
 PP_MESH_C3_LEG = "pp2-tp2"
@@ -6008,18 +6032,505 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_moe_sp: a mixture of experts routed over the sp ring
+# ---------------------------------------------------------------------------
+
+# Mixtral 8x7B width, depth cut to 2 layers (as mixtral_train_bf16 and
+# train_pp_mesh's ep leg), bf16 parameters, the [2, 2048] batch on
+# {sp 2, ep 2}: every rank holds chunk s of both rows and the experts of
+# its ep index; the routing (capacity, slots, router loss) is the whole
+# sequence's.
+MOE_SP_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=2)
+MOE_SP_MESH = {"sp": 2, "ep": 2}
+MOE_SP_BATCH, MOE_SP_SEQ, MOE_SP_STEPS = 2, 2048, 2
+
+
+def moe_sp_batch() -> np.ndarray:
+    return np.random.RandomState(81).randint(
+        0, MOE_SP_CFG.vocab_size, (MOE_SP_BATCH, MOE_SP_SEQ))
+
+
+def dropped_pairs(model) -> int:
+    """The (token, choice) pairs the last forward dropped at capacity."""
+    return int(sum(int((~m.kept).sum()) for m in model.modules()
+                   if isinstance(m, MoEMLP)))
+
+
+def record_routing(model) -> list:
+    """Each ``MoEMLP``'s routing in its next forward, appended to the
+    returned list as one dict a layer: the router probabilities it was
+    given (this rank's rows and chunk), its slots, kept pairs, capacity
+    and router loss."""
+    seen: list = []
+    for m in model.modules():
+        if isinstance(m, MoEMLP):
+            def route(probs, dtype, _m=m, _route=m.route):
+                gates, onehot, pos, capacity = _route(probs, dtype)
+                if len(seen) < MOE_SP_CFG.n_layers:
+                    seen.append({"probs": probs.detach().cpu().tolist(),
+                                 "pos": pos.cpu().tolist(),
+                                 "kept": _m.kept.cpu().tolist(),
+                                 "capacity": capacity,
+                                 "aux": float(_m.aux.detach())})
+                return gates, onehot, pos, capacity
+            m.route = route
+    return seen
+
+
+def whole_routing(ranks, dev) -> dict:
+    """The first step's router probabilities of the sp ranks (ep index 0),
+    joined in chunk order into the whole sequence's and routed on the
+    card by ``MoEMLP.route`` with no mesh: its slots, kept pairs and
+    capacity cut to each rank's chunk, and its router loss, against the
+    ranks' own, bitwise, layer by layer.  Returns the dropped pairs."""
+    by_sp = sorted((out for out in ranks if out["ep_index"] == 0),
+                   key=lambda out: out["sp_index"])
+    k, n_sp = MOE_SP_CFG.moe.top_k, len(by_sp)
+    s = MOE_SP_SEQ // n_sp
+    mod = MoEMLP(MOE_SP_CFG, device="meta")
+    dropped = []
+    for layer in range(MOE_SP_CFG.n_layers):
+        probs = torch.cat([torch.tensor(out["routing"][layer]["probs"],
+                                        device=dev) for out in by_sp], 1)
+        _, _, pos, capacity = mod.route(probs, MOE_SP_CFG.dtype)
+        pos = pos.view(MOE_SP_BATCH, MOE_SP_SEQ, k).cpu()
+        kept = mod.kept.view(MOE_SP_BATCH, MOE_SP_SEQ, k).cpu()
+        for out in ranks:
+            got = out["routing"][layer]
+            cut = slice(out["sp_index"] * s, (out["sp_index"] + 1) * s)
+            same = (got["pos"] == pos[:, cut].reshape(-1, k).tolist()
+                    and got["kept"] == kept[:, cut].reshape(-1, k).tolist()
+                    and got["capacity"] == capacity
+                    and got["aux"] == float(mod.aux))
+            if not same:
+                raise AssertionError(
+                    f"train_moe_sp layer {layer}, sp rank "
+                    f"{out['sp_index']}: routing differs from the whole "
+                    f"sequence's (capacity {got['capacity']} / {capacity}, "
+                    f"aux {got['aux']} / {float(mod.aux)})")
+        dropped.append(int((~kept).sum()))
+    return {"dropped_pairs_by_layer": dropped, "capacity": capacity}
+
+
+def moe_sp_steps(model, mesh, dev) -> dict:
+    """``MOE_SP_STEPS`` AdamW steps of ``make_train_step`` on ``mesh``
+    (None: one rank, the whole sequence): losses, router losses, dropped
+    pairs and flash launches of each step, the peak device memory, and
+    the first step's routing (:func:`record_routing`)."""
+    init_state, train_step, shard_batch = make_train_step(
+        model, MOE_SP_CFG, device=dev, mesh=mesh)
+    state = init_state(model)
+    batch = shard_batch(moe_sp_batch())
+    out = {"losses": [], "aux": [], "dropped": [], "launches": [],
+           "step_s": [], "routing": record_routing(model)}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MOE_SP_STEPS):
+        torch.cuda.synchronize()
+        reset_flash_launches()
+        t = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        out["losses"].append(float(metrics["loss"]))
+        out["step_s"].append(time.perf_counter() - t)
+        out["aux"].append(float(metrics["aux"]))
+        out["dropped"].append(dropped_pairs(model))
+        out["launches"].append(dict(flash_launches))
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del state, init_state, train_step
+    return out
+
+
+def train_moe_sp_rank(rank: int, world: int, dev) -> dict:
+    """One rank of ``{sp 2, ep 2}``: the keyed bf16 values on the mesh,
+    ring-flash attention, the steps."""
+    t0 = time.perf_counter()
+    mesh = make_mesh(MOE_SP_MESH, device_type="cuda")
+    model = deferred_init(make_mixtral, MOE_SP_CFG,
+                          attn_fn=make_ring_flash_attention(mesh), device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, mesh=mesh, plan=decoder_lm_plan(MOE_SP_CFG), seed=0,
+        param_dtype=torch.bfloat16))
+    warnings.simplefilter("ignore")  # the batch replicated over ep, by design
+    out = moe_sp_steps(model, mesh, dev)
+    out["routing"] = out["routing"][:MOE_SP_CFG.n_layers]
+    out.update({"sp_index": mesh.get_local_rank("sp"),
+                "ep_index": mesh.get_local_rank("ep"),
+                "paged_decode_launches": paged_attention.launches,
+                "seconds": time.perf_counter() - t0})
+    return out
+
+
+def phase_train_moe_sp(dev) -> dict:
+    """A mixture of experts over the sp ring: Mixtral 8x7B width (2
+    layers, bf16) on 4 spawned gloo ranks ``{sp 2, ep 2}`` with ring
+    flash attention, against the same keyed values whole on one rank
+    (``mesh=None``, the whole sequence) in this process first: losses
+    equal on every rank and within BF16_LOSS_RTOL of the whole
+    sequence's; the first step's routing (each layer's slots, kept pairs,
+    capacity and router loss on every rank) bitwise the whole sequence's
+    routing of the ranks' router probabilities joined (the whole model's
+    own probabilities differ by the ring's bf16 rounding, which flips a
+    few near-tied top-2 choices: its dropped pairs are printed beside);
+    B1-B3 launched layers x (s + 1) times a step on sp rank s, B4 and B5
+    never."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = deferred_init(make_mixtral, MOE_SP_CFG,
+                          attn_fn=make_flash_attention(), device=dev)
+    bind_values(model, materialize_module_cuda(
+        model, seed=0, param_dtype=torch.bfloat16, device=dev))
+    whole = moe_sp_steps(model, None, dev)
+    whole.pop("routing")
+    del model
+    gc.collect()  # the recording's cycles hold the module's values
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = sp_spawn("train_moe_sp_rank", 4)
+    spawn_s = time.perf_counter() - t
+    losses = ranks[0]["losses"]
+    for r, out in enumerate(ranks):
+        if out["losses"] != losses:
+            raise AssertionError(f"train_moe_sp rank {r} losses "
+                                 f"{out['losses']} != rank 0's {losses}")
+        per = MOE_SP_CFG.n_layers * (out["sp_index"] + 1)
+        want = {k: per for k in FLASH_REPLACES}
+        want["flash_dbias"] = 0
+        for step in out["launches"]:
+            check_launches(step, want, f"train_moe_sp rank {r}")
+        if out["paged_decode_launches"]:
+            raise AssertionError(f"train_moe_sp rank {r}: paged decode "
+                                 f"launched on the training path")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, whole["losses"])]
+    if not all(math.isfinite(x) for x in losses) \
+            or not max(rel) <= BF16_LOSS_RTOL:
+        raise AssertionError(f"train_moe_sp losses {losses} vs the whole "
+                             f"sequence's {whole['losses']}: {rel} > "
+                             f"{BF16_LOSS_RTOL}")
+    routed = whole_routing(ranks, dev)
+    dropped = [sum(out["dropped"][i] for out in ranks
+                   if out["ep_index"] == 0) for i in range(MOE_SP_STEPS)]
+    if dropped[0] != sum(routed["dropped_pairs_by_layer"]):
+        raise AssertionError(f"train_moe_sp dropped pairs {dropped[0]} != "
+                             f"the whole sequence's routing's "
+                             f"{routed['dropped_pairs_by_layer']}")
+    row = {"phase": "train_moe_sp", "card": nvidia_smi(),
+           "model": "mixtral-8x7b", "n_layers": MOE_SP_CFG.n_layers,
+           "dtype": "bfloat16 compute, bfloat16 parameters",
+           "mesh": MOE_SP_MESH, "attention": "ring flash",
+           "backend": "gloo (spawned ranks on one card; no step times)",
+           "batch": [MOE_SP_BATCH, MOE_SP_SEQ], "steps": MOE_SP_STEPS,
+           "capacity": moe_capacity(MOE_SP_CFG.moe, MOE_SP_BATCH * MOE_SP_SEQ),
+           "losses": losses, "whole_losses": whole["losses"],
+           "loss_rel_diff": rel, "loss_limit": BF16_LOSS_RTOL,
+           "aux": ranks[0]["aux"], "whole_aux": whole["aux"],
+           "dropped_pairs": dropped,
+           "whole_routing_of_the_ranks_probs": {**routed, "bitwise": True},
+           "whole_model_dropped_pairs": whole["dropped"],
+           "launches_by_rank_per_step": [out["launches"][0] for out in ranks],
+           "sp_index_by_rank": [out["sp_index"] for out in ranks],
+           "peak_bytes_by_rank": [out["max_memory_allocated_bytes"]
+                                  for out in ranks],
+           "whole_peak_bytes": whole["max_memory_allocated_bytes"],
+           "step_s_gloo_by_rank": [out["step_s"] for out in ranks],
+           "rank_seconds": [out["seconds"] for out in ranks],
+           "spawn_seconds": spawn_s, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# fleet: replicas behind the router and autoscaler, chaos, a rollover
+# ---------------------------------------------------------------------------
+
+# Replicas at llama3-8b width, depth cut to 4 layers, float32 (7.7 GB of
+# parameters each): the oracle's tokens and the canary's 1e-4 on final
+# logits hold in float32 with IEEE matmuls, as serve_f32_exact's do.
+FLEET_CFG = LLAMA3_8B.replace(n_layers=4, dtype=torch.float32,
+                              param_dtype=torch.float32)
+FLEET_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=48,
+                          max_pages_per_seq=8, prefill_buckets=(16, 32, 64))
+# 2 replicas; queue pressure scales to 3, idle drains back to 2.
+FLEET_FC = FleetConfig(min_replicas=2, max_replicas=3,
+                       up_queue_per_replica=2.0, up_consecutive=2,
+                       down_consecutive=40, cooldown_s=0.5, stall_s=60.0)
+FLEET_STORM, FLEET_ROLL_STORM = 32, 8
+FLEET_PLAN = "fleet@2=raise"
+FLEET_TIMEOUT_S = 300.0
+
+
+def fleet_requests(tag: str, n: int, seed: int) -> list:
+    """``n`` requests of mixed prompt lengths (3 to 60 tokens) and
+    budgets (8 to 16 tokens), four arriving per controller tick."""
+    rng = np.random.RandomState(seed)
+    return [Request(f"{tag}{i}",
+                    rng.randint(0, FLEET_CFG.vocab_size,
+                                int(rng.randint(3, 61))).tolist(),
+                    max_new_tokens=int(rng.randint(8, 17)),
+                    arrival_step=i // 4) for i in range(n)]
+
+
+def fleet_watch(fl, seen: dict) -> None:
+    """Keep in ``seen`` a record of every replica the fleet ran: its
+    state, version, spin-up and capture seconds (at spin-up and now),
+    plain decode ticks and page check, refreshed while the fleet holds it;
+    once it is gone only the record stays (a removed replica's
+    parameters are freed with its engine)."""
+    live = {h.idx: h for h in fl.handles}
+    for idx, h in live.items():
+        seen[idx] = {"h": h}
+    for idx, rec in seen.items():
+        h = rec.get("h")
+        if h is None:
+            continue
+        eng = h.engine
+        rec.update(state=h.state, version=h.weight_version,
+                   spin_up_s=h.bring_up_seconds, capture_s=h.capture_seconds)
+        if eng is not None:
+            rec.update(engine_capture_s=eng.capture_seconds,
+                       cuda_graphs=eng.cuda_graphs,
+                       plain_ticks=eng.decode_steps - eng.spec_verify_ticks,
+                       pages=(eng.kv.pages_in_use, eng.prefix.page_count()))
+        rec["thread"] = h.thread
+        if idx not in live:
+            rec["h"] = None
+
+
+def fleet_drive(fl, reqs, seen: dict, until=None, plan=None) -> int:
+    """Submit ``reqs`` at their ticks and tick until every one is done
+    and ``until()`` holds; every replica the fleet ran is kept in
+    ``seen``.  ``plan`` is installed once 3 replicas serve, so its kill
+    lands after the scale-up.  Returns the most replicas serving at
+    once."""
+    base, most, i = fl._tick_no, 0, 0
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+    while i < len(reqs) or fl._pending or (until and not until()):
+        while i < len(reqs) and reqs[i].arrival_step + base <= fl._tick_no:
+            fl.submit(reqs[i])
+            i += 1
+        fl.tick()
+        fleet_watch(fl, seen)
+        most = max(most, sum(1 for h in fl.handles if h.state == "serving"))
+        if plan is not None and most >= 3:
+            chaos.install(plan)
+            plan = None
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"fleet: {len(fl._pending)} pending after "
+                               f"{FLEET_TIMEOUT_S} s")
+        time.sleep(0.001)
+    return most
+
+
+def fleet_check_oracle(fl, reqs) -> float:
+    """Every request completed, tokens equal to the oracle under the
+    weights of its version, final logits within 1e-4; the worst."""
+    worst = 0.0
+    for r in reqs:
+        if r.rid not in fl.results:
+            raise AssertionError(f"fleet {r.rid}: not completed "
+                                 f"({fl.rejected.get(r.rid)})")
+        v = fl.served_version[r.rid]
+        want, logits = fl.oracle_generate(fl.version_params[v], r.tokens,
+                                          r.max_new_tokens, r.eos_id)
+        if fl.results[r.rid] != want:
+            raise AssertionError(f"fleet {r.rid} ({v}): {fl.results[r.rid]} "
+                                 f"!= oracle {want}")
+        err = float(np.abs(fl.final_logits[r.rid] - logits).max())
+        worst = max(worst, err)
+        if not err <= 1e-4:
+            raise AssertionError(f"fleet {r.rid}: final logits off by {err}")
+    return worst
+
+
+def fleet_checkpoint(fl, path: str, dev) -> dict:
+    """The same config's weights at another seed, saved where a roll
+    fetches them: bytes and seconds.  Recorded and materialized on a
+    thread of its own: a thread's last recording session keeps its
+    random values reachable until its next session starts, and this
+    thread's ends with it."""
+    out: dict = {}
+
+    def write():
+        try:
+            with fl.device_lock:
+                torch.manual_seed(1)
+                net = materialize_module(deferred_init(
+                    make_llama, FLEET_CFG, device=dev), device=dev)
+                t = time.perf_counter()
+                save_checkpoint(path, net.state_dict())
+                out["save_s"] = time.perf_counter() - t
+        except BaseException as e:  # noqa: BLE001 — raised below
+            out["error"] = e
+
+    th = threading.Thread(target=write, name="fleet-checkpoint")
+    th.start()
+    th.join()
+    if "error" in out:
+        raise out["error"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes = payload_bytes(path)
+    return {"bytes": nbytes, "save_s": out["save_s"],
+            "save_gb_per_s": nbytes / out["save_s"] / 1e9}
+
+
+def phase_fleet(dev) -> dict:
+    """The serve fleet on the card's float32 path: 2 replicas of 4-layer
+    llama3-8b width, a storm of 32 requests that scales the fleet to 3,
+    then ``fleet@2=raise`` kills replica 2 mid-batch (its lanes requeue
+    onto the survivors), idle scale-down to 2, then a blue-green
+    rollover to the same config at another seed under 8 more requests.
+    Every request equals the unbatched oracle of the weights that served
+    it (tokens exact, final logits within 1e-4), the canary's gate
+    passes, no KV page is leaked, no program is recaptured, and the
+    paged-decode kernel launched layers x (plain decode ticks + decode
+    captures after the count's reset) times.  Then every replica thread
+    has ended and the fleet's device memory is free again: a thread or a
+    reference left behind would hold a replica's weights."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    threads: list = []
+    row = fleet_run(dev, threads)
+    for th in threads:
+        th.join(timeout=60.0)
+        if th.is_alive():
+            raise AssertionError(f"fleet: replica thread {th.name} alive "
+                                 f"after shutdown")
+    del threads
+    gc.collect()  # the fleet, its handles and engines refer to each other
+    torch.cuda.synchronize()
+    # torch keeps a cuBLAS workspace for each thread that ran a GEMM (32
+    # MiB on this card) after the thread ends; drop those first.
+    row["cublas_workspace_bytes"] = torch.cuda.memory_allocated() - base
+    torch._C._cuda_clearCublasWorkspaces()
+    row["device_bytes_left"] = torch.cuda.memory_allocated() - base
+    row["cublas_workspace_bytes"] -= row["device_bytes_left"]
+    if row["device_bytes_left"] > 64 << 20:
+        blocks = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                         for b in seg["blocks"]
+                         if b["state"] == "active_allocated"), reverse=True)
+        raise AssertionError(f"fleet: {row['device_bytes_left']} bytes still "
+                             f"allocated after shutdown (largest active "
+                             f"blocks {blocks[:8]})")
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    return row
+
+
+def fleet_run(dev, threads: list) -> dict:
+    """:func:`phase_fleet`'s fleet, from start to shutdown: its row;
+    every replica thread it ran is appended to ``threads``."""
+    from torchdistx_tpu_torch.serve import ServeFleet
+
+    tmp = tempfile.mkdtemp(prefix="tdx_fleet_")
+    fl = ServeFleet(FLEET_CFG, family="llama", serve_cfg=FLEET_SERVE,
+                    fleet_cfg=FLEET_FC, seed=0, param_dtype=torch.float32,
+                    device=dev)
+    seen: dict = {}
+    try:
+        fl.start(2, timeout=FLEET_TIMEOUT_S)
+        fleet_watch(fl, seen)
+        paged_attention.launches = paged_attention.merge_launches = 0
+        reset_flash_launches()
+        storm = fleet_requests("s", FLEET_STORM, seed=91)
+        try:
+            t = time.perf_counter()
+            most = fleet_drive(fl, storm, seen, plan=FLEET_PLAN)
+            storm_s = time.perf_counter() - t
+        finally:
+            chaos.clear()
+        if 2 in {h.idx for h in fl.handles} or seen[2]["state"] != "failed":
+            raise AssertionError(f"fleet: replica 2 not killed "
+                                 f"({seen[2]['state']})")
+        if most < 3:
+            raise AssertionError(f"fleet: the storm scaled to {most} "
+                                 f"replicas, not 3")
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while len(fl.handles) > FLEET_FC.min_replicas:  # idle scale-down
+            fl.tick()
+            fleet_watch(fl, seen)
+            if time.monotonic() > deadline:
+                raise TimeoutError("fleet: no idle scale-down")
+            time.sleep(0.002)
+        ckpt = fleet_checkpoint(fl, f"{tmp}/step_1", dev)
+        ctl = fl.start_rollover(f"{tmp}/step_1")
+        # Half the requests while the canary runs, half after the shift.
+        rolled = fleet_requests("v", FLEET_ROLL_STORM, seed=92)
+        half = FLEET_ROLL_STORM // 2
+        fleet_drive(fl, rolled[:half], seen, until=lambda: (
+            ctl.outcome is not None or fl.active_version == ctl.version))
+        fleet_drive(fl, rolled[half:], seen,
+                    until=lambda: ctl.outcome is not None)
+        if ctl.outcome != "completed":
+            raise AssertionError(f"fleet rollover: {ctl.digest()}")
+        reqs = storm + rolled
+        worst = fleet_check_oracle(fl, reqs)
+        versions = sorted({str(fl.served_version[r.rid]) for r in reqs})
+        if versions != sorted({"None", ctl.version}):
+            raise AssertionError(f"fleet: versions served {versions}")
+        torch.cuda.synchronize()
+        launches = paged_attention.launches
+        fleet_watch(fl, seen)
+        for i, rec in seen.items():
+            if rec.get("engine_capture_s") != rec["capture_s"]:
+                raise AssertionError(f"fleet r{i}: a program was recaptured")
+            if rec["h"] is not None and rec["pages"][0] != rec["pages"][1]:
+                raise AssertionError(f"fleet r{i}: {rec['pages'][0]} pages "
+                                     f"in use, {rec['pages'][1]} cached")
+        # Replicas captured after the count's reset: each decode capture's
+        # warm-up run launches the kernel once a layer.
+        late = [i for i, rec in seen.items()
+                if i > 2 and rec.get("cuda_graphs")]
+        plain = sum(rec.get("plain_ticks", 0) for rec in seen.values())
+        want = FLEET_CFG.n_layers * (plain + len(late))
+        if launches != want:
+            raise AssertionError(f"fleet: {launches} paged-decode launches "
+                                 f"!= {FLEET_CFG.n_layers} layers x ({plain}"
+                                 f" plain ticks + {len(late)} captures)")
+        if any(flash_launches.values()):
+            raise AssertionError(f"fleet: flash launched {flash_launches}")
+        row = {"phase": "fleet", "card": nvidia_smi(), "model": "llama3-8b",
+               "n_layers": FLEET_CFG.n_layers, "dtype": "float32",
+               "fleet": dataclasses.asdict(FLEET_FC),
+               "serve": dataclasses.asdict(FLEET_SERVE), "plan": FLEET_PLAN,
+               "requests": len(reqs), "token_exact": True,
+               "max_final_logit_err": worst, "most_serving": most,
+               "versions_served": versions,
+               "replicas": {f"r{i}": {k: rec[k] for k in (
+                   "state", "version", "spin_up_s", "capture_s")}
+                   for i, rec in sorted(seen.items())},
+               "storm_s": storm_s, "checkpoint": ckpt,
+               "rollover": ctl.digest(), "canary_gate": "passed",
+               "paged_decode_launches": launches,
+               "paged_merge_launches": paged_attention.merge_launches,
+               "plain_decode_ticks": plain, "decode_captures_after_reset":
+               len(late), "recaptures": 0,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated()}
+    finally:
+        fl.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        threads.extend(rec["thread"] for rec in seen.values())
+    return row
+
+
+# ---------------------------------------------------------------------------
 # train_elastic and reshard: checkpoints, the elastic loop, resharding
 # ---------------------------------------------------------------------------
 
-# The sharded main path (first_step_sharded's): 2-layer llama3-8b width,
-# bf16 parameters, [2, 2048] batches, the one-rank NCCL {fsdp: 1} mesh.
-# Its checkpoint holds the parameters and both AdamW moments in bf16
-# (about 8.9 GB; each write takes ~14 s of the card's machine, so the
-# runs are as short as the checks allow).  The elastic run: 4 steps,
+# The sharded main path (first_step_sharded's) at llama3-8b width, depth
+# cut to 1 layer to fit the script's clock, bf16 parameters, [2, 2048]
+# batches, the one-rank NCCL {fsdp: 1} mesh.  Its checkpoint holds the
+# parameters and both AdamW moments in bf16 (about 7.6 GB, most of it
+# the embedding and the head; each write takes ~12 s of the card's
+# machine, so the runs are as short as the checks allow).  The elastic run: 4 steps,
 # drained by the plan's preemption, then 2 more in a fresh process,
 # which saves step 6; the reference runs 8 uninterrupted (the last 2 for
 # the resharded checkpoint).
-ELASTIC_CFG = TRAIN_CFG
+ELASTIC_CFG = LLAMA3_8B.replace(n_layers=1)
 ELASTIC_MESH = {"fsdp": 1}
 ELASTIC_STEPS, ELASTIC_DRAIN_STEP, ELASTIC_REF_STEPS = 6, 4, 8
 # The step-2 save is damaged after it commits; step 3 raises, and the
@@ -6046,7 +6557,7 @@ def elastic_batches() -> list:
 
 
 def elastic_model(mesh, dev, seed: int = 0):
-    """2-layer llama3-8b width on the flash kernels, bound to its keyed
+    """1-layer llama3-8b width on the flash kernels, bound to its keyed
     bf16 values on ``mesh`` (seed 0 is the run's; others are values a
     restore must overwrite)."""
     model = deferred_init(make_llama, ELASTIC_CFG,
@@ -6201,13 +6712,13 @@ def timed_ms(state, train_step, batch, n: int) -> tuple:
 
 
 def phase_train_elastic(dev, tmp: str) -> dict:
-    """``train_elastic`` on the sharded main path (2-layer llama3-8b
+    """``train_elastic`` on the sharded main path (1-layer llama3-8b
     width, bf16 parameters, one-rank NCCL ``{fsdp: 1}``): every 2 steps a
     checkpoint (max 2 kept); the step-2 save damaged after it committed,
     step 3 raising, the preemption notice at step 4 (``ELASTIC_PLAN``);
     a fresh process resumes to step 6.  Quarantined ``step_2.corrupt``,
     one restart, a clean exit at step 4, every step's loss bitwise the
-    uninterrupted run's from the same keyed values, B1-B3 at 2 launches
+    uninterrupted run's from the same keyed values, B1-B3 at 1 launch
     a step; the checkpoint's bytes, save / verify / restore s and GB/s,
     and the step ms with and without an async save in flight."""
     t0 = time.perf_counter()
@@ -6472,8 +6983,10 @@ def main() -> int:
     failures = []
     main_row, main_args = None, None
     record_health_walk()
+    start = time.perf_counter()
 
     def run(name, fn, *a):
+        t = time.perf_counter()
         try:
             return fn(*a)
         except Exception as e:  # noqa: BLE001 — report, run the rest, exit 1
@@ -6482,6 +6995,11 @@ def main() -> int:
                   "error": f"{type(e).__name__}: {e}"[:500]})
             failures.append(name)
             return None
+        finally:
+            # Each phase's wall seconds, for the script's clock budget.
+            now = time.perf_counter()
+            emit({"phase_clock": name, "seconds": now - t,
+                  "since_start_s": now - start})
 
     builds = run("build", build_all) or {}
     run("kernel", phase_kernel, dev, flush, builds.get("paged_decode.cu", {}))
@@ -6495,6 +7013,7 @@ def main() -> int:
     if res is not None:
         main_row, main_args = res
         run("serve_chaos_bf16", phase_serve_chaos_bf16, dev, main_row)
+    fleet_row = run("fleet", phase_fleet, dev)
     run("train_f32_exact", phase_train_f32_exact, dev)
     train_row = run("train_bf16_full", phase_train_bf16_full, dev)
     run("t5_f32_exact", phase_t5_f32_exact, dev)
@@ -6522,6 +7041,7 @@ def main() -> int:
     train_pp_row = run("train_pp", phase_train_pp, dev, train_row)
     train_pp_mesh_row = run("train_pp_mesh", phase_train_pp_mesh, dev,
                             train_pp_row)
+    moe_sp_row = run("train_moe_sp", phase_train_moe_sp, dev)
     ckpt_root = tempfile.mkdtemp(prefix="tdx_ckpt_")
     try:
         usage = shutil.disk_usage(ckpt_root)
@@ -6549,6 +7069,7 @@ def main() -> int:
         "shape": {k: timing[k] for k in ("B", "H", "KV", "D", "page", "dtype",
                                          "live_tokens", "table_width")},
         "merge_launches": main_row["paged_merge_launches"],
+        "launches_fleet_path": fleet_row["paged_decode_launches"],
         "cuda_launches_per_call": (main_row["paged_decode_launches"]
                                    + main_row["paged_merge_launches"])
         / main_row["paged_decode_launches"],
@@ -6596,6 +7117,9 @@ def main() -> int:
                 "one_rank_pp1_fsdp1_tp1_in_5_steps":
                     train_pp_mesh_row["one_rank_nccl"]["flash_launches"][
                         name]},
+            "launches_moe_sp_path": {
+                "train_moe_sp_by_rank_per_step":
+                    [r[name] for r in moe_sp_row["launches_by_rank_per_step"]]},
             "launches_elastic_path": {
                 "drained_run": elastic_row["flash_launches_first"][name],
                 "steps_run": len(elastic_row["executed_steps"]),

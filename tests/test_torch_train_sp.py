@@ -19,8 +19,9 @@ it.  float32, TINY shapes, 3 AdamW steps:
   ``seq_shard`` giving each chunk its rows of the relative-position
   bias: the gathered logits against the JAX dense forward within 2e-4
   (``tests/test_parallel.py`` ``TestT5SequenceParallel``);
-* a model whose attention sees only its chunk, and a mixture of experts,
-  refused on an sp mesh;
+* a model whose attention sees only its chunk refused on an sp mesh, a
+  mixture of experts trained there (``tests/test_torch_moe_sp.py``
+  holds its routing and losses);
 * with telemetry on, the step's counted FLOPs and tokens are the whole
   mesh's (the chunks' counts differ under causal masking and are summed
   over sp).
@@ -182,8 +183,9 @@ def _t5_case(npz: str, rank: int, world: int) -> dict:
 
 
 def _checks() -> dict:
-    """Refusals on an sp mesh, and no batch-replication warning on an
-    sp-only one (its ranks hold different tokens)."""
+    """A refusal on an sp mesh, a mixture of experts taken there, and no
+    batch-replication warning on an sp-only one (its ranks hold
+    different tokens)."""
     mesh = make_mesh({"sp": WORLD}, device_type="cpu")
     got = {}
     with warnings.catch_warnings(record=True) as seen:
@@ -202,13 +204,14 @@ def _checks() -> dict:
         got["plain_attention_refused"] = "sees only its chunk" in str(e)
     moe = deferred_init(make_mixtral, TINY_MOE,
                         attn_fn=make_ring_flash_attention(mesh), device="cpu")
-    init_state, _, _ = make_train_step(moe, TINY_MOE, device="cpu",
-                                       mesh=mesh)
-    try:
-        init_state(moe)
-        got["moe_refused"] = False
-    except NotImplementedError as e:
-        got["moe_refused"] = "mixture of experts" in str(e)
+    bind_values(moe, materialize_module_cuda(moe, mesh=mesh,
+                                             plan=decoder_lm_plan(TINY_MOE)))
+    init_state, train_step, shard_batch = make_train_step(
+        moe, TINY_MOE, device="cpu", mesh=mesh)
+    _, metrics = train_step(init_state(moe),
+                            shard_batch(_batches(TINY_MOE.vocab_size)[0]))
+    got["moe_trains"] = bool(np.isfinite(float(metrics["loss"]))
+                             and float(metrics["aux"]) > 0)
     return got
 
 
@@ -389,8 +392,9 @@ def test_telemetry_counts_global_work(runs):
 
 
 def test_sp_checks(runs):
-    """An sp mesh is taken; a model on the plain attention and a mixture
-    of experts are refused there; an sp-only mesh does not warn that the
-    batch is replicated."""
+    """An sp mesh is taken; a model on the plain attention is refused
+    there, a mixture of experts takes a step (finite loss, a router
+    loss); an sp-only mesh does not warn that the batch is
+    replicated."""
     for out in runs:
         assert all(out["checks"].values()), out["checks"]

@@ -22,10 +22,14 @@ is active: one lock, one attribute read and one config read per site.
 ``hang``     a step that does not return for ``arg`` seconds (default
              3600; :func:`set_cancel_event` cuts it)
 ``corrupt``  post-commit checkpoint damage (truncate or bit-flip) at
-             ``save``/``restore``; the in-flight chunk at ``reshard``;
-             elsewhere ``NotImplementedError`` naming its ROADMAP item
+             ``save``/``restore`` and of the incoming checkpoint at
+             ``rollover``; the in-flight chunk at ``reshard``; at the
+             compile and registry sites ``NotImplementedError`` naming
+             its ROADMAP item
 ``slow``     extra seconds at the site
-``preempt``  SIGTERM to self: the announced preemption notice
+``preempt``  SIGTERM to self: the announced preemption notice; at the
+             ``fleet`` site :class:`ReplicaPreempted`, which kills only
+             the replica thread (:func:`execute_replica_fault`)
 ``flap``     an INTERMITTENT, RECURRING ``raise`` on a duty-cycle
              fraction of its matches (never spent)
 ===========  ==========================================================
@@ -41,6 +45,7 @@ from .inject import (
     ReplicaPreempted,
     corrupt_checkpoint,
     execute,
+    execute_replica_fault,
     set_cancel_event,
 )
 from .plan import KINDS, SITES, Fault, FaultPlan, parse_plan
@@ -56,6 +61,7 @@ __all__ = [
     "clear",
     "corrupt_checkpoint",
     "execute",
+    "execute_replica_fault",
     "install",
     "maybe_inject",
     "parse_plan",

@@ -15,13 +15,20 @@ message names no CUDA error, so the retryable-error contract
 sticky CUDA error, which it never retries.
 
 ``corrupt`` damages state: at the elastic sites (``step``, ``save``,
-``restore``) the checkpoint directory it is given
-(:func:`corrupt_checkpoint`: its largest payload file truncated or one
-byte flipped); at ``reshard`` the engine's in-flight chunk buffer (the
-engine flips it when it sees the fault fire).  The compile caches,
-registry artifacts and fleet state it would damage at the other sites
-are not in the port yet: there it raises ``NotImplementedError`` naming
-the ROADMAP item that brings the target, never silently doing nothing.
+``restore``) and at ``rollover`` (the incoming checkpoint) the
+checkpoint directory it is given (:func:`corrupt_checkpoint`: its
+largest payload file truncated or one byte flipped; without a directory,
+as at the ``fleet`` site, it raises ``ValueError`` as the JAX executor
+does); at ``reshard`` the engine's in-flight chunk buffer (the engine
+flips it when it sees the fault fire).  The compile caches and registry
+artifacts it would damage at the other sites are not in the port yet:
+there it raises ``NotImplementedError`` naming the ROADMAP item that
+brings the target, never silently doing nothing.
+
+At the ``fleet`` site :func:`execute_replica_fault` runs a fault inside a
+replica thread: ``preempt`` raises :class:`ReplicaPreempted`, which ends
+only that thread, and a ``hang`` stays cancellable through the thread's
+:func:`set_cancel_event`.
 """
 
 from __future__ import annotations
@@ -40,17 +47,17 @@ from .plan import Fault
 
 _HANG_DEFAULT_S = 3600.0  # "never returns" at test scale; cancellable
 _CORRUPT_MODES = ("truncate", "flip")
-# Sites where ``corrupt`` damages a checkpoint directory.
-_CHECKPOINT_SITES = ("step", "save", "restore")
+# Sites where ``corrupt`` damages a checkpoint directory (at ``rollover``
+# the checkpoint a roll fetches; ``fleet`` is given none).
+_CHECKPOINT_SITES = ("step", "save", "restore", "rollover", "fleet")
 
 # The ROADMAP item that ports what a ``corrupt`` fault at each other site
 # damages: the artifact registry and its caches (A8), the materializer's
-# compile ladder (A13), the fleet's replicas and rollover (A7).
+# compile ladder (A13).
 _CORRUPT_TARGETS = {
     "registry": ("artifact registry", "A8"), "cache": ("compile cache", "A8"),
     "lower": ("compile cache", "A13"), "compile": ("compile cache", "A13"),
-    "execute": ("compile cache", "A13"), "fleet": ("fleet replica", "A7"),
-    "rollover": ("rollover checkpoint", "A7"),
+    "execute": ("compile cache", "A13"),
 }
 
 _log = logging.getLogger("torchdistx_tpu_torch")
@@ -151,6 +158,23 @@ def execute(fault: Fault, *, path: Optional[str] = None) -> None:
             f"chaos: {fault.spec()} would damage the {what}, which the "
             f"port does not have yet (ROADMAP {item})")
     raise AssertionError(f"unreachable fault kind {fault.kind!r}")
+
+
+def execute_replica_fault(fault: Fault) -> None:
+    """Perform a ``fleet``-site fault inside a replica thread.  Same
+    telemetry as :func:`execute` (counter, instant, flight dump before
+    acting), but ``preempt`` raises :class:`ReplicaPreempted` to end only
+    the CALLING replica thread: a SIGTERM would take the whole fleet
+    down with it, which is the ``step`` site's job, not this one's."""
+    if fault.kind != "preempt":
+        execute(fault)
+        return
+    observe.counter("tdx.chaos.injected", kind=fault.kind).inc()
+    observe.instant("chaos.injected", category="chaos", spec=fault.spec())
+    observe.flight_dump("chaos_injected", spec=fault.spec())
+    _log.warning("chaos: injecting %s (replica-thread preempt)", fault.spec())
+    raise ReplicaPreempted(
+        f"chaos: injected replica preemption ({fault.spec()})")
 
 
 def _damage_file(f: Path, mode: str) -> None:

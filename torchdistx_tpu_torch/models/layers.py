@@ -368,8 +368,9 @@ class MoEMLP(nn.Module):
 
     ``parallel`` is None on one device.  On a mesh the train step sets it
     (``parallel.spmd.ExpertParallel``): capacity, slots and the loss are
-    then global over the data shards of the batch, and this rank holds
-    and runs only its slice of the experts."""
+    then global over the data shards of the batch and the sequence
+    chunks of ``sp``, as if one device routed the whole batch, and this
+    rank holds and runs only its slice of the experts."""
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
@@ -395,29 +396,54 @@ class MoEMLP(nn.Module):
         trunc_normal_(w, math.sqrt(1.0 / (E * n_in)) / _TRUNC_STD)
         return w
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        moe, par, dt = self.cfg.moe, self.parallel, x.dtype
-        B, S, D = x.shape
-        T, E, k = B * S, moe.n_experts, moe.top_k
-        xt = x.reshape(T, D)
-        probs = torch.softmax(self.router(xt), dim=-1)  # [T, E] f32
-        gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [T, k]
+    def route(self, probs: torch.Tensor, dtype: torch.dtype):
+        """Top-k routing of ``probs`` (``[B, S, E]`` f32: this rank's rows,
+        and its chunk of them under sequence parallelism): ``(gates [T,
+        k], onehot [T, k, E], pos [T, k], capacity)``, ``pos`` each
+        (token, choice)'s slot in its expert's buffer in the token-major
+        order of the whole batch.  Sets ``kept`` and ``aux`` (the routed
+        fractions rounded to ``dtype``, the activations', as the JAX
+        module's one-hot mean is)."""
+        moe, par = self.cfg.moe, self.parallel
+        B, S, E = probs.shape
+        T, k = B * S, moe.top_k
+        gate_vals, gate_idx = torch.topk(probs.reshape(T, E), k, dim=-1)
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
         with torch.no_grad():
             onehot = F.one_hot(gate_idx, E)  # [T, k, E]
-            flat = onehot.reshape(T * k, E)
-            counts = flat.sum(0)
+            rows = onehot.reshape(B, S * k, E)
             if par is None:
-                before, total, n_tok = 0, counts, T
+                pos = rows.reshape(T * k, E).cumsum(0) - 1
+                total, n_tok = rows.sum((0, 1)), T
             else:
-                before, total = par.route_counts(counts)
-                n_tok = T * par.n_data
+                # Each row's pairs before this rank's first in the
+                # whole batch: a cumsum restarted at each row, offset.
+                before, total = par.route_counts(rows.sum(1))
+                pos = rows.cumsum(1) - 1 + before[:, None]
+                n_tok = T * par.n_data * par.n_seq
             capacity = moe_capacity(moe, n_tok)
-            # slot of each (token, choice) in its expert's buffer
-            pos = ((flat.cumsum(0) - 1 + before).reshape(T, k, E)
-                   * onehot).sum(-1)
+            pos = (pos.reshape(T, k, E) * onehot).sum(-1)
             self.kept = pos < capacity  # [T, k]: False where dropped
+
+        whole = probs if par is None else par.gather_seq(probs)
+        me = whole.reshape(-1, E).sum(0)
+        if par is not None:
+            me = par.sum_data(me)
+        me = me / n_tok
+        ce = (total.float() / n_tok).to(dtype)  # fraction routed
+        self.aux = (me * ce).sum() * E * moe.router_aux_weight
+        return gate_vals, onehot, pos, capacity
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        par, dt = self.parallel, x.dtype
+        B, S, D = x.shape
+        T, E = B * S, self.cfg.moe.n_experts
+        xt = x.reshape(T, D)
+        probs = torch.softmax(self.router(xt), dim=-1)  # [T, E] f32
+        gate_vals, onehot, pos, capacity = self.route(probs.view(B, S, E), dt)
+
+        with torch.no_grad():
             slot = torch.where(self.kept, pos, capacity)
             po = F.one_hot(slot, capacity + 1)[..., :capacity].to(dt)
             eo = onehot.to(dt)  # [T, k, E]
@@ -436,13 +462,6 @@ class MoEMLP(nn.Module):
         out = torch.einsum("tec,ecd->td", comb, expert_out)
         if par is not None:
             out = par.leave(out)
-
-        me = probs.sum(0)
-        if par is not None:
-            me = par.sum_data(me)
-        me = me / n_tok
-        ce = (total.float() / n_tok).to(dt)  # fraction routed per expert
-        self.aux = (me * ce).sum() * E * moe.router_aux_weight
         return out.reshape(B, S, D)
 
 

@@ -61,6 +61,7 @@ __all__ = [
     "on_finish",
     "on_reject",
     "on_spec",
+    "on_version",
     "requests_report",
     "reset",
     "summary",
@@ -100,6 +101,7 @@ class _Record:
         "n_prompt", "prefix_tokens", "hedged", "cow_copies", "tokens",
         "outcome", "e2e_s", "_decode_ev",
         "spec_drafted", "spec_accepted", "spec_ticks", "_spec_ev",
+        "version",
     )
 
     def __init__(self, rid: str, now: float, flow: Optional[int],
@@ -135,6 +137,8 @@ class _Record:
         self.spec_accepted = 0
         self.spec_ticks = 0
         self._spec_ev: Optional[dict] = None
+        # The weight version the serving replica ran (a fleet's rollover).
+        self.version: Optional[str] = None
 
     # -- stage machine ---------------------------------------------------
 
@@ -209,6 +213,8 @@ class _Record:
             out["e2e_s"] = round(self.e2e_s, 6)
         if self.dropped:
             out["events_dropped"] = self.dropped
+        if self.version is not None:
+            out["version"] = self.version
         return out
 
     def detail(self) -> Dict[str, Any]:
@@ -401,6 +407,19 @@ def on_cow(rid: str, *, replica: str = "local") -> None:
         rec.add_event(now, "cow", replica=replica)
 
 
+def on_version(rid: str, version: Optional[str]) -> None:
+    """Stamp the weight version the request is being served under (a
+    fleet's blue-green rollover), at dispatch; a re-dispatch after a
+    requeue restamps (last wins)."""
+    if version is None or not enabled():
+        return
+    with _LOCK:
+        rec = _get(rid)
+        if rec is None:
+            return
+        rec.version = version
+
+
 def on_abort(rid: str, *, replica: str = "local", reason: str = "") -> None:
     """An attempt ended without finishing (preempt, replica death,
     hedge loss, mid-decode deadline cancel).  The attempt's
@@ -582,6 +601,17 @@ def tail_report() -> Dict[str, Any]:
         blame[st] = round(sum(shares) / len(shares), 4) if shares else 0.0
     out["p99_blame"] = blame
     out["p99_sample"] = k
+    # Per-weight-version split (a fleet's rollover): old against new.
+    by_ver: Dict[str, List[float]] = {}
+    for s in done:
+        if s.get("version") is not None:
+            by_ver.setdefault(s["version"], []).append(s["e2e_s"])
+    if by_ver:
+        out["by_version"] = {
+            v: {"completed": len(vals),
+                "p50": round(_pctl(sorted(vals), 0.5), 6),
+                "p95": round(_pctl(sorted(vals), 0.95), 6)}
+            for v, vals in by_ver.items()}
     return out
 
 

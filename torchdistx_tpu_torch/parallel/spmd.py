@@ -34,13 +34,15 @@ ff]``/``[E, ff, d]``) are split over ``ep`` (the expert dim) and ``tp``
 ``[E/ep, d, ff/tp]`` block as a plain tensor, FSDP2 shards that block
 over the data axes like any other parameter, and the module runs with
 an :class:`ExpertParallel`: the routing is global over the data shards
-of the batch (capacity and slots from every shard's counts, one
-all-gather; the load-balancing mean through an autograd all-reduce), the
+of the batch and the sequence chunks of ``sp`` (capacity and slots from
+every row's counts, all-gathered over ``sp`` in chunk order, then over
+the data axes; the load-balancing mean from the router's probabilities
+gathered over ``sp`` and an autograd all-reduce over the data axes), the
 expert region is entered with an identity whose backward all-reduces
 over ``ep`` and ``tp``, and left with an all-reduce of the partial
 output whose backward is the identity (Megatron's pair of conjugate
 operators).  Every rank of an ``ep``/``tp`` group sees the same tokens,
-as the batch is sharded over the data axes only.
+as the batch is sharded over the data axes and ``sp`` only (checked).
 """
 
 from __future__ import annotations
@@ -220,13 +222,33 @@ class _LeaveRegion(torch.autograd.Function):
         return grad, None
 
 
+class _GatherSeq(torch.autograd.Function):
+    """The ``[B, s, ...]`` chunks of the ``sp`` ranks, joined on dim 1 in
+    chunk order; the backward keeps this rank's chunk of the gradient.
+    Every rank then computes the same function of the whole sequence,
+    and the step sums the gradients over ``sp``, which adds the chunks'
+    parts once each."""
+
+    @staticmethod
+    def forward(ctx, t, group, index):
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        ctx.index, ctx.n = index, t.shape[1]
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(1, ctx.index * ctx.n, ctx.n), None, None
+
+
 @dataclass
 class ExpertParallel:
     """A ``MoEMLP``'s place on a mesh: ``data_groups`` (major first, the
     data axes of size > 1) and ``data_index`` place this rank's rows among
-    the ``n_data`` shards of the batch; ``groups`` are the ``ep`` and
-    ``tp`` groups that split the experts, ``expert_offset`` and
-    ``n_local`` this rank's experts."""
+    the ``n_data`` shards of the batch; ``seq_group`` (None without an
+    ``sp`` axis of size > 1), ``seq_index`` and ``n_seq`` its chunk of
+    each row; ``groups`` are the ``ep`` and ``tp`` groups that split the
+    experts, ``expert_offset`` and ``n_local`` this rank's experts."""
 
     data_groups: list
     data_index: int
@@ -234,18 +256,39 @@ class ExpertParallel:
     groups: list
     expert_offset: int
     n_local: int
+    seq_group: Optional[object] = None
+    seq_index: int = 0
+    n_seq: int = 1
 
-    def route_counts(self, counts: torch.Tensor):
+    def route_counts(self, rows: torch.Tensor):
         """``(before, total)`` from this rank's (token, choice) pairs per
-        expert ``[E]``: the pairs of the data shards before this one (the
-        offset of its slots in token-major order) and of all of them."""
-        rows = counts[None]
+        row and expert ``[B_local, E]``: for each of its rows, the pairs
+        that come before its chunk in the token-major order of the whole
+        batch (every earlier row of every data shard, and the row's
+        earlier chunks), and the pairs of the whole batch per expert."""
+        within = 0
+        if self.seq_group is not None:
+            parts = [torch.empty_like(rows) for _ in range(self.n_seq)]
+            dist.all_gather(parts, rows.contiguous(), group=self.seq_group)
+            chunks = torch.stack(parts)  # [n_seq, B_local, E], chunk order
+            within = chunks[:self.seq_index].sum(0)
+            rows = chunks.sum(0)
+        every = rows
         for group in reversed(self.data_groups):
-            parts = [torch.empty_like(rows)
+            parts = [torch.empty_like(every)
                      for _ in range(dist.get_world_size(group))]
-            dist.all_gather(parts, rows, group=group)
-            rows = torch.cat(parts)
-        return rows[:self.data_index].sum(0), rows.sum(0)
+            dist.all_gather(parts, every, group=group)
+            every = torch.cat(parts)
+        lo, n = self.data_index * rows.shape[0], rows.shape[0]
+        before = (every.cumsum(0) - every)[lo:lo + n]
+        return before + within, every.sum(0)
+
+    def gather_seq(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (``[B_local, s, ...]``, this rank's chunk) for the whole
+        sequence, differentiable (see :class:`_GatherSeq`)."""
+        if self.seq_group is None:
+            return t
+        return _GatherSeq.apply(t, self.seq_group, self.seq_index)
 
     def sum_data(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the data shards, differentiable (its backward sums
@@ -318,6 +361,25 @@ def _manual_dims(module: nn.Module, dims: Dict[str, AxisDims],
     return manual
 
 
+def _check_same_tokens(mesh, groups, axes: Sequence[str]) -> None:
+    """Every rank of each expert group (``ep``, ``tp``) must hold this
+    rank's tokens: the same coordinate on the data axes and on ``sp``.
+    Raises, naming the rank and the axes, where one does not."""
+    names = mesh.mesh_dim_names
+    mine = dict(zip(names, mesh.get_coordinate()))
+    for group in groups:
+        for r in dist.get_process_group_ranks(group):
+            at = (mesh.mesh == r).nonzero()
+            coord = dict(zip(names, at[0].tolist())) if len(at) else {}
+            bad = [a for a in axes if coord.get(a) != mine[a]]
+            if bad:
+                raise ValueError(
+                    f"expert parallelism: rank {r} of an expert group of "
+                    f"this rank holds other tokens (its {bad} coordinates "
+                    f"differ); each ep/tp group must lie within one data "
+                    f"shard and one sp chunk")
+
+
 def _set_expert_parallel(module: nn.Module, mesh, manual, batch_axes,
                          skip=frozenset()) -> None:
     """Give each ``MoEMLP`` its :class:`ExpertParallel` on ``mesh``."""
@@ -326,17 +388,22 @@ def _set_expert_parallel(module: nn.Module, mesh, manual, batch_axes,
     baxes = data_axes(mesh, batch_axes)
     idx = data_index(mesh, baxes)
     data_groups = [mesh.get_group(a) for a in baxes if shape[a] > 1]
+    n_seq = shape.get("sp", 1)
+    token_axes = baxes + (("sp",) if "sp" in shape else ())
     for prefix, mod in _experts(module, skip).items():
         split = manual[f"{prefix}.w_gate" if prefix else "w_gate"]
         E = mod.cfg.moe.n_experts
         n_ep = shape["ep"] if "ep" in split else 1
+        groups = [mesh.get_group(a) for a in ("ep", "tp")
+                  if a in split and shape[a] > 1]
+        _check_same_tokens(mesh, groups, token_axes)
         mod.parallel = ExpertParallel(
             data_groups=data_groups, data_index=idx,
-            n_data=math.prod(shape[a] for a in baxes),
-            groups=[mesh.get_group(a) for a in ("ep", "tp")
-                    if a in split and shape[a] > 1],
+            n_data=math.prod(shape[a] for a in baxes), groups=groups,
             expert_offset=(where["ep"] if "ep" in split else 0) * (E // n_ep),
-            n_local=E // n_ep)
+            n_local=E // n_ep,
+            seq_group=mesh.get_group("sp") if n_seq > 1 else None,
+            seq_index=where.get("sp", 0), n_seq=n_seq)
 
 
 def _blocks(module: nn.Module) -> List[nn.Module]:

@@ -184,8 +184,9 @@ def make_train_step(
     reference does) and, over ``sp``, its chunk with the next token.  The
     metrics are the global ones, equal on every rank.  The JAX
     signature's ``pipeline_executor`` has no counterpart: eager torch has
-    no second program to pick.  A mixture of experts over ``sp`` raises
-    (ROADMAP A10.1).
+    no second program to pick.  A mixture of experts over ``sp`` routes
+    each microbatch as one device routes it whole, as the dense step
+    does (:class:`.spmd.ExpertParallel`).
 
     A model's attention is set by its constructor (``make_llama(cfg,
     attn_fn=...)``).  ``attn_fn`` here sets the pipelined stages'
@@ -476,8 +477,6 @@ def _over_pipeline(model, cfg, mesh, device, batch_axes, make_opt, axis,
            if mesh.device_type == "cuda" else torch.device(mesh.device_type))
     shape = mesh_shape(mesh)
     seq = "sp" in names
-    if seq and cfg.moe is not None:
-        _refuse_moe_over_sp("the model")
     n_sp = shape.get("sp", 1)
     sp_idx = mesh.get_local_rank("sp") if seq else 0
     baxes = data_axes(mesh, batch_axes)
@@ -678,23 +677,17 @@ def _chunk_nll(module: nn.Module, tokens: torch.Tensor, segment_ids,
     return (nll * valid).sum(), all_sum(valid.sum()).clamp_min(1.0)
 
 
-def _refuse_moe_over_sp(what: str):
-    raise NotImplementedError(
-        f"{what}: a mixture of experts over an sp mesh would route each "
-        f"chunk apart (its capacity, slots and router loss need the whole "
-        f"sequence): ROADMAP A10.1, not ported yet")
-
-
 def _check_seq_parallel(module: nn.Module, n_sp: int, attn_fn=None) -> None:
     """An ``sp`` mesh needs every attention layer to attend across the
-    chunks (``attn_fn``, where given, attends for every layer) and no
-    expert routing split over them."""
-    from ..models.layers import Attention, CrossAttention, MoEMLP
+    chunks (``attn_fn``, where given, attends for every layer).  A
+    mixture of experts routes over the chunks by itself
+    (:class:`.spmd.ExpertParallel`)."""
+    from ..models.layers import Attention, CrossAttention
 
+    if n_sp == 1:
+        return
     for name, m in module.named_modules():
-        if isinstance(m, MoEMLP):
-            _refuse_moe_over_sp(f"`{name}`")
-        if n_sp > 1 and isinstance(m, (Attention, CrossAttention)) \
+        if isinstance(m, (Attention, CrossAttention)) \
                 and getattr(attn_fn or m.attn_fn, "seq_parallel",
                             None) is None:
             raise ValueError(

@@ -92,6 +92,7 @@ component through ``spin_up`` -> ``warming`` -> ``serving``.
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -1121,6 +1122,13 @@ def _resolve_model(model, family):
     return model, family or "llama"
 
 
+# One replica's recording and parameters at a time: materialization
+# draws from the global generator that ``torch.manual_seed`` seeds, so
+# two replicas brought up at once on two threads would interleave their
+# draws and come up with different weights.
+_SPIN_UP_LOCK = threading.Lock()
+
+
 def spin_up_replica(
     model: "str | TransformerConfig" = "tiny",
     *,
@@ -1128,6 +1136,11 @@ def spin_up_replica(
     serve_cfg: Optional[ServeConfig] = None,
     seed: int = 0,
     param_dtype: Optional[torch.dtype] = None,
+    sample_len: int = 8,
+    on_token: Optional[Callable[[str, int], None]] = None,
+    on_complete: Optional[Callable[[str, List[int], np.ndarray],
+                                   None]] = None,
+    on_cancel: Optional[Callable[[str, List[int], bool], None]] = None,
     device="cuda",
     health_component: str = "serve",
     slo_name: str = "serve",
@@ -1137,16 +1150,22 @@ def spin_up_replica(
     parameters straight onto the device under ``torch.manual_seed(seed)``
     -> capture every serving program (:meth:`ServeEngine.warmup`).
     ``bring_up_seconds`` covers the first two, ``capture_seconds`` the
-    last.
+    last.  Concurrent bring-ups materialize one at a time, so replicas
+    of one seed come up with equal weights whatever thread spins them.
 
     ``model`` is a preset name (family inferred from it) or a
     :class:`TransformerConfig` (then pass ``family``).  ``param_dtype``
     is the dtype the parameters are stored in (default: the config's);
-    compute runs in the config's ``dtype``.
+    compute runs in the config's ``dtype``.  ``on_token`` /
+    ``on_complete`` / ``on_cancel`` are the engine's hooks (a fleet's
+    replica passes its own).  ``sample_len`` is the JAX signature's
+    sample input length for tracing the init program; the port records
+    the module itself and needs none.
 
     ``health_component`` walks ``spin_up`` -> ``warming`` -> ``serving``
     in :mod:`..observe.health` (no router may send work before
     ``serving``); ``slo_name`` names the engine's SLO windows."""
+    del sample_len
     dev = resolve_device(device)
     cfg, family = _resolve_model(model, family)
     if param_dtype is not None:
@@ -1155,11 +1174,14 @@ def spin_up_replica(
     with observe.span("serve.spin_up", category="serve",
                       family=family) as sp:
         t0 = time.perf_counter()
-        fake = deferred_init(make_model, family, cfg, dev)
-        torch.manual_seed(seed)
-        net = materialize_module(fake, device=dev).eval()
+        with _SPIN_UP_LOCK:
+            fake = deferred_init(make_model, family, cfg, dev)
+            torch.manual_seed(seed)
+            net = materialize_module(fake, device=dev).eval()
         engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg,
-                             device=dev, slo_name=slo_name)
+                             device=dev, on_token=on_token,
+                             on_complete=on_complete, on_cancel=on_cancel,
+                             slo_name=slo_name)
         if dev.type == "cuda":
             build_kernel()
             torch.cuda.synchronize(dev)
