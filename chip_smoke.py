@@ -127,26 +127,42 @@ user calls, and checks what comes out.  One JSON object per line:
    map on the card equal to the CPU's, and T5-11B's attention shapes
    (encoder self-attention with the bias, decoder self-attention with
    the bias, cross-attention without) in both dtypes (bfloat16 within
-   1e-2 normwise) with their times: kernel, plain version, a library
+   1e-2 normwise), the encoder's in bfloat16 with its times (the
+   kernels line's): kernel, plain version, a library
    yardstick (``scaled_dot_product_attention(attn_mask=bias)`` forward
    and its autograd backward with the bias's gradient, backend named)
    and the bound;
-10. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
+10. a warm bring-up from the artifact registry (``registry_warm``): the
+   port's ``warm_cache`` tool publishes the build phase's two libraries
+   from its cache into a fresh registry (the env fingerprint printed); a
+   fresh child with an empty ``TDX_CACHE_DIR`` and that registry takes
+   gpt2-125m f32's first train step on B1-B3 against
+   ``default_attention`` (each gradient leaf within 1e-4 normwise) and
+   serves a ``ServeFleet`` of gpt2-125m f32 replicas (``start(1)``, then
+   ``scale_up``: every bring-up warm, 8 requests equal to the oracle,
+   paged decode launched layers x plain ticks) with 0 nvcc builds and
+   the fetched log's ptxas lines spill-free; a second child under
+   ``cache@1=corrupt`` quarantines both damaged libraries before any
+   ``dlopen``, fetches them again and computes the first child's flash
+   and paged-decode results bit for bit; each library's fetch s beside
+   its cold ``build_s`` and the first child's s from launch to its
+   first loss;
+11. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
    flash kernels against ``default_attention`` on the same weights and
    batch, logits within 1e-4 and each gradient leaf within 1e-4
    normwise, the relative-position tables (whose only gradient is
    d(bias)) named;
-11. the T5 main path: T5-11B width with 2 + 2 layers, bf16 compute, B = 8,
+12. the T5 main path: T5-11B width with 2 + 2 layers, bf16 compute, B = 8,
     enc 512, dec 114, deferred_init -> materialize on the card -> 4
     steps of ``lm_cross_entropy`` and ``default_optimizer``: first-step
     latency in a fresh process, host RSS growth, step ms, tokens/s, MFU,
     peak device memory, the launches per step (forward 6, of them 4 with
     the bias; dq and dk/dv 6; d(bias) 4), one step against
     ``default_attention`` and one profiled step;
-12. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
+13. full-depth T5-11B (22.6 GB of bf16 parameters) brought up in a fresh
     process — seconds and host RSS growth — and one forward at B = 1 on
     the flash kernels with finite logits;
-13. the keyed, sharded materializer (``cuda_bridge``) on gpt2-125m, f32:
+14. the keyed, sharded materializer (``cuda_bridge``) on gpt2-125m, f32:
     the same seed twice bitwise equal, seed 1 moving every random entry;
     against eager construction on the card equal names, shapes and
     dtypes, the entries that draw nothing bitwise equal, the random
@@ -157,27 +173,27 @@ user calls, and checks what comes out.  One JSON object per line:
     bit and covering them; a real one-rank ``DeviceMesh`` (NCCL, world
     size 1, an in-memory store) equal to ``mesh=None``; the recording
     still fake afterwards;
-14. full-depth llama3-8b recorded in f32, materialized as bf16 under
+15. full-depth llama3-8b recorded in f32, materialized as bf16 under
     ``decoder_lm_plan`` on a one-rank mesh in a fresh process: seconds
     from ``deferred_init`` to every value resident, bytes, GB/s, host
     RSS growth (below a quarter of the bytes) and device-memory growth
     (at most the bytes plus twice the largest entry at its recorded
     dtype), beside the eager route's cold bring-up from phase 4;
-15. the training main path through the keyed materializer in a fresh
+16. the training main path through the keyed materializer in a fresh
     process: 2-layer llama3-8b width, [2, 2048], deferred_init ->
     ``materialize_module_cuda`` -> ``bind_values`` -> ``make_train_step``
     -> the first loss on the host: seconds, host RSS growth (below a
     quarter of the parameter bytes), one launch of each flash kernel per
     layer, the loss within 1e-3 relative of the same step on
     ``default_attention`` from the same recording's values;
-16. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
+17. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
     (tensor parallelism and FSDP2 over the keyed values), gpt2-125m in
     f32, 3 steps against ``mesh=None`` from the same values: losses and
     gradient norms within 1e-6 relative, each parameter within 1e-6
     normwise after the 3 steps (the key biases, whose gradient is zero
     in exact arithmetic, within AdamW's step bound), and whether they
     came out bitwise;
-17. the sharded training main path in a fresh process: 2-layer
+18. the sharded training main path in a fresh process: 2-layer
     llama3-8b width, bf16 parameters, [2, 2048], deferred_init ->
     ``materialize_module_cuda(mesh={fsdp: 1, tp: 1}, plan=
     decoder_lm_plan)`` -> ``bind_values`` -> ``make_train_step(mesh=)``
@@ -190,7 +206,7 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the loss within 1e-3 relative of ``mesh=None``'s, one
     ``train.step`` span per instrumented step, the ``tdx.train.mfu``
     gauge and the counted FLOPs within 1 % of ``train_step_flops``;
-18. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
+19. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
     2048], on the flash kernels: deferred_init -> materialize on the
     card -> ``make_train_step``, 5 steps on one batch (losses finite and
     falling, 1 launch of each flash kernel per layer and step), step ms,
@@ -201,27 +217,27 @@ user calls, and checks what comes out.  One JSON object per line:
     1e-3, each gradient leaf within 5e-2 normwise); one profiled step with the
     dispatch and combine einsums, the expert GEMMs and the one-hot
     products apart;
-19. its keyed values (f32): each of the 8 coordinates of a virtual
+20. its keyed values (f32): each of the 8 coordinates of a virtual
     ``{ep: 2, fsdp: 2, tp: 2}`` under ``decoder_lm_plan`` equal to its
     slice of the unsharded values bit for bit, and a one-rank NCCL
     ``{ep: 1, fsdp: 1, tp: 1}`` mesh equal to ``mesh=None``;
-20. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
+21. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
     holds in bf16) recorded as fakes and coordinate ep = 0 of a virtual
     ``{ep: 8}`` materialized in bf16 in a fresh process: seconds,
     GB/s, host RSS growth (below a quarter of the local bytes) and
     device-memory growth (at most the local bytes plus twice the largest
     entry at its recorded dtype);
-21. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
+22. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
     fsdp: 1, tp: 1}`` mesh in a fresh process: the first loss within
     1e-3 of ``mesh=None``'s, counted FLOPs within 1 % of
     ``train_step_flops``, RSS and device growth as in 17;
-22. 2-layer llama3-70b width (``remat="full"`` from the preset), bf16
+23. 2-layer llama3-70b width (``remat="full"`` from the preset), bf16
     parameters, [1, 8192]: one step with ``remat="none"`` and one with
     ``"full"`` from the same keyed values, losses and gradient norms
     within 1e-6 (leaves bitwise equal counted), the flash forward twice
     per layer and step under ``"full"``, the peak device memory of a
     later step lower under ``"full"``, both step times;
-23. ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
+24. ViT on the flash kernels (non-causal, D 64, S 197): vit-b16 in f32,
     one step against ``default_attention`` (logits within 1e-4, each
     gradient leaf within 1e-4 normwise); full-depth vit-l16, bf16
     compute, B 32 at 224 x 224: the gradients on a fresh batch against
@@ -230,8 +246,11 @@ user calls, and checks what comes out.  One JSON object per line:
     gradient), each path's error against the same step in f32 compute,
     then 5 label cross-entropy steps, step ms, images/s, MFU and peak
     device memory;
-24. sequence parallelism, as spawned gloo ranks sharing the card (NCCL
-    takes one rank a card; their times are not step times): ring-flash
+25. sequence parallelism, as spawned gloo ranks sharing the card (NCCL
+    takes one rank a card; their times are not step times; the
+    attention phases' ranks run first in ``train_pp_mesh``'s spawn, the
+    train step's beside ``train_pp``'s, their lines printed where those
+    phases end): ring-flash
     attention over sp 4 at llama3-8b's attention geometry (B 1, S 16384,
     H 32, KV 8, D 128, causal, bf16), each rank's output and dq, dk, dv
     against its chunk of single-device ``flash_attention`` on the whole
@@ -249,7 +268,7 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the C3 check against plain attention on a fresh sequence
     (loss and grad norm 1e-3, each leaf 5e-2), and the step on a
     one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh with its ms;
-25. pipeline parallelism (``train_pp``), the stages as spawned gloo
+26. pipeline parallelism (``train_pp``), the stages as spawned gloo
     ranks sharing the card: 4-layer llama3-8b width, bf16 parameters, [8,
     2048] in 4 microbatches over pp 2, each rank materializing only its
     own layers (device growth at most their bytes, the replicated ones'
@@ -261,10 +280,14 @@ user calls, and checks what comes out.  One JSON object per line:
     decode), 1F1B's peak device memory below GPipe's on stage 0; the C3
     check on a fresh batch (1F1B against plain attention: loss and grad
     norm 1e-3, each leaf 5e-2); gpt2-125m f32 (tied head) under 1F1B
-    against ``mesh=None`` (losses 1e-5, each leaf 1e-4 normwise); then
+    against ``mesh=None`` (losses 1e-5, each leaf 1e-4 normwise), each
+    stage's state saved after step 1 (``save_checkpoint``) and step 2
+    (``AsyncCheckpointSaver``), the step-1 checkpoint restored in place
+    and step 2 replayed bitwise, and loaded whole into a ``mesh=None``
+    state in this process (every leaf's CRC the stage's); then
     each schedule on a one-rank NCCL ``{pp: 1}`` mesh (2 layers) with its
     step ms beside ``train_bf16_full``'s;
-26. checkpoints and the elastic loop (``train_elastic``) on the sharded
+27. checkpoints and the elastic loop (``train_elastic``) on the sharded
     main path at 1 layer (llama3-8b width, bf16 parameters, a one-rank NCCL
     ``{fsdp: 1}`` mesh) under one temporary directory (its disk usage
     printed first, removed at the end), in fresh processes: a checkpoint
@@ -276,15 +299,18 @@ user calls, and checks what comes out.  One JSON object per line:
     checkpoint's bytes, a sync save's s and GB/s, its verify and an
     in-place restore, the step ms while an async save is in flight and
     without; then ``reshard``: the step-6 checkpoint offline to a
-    device-free ``{fsdp: 2, tp: 2}`` under ``gspmd_2d_plan`` and back to
+    device-free ``{fsdp: 2, tp: 2}`` under ``gspmd_2d_plan`` through
+    ``python -m torchdistx_tpu_torch.tools.reshard_ctl apply`` and
+    ``verify`` (exit 0) and back to
     ``{fsdp: 1}`` under ``decoder_lm_plan`` with a 256 MiB chunk budget
     (below the embedding), bitwise both ways, staging within the budget,
     the round trip restored onto the card and its next 2 steps bitwise; a
     checkpoint written by 2 spawned gloo ranks on the card (``{fsdp: 2}``)
+    with ``AsyncCheckpointSaver``
     resumed by one rank through ``needs_reshard`` -> ``restore_resharded``, its
     steps bitwise an uninterrupted one-rank run's from the same
     resharded state, reshard s, GB/s and the staging peak;
-27. the serve fleet (``fleet``, printed after ``serve_chaos``): replicas
+28. the serve fleet (``fleet``, printed after ``serve_chaos``): replicas
     of 4-layer llama3-8b width in float32 on threads of this process,
     2 started, a storm of 32 requests scaling the fleet to 3, then
     ``fleet@2=raise`` killing replica 2 mid-batch (its lanes requeued
@@ -297,7 +323,7 @@ user calls, and checks what comes out.  One JSON object per line:
     kernel launched layers x (plain decode ticks + captures after its
     count's reset) times; spin-up and capture s per replica, the roll's
     s per stage, the checkpoint's save s, the peak device memory;
-28. a mixture of experts over the sp ring (``train_moe_sp``, printed
+29. a mixture of experts over the sp ring (``train_moe_sp``, printed
     after ``train_pp_mesh``): Mixtral 8x7B width, 2 layers, bf16
     parameters, [2, 2048] over 4 spawned gloo ranks ``{sp 2, ep 2}``
     with ring flash attention, 2 steps, against the same keyed values
@@ -305,17 +331,17 @@ user calls, and checks what comes out.  One JSON object per line:
     the whole sequence's, the pairs dropped at capacity the whole
     sequence's at every step, B1-B3 launched layers x (s + 1) times a
     step on sp rank s, each rank's peak;
-29. the kernels line: per kernel its launches on the main path, its error
+30. the kernels line: per kernel its launches on the main path, its error
     against the plain version and its times at the main path's shapes
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
-    Mixtral, 70B-remat, ViT, sp, pp, MoE-over-sp and elastic paths; paged
-    decode (with its launches on the fleet path) at the serving
+    Mixtral, 70B-remat, ViT, sp, pp, MoE-over-sp, registry-warm and elastic paths; paged
+    decode (with its launches on the fleet and registry-warm paths) at the serving
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
     cut to the lanes' own pages);
-30. last: ``{"ok": true, "device": {...}}``.
+31. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
 from a directory without the port, or when any phase fails.
@@ -339,6 +365,7 @@ import time
 import itertools
 import traceback
 import warnings
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -436,6 +463,7 @@ from torchdistx_tpu_torch.reshard import (
 from torchdistx_tpu_torch.serve.programs import ServeProgram
 from torchdistx_tpu_torch.utils.checkpoint import (
     AsyncCheckpointSaver,
+    checkpoint_tree,
     iter_payload_files,
     read_manifest,
     restore_checkpoint,
@@ -1625,10 +1653,13 @@ def sdpa_yardstick(q4, k4, v4, do4, bias, causal, flush) -> dict:
             "ran": ran, "refused": refused}
 
 
-def measure_flash_t5(dev, flush, shape_name: str, dtype) -> dict:
+def measure_flash_t5(dev, flush, shape_name: str, dtype,
+                     timed: bool = True) -> dict:
     """Kernel, plain and library times and the bound of each flash kernel
     at one of T5-11B's attention shapes, after holding the kernels against
-    the plain versions there (bfloat16 normwise)."""
+    the plain versions there (bfloat16 normwise); with ``timed=False``
+    the check alone."""
+    t0 = time.perf_counter()
     shape = T5_SHAPES[shape_name]
     cfg = T5_CFG.encoder
     H, D = cfg.n_heads, cfg.head_size
@@ -1639,6 +1670,10 @@ def measure_flash_t5(dev, flush, shape_name: str, dtype) -> dict:
     errs = check_flash(args, f"{shape_name}-{str(dtype)[6:]}", causal=causal,
                        atol=ATOL[dtype], normwise=bf16, bias=bias, heads=H)
     torch.cuda.empty_cache()
+    if not timed:
+        return {"phase": "flash_bias_full_width", "shape_name": shape_name,
+                "dtype": str(dtype)[6:], "max_abs_err": errs,
+                "seconds": time.perf_counter() - t0}
     q, k, v, do = args
     kw = dict(causal=causal, bias=bias, heads=H)
     out, lse = flash_forward(q, k, v, **kw)
@@ -1708,7 +1743,12 @@ def measure_flash_t5(dev, flush, shape_name: str, dtype) -> dict:
             "library_backend": lib["backend"],
             "library_backends_ms": lib["ran"],
             "library_refused": lib["refused"],
-            "kernels": kernels}
+            "kernels": kernels, "seconds": time.perf_counter() - t0}
+
+
+# The T5 shape and dtype the kernels line reports, timed; the others are
+# held against the plain versions untimed, for the script's clock.
+T5_TIMED = ("t5-encoder-self", torch.bfloat16)
 
 
 def phase_flash_bias_kernel(dev, flush) -> dict:
@@ -1717,11 +1757,201 @@ def phase_flash_bias_kernel(dev, flush) -> dict:
     rows = {}
     for shape_name in T5_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            row = measure_flash_t5(dev, flush, shape_name, dtype)
+            row = measure_flash_t5(dev, flush, shape_name, dtype,
+                                   timed=(shape_name, dtype) == T5_TIMED)
             emit(row)
             rows[(shape_name, row["dtype"])] = row
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# registry_warm: a bring-up from the artifact registry, with no nvcc
+# ---------------------------------------------------------------------------
+
+# The warm child's fleet: gpt2-125m replicas in float32 (token-exact with
+# the oracle), one started, one scaled up.
+REGISTRY_SERVE_CFG = PRESETS["gpt2-125m"].replace(dtype=torch.float32)
+REGISTRY_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=48,
+                             max_pages_per_seq=8, prefill_buckets=(16, 32))
+REGISTRY_HEAL_PLAN = "cache@1=corrupt:flip"
+
+
+def warm_tool(*args: str) -> dict:
+    """``python -m torchdistx_tpu_torch.tools.warm_cache`` with ``args``:
+    its JSON summary, after checking it exited 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torchdistx_tpu_torch.tools.warm_cache", *args],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"warm_cache exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def heal_cases(dev) -> dict:
+    """A flash forward and backward and a paged-decode call at small
+    shapes: what the damaged-and-refetched libraries must reproduce."""
+    q, k, v, do = flash_case(5, B=1, S=256, H=4, D=64, dtype=torch.bfloat16,
+                             dev=dev)
+    out, lse = flash_forward(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = flash_backward_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = flash_backward_dkv(q, k, v, do, lse, delta, causal=True)
+    paged = paged_attention(*decode_shape(
+        dev, H=12, KV=12, D=64, page=16, lengths=[1, 100, 257, 1024],
+        dtype=torch.float32))
+    return {name: t.cpu() for name, t in (("out", out), ("lse", lse),
+                                          ("dq", dq), ("dk", dk), ("dv", dv),
+                                          ("paged", paged))}
+
+
+def registry_fleet(dev) -> dict:
+    """A ``ServeFleet`` of gpt2-125m float32 replicas: ``start(1)``, then
+    ``scale_up``; every bring-up warm, 8 requests token-exact against the
+    oracle, the paged-decode launches = layers x plain decode ticks."""
+    from torchdistx_tpu_torch.serve import ServeFleet
+
+    cfg = REGISTRY_SERVE_CFG
+    fl = ServeFleet(cfg, family="gpt2", serve_cfg=REGISTRY_SERVE,
+                    fleet_cfg=FleetConfig(min_replicas=1, max_replicas=2,
+                                          autoscale=False),
+                    seed=0, param_dtype=torch.float32, device=dev)
+    try:
+        fl.start(1, timeout=FLEET_TIMEOUT_S)
+        fl.scale_up(wait=True, timeout=FLEET_TIMEOUT_S)
+        warm = {f"r{h.idx}": h.bring_up_warm for h in fl.handles}
+        if len(warm) != 2 or not all(warm.values()):
+            raise AssertionError(f"registry fleet bring-ups warm: {warm}")
+        paged_attention.launches = paged_attention.merge_launches = 0
+        rng = np.random.RandomState(93)
+        reqs = [Request(f"w{i}", rng.randint(0, cfg.vocab_size, int(
+            rng.randint(3, 30))).tolist(), max_new_tokens=8, arrival_step=i // 4)
+            for i in range(8)]
+        fl.run(reqs, max_seconds=FLEET_TIMEOUT_S)
+        torch.cuda.synchronize()
+        launches = paged_attention.launches
+        worst = fleet_check_oracle(fl, reqs)
+        plain = sum(h.engine.decode_steps - h.engine.spec_verify_ticks
+                    for h in fl.handles)
+        if launches != cfg.n_layers * plain:
+            raise AssertionError(f"registry fleet: {launches} paged-decode "
+                                 f"launches != {cfg.n_layers} x {plain}")
+        return {"bring_up_warm": warm,
+                "bring_up_outcomes": {f"r{h.idx}": h.engine.bring_up_outcomes
+                                      for h in fl.handles},
+                "spin_up_s": {f"r{h.idx}": h.bring_up_seconds
+                              for h in fl.handles},
+                "requests": len(reqs), "token_exact": True,
+                "max_final_logit_err": worst, "plain_decode_ticks": plain,
+                "paged_decode_launches": launches}
+    finally:
+        fl.shutdown()
+
+
+def registry_child(tmp: str) -> None:
+    """A fresh process with an empty ``TDX_CACHE_DIR`` and the warmed
+    registry (both set by the parent): gpt2-125m f32's first train step
+    on the flash kernels against ``default_attention``, then the fleet;
+    the kernels of the heal check saved for the next child.  Prints one
+    JSON line: no nvcc build, the libraries fetched, each lookup's
+    seconds, the first loss's host clock."""
+    dev = torch.device("cuda", 0)
+    reset_flash_launches()
+    train = gpt2_f32_vs_plain(dev, 1)
+    torch.cuda.empty_cache()
+    fleet = registry_fleet(dev)
+    torch.save(heal_cases(dev), f"{tmp}/heal_cases.pt")
+    # nvcc's log came with the library: its ptxas lines still pass.
+    log = _build.library_path("flash_attention.cu").with_suffix(".log")
+    ptxas = [ln.strip() for ln in log.read_text().splitlines()
+             if "ptxas info" in ln or "spill" in ln]
+    bf16_build({"ptxas": ptxas})
+    emit({"train": train, "fleet": fleet, "fetched_log_ptxas_lines": len(ptxas),
+          "build_counts": dict(_build.counts),
+          "outcomes": dict(_build.outcomes), "lookup_s": dict(_build.seconds),
+          "cache_dir": str(_build.cache_dir())})
+
+
+def registry_heal_child(tmp: str) -> None:
+    """A fresh process over the first child's cache under
+    ``REGISTRY_HEAL_PLAN`` (set by the parent): the fault damages the
+    installed libraries before the first lookup; each is quarantined
+    before any ``dlopen``, fetched again, and computes the first child's
+    results bit for bit.  Prints one JSON line."""
+    dev = torch.device("cuda", 0)
+    got = heal_cases(dev)
+    want = torch.load(f"{tmp}/heal_cases.pt")
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    if unequal:
+        raise AssertionError(f"refetched libraries differ on {unequal}")
+    emit({"build_counts": dict(_build.counts),
+          "lookup_s": dict(_build.seconds), "bitwise": sorted(want),
+          "quarantined": sorted(n for n in os.listdir(_build.cache_dir())
+                                if n.endswith(".so.corrupt"))})
+
+
+def phase_registry_warm(dev, build: dict) -> dict:
+    """The warm bring-up: the ``warm_cache`` tool publishes the build
+    phase's two libraries from its cache into a fresh registry; a fresh
+    child with an empty cache trains and serves from it (gpt2-125m f32:
+    one step of B1-B3 against ``default_attention`` at the f32 limits, a
+    2-replica fleet token-exact and warm) with 0 nvcc builds; a second
+    child under ``cache@1=corrupt`` heals from the registry, bitwise.
+    Each library's fetch s beside the build phase's cold ``build_s``, and
+    the first child's seconds from launch to its first loss."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tdx_registry_")
+    try:
+        reg = f"{root}/registry"
+        warm = warm_tool("--model", "gpt2-125m",
+                         "--cache-dir", str(_build.cache_dir()),
+                         "--registry-dir", reg)
+        if warm["unwarmed"] or len(warm["program_reports"]) != len(SOURCES):
+            raise AssertionError(f"warm_cache: {warm['program_reports']}")
+        keys = sorted(os.listdir(reg))
+        if len(keys) != len(SOURCES):
+            raise AssertionError(f"registry holds {keys}")
+        env = {**os.environ, "TDX_CACHE_DIR": f"{root}/cache",
+               "TDX_REGISTRY_DIR": reg}
+        launched = time.time()
+        child = run_child("registry_child", root, timeout=CHILD_TIMEOUT_S,
+                          env=env)
+        first_loss_s = child["train"]["first_loss_at"] - launched
+        if child["build_counts"]["builds"] != 0 or \
+                child["build_counts"]["fetches"] != len(SOURCES) or \
+                set(child["outcomes"].values()) != {"hit"}:
+            raise AssertionError(f"warm child: {child['build_counts']}, "
+                                 f"{child['outcomes']}")
+        healed = run_child("registry_heal_child", root,
+                           timeout=CHILD_TIMEOUT_S,
+                           env={**env, "TDX_FAULT_PLAN": REGISTRY_HEAL_PLAN})
+        counts = healed["build_counts"]
+        if counts["builds"] != 0 or counts["quarantined"] != len(SOURCES) \
+                or counts["fetches"] != len(SOURCES) \
+                or len(healed["quarantined"]) != len(SOURCES):
+            raise AssertionError(f"heal child: {healed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train = child.pop("train")
+    row = {"phase": "registry_warm", "card": nvidia_smi(),
+           "env": warm["env"], "registry_entries": len(keys),
+           "warm_outcomes": {r["program"]: r["outcome"]
+                             for r in warm["program_reports"]},
+           "warm_tool_s": warm["seconds"],
+           "libraries": {src: {"cold_build_s": build.get(src, {}).get(
+               "build_s"), "warm_fetch_s": child["lookup_s"][src],
+               "heal_refetch_s": healed["lookup_s"][src]} for src in SOURCES},
+           "first_loss_s_from_launch": first_loss_s,
+           "train": {k: train[k] for k in (
+               "losses_flash", "losses_plain", "max_loss_diff",
+               "grad_step0_worst_leaf", "grad_limit",
+               "key_bias_grad_over_key_weight_grad", "flash_launches")},
+           **child, "heal": {"plan": REGISTRY_HEAL_PLAN, **healed},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2053,14 +2283,15 @@ def cold_bring_up() -> None:
     emit(stats)
 
 
-def run_child(func: str, *args, timeout: float = 600) -> dict:
-    """``chip_smoke.<func>(*args)`` in a child process, which prints its
-    figures as its last JSON line: work there pays the CUDA context and
-    library loads that a new replica or trainer pays.  The kernel
-    libraries are already built on disk by then."""
+def run_child(func: str, *args, timeout: float = 600, env=None) -> dict:
+    """``chip_smoke.<func>(*args)`` in a child process (environment
+    ``env``, default this one's), which prints its figures as its last
+    JSON line: work there pays the CUDA context and library loads that a
+    new replica or trainer pays.  The kernel libraries are already built
+    on disk by then."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = f"import chip_smoke; chip_smoke.{func}(*{args!r})"
-    proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
                           capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -2679,8 +2910,18 @@ def phase_train_f32_exact(dev) -> dict:
     """gpt2-125m at full size, f32 compute: 3 steps of ``make_train_step``
     with the flash kernels and 3 with ``default_attention``, from the same
     materialized weights and the same numpy-seeded batches."""
+    row = gpt2_f32_vs_plain(dev, 3)
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def gpt2_f32_vs_plain(dev, steps: int) -> dict:
+    """:func:`phase_train_f32_exact`'s comparison over ``steps`` steps: its
+    row, with the host clock (``time.time()``) when the flash run's first
+    loss reached the host."""
     cfg = PRESETS["gpt2-125m"].replace(dtype=torch.float32)
-    B, S, steps = 4, cfg.max_seq_len, 3  # S = 1024, the full context
+    B, S = 4, cfg.max_seq_len  # S = 1024, the full context
     torch.manual_seed(0)
     flash_model = materialize_module(
         deferred_init(make_gpt2, cfg, attn_fn=make_flash_attention(),
@@ -2689,7 +2930,7 @@ def phase_train_f32_exact(dev) -> dict:
     plain_model.load_state_dict(flash_model.state_dict())
     rng = np.random.RandomState(21)
     batches = [rng.randint(0, cfg.vocab_size, (B, S)) for _ in range(steps)]
-    runs = {}
+    runs, first_loss_at = {}, None
     for name, model in (("flash", flash_model), ("plain", plain_model)):
         init_state, train_step, shard_batch = make_train_step(model, cfg,
                                                               device=dev)
@@ -2701,6 +2942,7 @@ def phase_train_f32_exact(dev) -> dict:
             state, metrics = train_step(state, shard_batch(b))
             losses.append(float(metrics["loss"]))
             if i == 0:
+                first_loss_at = first_loss_at or time.time()
                 grads0 = [p.grad.clone() for p in state["params"]]
         torch.cuda.synchronize()
         runs[name] = {"losses": losses, "grads0": grads0,
@@ -2755,10 +2997,8 @@ def phase_train_f32_exact(dev) -> dict:
            "key_bias_limit": F32_ZERO_GRAD_RTOL,
            "flash_launches": flash["launches"],
            "step_s_flash": flash["s_per_step"],
-           "step_s_plain": plain["s_per_step"]}
-    emit(row)
-    del flash_model, plain_model, runs, flash, plain
-    torch.cuda.empty_cache()
+           "step_s_plain": plain["s_per_step"],
+           "first_loss_at": first_loss_at}
     return row
 
 
@@ -4787,13 +5027,23 @@ def sp_spawn(func: str, world: int, *args) -> list:
     """``func`` in ``world`` spawned ranks on the one card (the kernels are
     built already, so no rank builds); each rank's result, in rank order.
     Raises with a rank's traceback, or past ``SP_TIMEOUT_S``."""
+    return sp_join(sp_start(func, world, *args))
+
+
+def sp_start(func: str, world: int, *args) -> tuple:
+    """:func:`sp_spawn` started: a handle for :func:`sp_join`, which this
+    process must call (it stops the ranks if they outlive it)."""
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(_sp_rank, args=(world, tmp, func, args),
-                                 nprocs=world, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + SP_TIMEOUT_S
+    tmp = tempfile.mkdtemp(prefix="tdx_ranks_")
+    ctx = mp.start_processes(_sp_rank, args=(world, tmp, func, args),
+                             nprocs=world, join=False, start_method="spawn")
+    return func, world, tmp, ctx, time.monotonic() + SP_TIMEOUT_S
+
+
+def sp_join(handle: tuple) -> list:
+    func, world, tmp, ctx, deadline = handle
+    try:
         try:
             while not ctx.join(timeout=5):
                 if time.monotonic() > deadline:
@@ -4808,7 +5058,9 @@ def sp_spawn(func: str, world: int, *args) -> list:
         for r in range(world):
             with open(f"{tmp}/rank{r}.json") as f:
                 out.append(json.load(f))
-    return out
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def sp_inputs(seed: int, *, B, S, H, KV, D, dtype, dev):
@@ -5034,14 +5286,6 @@ def sp_attention_rank(rank: int, world: int, dev) -> dict:
     return out
 
 
-def spawn_sp_attention() -> list:
-    t0 = time.perf_counter()
-    ranks = sp_spawn("sp_attention_rank", SP_RANKS)
-    for r in ranks:
-        r["spawn_seconds"] = time.perf_counter() - t0
-    return ranks
-
-
 def one_rank_ring(dev) -> dict:
     """``make_ring_flash_attention`` on a one-rank NCCL ``{sp: 1}`` mesh at
     the llama3-8b geometry against ``flash_attention`` on the same
@@ -5086,7 +5330,7 @@ def phase_ring_flash_sp(ranks: list, dev) -> dict:
                                             for r in rows],
            "bf16_S2048_vs_f64_by_rank": [r["c2_bf16_vs_f64"] for r in rows],
            "seconds": max(r["seconds"] for r in rows),
-           "spawn_seconds": ranks[0]["spawn_seconds"],
+           "spawn_seconds": ranks[0]["spawn_seconds"],  # train_pp_mesh's
            "one_rank_nccl": one_rank_ring(dev)}
     emit(row)
     return row
@@ -5262,9 +5506,10 @@ def one_rank_train_sp(dev) -> dict:
             "tokens_per_s": TRAIN_SP_SEQ / step, "flash_launches": launches}
 
 
-def phase_train_sp(dev) -> dict:
+def phase_train_sp(dev, sp_pp) -> dict:
     """The sp train step at llama3-8b width (2 layers, bf16 parameters,
-    one [1, 8192] sequence) over sp 2 spawned ranks: 2 losses, equal on
+    one [1, 8192] sequence) over sp 2 spawned ranks (``spawn_sp_pp``'s):
+    2 losses, equal on
     both ranks, falling, each within BF16_LOSS_RTOL of the same model and
     sequence whole in one process on the flash kernels; the launches per
     rank and step (2 layers x (r + 1) of each kernel); the C3 check (the
@@ -5272,11 +5517,10 @@ def phase_train_sp(dev) -> dict:
     same weights: loss, gradient norm, worst leaf within
     BF16_GRAD_RTOL), printed beside llama's 1.739e-2; then the step on a
     one-rank NCCL ``{fsdp: 1, sp: 1}`` mesh with its step ms."""
+    if sp_pp is None:
+        raise RuntimeError("needs the sp_pp_ranks spawn")
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    whole = whole_sequence_losses(dev)
-    ranks = sp_spawn("train_sp_rank", TRAIN_SP_RANKS)
-    spawn_s = time.perf_counter() - t0
+    whole, ranks = sp_pp["sp_whole"], sp_pp["sp_ranks"]
     losses = ranks[0]["losses"]
     for r, out in enumerate(ranks):
         if out["losses"] != losses:
@@ -5308,10 +5552,48 @@ def phase_train_sp(dev) -> dict:
            "c3_vs_plain": c3,
            "c3_worst_leaf": c3["grad_worst_leaf"],
            "c3_llama_leaf_train_bf16_full": C3_LLAMA_LEAF,
-           "one_rank_nccl": one_rank,
-           "seconds": time.perf_counter() - t0, "spawn_seconds": spawn_s}
+           "one_rank_nccl": one_rank, "seconds": time.perf_counter() - t0,
+           "spawn_seconds": sp_pp["spawn_s"]}
     emit(row)
     return row
+
+
+def sp_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
+    """``train_sp``'s rank, then ``train_pp``'s, in one spawn (a spawn
+    costs ~16 s before its first step), the card freed between."""
+    out = {"sp": train_sp_rank(rank, world, dev)}
+    gc.collect()  # the recording's cycles hold the module's values
+    torch.cuda.empty_cache()
+    out["pp"] = train_pp_rank(rank, world, dev, tmp)
+    return out
+
+
+def spawn_sp_pp(dev) -> dict:
+    """One spawn of 2 gloo ranks for ``train_sp`` and ``train_pp``, after
+    the references both hold their ranks against, computed here: the
+    whole sequence's losses, the whole pipelined model's, and gpt2-125m
+    f32 on ``mesh=None`` (its gradients saved under ``tmp`` for the
+    ranks; ``train_pp`` removes ``tmp``)."""
+    assert TRAIN_SP_RANKS == TRAIN_PP_RANKS
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"sp_whole": whole_sequence_losses(dev),
+           "pp_whole": pp_whole_losses(dev),
+           "tmp": tempfile.mkdtemp(prefix="tdx_sp_pp_")}
+    try:
+        out["pp_f32"] = pp_f32_reference(dev, out["tmp"])
+        t = time.perf_counter()
+        ranks = sp_spawn("sp_pp_rank", TRAIN_SP_RANKS, out["tmp"])
+    except BaseException:
+        shutil.rmtree(out["tmp"], ignore_errors=True)
+        raise
+    out.update(sp_ranks=[r["sp"] for r in ranks],
+               pp_ranks=[r["pp"] for r in ranks],
+               spawn_s=time.perf_counter() - t,
+               seconds=time.perf_counter() - t0)
+    emit({"phase": "sp_pp_ranks", "seconds": out["seconds"],
+          "spawn_seconds": out["spawn_s"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5421,20 +5703,38 @@ def pp_vs_plain(model, mesh, dev, fresh_np) -> dict:
     return row
 
 
+def state_digests(state) -> dict:
+    """CRC32 of each tensor leaf a checkpoint of the train state
+    ``state`` holds, by storage name."""
+    tree = checkpoint_tree(state)
+    flat = {f"params.{n}": t for n, t in tree["params"].items()}
+    flat.update({f"opt.{k}.{n}": t for k, d in tree.get("opt", {}).items()
+                 for n, t in d.items()})
+    return {k: zlib.crc32(t.detach().reshape(-1).contiguous().view(
+        torch.uint8).cpu().numpy()) for k, t in flat.items()}
+
+
 def pp_f32_rank(mesh, dev, tmp) -> dict:
     """gpt2-125m (f32, tied head) under 1F1B over pp from this stage's
     keyed values: each step's loss against ``mesh=None``'s and each of
     this stage's gradient leaves (the replicated ones summed over the
     stages) normwise; the key biases (zero gradient in exact arithmetic)
-    held against their key weights' gradients instead."""
+    held against their key weights' gradients instead.  The stage's
+    state is checkpointed after step 1 (``save_checkpoint``, its leaves'
+    CRCs kept) and after step 2 (``AsyncCheckpointSaver``), then the
+    step-1 checkpoint is restored in place and step 2 replayed: its loss
+    bitwise the first run's."""
     ref = torch.load(f"{tmp}/gpt2_ref.pt")
     model, mat = pp_stage_model(make_gpt2, PP_F32_CFG, mesh, dev, "1f1b",
                                 None)
     state, train_step, shard_batch = pp_step(
         model, PP_F32_CFG, mesh, dev, "1f1b", make_flash_attention())
     names = {id(p): n for n, p in model.named_parameters()}
-    losses, worst, zero_rel = [], [], 0.0
-    for i, b in enumerate(pp_f32_batches()):
+    losses, worst, zero_rel, ck = [], [], 0.0, {}
+    batches = pp_f32_batches()
+    for i, b in enumerate(batches):
+        if i == 1:
+            saver = AsyncCheckpointSaver()  # every stage, in step
         state, metrics = train_step(state, shard_batch(b))
         losses.append(float(metrics["loss"]))
         leaves = [names[id(p)] for p in state["params"]]
@@ -5452,6 +5752,29 @@ def pp_f32_rank(mesh, dev, tmp) -> dict:
                            / got[wk].norm().item(),
                            ref["grads"][i][n].norm().item()
                            / ref["grads"][i][wk].norm().item())
+        t = time.perf_counter()
+        if i == 0:
+            save_checkpoint(f"{tmp}/pp_sync", state)
+            ck["sync_save_s"] = time.perf_counter() - t
+            ck["digests"] = state_digests(state)
+        else:
+            saver.save(f"{tmp}/pp_async", state)
+            ck["async_stage_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    saver.wait_until_finished()
+    saver.close()
+    ck["async_wait_and_commit_s"] = time.perf_counter() - t
+    ok, reason = verify_checkpoint(f"{tmp}/pp_async")
+    if not ok:
+        raise AssertionError(f"the stages' async checkpoint: {reason}")
+    t = time.perf_counter()
+    restore_checkpoint(f"{tmp}/pp_sync", target=state, verify=True)
+    ck["restore_s"] = time.perf_counter() - t
+    state, metrics = train_step(state, shard_batch(batches[1]))
+    ck["replayed_loss"] = float(metrics["loss"])
+    if ck["replayed_loss"] != losses[1] or state["step"] != 2:
+        raise AssertionError(f"step 2 replayed from the stage checkpoint: "
+                             f"{ck['replayed_loss']} != {losses[1]}")
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
     if not max(rel) <= PP_F32_LOSS_RTOL:
         raise AssertionError(f"gpt2 f32 1f1b losses {losses} vs mesh=None "
@@ -5468,7 +5791,8 @@ def pp_f32_rank(mesh, dev, tmp) -> dict:
             "loss_rel_diff": rel, "loss_limit": PP_F32_LOSS_RTOL,
             "grad_worst_leaf_by_step": worst, "grad_limit": F32_GRAD_RTOL,
             "key_bias_grad_over_key_weight_grad": zero_rel,
-            "key_bias_limit": F32_ZERO_GRAD_RTOL, "materialize": mat}
+            "key_bias_limit": F32_ZERO_GRAD_RTOL, "materialize": mat,
+            "checkpoint": ck}
 
 
 def train_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
@@ -5567,6 +5891,42 @@ def pp_f32_reference(dev, tmp: str) -> list:
     return ref["losses"]
 
 
+def pp_whole_load(dev, tmp: str, ranks: list) -> dict:
+    """The stages' step-1 checkpoint loaded whole in this process into a
+    ``mesh=None`` train state of gpt2-125m (other keyed values first):
+    every leaf's CRC equal to the stage that wrote it (the replicated
+    ones equal on both), the manifest listing every key once."""
+    want: dict = {}
+    for out in ranks:
+        for k, crc in out["gpt2_f32_1f1b"]["checkpoint"]["digests"].items():
+            if want.setdefault(k, crc) != crc:
+                raise AssertionError(f"stages disagree on {k}")
+    paths = [e["path"] for e in read_manifest(f"{tmp}/pp_sync")["tree"]]
+    if len(paths) != len(set(paths)) or len(paths) != len(want) + 1:
+        raise AssertionError(f"stage checkpoint's manifest lists "
+                             f"{len(paths)} paths ({len(set(paths))} "
+                             f"distinct) for {len(want)} leaves and the step")
+    model = deferred_init(make_gpt2, PP_F32_CFG,
+                          attn_fn=make_flash_attention(), device=dev)
+    bind_values(model, materialize_module_cuda(model, seed=1, device=dev))
+    init_state, _, _ = make_train_step(model, PP_F32_CFG, device=dev)
+    t = time.perf_counter()
+    state = restore_checkpoint(f"{tmp}/pp_sync", target=init_state(model),
+                               verify=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    got = state_digests(state)
+    if got != want or state["step"] != 1:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise AssertionError(f"whole load of the stage checkpoint: "
+                             f"{len(bad)} leaves differ, e.g. {bad[:4]}")
+    del model, state
+    torch.cuda.empty_cache()
+    return {"leaves": len(want), "bitwise": True, "restore_s": seconds,
+            "bytes": payload_bytes(f"{tmp}/pp_sync")}
+
+
 def one_rank_train_pp(dev, train_row) -> dict:
     """Each schedule on a one-rank NCCL ``{pp: 1}`` mesh (one stage, every
     layer; the interleaved ring sends to itself): 2-layer llama3-8b
@@ -5612,7 +5972,7 @@ def one_rank_train_pp(dev, train_row) -> dict:
             "n_microbatches": TRAIN_PP_MB, "schedules": out}
 
 
-def phase_train_pp(dev, train_row) -> dict:
+def phase_train_pp(dev, train_row, sp_pp) -> dict:
     """The pipelined train step at llama3-8b width (4 layers, bf16
     parameters, [8, 2048] in 4 microbatches) over pp 2 spawned ranks,
     under GPipe, 1F1B and interleaved 1F1B (2 chunks of one layer a
@@ -5625,14 +5985,16 @@ def phase_train_pp(dev, train_row) -> dict:
     largest entry; the C3 check (1F1B gradients on a fresh batch against
     plain attention's); gpt2-125m f32 under 1F1B against ``mesh=None``
     (losses 1e-5, leaves 1e-4); then each schedule's step ms on a
-    one-rank NCCL ``{pp: 1}`` mesh."""
+    one-rank NCCL ``{pp: 1}`` mesh.  The ranks ran in ``spawn_sp_pp``'s
+    spawn."""
+    if sp_pp is None:
+        raise RuntimeError("needs the sp_pp_ranks spawn")
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    whole = pp_whole_losses(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        f32_ref = pp_f32_reference(dev, tmp)
-        ranks = sp_spawn("train_pp_rank", TRAIN_PP_RANKS, tmp)
-    spawn_s = time.perf_counter() - t0
+    whole, f32_ref, ranks = sp_pp["pp_whole"], sp_pp["pp_f32"], sp_pp["pp_ranks"]
+    try:
+        whole_load = pp_whole_load(dev, sp_pp["tmp"], ranks)
+    finally:
+        shutil.rmtree(sp_pp["tmp"], ignore_errors=True)
     per_rank = TRAIN_PP_CFG.n_layers // TRAIN_PP_RANKS * TRAIN_PP_MB
     want = {k: per_rank for k in FLASH_REPLACES}
     want["flash_dbias"] = 0
@@ -5683,11 +6045,16 @@ def phase_train_pp(dev, train_row) -> dict:
            "stage0_peak_bytes": {"gpipe": gpipe0, "1f1b": f1b0},
            "c3_vs_plain_by_rank": c3, "c3_worst_leaf": worst,
            "c3_llama_leaf_train_bf16_full": C3_LLAMA_LEAF,
-           "gpt2_f32_1f1b_by_rank": [out["gpt2_f32_1f1b"] for out in ranks],
+           "gpt2_f32_1f1b_by_rank": [
+               {**out["gpt2_f32_1f1b"], "checkpoint": {
+                   k: v for k, v in out["gpt2_f32_1f1b"]["checkpoint"].items()
+                   if k != "digests"}} for out in ranks],
            "gpt2_f32_mesh_none_losses": f32_ref,
+           "stage_checkpoint_whole_load": whole_load,
            "one_rank_nccl": one_rank,
            "rank_seconds": [out["seconds"] for out in ranks],
-           "seconds": time.perf_counter() - t0, "spawn_seconds": spawn_s}
+           "seconds": time.perf_counter() - t0,
+           "spawn_seconds": sp_pp["spawn_s"]}
     emit(row)
     return row
 
@@ -5786,12 +6153,16 @@ def pp_mesh_bytes(leg: str, free: int) -> dict:
 
 
 def train_pp_mesh_rank(rank: int, world: int, dev) -> dict:
-    """One rank of every leg, one after another on the same gloo group
-    (a spawn of 4 ranks costs ~16 s before its first step), each leg's
-    memory freed before the next: ``{leg: its row}``."""
+    """One rank of the sp attention phases, of every leg, then of
+    ``train_moe_sp``, one after another on the same gloo group (a spawn
+    of 4 ranks costs ~16 s before its first step), each one's memory
+    freed before the next: ``{leg: its row}``, ``{"sp_attention": ...}``
+    and ``{"moe_sp": ...}``."""
+    run = {"sp_attention": sp_attention_rank, "moe_sp": train_moe_sp_rank}
     out = {}
-    for leg in PP_MESH_LEGS:
-        out[leg] = pp_mesh_leg_rank(leg, dev)
+    for leg in ("sp_attention", *PP_MESH_LEGS, "moe_sp"):
+        out[leg] = (run[leg](rank, world, dev) if leg in run
+                    else pp_mesh_leg_rank(leg, dev))
         gc.collect()  # the recording's cycles hold the module's values
         torch.cuda.empty_cache()
     return out
@@ -5959,6 +6330,7 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
     rank and step (x (r + 1) on sp rank r), B4 and B5 never; the C3 leaf
     on the ``{pp 2, tp 2}`` leg; then the one-rank NCCL ``{pp 1, fsdp 1,
     tp 1}`` step's ms beside ``{pp 1}``'s."""
+    assert SP_RANKS == PP_MESH_RANKS  # the sp attention ranks ride along
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     whole = {"llama": None if train_pp_row is None
@@ -6028,6 +6400,12 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
            "spawn_seconds": spawn_s, "one_rank_nccl": one_rank,
            "seconds": time.perf_counter() - t0}
     emit(row)
+    # The same spawn ran train_moe_sp's and the sp attention phases'
+    # ranks: checked by those phases.
+    row["moe_sp_ranks"] = [out["moe_sp"] for out in by_rank]
+    row["sp_attention_ranks"] = [{**out["sp_attention"],
+                                  "spawn_seconds": spawn_s}
+                                 for out in by_rank]
     return row
 
 
@@ -6159,11 +6537,12 @@ def train_moe_sp_rank(rank: int, world: int, dev) -> dict:
     return out
 
 
-def phase_train_moe_sp(dev) -> dict:
+def phase_train_moe_sp(dev, pp_mesh_row) -> dict:
     """A mixture of experts over the sp ring: Mixtral 8x7B width (2
     layers, bf16) on 4 spawned gloo ranks ``{sp 2, ep 2}`` with ring
-    flash attention, against the same keyed values whole on one rank
-    (``mesh=None``, the whole sequence) in this process first: losses
+    flash attention (run in ``train_pp_mesh``'s spawn, after its legs),
+    against the same keyed values whole on one rank
+    (``mesh=None``, the whole sequence) in this process: losses
     equal on every rank and within BF16_LOSS_RTOL of the whole
     sequence's; the first step's routing (each layer's slots, kept pairs,
     capacity and router loss on every rank) bitwise the whole sequence's
@@ -6184,9 +6563,9 @@ def phase_train_moe_sp(dev) -> dict:
     del model
     gc.collect()  # the recording's cycles hold the module's values
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    ranks = sp_spawn("train_moe_sp_rank", 4)
-    spawn_s = time.perf_counter() - t
+    if pp_mesh_row is None:
+        raise RuntimeError("needs train_pp_mesh's spawn")
+    ranks = pp_mesh_row.pop("moe_sp_ranks")
     losses = ranks[0]["losses"]
     for r, out in enumerate(ranks):
         if out["losses"] != losses:
@@ -6233,7 +6612,7 @@ def phase_train_moe_sp(dev) -> dict:
            "whole_peak_bytes": whole["max_memory_allocated_bytes"],
            "step_s_gloo_by_rank": [out["step_s"] for out in ranks],
            "rank_seconds": [out["seconds"] for out in ranks],
-           "spawn_seconds": spawn_s, "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0}
     emit(row)
     return row
 
@@ -6772,7 +7151,8 @@ def phase_train_elastic(dev, tmp: str) -> dict:
 def elastic_writer_rank(rank: int, world: int, dev, tmp: str) -> dict:
     """A spawned gloo rank: the main path's model on ``{TWO_RANK_AXIS:
     world}`` from its keyed values, ``TWO_RANK_STEPS`` steps, then a
-    checkpoint (each rank writes its own shards)."""
+    checkpoint by ``AsyncCheckpointSaver`` (each rank writes its own
+    shards; the commit waits for both)."""
     mesh = make_mesh({TWO_RANK_AXIS: world}, device_type="cuda")
     model = elastic_model(mesh, dev)
     init_state, train_step, shard_batch = make_train_step(
@@ -6783,8 +7163,11 @@ def elastic_writer_rank(rank: int, world: int, dev, tmp: str) -> dict:
     for b in elastic_batches()[:TWO_RANK_STEPS]:
         state, metrics = train_step(state, shard_batch(b))
         losses[state["step"]] = float(metrics["loss"])
-    save_checkpoint(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}", state)
-    return {"losses": losses, "seconds": time.perf_counter() - t0}
+    train_s = time.perf_counter() - t0
+    with AsyncCheckpointSaver() as saver:
+        saver.save(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}", state)
+    return {"losses": losses, "seconds": time.perf_counter() - t0,
+            "async_save_s": time.perf_counter() - t0 - train_s}
 
 
 def reshard_resume(tmp: str) -> None:
@@ -6866,14 +7249,105 @@ def reshard_resume(tmp: str) -> None:
     emit(out)
 
 
+def reshard_ctl(cmd: str, *args: str) -> subprocess.Popen:
+    """``python -m torchdistx_tpu_torch.tools.reshard_ctl <cmd> <args>``
+    with the phase's chunk budget, started."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torchdistx_tpu_torch.tools.reshard_ctl", cmd,
+         *args, "--chunk-mb", str(RESHARD_CHUNK_MB)],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def reshard_ctl_result(proc: subprocess.Popen, what: str, t0: float) -> dict:
+    """The tool's JSON line and wall seconds, after checking it exited
+    0."""
+    out, err = proc.communicate(timeout=CHILD_TIMEOUT_S)
+    doc = {"exit": proc.returncode, "wall_s": time.perf_counter() - t0,
+           **json.loads(out.strip().splitlines()[-1])}
+    if proc.returncode != 0:
+        raise AssertionError(f"reshard_ctl {what}: {doc} {err[-2000:]}")
+    return doc
+
+
+def reshard_hops(src: str, nbytes: int, tmp: str, budget: int) -> tuple:
+    """``src`` offline to ``RESHARD_MESH`` under ``gspmd_2d_plan`` through
+    the operator's tool and back to ``ELASTIC_MESH`` under
+    ``decoder_lm_plan`` in this process, each hop bitwise and staged
+    within ``budget``: ``(hops, the 2-D plan, its largest leaf's
+    bytes)``; ``{tmp}/reshard_back`` stays for the resume."""
+    plan_2d = plan_reshard(src, gspmd_2d_plan(), MeshSpec(RESHARD_MESH),
+                           chunk_mb=RESHARD_CHUNK_MB)
+    largest = max(lt.nbytes for lt in plan_2d.leaves)
+    if not largest > budget:
+        raise AssertionError(f"budget {budget} not below the largest leaf "
+                             f"{largest}")
+    # The hop to the 2-D mesh through the operator's tool: ``apply``
+    # writes it, then ``verify`` (exit 0) compares it with the source bit
+    # for bit while the hop back reads it in this process — one
+    # verification, as the in-process call makes before it commits.
+    to_2d = f"{tmp}/reshard_to_2d"
+    t = time.perf_counter()
+    applied = reshard_ctl_result(reshard_ctl(
+        "apply", src, to_2d, "--mesh",
+        ",".join(f"{a}={n}" for a, n in RESHARD_MESH.items()), "--plan",
+        "gspmd2d", "--min-size", str(2**16), "--no-verify"), "apply", t)
+    if not 0 < applied["peak_host_bytes"] <= budget:
+        raise AssertionError(f"reshard_ctl apply staged "
+                             f"{applied['peak_host_bytes']} bytes, budget "
+                             f"{budget}")
+    t_verify = time.perf_counter()
+    verifying = reshard_ctl("verify", src, to_2d)
+    try:
+        observe.enable(True)
+        observe.reset()
+        t = time.perf_counter()
+        try:
+            reshard_checkpoint(to_2d, decoder_lm_plan(ELASTIC_CFG),
+                               MeshSpec(ELASTIC_MESH), f"{tmp}/reshard_back",
+                               chunk_mb=RESHARD_CHUNK_MB)
+        finally:
+            seconds = time.perf_counter() - t
+            spans = {e["name"]: e["dur"] / 1e6 for e in observe.tracer().drain()
+                     if e["ph"] == "X" and e["name"].startswith("reshard.")}
+            observe.enable(None)
+        verified = reshard_ctl_result(verifying, "verify", t_verify)
+    finally:
+        if verifying.poll() is None:
+            verifying.kill()
+            verifying.wait()
+    peak = last_transfer_peak_bytes()
+    if not 0 < peak <= budget:
+        raise AssertionError(f"reshard back staged {peak} bytes, "
+                             f"budget {budget}")
+    hops = {"to_2d": {"mesh": RESHARD_MESH,
+                      "route": "reshard_ctl apply, then reshard_ctl verify",
+                      "apply_wall_s": applied["wall_s"],
+                      "apply_s": applied["seconds"],
+                      "gb_per_s": nbytes / applied["wall_s"] / 1e9,
+                      "verify_wall_s": verified["wall_s"],
+                      "peak_staging_bytes": applied["peak_host_bytes"],
+                      "bitwise": verified["ok"]},
+            "back": {"mesh": ELASTIC_MESH, "seconds": seconds,
+                     "gb_per_s": nbytes / seconds / 1e9,
+                     "transfer_s": spans.get("reshard.transfer"),
+                     "verify_reshard_s": spans.get("reshard.verify"),
+                     "peak_staging_bytes": peak, "bitwise": True}}
+    shutil.rmtree(f"{tmp}/reshard_to_2d")
+    return hops, plan_2d, largest
+
+
 def phase_reshard(dev, tmp: str, elastic_row) -> dict:
     """The train_elastic checkpoint (step 6) offline to the device-free
-    ``{fsdp 2, tp 2}`` under ``gspmd_2d_plan`` and back to ``{fsdp 1}``
-    under ``decoder_lm_plan`` (the layout it trains in, so it restores
-    without a reshard), a chunk budget below the largest leaf: each hop
-    bitwise (``reshard_checkpoint`` runs ``verify_reshard`` before it
-    commits the destination), staging within the budget; a checkpoint
-    written by 2 spawned gloo ranks on the card; then in one fresh
+    ``{fsdp 2, tp 2}`` under ``gspmd_2d_plan`` through ``python -m
+    torchdistx_tpu_torch.tools.reshard_ctl apply`` and ``verify`` (exit
+    0), and back to ``{fsdp 1}`` under ``decoder_lm_plan`` in this
+    process (the layout it trains in, so it restores without a reshard),
+    a chunk budget below the largest leaf: each hop bitwise
+    (``reshard_checkpoint`` runs ``verify_reshard`` before it commits the
+    destination), staging within the budget; meanwhile a checkpoint
+    written by 2 spawned gloo ranks on the card with
+    ``AsyncCheckpointSaver``; then in one fresh
     process the round trip restored onto the card, its next 2 steps
     bitwise the uninterrupted run's, and the 2-rank checkpoint resumed by
     one rank through ``needs_reshard`` -> ``restore_resharded``, its
@@ -6889,40 +7363,14 @@ def phase_reshard(dev, tmp: str, elastic_row) -> dict:
         if name != f"step_{ELASTIC_STEPS}" and os.path.isdir(f"{ck}/{name}"):
             shutil.rmtree(f"{ck}/{name}")
     nbytes = payload_bytes(src)
-    plan_2d = plan_reshard(src, gspmd_2d_plan(), MeshSpec(RESHARD_MESH),
-                           chunk_mb=RESHARD_CHUNK_MB)
-    largest = max(lt.nbytes for lt in plan_2d.leaves)
-    if not largest > budget:
-        raise AssertionError(f"budget {budget} not below the largest leaf "
-                             f"{largest}")
-    hops = {}
-    for name, s, plan, mesh in (
-            ("to_2d", src, gspmd_2d_plan(), RESHARD_MESH),
-            ("back", f"{tmp}/reshard_to_2d", decoder_lm_plan(ELASTIC_CFG),
-             ELASTIC_MESH)):
-        observe.enable(True)
-        observe.reset()
-        t = time.perf_counter()
-        try:
-            reshard_checkpoint(s, plan, MeshSpec(mesh), f"{tmp}/reshard_{name}",
-                               chunk_mb=RESHARD_CHUNK_MB)
-        finally:
-            seconds = time.perf_counter() - t
-            spans = {e["name"]: e["dur"] / 1e6 for e in observe.tracer().drain()
-                     if e["ph"] == "X" and e["name"].startswith("reshard.")}
-            observe.enable(None)
-        peak = last_transfer_peak_bytes()
-        if not 0 < peak <= budget:
-            raise AssertionError(f"reshard {name} staged {peak} bytes, "
-                                 f"budget {budget}")
-        hops[name] = {"mesh": mesh, "seconds": seconds,
-                      "gb_per_s": nbytes / seconds / 1e9,
-                      "transfer_s": spans.get("reshard.transfer"),
-                      "verify_reshard_s": spans.get("reshard.verify"),
-                      "peak_staging_bytes": peak, "bitwise": True}
-    shutil.rmtree(f"{tmp}/reshard_to_2d")
+    # The 2 ranks train and write their checkpoint on the card while the
+    # offline hops below move bytes on the host.
+    writers = sp_start("elastic_writer_rank", TWO_RANKS, tmp)
+    try:
+        hops, plan_2d, largest = reshard_hops(src, nbytes, tmp, budget)
+    finally:
+        ranks = sp_join(writers)
     shutil.rmtree(ck)
-    ranks = sp_spawn("elastic_writer_rank", TWO_RANKS, tmp)
     if any(r["losses"] != ranks[0]["losses"] for r in ranks):
         raise AssertionError(f"ranks disagree: {[r['losses'] for r in ranks]}")
     two_bytes = payload_bytes(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}")
@@ -6955,6 +7403,8 @@ def phase_reshard(dev, tmp: str, elastic_row) -> dict:
                         "checkpoint_bytes": two_bytes,
                         "losses": ranks[0]["losses"],
                         "rank_seconds": [r["seconds"] for r in ranks],
+                        "async_save_s_by_rank":
+                            [r["async_save_s"] for r in ranks],
                         **two, "resumed_losses": got,
                         "reshard_gb_per_s": two_bytes / two["reshard_s"]
                         / 1e9},
@@ -7006,6 +7456,7 @@ def main() -> int:
     flash_rows = run("flash_kernel", phase_flash_kernel, dev, flush,
                      builds.get("flash_attention.cu", {}))
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
+    registry_row = run("registry_warm", phase_registry_warm, dev, builds)
     run("serve_f32_exact", phase_exact_f32, dev)
     run("serve_features_f32", phase_features_f32, dev)
     run("serve_chaos_f32", phase_serve_chaos_f32, dev)
@@ -7031,17 +7482,19 @@ def main() -> int:
     run("mixtral_first_step_sharded", phase_mixtral_first_step_sharded)
     remat_row = run("remat_70b", phase_remat_70b, dev)
     vit_row = run("vit_train", phase_vit_train, dev)
-    sp_ranks = run("sp_attention_ranks", spawn_sp_attention)
+    sp_pp = run("sp_pp_ranks", spawn_sp_pp, dev)
+    train_sp_row = run("train_sp", phase_train_sp, dev, sp_pp)
+    train_pp_row = run("train_pp", phase_train_pp, dev, train_row, sp_pp)
+    train_pp_mesh_row = run("train_pp_mesh", phase_train_pp_mesh, dev,
+                            train_pp_row)
+    moe_sp_row = run("train_moe_sp", phase_train_moe_sp, dev,
+                     train_pp_mesh_row)
+    sp_ranks = (train_pp_mesh_row or {}).pop("sp_attention_ranks", None)
     if sp_ranks is not None:
         ring_row = run("ring_flash_sp", phase_ring_flash_sp, sp_ranks, dev)
         bias_sp_row = run("ring_flash_bias_sp", phase_ring_flash_bias_sp,
                           sp_ranks)
         run("ulysses_sp", phase_ulysses_sp, sp_ranks)
-    train_sp_row = run("train_sp", phase_train_sp, dev)
-    train_pp_row = run("train_pp", phase_train_pp, dev, train_row)
-    train_pp_mesh_row = run("train_pp_mesh", phase_train_pp_mesh, dev,
-                            train_pp_row)
-    moe_sp_row = run("train_moe_sp", phase_train_moe_sp, dev)
     ckpt_root = tempfile.mkdtemp(prefix="tdx_ckpt_")
     try:
         usage = shutil.disk_usage(ckpt_root)
@@ -7070,6 +7523,8 @@ def main() -> int:
                                          "live_tokens", "table_width")},
         "merge_launches": main_row["paged_merge_launches"],
         "launches_fleet_path": fleet_row["paged_decode_launches"],
+        "launches_registry_warm_path":
+            registry_row["fleet"]["paged_decode_launches"],
         "cuda_launches_per_call": (main_row["paged_decode_launches"]
                                    + main_row["paged_merge_launches"])
         / main_row["paged_decode_launches"],
@@ -7120,6 +7575,8 @@ def main() -> int:
             "launches_moe_sp_path": {
                 "train_moe_sp_by_rank_per_step":
                     [r[name] for r in moe_sp_row["launches_by_rank_per_step"]]},
+            "launches_registry_warm_path":
+                registry_row["train"]["flash_launches"][name],
             "launches_elastic_path": {
                 "drained_run": elastic_row["flash_launches_first"][name],
                 "steps_run": len(elastic_row["executed_steps"]),

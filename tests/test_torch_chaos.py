@@ -11,10 +11,12 @@
   the flight recorder (a bundle both packages' ``validate`` accept)
   before raising; ``slow`` sleeps; a ``hang`` is cut by
   ``set_cancel_event``; ``corrupt`` flips the byte the JAX executor flips
-  in a checkpoint's largest payload file at ``save`` / ``restore``,
-  touches no file at ``reshard`` (the engine damages its chunk) and
-  raises ``NotImplementedError`` naming the ROADMAP item that ports its
-  target at the other sites;
+  in a checkpoint's largest payload file at ``save`` / ``restore``, in
+  every registry entry's payload at ``registry`` and in every installed
+  kernel library (the JAX cache's entries) at ``cache``, touches no file
+  at ``reshard`` (the engine damages its chunk) and raises
+  ``NotImplementedError`` naming the ROADMAP item that ports its target
+  at the compile sites;
 * activation: an installed plan before the config's ``fault_plan``, the
   config's parse cached per text, ``maybe_inject`` a no-op without one.
 """
@@ -149,6 +151,18 @@ def _checkpoint(path):
     return path
 
 
+def _registry(path):
+    """A registry tree: two complete entries and an in-flight publish."""
+    for key in ("k1", "k2"):
+        (path / key).mkdir(parents=True)
+        (path / key / "meta.json").write_text("{}")
+        (path / key / "lib.so").write_bytes(bytes(range(256)) * (3 + len(key)))
+        (path / key / "lib.log").write_bytes(b"ptxas info" * 4)
+    (path / ".tmp-pub-k3").mkdir()
+    (path / ".tmp-pub-k3" / "lib.so").write_bytes(b"half" * 8)
+    return path
+
+
 @pytest.mark.parametrize("site,item", [
     ("save", "A12"), ("restore", "A12"), ("reshard", "A12"),
     ("cache", "A8"), ("registry", "A8"), ("compile", "A13"),
@@ -157,18 +171,57 @@ def test_corrupt_names_the_unported_target(site, item, tmp_path):
     """``corrupt`` damages what the port has: at ``save`` / ``restore``
     the checkpoint's largest payload file, byte for byte as the JAX
     executor damages it (flip), at ``reshard`` nothing on disk (the
-    engine flips its in-flight chunk); elsewhere it names the ROADMAP
-    item that ports its target."""
+    engine flips its in-flight chunk); at ``registry`` every complete
+    entry's payload and at ``cache`` every installed kernel library, the
+    bytes the JAX executor leaves in its registry and its compile
+    cache's entries; elsewhere it names the ROADMAP item that ports its
+    target."""
     fault = chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0]
-    if item != "A12":
+    jax_fault = jax_chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0]
+    if item == "A13":
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             chaos.execute(fault)
+        return
+    if site == "registry":
+        ours, theirs = _registry(tmp_path / "a"), _registry(tmp_path / "b")
+        chaos.execute(fault, path=str(ours))
+        jax_chaos.execute(jax_fault, path=str(theirs))
+        files = sorted(p.relative_to(theirs) for p in theirs.rglob("*")
+                       if p.is_file())
+        assert sorted(p.relative_to(ours) for p in ours.rglob("*")
+                      if p.is_file()) == files
+        for rel in files:
+            assert (ours / rel).read_bytes() == (theirs / rel).read_bytes()
+        assert (ours / ".tmp-pub-k3" / "lib.so").read_bytes() == b"half" * 8
+        assert (ours / "k1" / "lib.so").read_bytes() != bytes(range(256)) * 5
+        with pytest.raises(ValueError, match="target path"):
+            chaos.execute(fault)
+        return
+    if site == "cache":
+        (tmp_path / "a").mkdir()
+        (tmp_path / "b").mkdir()
+        payloads = {"flash": bytes(range(256)) * 7, "paged": b"\x01" * 300}
+        loaded = {}
+        for name, data in payloads.items():
+            (tmp_path / "a" / f"{name}.so").write_bytes(data)
+            (tmp_path / "b" / f"{name}-cache").write_bytes(data)
+            loaded[name] = open(tmp_path / "a" / f"{name}.so", "rb")
+        (tmp_path / "a" / "flash.log").write_bytes(b"log")
+        chaos.execute(fault, path=str(tmp_path / "a"))
+        jax_chaos.execute(jax_fault, path=str(tmp_path / "b"))
+        for name, data in payloads.items():
+            got = (tmp_path / "a" / f"{name}.so").read_bytes()
+            assert got == (tmp_path / "b" / f"{name}-cache").read_bytes()
+            assert sum(a != b for a, b in zip(got, data)) == 1
+            # A new file took the name: what a process opened (or
+            # mapped) before the damage still reads the old bytes.
+            assert loaded.pop(name).read() == data
+        assert (tmp_path / "a" / "flash.log").read_bytes() == b"log"
         return
     ours, theirs = _checkpoint(tmp_path / "a"), _checkpoint(tmp_path / "b")
     before = (ours / "big.bin").read_bytes()
     chaos.execute(fault, path=str(ours))
-    jax_chaos.execute(jax_chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0],
-                      path=str(theirs))
+    jax_chaos.execute(jax_fault, path=str(theirs))
     for name in ("big.bin", "small.bin"):
         assert (ours / name).read_bytes() == (theirs / name).read_bytes()
     after = (ours / "big.bin").read_bytes()

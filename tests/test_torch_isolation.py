@@ -37,7 +37,11 @@ def test_importing_the_port_loads_no_jax():
         "torchdistx_tpu_torch.observe.flightrec, "
         "torchdistx_tpu_torch.observe.reqledger, "
         "torchdistx_tpu_torch.observe.slo, "
-        "torchdistx_tpu_torch.observe.health, chip_smoke\n"
+        "torchdistx_tpu_torch.observe.health, "
+        "torchdistx_tpu_torch.registry, torchdistx_tpu_torch.tools, "
+        "torchdistx_tpu_torch.tools.reshard_ctl, "
+        "torchdistx_tpu_torch.tools.warm_cache, "
+        "torchdistx_tpu_torch.tools.registry_ctl, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'torchdistx_tpu'))\n"
         "print(bad)\n"
@@ -50,11 +54,15 @@ def test_importing_the_port_loads_no_jax():
 def test_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    # The chaos package and the serve stack's observe modules are scanned.
+    # The chaos package, the serve stack's observe modules, the registry
+    # and the tools are scanned.
     scanned = {str(f.relative_to(PORT)) for f in files if f.is_relative_to(PORT)}
     assert {"chaos/plan.py", "chaos/inject.py", "chaos/__init__.py",
             "observe/flightrec.py", "observe/reqledger.py", "observe/slo.py",
-            "observe/health.py"} <= scanned
+            "observe/health.py", "registry/__init__.py", "registry/store.py",
+            "registry/scheduler.py", "tools/__init__.py",
+            "tools/reshard_ctl.py", "tools/warm_cache.py",
+            "tools/registry_ctl.py"} <= scanned
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -23,9 +23,10 @@ is active: one lock, one attribute read and one config read per site.
              3600; :func:`set_cancel_event` cuts it)
 ``corrupt``  post-commit checkpoint damage (truncate or bit-flip) at
              ``save``/``restore`` and of the incoming checkpoint at
-             ``rollover``; the in-flight chunk at ``reshard``; at the
-             compile and registry sites ``NotImplementedError`` naming
-             its ROADMAP item
+             ``rollover``; the in-flight chunk at ``reshard``; the
+             registry's entries at ``registry``, the installed kernel
+             libraries at ``cache``; at the compile sites
+             ``NotImplementedError`` naming its ROADMAP item
 ``slow``     extra seconds at the site
 ``preempt``  SIGTERM to self: the announced preemption notice; at the
              ``fleet`` site :class:`ReplicaPreempted`, which kills only
@@ -43,7 +44,9 @@ from typing import List, Optional, Union
 from .inject import (
     InjectedRuntimeError,
     ReplicaPreempted,
+    corrupt_cache_dir,
     corrupt_checkpoint,
+    corrupt_registry_dir,
     execute,
     execute_replica_fault,
     set_cancel_event,
@@ -59,7 +62,9 @@ __all__ = [
     "SITES",
     "active_plan",
     "clear",
+    "corrupt_cache_dir",
     "corrupt_checkpoint",
+    "corrupt_registry_dir",
     "execute",
     "execute_replica_fault",
     "install",

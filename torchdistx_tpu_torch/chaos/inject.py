@@ -20,10 +20,14 @@ checkpoint directory it is given (:func:`corrupt_checkpoint`: its
 largest payload file truncated or one byte flipped; without a directory,
 as at the ``fleet`` site, it raises ``ValueError`` as the JAX executor
 does); at ``reshard`` the engine's in-flight chunk buffer (the engine
-flips it when it sees the fault fire).  The compile caches and registry
-artifacts it would damage at the other sites are not in the port yet:
-there it raises ``NotImplementedError`` naming the ROADMAP item that
-brings the target, never silently doing nothing.
+flips it when it sees the fault fire); at ``registry`` the payload of
+every complete entry of the artifact registry
+(:func:`corrupt_registry_dir`), and at ``cache`` every kernel library
+installed in the local cache (:func:`corrupt_cache_dir`), each given
+its directory.  The materializer's compile ladder it would damage at
+``lower`` / ``compile`` / ``execute`` is not in the port yet: there it
+raises ``NotImplementedError`` naming the ROADMAP item that brings the
+target, never silently doing nothing.
 
 At the ``fleet`` site :func:`execute_replica_fault` runs a fault inside a
 replica thread: ``preempt`` raises :class:`ReplicaPreempted`, which ends
@@ -52,10 +56,8 @@ _CORRUPT_MODES = ("truncate", "flip")
 _CHECKPOINT_SITES = ("step", "save", "restore", "rollover", "fleet")
 
 # The ROADMAP item that ports what a ``corrupt`` fault at each other site
-# damages: the artifact registry and its caches (A8), the materializer's
-# compile ladder (A13).
+# damages: the materializer's compile ladder (A13).
 _CORRUPT_TARGETS = {
-    "registry": ("artifact registry", "A8"), "cache": ("compile cache", "A8"),
     "lower": ("compile cache", "A13"), "compile": ("compile cache", "A13"),
     "execute": ("compile cache", "A13"),
 }
@@ -141,12 +143,16 @@ def execute(fault: Fault, *, path: Optional[str] = None) -> None:
             # bitwise verify stage catches it, and no file — least of all
             # the source checkpoint — is ever touched).  Nothing to do.
             return
-        if fault.site in _CHECKPOINT_SITES:
+        if fault.site in (*_CHECKPOINT_SITES, "registry", "cache"):
             if path is None:
                 raise ValueError(
                     f"corrupt fault needs a target path (the checkpoint "
-                    f"dir): {fault.spec()}")
-            corrupt_checkpoint(path, mode=fault.arg or "truncate")
+                    f"dir, the registry dir at the registry site, the "
+                    f"kernel cache dir at the cache site): {fault.spec()}")
+            damage = {"registry": corrupt_registry_dir,
+                      "cache": corrupt_cache_dir}.get(fault.site,
+                                                      corrupt_checkpoint)
+            damage(path, mode=fault.arg or "truncate")
             return
         target = _CORRUPT_TARGETS.get(fault.site)
         if target is None:
@@ -177,22 +183,77 @@ def execute_replica_fault(fault: Fault) -> None:
         f"chaos: injected replica preemption ({fault.spec()})")
 
 
+def _damaged(data: bytes, mode: str, f: Path) -> bytes:
+    """``data`` under one deterministic damage mode: its first half
+    (``truncate``) or one byte flipped, the byte keyed by content."""
+    if mode == "truncate":
+        return data[:len(data) // 2]
+    if not data:
+        raise ValueError(f"cannot flip a byte of empty file {f}")
+    out = bytearray(data)
+    out[zlib.crc32(data) % len(out)] ^= 0xFF
+    return bytes(out)
+
+
 def _damage_file(f: Path, mode: str) -> None:
     """Apply one deterministic byte-level damage mode to ``f`` in place."""
-    if mode == "truncate":
-        size = f.stat().st_size
-        with open(f, "r+b") as fh:
-            fh.truncate(max(0, size // 2))
-        return
-    with open(f, "r+b") as fh:  # flip
-        data = bytearray(fh.read())
-        if not data:
-            raise ValueError(f"cannot flip a byte of empty file {f}")
-        # Deterministic victim byte: keyed by content, not RNG.
-        i = zlib.crc32(bytes(data)) % len(data)
-        data[i] ^= 0xFF
+    with open(f, "r+b") as fh:
+        data = _damaged(fh.read(), mode, f)
         fh.seek(0)
         fh.write(data)
+        fh.truncate()
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _CORRUPT_MODES:
+        raise ValueError(f"corrupt mode must be one of {_CORRUPT_MODES}, got {mode!r}")
+
+
+def corrupt_cache_dir(path: "str | Path", mode: str = "truncate") -> "list[str]":
+    """Deterministically damage EVERY kernel library (``*.so``) installed
+    in a local kernel cache (the counterpart of the JAX package's
+    ``corrupt_cache_dir``, whose entries are compile-cache files): the
+    same bytes as that executor's damage, written as a new file renamed
+    over the old, so a library a process has loaded keeps its mapped
+    pages.  Returns the damaged file names."""
+    _check_mode(mode)
+    path = Path(path)
+    victims = sorted(f for f in path.iterdir()
+                     if f.is_file() and f.suffix == ".so") \
+        if path.is_dir() else []
+    if not victims:
+        raise FileNotFoundError(f"no kernel libraries to corrupt under {path}")
+    for f in victims:
+        tmp = f.with_name(f"{f.name}.{os.getpid()}.damage")
+        tmp.write_bytes(_damaged(f.read_bytes(), mode, f))
+        os.replace(tmp, f)
+    return [f.name for f in victims]
+
+
+def corrupt_registry_dir(path: "str | Path", mode: str = "truncate") -> "list[str]":
+    """Deterministically damage the PAYLOAD files of every complete entry
+    in a shared artifact registry (the bit-rotted / torn shared
+    filesystem model).  Manifests are left intact so the damage is
+    exactly what CRC self-verification exists to catch: the next fetch
+    must verify-fail, quarantine the entry, and degrade to a local
+    build.  Returns the damaged ``<entry>/<file>`` names."""
+    _check_mode(mode)
+    path = Path(path)
+    victims: "list[str]" = []
+    if path.is_dir():
+        for entry in sorted(path.iterdir()):
+            if not entry.is_dir() or entry.name.endswith(".corrupt"):
+                continue
+            if not (entry / "meta.json").is_file():
+                continue  # incomplete/tmp dir: publish owns it
+            for f in sorted(entry.iterdir()):
+                if f.name == "meta.json" or not f.is_file():
+                    continue
+                _damage_file(f, mode)
+                victims.append(f"{entry.name}/{f.name}")
+    if not victims:
+        raise FileNotFoundError(f"no registry artifacts to corrupt under {path}")
+    return victims
 
 
 def corrupt_checkpoint(path: "str | Path", mode: str = "truncate") -> str:
@@ -202,8 +263,7 @@ def corrupt_checkpoint(path: "str | Path", mode: str = "truncate") -> str:
     touches the damaged branch; payload damage cannot.  Returns the
     relative path of the damaged file.
     """
-    if mode not in _CORRUPT_MODES:
-        raise ValueError(f"corrupt mode must be one of {_CORRUPT_MODES}, got {mode!r}")
+    _check_mode(mode)
     path = Path(path)
     from ..utils.checkpoint import iter_payload_files
 

@@ -26,7 +26,10 @@ either package means the same entries to both.  The port fires:
   prefill-chunk boundary, ``serve@3=raise:verify`` to the next
   speculative verify tick; ``flap`` / ``slow`` / ``hang`` as below;
 * ``lower``, ``cache`` and ``compile`` (group 1) at each lazy build of a
-  serving program, before its CUDA graph capture opens.
+  serving program, before its CUDA graph capture opens;
+* ``cache`` before each kernel library's local lookup (group = the
+  source's number in ``ops._build.SOURCES``) and ``registry`` at each
+  publish to and fetch from the artifact registry.
 
 Each entry fires ``count`` times (default 1) and is then spent.  The one
 exception is ``flap``: an INTERMITTENT, RECURRING fault.  Its arg is a

@@ -1,5 +1,6 @@
-"""Runtime configuration (the port's own copy of the telemetry, serving,
-chaos, flight-recorder, reshard and logging knobs of
+"""Runtime configuration (the port's own copy of the kernel-cache,
+registry, telemetry, serving, chaos, flight-recorder, reshard and
+logging knobs of
 ``torchdistx_tpu/config.py``):
 resolved from environment variables once at import and overridable per
 scope::
@@ -12,6 +13,16 @@ scope::
 Environment variables (read at first import):
 
 ======================  ====================================================
+``TDX_CACHE_DIR``       Local directory of the nvcc-built kernel libraries
+                        (:mod:`torchdistx_tpu_torch.ops._build`), each
+                        beside its CRC sidecar and nvcc's log ("" means
+                        ``torchdistx_tpu_torch/_build/`` in the checkout).
+``TDX_REGISTRY_DIR``    Shared artifact registry directory
+                        (:mod:`torchdistx_tpu_torch.registry`): when set, a
+                        library missing from the local cache is fetched
+                        from it before nvcc builds it, and a library built
+                        here is published to it — the warm bring-up path
+                        ("" disables).
 ``TDX_TRACE_DIR``       Directory for runtime telemetry traces: when set,
                         :mod:`torchdistx_tpu_torch.observe` collects spans
                         and flushes a Chrome-trace JSON file
@@ -92,6 +103,8 @@ __all__ = ["Config", "bind", "expand_path", "get", "override"]
 
 @dataclass(frozen=True)
 class Config:
+    cache_dir: Optional[str] = None
+    registry_dir: Optional[str] = None
     trace_dir: Optional[str] = None
     metrics_path: Optional[str] = None
     flight_dir: Optional[str] = None
@@ -108,6 +121,8 @@ class Config:
 
 def _from_env() -> Config:
     return Config(
+        cache_dir=os.environ.get("TDX_CACHE_DIR", "") or None,
+        registry_dir=os.environ.get("TDX_REGISTRY_DIR", "") or None,
         trace_dir=os.environ.get("TDX_TRACE_DIR", "") or None,
         metrics_path=os.environ.get("TDX_METRICS_PATH", "") or None,
         flight_dir=os.environ.get("TDX_FLIGHT_DIR", "") or None,

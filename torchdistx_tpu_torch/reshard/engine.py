@@ -459,8 +459,10 @@ def verify_reshard(src_dir, dst_dir, *, chunk_mb: Optional[float] = None,
 
 def needs_reshard(path, target: Any) -> bool:
     """Does ``path``'s recorded topology differ from the layout of the
-    live ``target`` (a pytree or a train state)?  ``False`` for manifests
-    without a topology block."""
+    live ``target`` (a pytree or a train state) on the leaves the target
+    holds?  ``False`` for manifests without a topology block.  A
+    pipeline stage holds only its own layers of a checkpoint all the
+    stages wrote: the others' leaves are not compared."""
     manifest = read_manifest(path)
     topo = (manifest or {}).get("topology")
     if not topo:
@@ -468,9 +470,10 @@ def needs_reshard(path, target: Any) -> bool:
     cur = state_topology(target)
     if cur is None:
         return False
+    specs = topo.get("specs") or {}
     return (
         topo.get("mesh_axes") != cur["mesh_axes"]
-        or topo.get("specs") != cur["specs"]
+        or {k: specs.get(k) for k in cur["specs"]} != cur["specs"]
     )
 
 

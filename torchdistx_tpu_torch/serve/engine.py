@@ -108,7 +108,9 @@ from ..deferred_init import deferred_init, materialize_module
 from ..models import PRESETS, TransformerConfig
 from ..observe import reqledger
 from ..observe import slo as _slo
+from ..ops import _build
 from ..ops.paged_attention import build_kernel
+from ..registry.scheduler import path_sources
 from .kv_cache import OutOfPages, PagedKVCache, init_pools
 from .prefix import NgramDrafter, PrefixCache
 from .programs import (
@@ -236,8 +238,10 @@ class ServeEngine:
         self._next_seq = 1
         self._t0: Optional[float] = None
         self._tokens_out = 0
-        # Set by spin_up_replica: record + materialize seconds.
+        # Set by spin_up_replica: record + materialize seconds, and each
+        # kernel library's outcome ("hit": nothing built, "miss": nvcc).
         self.bring_up_seconds: Optional[float] = None
+        self.bring_up_outcomes: Dict[str, str] = {}
         self.prefills = 0
         self.decode_steps = 0           # plain and verify ticks
         self.preemptions = 0
@@ -268,7 +272,8 @@ class ServeEngine:
             if self.k_pages is None:
                 raise RuntimeError("release_kv() dropped this engine's pool")
             for site in ("lower", "cache", "compile"):
-                chaos.maybe_inject(site, 1)
+                chaos.maybe_inject(site, 1, path=str(_build.cache_dir())
+                                   if site == "cache" else None)
             spec = self._specs[name]
             prog = ServeProgram(spec, self._fns[spec.kind],
                                 (self.k_pages, self.v_pages))
@@ -1152,6 +1157,9 @@ def spin_up_replica(
     ``bring_up_seconds`` covers the first two, ``capture_seconds`` the
     last.  Concurrent bring-ups materialize one at a time, so replicas
     of one seed come up with equal weights whatever thread spins them.
+    On the card ``bring_up_outcomes`` holds each kernel library's
+    outcome (:func:`..ops._build.bring_up`): ``hit`` where it came from
+    the local cache or the registry, ``miss`` where nvcc built it.
 
     ``model`` is a preset name (family inferred from it) or a
     :class:`TransformerConfig` (then pass ``family``).  ``param_dtype``
@@ -1183,6 +1191,8 @@ def spin_up_replica(
                              on_complete=on_complete, on_cancel=on_cancel,
                              slo_name=slo_name)
         if dev.type == "cuda":
+            engine.bring_up_outcomes = _build.bring_up(
+                path_sources("serve"))
             build_kernel()
             torch.cuda.synchronize(dev)
         engine.bring_up_seconds = time.perf_counter() - t0

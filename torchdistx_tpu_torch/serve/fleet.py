@@ -55,11 +55,15 @@ routing, queueing and bookkeeping run beside them.  Replicas of one seed
 come up with equal weights (:func:`~.engine.spin_up_replica` serializes
 materialization).
 
+**Warm bring-up.**  A replica's only compiled artifacts are its kernel
+libraries; ``bring_up_warm`` is True when its bring-up built none with
+nvcc (each came from the local cache or the artifact registry,
+``TDX_REGISTRY_DIR``), and ``tdx.fleet.spin_up_warm_s`` then gauges its
+bring-up seconds (telemetry on).  It still records, materializes and
+captures its programs itself: the port compiles no init program.
+
 What the port does not have yet: a replica over a mesh (``mesh=`` /
-``plan=``: ROADMAP A6.6; the port's engine serves one device), and the
-artifact registry behind a warm bring-up (A8): every replica records,
-materializes and captures its programs itself, and ``bring_up_warm``
-stays False.
+``plan=``: ROADMAP A6.6; the port's engine serves one device).
 """
 
 from __future__ import annotations
@@ -1148,9 +1152,11 @@ class ServeFleet:
                     engine = self._spin_up(h)
                 h.bring_up_seconds = engine.bring_up_seconds
                 h.capture_seconds = engine.capture_seconds
-                # No registry yet (ROADMAP A8): every bring-up records,
-                # materializes and captures for itself.
-                h.bring_up_warm = False
+                h.bring_up_warm = (
+                    "miss" not in set(engine.bring_up_outcomes.values()))
+                if h.bring_up_warm and observe.enabled():
+                    observe.gauge("tdx.fleet.spin_up_warm_s").set(
+                        round(engine.bring_up_seconds, 3))
                 if self.params is None:
                     self.params = engine.model.state_dict()
                 self.version_params.setdefault(h.weight_version,

@@ -133,15 +133,15 @@ def _barrier() -> None:
         dist.barrier()
 
 
-def _any_rank(flag: bool) -> bool:
-    """Whether ``flag`` is set on any rank of the default group (a
-    collective: every rank calls it)."""
+def _any_rank(flag: bool, group=None) -> bool:
+    """Whether ``flag`` is set on any rank of ``group`` (default: the
+    default group; a collective: every rank calls it)."""
     import torch.distributed as dist
 
     dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend() == "nccl" else torch.device("cpu"))
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     t = torch.tensor([int(flag)], device=dev)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return bool(t.item())
 
 
@@ -414,6 +414,46 @@ def state_topology(state: Any) -> Optional[dict]:
         "specs": specs,
         "plan_digest": plan_digest(mesh_axes, specs),
     }
+
+
+class _Entry:
+    """A leaf-tree entry carried through :func:`_unflatten` /
+    :func:`_flatten` whole."""
+
+    def __init__(self, entry: dict) -> None:
+        self.entry = entry
+
+
+def _whole_manifest(tree: List[dict], topology: Optional[dict], group=None
+                    ) -> Tuple[List[dict], Optional[dict]]:
+    """The leaf tree and topology block of the whole checkpoint that the
+    ranks of ``group`` write together (a collective): each rank lists
+    the leaves it holds, so where the ranks hold different keys — a
+    pipeline's stages, each its own layers — the union, every key once
+    and in the flattening order; the same lists where they hold the same
+    keys (shards of one layout)."""
+    import torch.distributed as dist
+
+    if not _dist_on() or dist.get_world_size(group) == 1:
+        return tree, topology
+    parts: list = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, (tree, topology), group=group)
+    if all(part == parts[0] for part in parts):
+        return tree, topology
+    pairs = [(_parse_keystr(e["path"]), _Entry(e))
+             for part_tree, _ in parts for e in part_tree]
+    merged = [leaf.entry for _, leaf in _flatten(_unflatten(pairs))]
+    topos = [t for _, t in parts if t is not None]
+    if not topos:
+        return merged, None
+    from ..parallel.sharding import plan_digest
+
+    mesh_axes = next((t["mesh_axes"] for t in topos if t["mesh_axes"]), {})
+    specs: dict = {}
+    for t in topos:
+        specs.update(t["specs"])
+    return merged, {"mesh_axes": mesh_axes, "specs": specs,
+                    "plan_digest": plan_digest(mesh_axes, specs)}
 
 
 def write_manifest(
@@ -998,14 +1038,21 @@ def save_checkpoint(
     """Save a state (a pytree of tensors, DTensors included, or a train
     state) with DCP, every rank of the default group its own shards, then
     write the integrity manifest + commit marker (``manifest=False``
-    skips them)."""
+    skips them).  The ranks may hold different keys — each stage of a
+    pipeline its own layers under their global names, the replicated
+    embed and head on every stage — and one checkpoint holds their
+    union: the manifest lists every key once, a stage's restore reads
+    its own keys back, and one process can load it whole (``mesh=None``
+    train state as the target, or no target)."""
     path = Path(path).absolute()
     with observe.span("ckpt.save", category="ckpt", path=str(path)):
         tree = checkpoint_tree(state)
+        leaf_tree, topology = _whole_manifest(_leaf_tree(tree),
+                                              state_topology(state))
         _prepare_dir(path, force)
         _dcp_save(_flat_dict(tree), path)
         if manifest:
-            _commit(path, _leaf_tree(tree), state_topology(state))
+            _commit(path, leaf_tree, topology)
 
 
 def _stage(leaf: Any) -> Any:
@@ -1027,10 +1074,15 @@ class AsyncCheckpointSaver:
     The background write coordinates the ranks over a gloo group of its
     own, so its collectives never interleave with the training step's,
     and writes one file on one thread, leaving the host's cores to the
-    step (a sync save writes up to 8 at once).
+    step (a sync save writes up to 8 at once).  Building that group is a
+    collective: on several ranks every rank — every stage of a pipeline
+    included — constructs its saver, in the same order, and calls
+    :meth:`save` and :meth:`wait_until_finished` in step.
     A pending save COMMITS (gains its manifest + marker) at the next
-    :meth:`wait_until_finished`; until then the directory has no
-    ``TDX_COMMITTED`` and resume scans ignore it."""
+    :meth:`wait_until_finished`, once every rank's write has finished
+    (the ranks agree on that over the group first; a failed write on any
+    rank commits nothing and raises on every rank); until then the
+    directory has no ``TDX_COMMITTED`` and resume scans ignore it."""
 
     def __init__(self, *, manifest: bool = True) -> None:
         self._manifest = manifest
@@ -1056,7 +1108,8 @@ class AsyncCheckpointSaver:
         path = Path(path).absolute()
         self._join()  # one write at a time, as orbax's saver serializes
         tree = checkpoint_tree(state)
-        leaf_tree, topology = _leaf_tree(tree), state_topology(state)
+        leaf_tree, topology = _whole_manifest(
+            _leaf_tree(tree), state_topology(state), self._group)
         staged = {k: _stage(v) for k, v in _flat_dict(tree).items()}
         _prepare_dir(path, force)
 
@@ -1073,10 +1126,20 @@ class AsyncCheckpointSaver:
             self._pending.append((path, leaf_tree, topology))
 
     def wait_until_finished(self) -> None:
+        error = None
         try:
             self._join()
-        finally:
-            pending, self._pending = self._pending, []
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            error = e
+        pending, self._pending = self._pending, []
+        failed = error is not None
+        if self._group is not None:
+            failed = _any_rank(failed, self._group)
+        if error is not None:
+            raise error
+        if failed:
+            raise RuntimeError("another rank's checkpoint write failed; "
+                               "nothing was committed")
         for path, tree, topology in pending:
             if path.is_dir():  # a force-overwrite may have replaced it
                 _commit(path, tree, topology)
