@@ -10,7 +10,10 @@ fleet with its chaos, autoscaler and blue-green rollover.
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, all started together), holds each against its plain
+nvcc per source, all started together, and the native graph engine
+beside them with the host compiler: this process and every child and
+spawned rank that records loads it, or the script fails), holds each
+against its plain
 PyTorch version on the card, then drives the serving path — deferred-init
 replica bring-up straight onto the GPU, continuous batching with paged
 decode — the training path — deferred init, materialization on the
@@ -103,7 +106,13 @@ user calls, and checks what comes out.  One JSON object per line:
    times: kernel, plain version, a library yardstick
    (``scaled_dot_product_attention`` forward and its autograd backward,
    which the port never calls) and the bound; lse within 1e-5 relative
-   everywhere;
+   everywhere; then ``flash_tune``: ``tune_flash_blocks`` at the llama
+   shape for the ``fwd`` and ``bwd`` workloads (ms per step of its chain
+   for each launch shape, the winner, a second call served from its
+   cache with 0 measurements), every built launch shape held against
+   the plain versions (bfloat16 within 1e-2 normwise) with the
+   forward's and dq's kernel ms beside the default rule's, and a shape
+   the library does not build refused (``BlockConfigError``);
 7. float32 training of gpt2-125m (full size), flash attention against
    ``default_attention`` on the same weights and batches: each step-0
    gradient leaf within 1e-4 normwise, the key biases' gradient (0 in
@@ -115,8 +124,11 @@ user calls, and checks what comes out.  One JSON object per line:
    growth, 5 losses below the first, step ms, tokens/s, MFU, peak device
    memory, 2 launches of each flash kernel per step, one step against
    the same model on ``default_attention`` (loss, gradient norm and each
-   gradient leaf), and one step's device time by kernel under
-   ``torch.profiler``;
+   gradient leaf), and one step's device time by kernel under the
+   port's ``utils.profiling.trace`` with ``annotate("tdx.step")``, whose
+   Chrome trace must name the three flash kernels and the annotation;
+   the recording's call-stack walks on this path counted, natively
+   (more than 0 required);
 9. the flash kernels with a bias, and the d(bias) kernel, against the
    plain versions on the card: the bias cases of ``tests/test_ops.py``
    and cases for d(bias)'s ring of rows (one plane for 16 rows with GQA,
@@ -133,8 +145,9 @@ user calls, and checks what comes out.  One JSON object per line:
    and its autograd backward with the bias's gradient, backend named)
    and the bound;
 10. a warm bring-up from the artifact registry (``registry_warm``): the
-   port's ``warm_cache`` tool publishes the build phase's two libraries
-   from its cache into a fresh registry (the env fingerprint printed); a
+   port's ``warm_cache`` tool publishes the build phase's two kernel
+   libraries and the native graph engine from its cache into a fresh
+   registry (the env fingerprint printed); a
    fresh child with an empty ``TDX_CACHE_DIR`` and that registry takes
    gpt2-125m f32's first train step on B1-B3 against
    ``default_attention`` (each gradient leaf within 1e-4 normwise) and
@@ -172,20 +185,35 @@ user calls, and checks what comes out.  One JSON object per line:
     their own, equal to their slices of the unsharded values bit for
     bit and covering them; a real one-rank ``DeviceMesh`` (NCCL, world
     size 1, an in-memory store) equal to ``mesh=None``; the recording
-    still fake afterwards;
+    still fake afterwards; recorded again under
+    ``config.override(native=False)`` (its walks in Python) and
+    materialized bitwise equal, the host seconds of both recordings'
+    walks printed; then the login host (``login_host``): a child that
+    sees no CUDA device (``CUDA_VISIBLE_DEVICES=""``) records full-depth
+    llama3-8b and the 2-layer model of 16 claiming ``cuda`` through the
+    native walks and saves both with ``save_recording``, making no CUDA
+    context: the files' bytes, record and save s;
 15. full-depth llama3-8b recorded in f32, materialized as bf16 under
     ``decoder_lm_plan`` on a one-rank mesh in a fresh process: seconds
     from ``deferred_init`` to every value resident, bytes, GB/s, host
     RSS growth (below a quarter of the bytes) and device-memory growth
     (at most the bytes plus twice the largest entry at its recorded
-    dtype), beside the eager route's cold bring-up from phase 4;
+    dtype), beside the eager route's cold bring-up from phase 4; after
+    the timed region, the login host's full-depth recording loaded: its
+    names, shapes, dtypes and key_nrs those of this recording, the
+    embedding, a q projection and the final norm materialized from it
+    bitwise equal to this run's; the host-to-device link probe's GB/s
+    and probe size, and the materializer's rate as a share of it;
 16. the training main path through the keyed materializer in a fresh
     process: 2-layer llama3-8b width, [2, 2048], deferred_init ->
     ``materialize_module_cuda`` -> ``bind_values`` -> ``make_train_step``
     -> the first loss on the host: seconds, host RSS growth (below a
     quarter of the parameter bytes), one launch of each flash kernel per
     layer, the loss within 1e-3 relative of the same step on
-    ``default_attention`` from the same recording's values;
+    ``default_attention`` from the same recording's values; then the
+    login host's 2-layer recording loaded: its keyed values bitwise
+    equal to this recording's, every entry, and one step from them in a
+    fresh module on B1-B3 within 1e-3 of the first loss;
 17. the sharded train step on a one-rank ``{fsdp: 1, tp: 1}`` NCCL mesh
     (tensor parallelism and FSDP2 over the keyed values), gpt2-125m in
     f32, 3 steps against ``mesh=None`` from the same values: losses and
@@ -322,7 +350,10 @@ user calls, and checks what comes out.  One JSON object per line:
     gate passed, no page leaked, no program recaptured, the paged-decode
     kernel launched layers x (plain decode ticks + captures after its
     count's reset) times; spin-up and capture s per replica, the roll's
-    s per stage, the checkpoint's save s, the peak device memory;
+    s per stage, the checkpoint's save s, the peak device memory; run
+    with ``TDX_OBS_PORT=0``: while the replicas serve,
+    the daemon's ``/readyz`` (200, the serving count of the replicas),
+    ``/metrics`` (the fleet counters), ``/slo`` and ``/requests``;
 29. a mixture of experts over the sp ring (``train_moe_sp``, printed
     after ``train_pp_mesh``): Mixtral 8x7B width, 2 layers, bf16
     parameters, [2, 2048] over 4 spawned gloo ranks ``{sp 2, ep 2}``
@@ -349,6 +380,7 @@ from a directory without the port, or when any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -374,16 +406,20 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from torchdistx_tpu_torch import _graph, chaos, deferred_init, is_fake, materialize_module
+from torchdistx_tpu_torch import _graph, _native, chaos, deferred_init, is_fake, materialize_module
 from torchdistx_tpu_torch import config as tdx_config
 from torchdistx_tpu_torch import observe
+from torchdistx_tpu_torch.observe import costmodel, httpd
+from torchdistx_tpu_torch.ops import autotune
+from torchdistx_tpu_torch.serialize import load_recording, save_recording
+from torchdistx_tpu_torch.utils import profiling
 from torchdistx_tpu_torch.cuda_bridge import (
     bind_values,
     materialize_module_cuda,
     materialize_params_cuda,
     named_fake_tensors,
 )
-from torchdistx_tpu_torch.fake import get_fake_context
+from torchdistx_tpu_torch.fake import get_fake_context, is_param_like
 from torchdistx_tpu_torch.models import (
     LLAMA3_8B,
     PRESETS,
@@ -410,7 +446,9 @@ from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops import paged_attention, paged_attention_reference
 from torchdistx_tpu_torch.ops.paged_attention import kernel_plan, split_plan
 from torchdistx_tpu_torch.ops.flash_attention import (
+    BlockConfigError,
     _dense_probs,
+    built_blocks,
     _flash_forward,
     bias_launches as flash_bias_launches,
     flash_backward,
@@ -485,6 +523,8 @@ LSE_RTOL = 1e-5
 # order 1.
 BF16_NORM_RTOL = 1e-2
 SOURCES = ("paged_decode.cu", "flash_attention.cu")
+# The native graph engine: host-compiled, built beside the kernels.
+NATIVE_SOURCE = _native.SOURCE
 KERNEL_SOURCE = "torchdistx_tpu_torch/ops/csrc/paged_decode.cu"
 KERNEL_REPLACES = "torchdistx_tpu/ops/paged_attention.py:134 (_decode_kernel)"
 FLASH_SOURCE = "torchdistx_tpu_torch/ops/csrc/flash_attention.cu"
@@ -870,8 +910,11 @@ def measure(args, flush: L2Flush) -> dict:
 
 
 def build_all() -> dict:
-    """Every kernel source built at once, one nvcc each: seconds and the
-    ptxas lines (registers, shared memory, spills) per source."""
+    """Every kernel source built at once, one nvcc each, and the native
+    graph engine beside them (the host compiler): seconds and the ptxas
+    lines (registers, shared memory, spills) per source.  Then the
+    native engine is loaded in this process: it fails if its walks are
+    not on."""
 
     def one(source):
         t0 = time.perf_counter()
@@ -881,9 +924,26 @@ def build_all() -> dict:
                 "ptxas": [ln.strip() for ln in log
                           if "ptxas info" in ln or "spill" in ln]}
 
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
-        futures = {src: ex.submit(one, src) for src in SOURCES}
-    return {src: f.result() for src, f in futures.items()}
+    every = SOURCES + (NATIVE_SOURCE,)
+    with ThreadPoolExecutor(len(every)) as ex:
+        futures = {src: ex.submit(one, src) for src in every}
+    out = {src: f.result() for src, f in futures.items()}
+    outcome = _build.outcomes[NATIVE_SOURCE]
+    require_native()
+    emit({"phase": "native_build", "source": NATIVE_SOURCE,
+          "compiler": _build.cxx_version(),
+          "build_s": out[NATIVE_SOURCE]["build_s"], "outcome": outcome,
+          "available": _native.available()})
+    return out
+
+
+def require_native() -> None:
+    """Load the native graph engine in this process (building or
+    fetching it where the cache lacks it); raise unless its walks are
+    on.  Every process and child of this script that records runs it."""
+    _native.ensure()
+    if not _native.available():
+        raise AssertionError("the native graph engine is not available")
 
 
 def phase_kernel(dev, flush, build: dict) -> None:
@@ -938,7 +998,7 @@ def dbias_magnitude(q, k, v, do, lse, delta, causal, seg, bias, heads):
 
 def check_flash(args, name: str, *, causal: bool, atol: float,
                 seg=None, normwise: bool = False, bias=None,
-                heads=None) -> dict:
+                heads=None, blocks=(None, None)) -> dict:
     """The three kernels against the plain versions on the same card
     inputs; the backward kernels get the plain forward's lse and delta, so
     each kernel is held on its own (the kernel's own lse is held to the
@@ -965,19 +1025,22 @@ def check_flash(args, name: str, *, causal: bool, atol: float,
     delta) it does not shrink with the result.  ``dbias_vs_plain`` keeps
     the reading against max(1, |plain|) beside it.  Returns max |kernel
     - plain| per output, the largest scaled error and the normwise error
-    per output."""
+    per output.  ``blocks`` is the forward's and dq's launch shape
+    ``(block_q, block_k)``, the default rule's by default."""
     q, k, v, do = args
+    bq, bk = blocks
     f32 = q.dtype == torch.float32
     ref = [t.double() for t in args] if f32 else args
     r_bias = bias.double() if f32 and bias is not None else bias
     out, lse = flash_forward(q, k, v, causal=causal, segment_ids=seg,
-                             bias=bias, heads=heads)
+                             bias=bias, heads=heads, block_q=bq, block_k=bk)
     r_out, r_lse = flash_forward_reference(*ref[:3], causal, seg, r_bias,
                                            heads)
     delta = (ref[3].to(r_lse.dtype) * r_out.to(r_lse.dtype)).sum(-1)
     grads = flash_backward(q, k, v, do, r_lse.float(), delta.float(),
                            causal=causal, segment_ids=seg, bias=bias,
-                           heads=heads, want_dbias=bias is not None)
+                           heads=heads, want_dbias=bias is not None,
+                           block_q=bq, block_k=bk)
     r_grads = flash_backward_reference(*ref, r_lse, delta, causal, seg, r_bias,
                                        heads)
     dq, dk, dv = grads[:3]
@@ -1493,6 +1556,89 @@ def phase_flash_kernel(dev, flush, build: dict) -> dict:
     return rows
 
 
+# The launch-shape tuner at the training main path's attention shape.
+TUNE_SHAPE = dict(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, heads=32, kv_heads=8,
+                  head_dim=128)
+
+
+def phase_flash_tune(dev, flush) -> dict:
+    """``tune_flash_blocks`` at the llama shape (B 2, S = T = 2048, H 32,
+    KV 8, D 128, causal, bf16) for the ``fwd`` and ``bwd`` workloads into
+    a fresh cache: ms per step of its chain for each launch shape, the
+    winner, and a second call served from the cache with 0 measurements.
+    Then every built shape (the winners among them) held against the
+    plain versions in the bf16 band (normwise BF16_NORM_RTOL), with the
+    forward's and dq's kernel ms at it beside the default rule's."""
+    dtype = torch.bfloat16
+    D = TUNE_SHAPE["head_dim"]
+    tmp = tempfile.mkdtemp(prefix="tdx_tune_")
+    workloads = {}
+    try:
+        with tdx_config.override(cache_dir=tmp):
+            for wl in ("fwd", "bwd"):
+                autotune.reset_counts()
+                t = time.perf_counter()
+                win = autotune.tune_flash_blocks(**TUNE_SHAPE, causal=True,
+                                                 dtype=dtype, workload=wl)
+                tune_s = time.perf_counter() - t
+                timings = dict(autotune.last_timings)
+                measured = autotune.measurements
+                again = autotune.tune_flash_blocks(**TUNE_SHAPE, causal=True,
+                                                   dtype=dtype, workload=wl)
+                if again != win or autotune.measurements != measured:
+                    raise AssertionError(f"{wl}: the second call measured "
+                                         f"{autotune.measurements - measured}"
+                                         f" candidates, returned {again}")
+                workloads[wl] = {
+                    "winner": list(win), "tune_s": tune_s,
+                    "measured": measured, "second_call_measurements": 0,
+                    "chain_ms_per_step": {f"{bq}x{bk}": t * 1e3
+                                          for (bq, bk), t in timings.items()}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    B, S, H, KV = (TUNE_SHAPE[k] for k in ("batch", "seq_len", "heads",
+                                           "kv_heads"))
+    args = flash_case(11, B=B, S=S, H=H, KV=KV, D=D, dtype=dtype, dev=dev)
+    q, k, v, do = args
+    shapes = {}
+    for bq, bk in built_blocks(dtype, D):
+        errs = check_flash(args, f"llama3-8b-{bq}x{bk}", causal=True,
+                           atol=ATOL[dtype], normwise=True, blocks=(bq, bk))
+        out, lse = flash_forward(q, k, v, causal=True, block_q=bq, block_k=bk)
+        delta = (do.float() * out.float()).sum(-1)
+        shapes[f"{bq}x{bk}"] = {
+            "warps": bq // 16, "normwise": errs["normwise"],
+            "flash_fwd_ms": time_ms(lambda: flash_forward(
+                q, k, v, causal=True, block_q=bq, block_k=bk), flush),
+            "flash_bwd_dq_ms": time_ms(lambda: flash_backward_dq(
+                q, k, v, do, lse, delta, causal=True, block_q=bq,
+                block_k=bk), flush)}
+    out, lse = flash_forward(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    default = {"warps": 4,
+               "flash_fwd_ms": time_ms(lambda: flash_forward(
+                   q, k, v, causal=True), flush),
+               "flash_bwd_dq_ms": time_ms(lambda: flash_backward_dq(
+                   q, k, v, do, lse, delta, causal=True), flush)}
+    try:
+        flash_forward(q[:, :64, :64].contiguous(), k[:, :64, :64].contiguous(),
+                      v[:, :64, :64].contiguous(), causal=True, block_q=128,
+                      block_k=64)
+        raise AssertionError("a block the library does not build launched")
+    except BlockConfigError as e:
+        refused = str(e)[:200]
+    row = {"phase": "flash_tune", "card": nvidia_smi(),
+           "shape": {**TUNE_SHAPE, "causal": True, "dtype": "bfloat16"},
+           "workloads": workloads, "built_blocks": shapes,
+           "default_rule": default,
+           "limit": f"||kernel - plain|| / ||plain|| <= {BF16_NORM_RTOL}",
+           "unbuilt_block_refused": refused}
+    emit(row)
+    del args, q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the flash kernels with a bias, and the d(bias) kernel
 # ---------------------------------------------------------------------------
@@ -1894,8 +2040,9 @@ def registry_heal_child(tmp: str) -> None:
 
 def phase_registry_warm(dev, build: dict) -> dict:
     """The warm bring-up: the ``warm_cache`` tool publishes the build
-    phase's two libraries from its cache into a fresh registry; a fresh
-    child with an empty cache trains and serves from it (gpt2-125m f32:
+    phase's two kernel libraries and the native graph engine from its
+    cache into a fresh registry; a fresh child with an empty cache
+    fetches all three and trains and serves from them (gpt2-125m f32:
     one step of B1-B3 against ``default_attention`` at the f32 limits, a
     2-replica fleet token-exact and warm) with 0 nvcc builds; a second
     child under ``cache@1=corrupt`` heals from the registry, bitwise.
@@ -1908,10 +2055,12 @@ def phase_registry_warm(dev, build: dict) -> dict:
         warm = warm_tool("--model", "gpt2-125m",
                          "--cache-dir", str(_build.cache_dir()),
                          "--registry-dir", reg)
-        if warm["unwarmed"] or len(warm["program_reports"]) != len(SOURCES):
+        # The kernel libraries and the native graph engine.
+        n_libs = len(SOURCES) + 1
+        if warm["unwarmed"] or len(warm["program_reports"]) != n_libs:
             raise AssertionError(f"warm_cache: {warm['program_reports']}")
         keys = sorted(os.listdir(reg))
-        if len(keys) != len(SOURCES):
+        if len(keys) != n_libs:
             raise AssertionError(f"registry holds {keys}")
         env = {**os.environ, "TDX_CACHE_DIR": f"{root}/cache",
                "TDX_REGISTRY_DIR": reg}
@@ -1920,7 +2069,7 @@ def phase_registry_warm(dev, build: dict) -> dict:
                           env=env)
         first_loss_s = child["train"]["first_loss_at"] - launched
         if child["build_counts"]["builds"] != 0 or \
-                child["build_counts"]["fetches"] != len(SOURCES) or \
+                child["build_counts"]["fetches"] != n_libs or \
                 set(child["outcomes"].values()) != {"hit"}:
             raise AssertionError(f"warm child: {child['build_counts']}, "
                                  f"{child['outcomes']}")
@@ -2288,15 +2437,34 @@ def run_child(func: str, *args, timeout: float = 600, env=None) -> dict:
     ``env``, default this one's), which prints its figures as its last
     JSON line: work there pays the CUDA context and library loads that a
     new replica or trainer pays.  The kernel libraries are already built
-    on disk by then."""
+    on disk by then; the child loads the native graph engine first
+    (:func:`require_native`)."""
+    return join_child(start_child(func, *args, env=env), timeout)
+
+
+def start_child(func: str, *args, env=None) -> tuple:
+    """:func:`run_child` started, for :func:`join_child` (which this
+    process must call: it stops a child that outlives its timeout)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    code = f"import chip_smoke; chip_smoke.{func}(*{args!r})"
-    proc = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
-                          capture_output=True, text=True, timeout=timeout)
+    code = (f"import chip_smoke; chip_smoke.require_native(); "
+            f"chip_smoke.{func}(*{args!r})")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return func, proc
+
+
+def join_child(handle: tuple, timeout: float = 600) -> dict:
+    func, proc = handle
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"{func} exited {proc.returncode}: {proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+        raise RuntimeError(f"{func} exited {proc.returncode}: {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def decode_tokens_per_s(eng, reqs) -> dict:
@@ -3050,18 +3218,41 @@ def cold_first_step() -> None:
     emit(stats)
 
 
-def profile_step(model: str, step, classify=None) -> dict:
+def profile_step(model: str, step, classify=None, trace_names=()) -> dict:
     """One more training step (``step()``) under ``torch.profiler``:
     device time by kernel, and the flash kernels' share of it; with
     ``classify``, the profile is taken with the ops' input shapes and
-    ``classify(prof)`` is added as ``split``."""
+    ``classify(prof)`` is added as ``split``.  With ``trace_names`` the
+    step runs under the port's ``utils.profiling.trace`` and
+    ``annotate("tdx.step")`` instead, and its Chrome trace must name
+    each of them and the annotation."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=classify is not None) as prof:
-        step()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tdx_trace_") if trace_names else None
+    if trace_names:
+        ctx = profiling.trace(tmp)
+    else:
+        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      record_shapes=classify is not None)
+    with ctx as prof:
+        with (profiling.annotate("tdx.step") if trace_names
+              else contextlib.nullcontext()):
+            step()
         torch.cuda.synchronize()
+    traced = None
+    if trace_names:
+        path = profiling.last_trace_path()
+        names = {e.get("name", "") for e in json.load(open(path))["traceEvents"]}
+        missing = [n for n in (*trace_names, "tdx.step")
+                   if not any(n in x for x in names)]
+        traced = {"trace_bytes": os.path.getsize(path), "named": not missing,
+                  "names": list(trace_names) + ["tdx.step"],
+                  "step_traced_and_read_s": time.perf_counter() - t0}
+        shutil.rmtree(tmp, ignore_errors=True)
+        if missing:
+            raise AssertionError(f"the profiler's trace lacks {missing}")
     kernels = []
     for evt in prof.key_averages():
         # Device kernels only: a user annotation such as
@@ -3092,6 +3283,8 @@ def profile_step(model: str, step, classify=None) -> dict:
            "device_ms_by_kind": by_kind,
            "top_kernels": [{"name": k[2][:90], "ms": k[0], "launches": k[1]}
                            for k in kernels[:12]]}
+    if traced is not None:
+        row["utils_profiling_trace"] = traced
     if classify is not None:
         row["split"] = classify(prof)
     return row
@@ -3192,7 +3385,11 @@ def phase_train_bf16_full(dev) -> dict:
     cold = run_child("cold_first_step")
     torch.cuda.reset_peak_memory_stats()
     reset_flash_launches()
+    _native.reset_walks()
     state, train_step, shard_batch, warm = first_step(dev)
+    walks = dict(_native.walks)
+    if not walks["native"]:
+        raise AssertionError(f"the main path's walks: {walks}")
     batch = shard_batch(train_batch())
     losses, step_s = [warm["first_loss"]], []
     for _ in range(4):
@@ -3237,9 +3434,12 @@ def phase_train_bf16_full(dev) -> dict:
                             "S^2 x D (causal attention, fwd + bwd)",
            "mfu": flops / step / PEAK_FLOPS[torch.bfloat16],
            "max_memory_allocated_bytes": peak, "flash_launches": launches,
-           "vs_default_attention": vs_plain}
+           "graph_walks": walks, "vs_default_attention": vs_plain}
     emit(row)
-    emit(profile_step("llama3-8b", lambda: train_step(state, batch)))
+    emit(profile_step("llama3-8b", lambda: train_step(state, batch),
+                      trace_names=("flash_fwd_bf16_kernel",
+                                   "flash_dq_bf16_kernel",
+                                   "flash_dkv_bf16_kernel")))
     del state
     torch.cuda.empty_cache()
     return row
@@ -3745,6 +3945,7 @@ def phase_materialize_invariance(dev) -> dict:
         dist.destroy_process_group()
     if not all(is_fake(f) for f in named_fake_tensors(model).values()):
         raise AssertionError("the recording was consumed")
+    native_vs_python = walk_engines(model, a, cfg, dev)
     param_bytes = sum(v.numel() * v.element_size() for v in a.values())
     row = {"phase": "materialize_invariance", "model": "gpt2-125m",
            "dtype": "float32", "entries": len(a), "random_entries": len(random),
@@ -3756,14 +3957,48 @@ def phase_materialize_invariance(dev) -> dict:
            "eager_std_limit": f"<= {STD_RTOL} for n >= {STD_MIN_NUMEL}",
            "virtual_meshes": meshes,
            "one_rank_nccl_mesh_equals_unsharded": True,
-           "still_fake": True}
+           "still_fake": True, "native_vs_python": native_vs_python}
     emit(row)
     del a
     torch.cuda.empty_cache()
     return row
 
 
-def materialize_llama3_8b() -> None:
+def walk_seconds(fakes: dict) -> float:
+    """Host seconds of the call-stack walks of every entry."""
+    t = time.perf_counter()
+    for f in fakes.values():
+        get_fake_context(f, _graph.CONTEXT_KEY).node.build_call_stack()
+    return time.perf_counter() - t
+
+
+def walk_engines(model, values: dict, cfg, dev) -> dict:
+    """gpt2-125m recorded again under ``config.override(native=False)``
+    (its walks in Python) and materialized: bitwise equal to the native
+    recording's ``values``; the host seconds of both recordings' walks."""
+    start = time.perf_counter()
+    native_s = walk_seconds(named_fake_tensors(model))
+    if get_fake_context(next(iter(named_fake_tensors(model).values())),
+                        _graph.CONTEXT_KEY).node._ng is None:
+        raise AssertionError("the native recording has no native graph")
+    with tdx_config.override(native=False):
+        py_model = deferred_init(make_gpt2, cfg, device=dev)
+        before = _native.walks["python"]
+        py_values = materialize_module_cuda(py_model, seed=0, device=dev)
+        python_walks = _native.walks["python"] - before
+        python_s = walk_seconds(named_fake_tensors(py_model))
+    if not python_walks:
+        raise AssertionError("the native=False recording walked natively")
+    unequal = [n for n in values if not torch.equal(values[n], py_values[n])]
+    if unequal or list(py_values) != list(values):
+        raise AssertionError(f"native and Python walks differ: {unequal[:4]}")
+    return {"bitwise": True, "entries": len(values),
+            "walk_s_native": native_s, "walk_s_python": python_s,
+            "python_walks": python_walks,
+            "check_s": time.perf_counter() - start}
+
+
+def materialize_llama3_8b(rec_dir=None) -> None:
     """Full-depth llama3-8b recorded in f32, materialized as bf16 by
     ``materialize_module_cuda`` under ``decoder_lm_plan`` on a one-rank
     NCCL mesh, as the first CUDA work of a fresh process after its CUDA
@@ -3809,6 +4044,11 @@ def materialize_llama3_8b() -> None:
                 raise AssertionError(f"{n}: {v.dtype} {tuple(v.shape)}")
             if v.is_floating_point() and not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"{n} is not finite")
+        # After the timed region: the login host's recording, and the
+        # link probe.
+        travel = (travel_full_depth(rec_dir, fakes, local,
+                                    nbytes / seconds / 1e9)
+                  if rec_dir else None)
     finally:
         dist.destroy_process_group()
     emit({"phase": "materialize_llama3_8b", "model": "llama3-8b",
@@ -3822,18 +4062,180 @@ def materialize_llama3_8b() -> None:
           "host_rss_limit_bytes": nbytes / 4,
           "max_memory_allocated_growth_bytes": peak,
           "device_limit_bytes": nbytes + 2 * largest,
-          "largest_entry_bytes": largest})
+          "largest_entry_bytes": largest, "walks": dict(_native.walks),
+          "login_host_recording": travel, "card": nvidia_smi()})
 
 
-def phase_materialize_llama3_8b(eager_row) -> dict:
+def phase_materialize_llama3_8b(eager_row, rec_dir) -> dict:
     torch.cuda.empty_cache()
-    row = run_child("materialize_llama3_8b")
+    row = run_child("materialize_llama3_8b", rec_dir)
+    if rec_dir and not row["login_host_recording"]:
+        raise AssertionError("the login host's recording was not checked")
     row["eager_bring_up_s_cold"] = (eager_row or {}).get("bring_up_s_cold")
     emit(row)
     return row
 
 
-def first_step_materialized() -> None:
+# The login host: no CUDA device visible to the child that records.
+LOGIN_ENV = {"CUDA_VISIBLE_DEVICES": ""}
+# What the full-depth loaded recording materializes on the card: the
+# embedding, one layer's q projection and the final norm.
+TRAVEL_SAMPLE = ("embed.weight", "blocks.0.attn.wq.weight", "final_norm.scale")
+
+
+def login_host_record(tmp: str) -> None:
+    """The login host (a child that sees no CUDA device): full-depth
+    llama3-8b and the 2-layer ``TRAIN_CFG`` model (with the flash
+    attention function) recorded claiming ``cuda`` through the native
+    walks and saved with ``save_recording`` into ``tmp``; no CUDA
+    context is made.  Prints the files' bytes and the record and save
+    seconds as one JSON line."""
+    if torch.cuda.is_available():
+        raise AssertionError("the login host sees a CUDA device")
+    _native.reset_walks()
+    row = {"phase": "login_host", "cuda_visible_devices":
+           os.environ.get("CUDA_VISIBLE_DEVICES"), "files": {}}
+    for name, cfg, kw in (("llama3-8b", LLAMA3_8B, {}),
+                          ("train_cfg", TRAIN_CFG,
+                           {"attn_fn": make_flash_attention()})):
+        t0 = time.perf_counter()
+        model = deferred_init(make_llama, cfg, device="cuda", **kw)
+        recorded = time.perf_counter() - t0
+        fakes = named_fake_tensors(model)
+        if {f.device.type for f in fakes.values()} != {"cuda"}:
+            raise AssertionError(f"{name}: fakes claim "
+                                 f"{ {f.device.type for f in fakes.values()} }")
+        path = f"{tmp}/{name}.tdx"
+        t0 = time.perf_counter()
+        save_recording(model, path)
+        saved = time.perf_counter() - t0
+        row["files"][name] = {"n_layers": cfg.n_layers, "entries": len(fakes),
+                              "bytes": os.path.getsize(path),
+                              "record_s": recorded, "save_s": saved}
+        del model, fakes
+    if torch.cuda.is_initialized():
+        raise AssertionError("the login host made a CUDA context")
+    if not _native.walks["native"]:
+        raise AssertionError(f"the login host's walks: {_native.walks}")
+    row.update(cuda_initialized=False, walks=dict(_native.walks))
+    emit(row)
+
+
+def start_login_host() -> tuple:
+    """:func:`login_host_record` started in a child that sees no CUDA
+    device, into a fresh directory: it uses the host only, so it runs
+    beside the flash phases before ``login_host``."""
+    tmp = tempfile.mkdtemp(prefix="tdx_login_")
+    return tmp, start_child("login_host_record", tmp,
+                            env={**os.environ, **LOGIN_ENV})
+
+
+def phase_login_host(started) -> str:
+    """The login-host child's line; the directory of its two recordings
+    (removed by the caller)."""
+    tmp, handle = started
+    t0 = time.perf_counter()
+    row = join_child(handle, CHILD_TIMEOUT_S)
+    row["waited_s"] = time.perf_counter() - t0
+    emit(row)
+    return tmp
+
+
+def entry_key_nrs(fakes: dict) -> dict:
+    """Each entry's producing op's ``key_nr``."""
+    return {n: get_fake_context(f, _graph.CONTEXT_KEY).node.key_nr
+            for n, f in fakes.items()}
+
+
+def travel_full_depth(rec_dir: str, fakes: dict, values: dict,
+                      gb_per_s: float) -> dict:
+    """The login host's full-depth recording against this process's: the
+    same names, shapes, dtypes and key_nrs; the sampled entries
+    materialized from the loaded fakes (telemetry on, after the link
+    probe: the span's link utilization) bitwise equal to this process's
+    values.  Then the link probe's GB/s and the timed run's utilization."""
+    start = t0 = time.perf_counter()
+    loaded = load_recording(f"{rec_dir}/llama3-8b.tdx")
+    load_s = time.perf_counter() - t0
+    if list(loaded) != list(fakes):
+        raise AssertionError("the loaded recording's names differ")
+    for n, f in loaded.items():
+        g = fakes[n]
+        if (f.shape, f.dtype, is_param_like(f)) != (g.shape, g.dtype,
+                                                     is_param_like(g)):
+            raise AssertionError(f"{n}: loaded {f.shape} {f.dtype}")
+    if entry_key_nrs(loaded) != entry_key_nrs(fakes):
+        raise AssertionError("the loaded recording's key_nrs differ")
+    t0 = time.perf_counter()
+    link = costmodel.link_bandwidth_gbps()
+    probe_s = time.perf_counter() - t0
+    if not link:
+        raise AssertionError("the link probe failed")
+    observe.enable(True)
+    try:
+        sample = materialize_params_cuda(
+            {n: loaded[n] for n in TRAVEL_SAMPLE}, seed=0,
+            param_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        (span,) = [e for e in observe.tracer().events
+                   if e.get("ph") == "X" and e["name"] == "materialize"]
+    finally:
+        observe.enable(None)
+        observe.reset()
+    for n in TRAVEL_SAMPLE:
+        if not torch.equal(sample[n], values[n]):
+            raise AssertionError(f"{n}: the loaded recording's value differs")
+    if not span["args"].get("link_utilization"):
+        raise AssertionError(f"materialize span: {span['args']}")
+    return {"names_shapes_dtypes_key_nrs_equal": True,
+            "bitwise_entries": list(TRAVEL_SAMPLE), "load_s": load_s,
+            "link_gbps": link, "link_probe_mb": costmodel.link_probe_size_mb(),
+            "link_probe_s": probe_s,
+            "materialize_link_utilization": gb_per_s / link,
+            "sample_span": {k: span["args"][k] for k in (
+                "bytes", "gbps", "link_utilization")},
+            "check_s": time.perf_counter() - start}
+
+
+def travel_first_step(rec_dir: str, fakes: dict, batch, loss: float,
+                      dev) -> dict:
+    """The login host's 2-layer recording, loaded: its keyed values under
+    seed 0 bitwise equal to this process's own recording's, every entry
+    and name; bound into a fresh module on the flash kernels, one step's
+    loss within ``FIRST_STEP_LOSS_RTOL`` of the measured first loss."""
+    start = t0 = time.perf_counter()
+    loaded = load_recording(f"{rec_dir}/train_cfg.tdx")
+    load_s = time.perf_counter() - t0
+    got = materialize_params_cuda(loaded, seed=0)
+    want = materialize_params_cuda(fakes, seed=0, device=dev)
+    if list(got) != list(want):
+        raise AssertionError("the loaded recording's names differ")
+    unequal = [n for n in want if not torch.equal(got[n], want[n])]
+    if unequal:
+        raise AssertionError(f"loaded values differ: {unequal[:4]}")
+    del want
+    fresh = deferred_init(make_llama, TRAIN_CFG,
+                          attn_fn=make_flash_attention(), device=dev)
+    bind_values(fresh, got)
+    del got
+    init_state, train_step, shard_batch = make_train_step(
+        fresh, TRAIN_CFG, device=dev)
+    reset_flash_launches()
+    _, metrics = train_step(init_state(fresh), shard_batch(batch))
+    travel_loss = float(metrics["loss"])
+    rel = abs(travel_loss - loss) / abs(loss)
+    if not (math.isfinite(travel_loss) and rel <= FIRST_STEP_LOSS_RTOL):
+        raise AssertionError(f"the loaded recording's loss {travel_loss} vs "
+                             f"{loss}")
+    if any(flash_launches[k] != TRAIN_CFG.n_layers for k in FLASH_REPLACES):
+        raise AssertionError(f"flash launches {dict(flash_launches)}")
+    return {"entries_bitwise": len(loaded), "load_s": load_s,
+            "loss": travel_loss, "first_loss": loss, "loss_rel": rel,
+            "loss_limit": FIRST_STEP_LOSS_RTOL,
+            "check_s": time.perf_counter() - start}
+
+
+def first_step_materialized(rec_dir=None) -> None:
     """The training main path through the keyed materializer, as the
     first CUDA work of a fresh process: deferred_init of 2-layer
     llama3-8b width with the flash kernels -> ``materialize_module_cuda``
@@ -3879,6 +4281,12 @@ def first_step_materialized() -> None:
     if not (math.isfinite(loss) and rel <= FIRST_STEP_LOSS_RTOL):
         raise AssertionError(f"first loss {loss} vs default_attention "
                              f"{p_loss}")
+    travel = None
+    if rec_dir:
+        del state, init_state, train_step, plain, p_init, p_step, _, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        travel = travel_first_step(rec_dir, fakes, batch, loss, dev)
     emit({"phase": "first_step_materialized", "model": "llama3-8b",
           "n_layers": TRAIN_CFG.n_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
           "dtype": "bfloat16 compute, float32 parameters",
@@ -3887,12 +4295,15 @@ def first_step_materialized() -> None:
           "first_loss": loss, "default_attention_loss": p_loss,
           "loss_rel": rel, "loss_limit": FIRST_STEP_LOSS_RTOL,
           "flash_launches": launches, "param_bytes": param_bytes,
-          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth})
+          "host_rss_peak_bytes": rss.peak, "host_rss_growth_bytes": growth,
+          "login_host_recording": travel})
 
 
-def phase_first_step_materialized() -> dict:
+def phase_first_step_materialized(rec_dir) -> dict:
     torch.cuda.empty_cache()
-    row = run_child("first_step_materialized")
+    row = run_child("first_step_materialized", rec_dir)
+    if rec_dir and not row["login_host_recording"]:
+        raise AssertionError("the login host's recording did not travel")
     emit(row)
     return row
 
@@ -5010,6 +5421,7 @@ def _sp_rank(rank: int, world: int, tmp: str, func: str, args) -> None:
     import faulthandler
 
     faulthandler.enable()  # a rank that dies on a signal shows where
+    require_native()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6674,12 +7086,14 @@ def fleet_watch(fl, seen: dict) -> None:
             rec["h"] = None
 
 
-def fleet_drive(fl, reqs, seen: dict, until=None, plan=None) -> int:
+def fleet_drive(fl, reqs, seen: dict, until=None, plan=None,
+                probe=None) -> int:
     """Submit ``reqs`` at their ticks and tick until every one is done
     and ``until()`` holds; every replica the fleet ran is kept in
     ``seen``.  ``plan`` is installed once 3 replicas serve, so its kill
-    lands after the scale-up.  Returns the most replicas serving at
-    once."""
+    lands after the scale-up; ``probe()`` runs once, at the first tick
+    with 2 replicas serving and requests in flight.  Returns the most
+    replicas serving at once."""
     base, most, i = fl._tick_no, 0, 0
     deadline = time.monotonic() + FLEET_TIMEOUT_S
     while i < len(reqs) or fl._pending or (until and not until()):
@@ -6688,7 +7102,11 @@ def fleet_drive(fl, reqs, seen: dict, until=None, plan=None) -> int:
             i += 1
         fl.tick()
         fleet_watch(fl, seen)
-        most = max(most, sum(1 for h in fl.handles if h.state == "serving"))
+        serving = sum(1 for h in fl.handles if h.state == "serving")
+        most = max(most, serving)
+        if probe is not None and serving >= 2 and fl._pending:
+            probe()
+            probe = None
         if plan is not None and most >= 3:
             chaos.install(plan)
             plan = None
@@ -6697,6 +7115,54 @@ def fleet_drive(fl, reqs, seen: dict, until=None, plan=None) -> int:
                                f"{FLEET_TIMEOUT_S} s")
         time.sleep(0.001)
     return most
+
+
+def http_get(url: str):
+    """(status, body bytes) of a GET; an HTTP error is an answer."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def scrape_live(fl) -> dict:
+    """The telemetry daemon's endpoints while the fleet serves: /readyz
+    200 with the serving count of the fleet's replicas, /metrics with
+    the fleet counters, /slo and /requests as JSON."""
+    srv = httpd.get_server()
+    if srv is None or not srv.is_alive():
+        raise AssertionError("no telemetry daemon with TDX_OBS_PORT=0")
+    t0 = time.perf_counter()
+    for _ in range(5):  # a replica may change state during the scrape
+        before = sum(1 for h in fl.handles if h.state == "serving")
+        status, body = http_get(srv.url("/readyz"))
+        after = sum(1 for h in fl.handles if h.state == "serving")
+        if before == after:
+            break
+    ready = json.loads(body)
+    if status != 200 or ready["fleet"]["serving"] != before:
+        raise AssertionError(f"/readyz {status}: {ready.get('fleet')} with "
+                             f"{before} replicas serving")
+    status, metrics = http_get(srv.url("/metrics"))
+    fleet_lines = [ln for ln in metrics.decode().splitlines()
+                   if ln.startswith("tdx_fleet_")]
+    if status != 200 or not fleet_lines:
+        raise AssertionError(f"/metrics {status}: no fleet counters")
+    out = {"port": srv.port, "readyz": status, "serving": before,
+           "replicas_listed": sorted(ready["fleet"]["replicas"]),
+           "metrics_fleet_lines": len(fleet_lines)}
+    for path in ("/slo", "/requests"):
+        status, body = http_get(srv.url(path))
+        doc = json.loads(body)
+        if status != 200 or not isinstance(doc, dict):
+            raise AssertionError(f"{path} {status}")
+        out[path[1:]] = {"status": status, "keys": sorted(doc)}
+    out["scrape_s"] = time.perf_counter() - t0
+    return out
 
 
 def fleet_check_oracle(fl, reqs) -> float:
@@ -6771,7 +7237,16 @@ def phase_fleet(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     threads: list = []
-    row = fleet_run(dev, threads)
+    # TDX_OBS_PORT=0 for the fleet: the telemetry daemon on an ephemeral
+    # port, armed by the fleet's first counter (the earlier phases'
+    # arming is undone first) and scraped while the replicas serve.
+    observe.stop_background()
+    tdx_config.set_flags(obs_port=0)
+    try:
+        row = fleet_run(dev, threads)
+    finally:
+        observe.stop_background()
+        tdx_config.set_flags(obs_port=None)
     for th in threads:
         th.join(timeout=60.0)
         if th.is_alive():
@@ -6815,12 +7290,17 @@ def fleet_run(dev, threads: list) -> dict:
         paged_attention.launches = paged_attention.merge_launches = 0
         reset_flash_launches()
         storm = fleet_requests("s", FLEET_STORM, seed=91)
+        live: dict = {}
         try:
             t = time.perf_counter()
-            most = fleet_drive(fl, storm, seen, plan=FLEET_PLAN)
+            most = fleet_drive(fl, storm, seen, plan=FLEET_PLAN,
+                               probe=lambda: live.update(scrape_live(fl)))
             storm_s = time.perf_counter() - t
         finally:
             chaos.clear()
+        if not live:
+            raise AssertionError("fleet: the telemetry daemon was not "
+                                 "scraped while the replicas served")
         if 2 in {h.idx for h in fl.handles} or seen[2]["state"] != "failed":
             raise AssertionError(f"fleet: replica 2 not killed "
                                  f"({seen[2]['state']})")
@@ -6881,7 +7361,8 @@ def fleet_run(dev, threads: list) -> dict:
                "replicas": {f"r{i}": {k: rec[k] for k in (
                    "state", "version", "spin_up_s", "capture_s")}
                    for i, rec in sorted(seen.items())},
-               "storm_s": storm_s, "checkpoint": ckpt,
+               "storm_s": storm_s, "live_telemetry": live,
+               "checkpoint": ckpt,
                "rollover": ctl.digest(), "canary_gate": "passed",
                "paged_decode_launches": launches,
                "paged_merge_launches": paged_attention.merge_launches,
@@ -7453,8 +7934,12 @@ def main() -> int:
 
     builds = run("build", build_all) or {}
     run("kernel", phase_kernel, dev, flush, builds.get("paged_decode.cu", {}))
+    # The login host records beside the phases that follow, on the host
+    # only, after the paged-decode timings its host work could perturb.
+    login = start_login_host()
     flash_rows = run("flash_kernel", phase_flash_kernel, dev, flush,
                      builds.get("flash_attention.cu", {}))
+    run("flash_tune", phase_flash_tune, dev, flush)
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
     registry_row = run("registry_warm", phase_registry_warm, dev, builds)
     run("serve_f32_exact", phase_exact_f32, dev)
@@ -7471,8 +7956,14 @@ def main() -> int:
     t5_row = run("t5_train_bf16", phase_t5_train_bf16, dev)
     run("t5_11b_full_depth", phase_t5_11b_full_depth)
     run("materialize_invariance", phase_materialize_invariance, dev)
-    run("materialize_llama3_8b", phase_materialize_llama3_8b, main_row)
-    run("first_step_materialized", phase_first_step_materialized)
+    rec_dir = run("login_host", phase_login_host, login)
+    try:
+        run("materialize_llama3_8b", phase_materialize_llama3_8b, main_row,
+            rec_dir)
+        run("first_step_materialized", phase_first_step_materialized,
+            rec_dir)
+    finally:
+        shutil.rmtree(login[0], ignore_errors=True)
     run("train_mesh_exact", phase_train_mesh_exact, dev)
     sharded_row = run("first_step_sharded", phase_first_step_sharded)
     mixtral_row = run("mixtral_train_bf16", phase_mixtral_train_bf16, dev)

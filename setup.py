@@ -82,14 +82,16 @@ setup(
         "record init, materialize sharded into TPU HBM via XLA"
     ),
     # torchdistx_tpu_torch is the PyTorch/CUDA port; its CUDA sources ship
-    # as package data and are compiled by nvcc at first use.
+    # as package data and are compiled by nvcc at first use, its native
+    # graph engine's C++ sources by the host compiler.
     packages=find_packages(include=[
         "torchdistx_tpu", "torchdistx_tpu.*",
         "torchdistx_tpu_torch", "torchdistx_tpu_torch.*",
     ]),
     package_data={
         "torchdistx_tpu": ["_lib/*.so", "py.typed"],
-        "torchdistx_tpu_torch": ["ops/csrc/*.cu"],
+        "torchdistx_tpu_torch": ["ops/csrc/*.cu", "csrc/*.cc",
+                                 "csrc/include/*.h"],
     },
     python_requires=">=3.10",
     install_requires=[

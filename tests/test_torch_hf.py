@@ -1,5 +1,7 @@
 """The Hugging Face path of the keyed materializer (``hf.deferred_init_from_config``
--> ``hf.materialize_sharded``) against the JAX package's, both param dtypes.
+-> ``hf.materialize_sharded``) against the JAX package's, both param dtypes;
+and an HF model's recording saved and loaded (``serialize``), the HF case
+of the JAX package's ``tests/test_serialize.py``.
 
 Kept apart from ``test_torch_materialize.py`` so that neither file holds
 more than 9 tests: pytest-xdist's ``--dist loadfile`` starts the files
@@ -36,3 +38,22 @@ def test_hf_gpt2_through_both_hf_layers():
         want = ref_hf.materialize_sharded(ref, param_dtype=jax_dtype)
         _compare_with_jax(fakes, port, want, param_dtype)
     assert all(is_fake(p) for p in ours.parameters())
+
+
+def test_hf_gpt2_recording_roundtrip(tmp_path):
+    transformers = pytest.importorskip("transformers")
+    from torchdistx_tpu_torch import deferred_init
+    from torchdistx_tpu_torch.cuda_bridge import materialize_params_cuda
+    from torchdistx_tpu_torch.serialize import load_recording, save_recording
+
+    cfg = transformers.GPT2Config(n_layer=1, n_head=2, n_embd=32,
+                                  vocab_size=128, n_positions=32)
+    m = deferred_init(transformers.GPT2LMHeadModel, cfg)
+    save_recording(m, tmp_path / "gpt2.tdx")
+    loaded = load_recording(tmp_path / "gpt2.tdx")
+    params = materialize_params_cuda(loaded, seed=0, device="cpu")
+    assert params["transformer.wte.weight"].shape == (128, 32)
+    assert all(torch.isfinite(v).all() for v in params.values()
+               if v.is_floating_point())
+    want = materialize_params_cuda(named_fake_tensors(m), seed=0, device="cpu")
+    assert all(torch.equal(params[n], want[n]) for n in want)

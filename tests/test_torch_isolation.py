@@ -38,6 +38,11 @@ def test_importing_the_port_loads_no_jax():
         "torchdistx_tpu_torch.observe.reqledger, "
         "torchdistx_tpu_torch.observe.slo, "
         "torchdistx_tpu_torch.observe.health, "
+        "torchdistx_tpu_torch.observe.httpd, "
+        "torchdistx_tpu_torch.observe.costmodel, "
+        "torchdistx_tpu_torch.serialize, torchdistx_tpu_torch._native, "
+        "torchdistx_tpu_torch.utils.profiling, "
+        "torchdistx_tpu_torch.ops.autotune, "
         "torchdistx_tpu_torch.registry, torchdistx_tpu_torch.tools, "
         "torchdistx_tpu_torch.tools.reshard_ctl, "
         "torchdistx_tpu_torch.tools.warm_cache, "
@@ -62,7 +67,9 @@ def test_sources_import_no_jax():
             "observe/health.py", "registry/__init__.py", "registry/store.py",
             "registry/scheduler.py", "tools/__init__.py",
             "tools/reshard_ctl.py", "tools/warm_cache.py",
-            "tools/registry_ctl.py"} <= scanned
+            "tools/registry_ctl.py", "serialize.py", "_native.py",
+            "observe/httpd.py", "utils/profiling.py",
+            "ops/autotune.py"} <= scanned
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
     assert offenders == []

@@ -233,12 +233,14 @@ def test_warm_cache_tool_reports_and_exit_status(stub, tmp_path, capsys,
                      str(tmp_path / "a"), "--registry-dir", reg])
     cap = capsys.readouterr()
     summary = json.loads(cap.out.strip().splitlines()[-1])
-    assert summary["outcomes"] == {"published": 2}
+    # The two kernel libraries and the host-compiled native graph engine.
+    assert summary["outcomes"] == {"published": 3}
     assert summary["env"]["nvcc"].endswith("stub")
     assert summary["model"] == "gpt2-125m" and summary["path"] == "all"
     lines = [ln for ln in cap.err.splitlines() if ln.startswith("warm: ")]
     assert [ln.split()[1] for ln in lines] == [
-        "program=flash_attention", "program=paged_decode"]
+        "program=flash_attention", "program=tdx_graph",
+        "program=paged_decode"]
     assert all("outcome=published" in ln for ln in lines)
     stub()
     warm_cache.main(["--decode", "--cache-dir", str(tmp_path / "b"),
@@ -278,7 +280,8 @@ def test_two_process_sharded_warm_then_cold_start(stub, tmp_path):
               if r["outcome"] in ("published", "compiled", "stolen")}
              for d in shards]
     assert not built[0] & built[1]
-    assert built[0] | built[1] == {"flash_attention", "paged_decode"}
+    assert built[0] | built[1] == {"flash_attention", "paged_decode",
+                                   "tdx_graph"}
     for d in shards:
         for r in d["program_reports"]:
             assert (r["outcome"] == "published") == (r["owner"] == d["host_id"])

@@ -1,9 +1,12 @@
 """The recorded-operation graph and materialization engine.
 
-The port's own copy of ``torchdistx_tpu/_graph.py``, pure Python: the
-JAX package's optional native graph engine and its telemetry calls are
-not carried over.  The data model mirrors the reference torchdistx's
-deferred-init core (``deferred_init.cc``) one-to-one:
+The port's own copy of ``torchdistx_tpu/_graph.py`` (its telemetry
+calls are not carried over).  The graph *topology* is mirrored into the
+native engine (``csrc/tdx_graph.cc``, loaded by :mod:`._native`) when
+its library is loaded, and the call-stack walk is delegated there; the
+Python walks below stay the reference (``TDX_NATIVE=0``).  The data
+model mirrors the reference torchdistx's deferred-init core
+(``deferred_init.cc``) one-to-one:
 
 * :class:`Op` — one recorded ATen call: the op, a preserved (compound-
   deep-copied) argument stack, and the captured grad-mode state;
@@ -35,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from . import _native
 from .fake import (
     FakeTensor,
     _iter_tensors,
@@ -349,21 +353,35 @@ class Op:
 
 
 class OpNode:
-    """A node of the replay DAG (deferred_init.cc:309-705)."""
+    """A node of the replay DAG (deferred_init.cc:309-705).
+
+    The graph *topology* (op_nr order, storage alias keys, dep/dependent
+    edges) is mirrored into the native engine when its library is
+    loaded, and :meth:`build_call_stack` delegates there; the Python
+    walks remain the reference (``TDX_NATIVE=0``)."""
 
     __slots__ = (
         "op", "op_nr", "key_nr", "storages", "dependencies", "dependents",
-        "argument_versions", "outputs", "materialized",
-        "session_token", "__weakref__",
+        "argument_versions", "outputs", "materialized", "loaded",
+        "session_token", "out_geom", "_ng", "_nid", "__weakref__",
     )
 
-    def __init__(self, op: Op):
+    def __init__(self, op: Op, *, key_nr: Optional[int] = None):
         self.op = op
         self.op_nr = _next_op_nr()
         # The op's number within its recording session: the keyed
         # materializer derives the op's RNG key from it (see
-        # _next_key_nr); outside a session it falls back to op_nr.
-        self.key_nr = _next_key_nr(self.op_nr)
+        # _next_key_nr); outside a session it falls back to op_nr.  An
+        # explicit key_nr (serialize.load_recording rebuilding saved
+        # nodes) must NOT consume the session counter, or loading a
+        # recording mid-session would shift the RNG keys of every op
+        # recorded after it.
+        self.key_nr = _next_key_nr(self.op_nr) if key_nr is None else key_nr
+        # True for nodes rebuilt by serialize.load_recording: their
+        # storage alias keys are file-local, so the graph cannot be
+        # *extended* with new ops (record_op refuses); replay is
+        # unaffected.
+        self.loaded = False
         # Which recording session this node belongs to (None outside a
         # session): materialize_many's include_session_rng uses it to
         # replay only the *requested model's* dead RNG draws, never a
@@ -383,6 +401,57 @@ class OpNode:
         self.argument_versions: List[Tuple[torch.Tensor, int]] = []
         self.outputs: Optional[List[Any]] = None
         self.materialized = False
+        # Physical meta geometry per tensor-output index, (size, stride,
+        # storage_offset, storage_numel), kept only where it is not
+        # C-contiguous from offset 0 over the whole storage: the saved
+        # recording carries it for the JAX package's bridge, whose
+        # storage-relative ops need it (see geom_is_c_contig_spanning).
+        self.out_geom: Dict[int, Tuple] = {}
+        if _native.available():
+            self._ng = _native.NativeGraph.current()
+            self._nid = self._ng.node_create()
+            self._ng.py_nodes[self._nid] = weakref.ref(self)
+        else:
+            self._ng = None
+            self._nid = 0
+
+    def __del__(self):
+        # Mirror the reference's OpNode destructor: erase back-edges in
+        # the native graph (deferred_init.cc:409-411).
+        if self._ng is not None:
+            try:
+                self._ng.py_nodes.pop(self._nid, None)
+                self._ng.node_destroy(self._nid)
+            except Exception:
+                pass
+
+    def _native_sync_edges(self) -> None:
+        """Push dependencies and storages to the native mirror (once,
+        after record_op fills them in).
+
+        A dependency recorded on another thread lives in another native
+        graph; neither graph then has the whole topology, so BOTH are
+        poisoned (their walks run in Python, on the process-global op_nr
+        order, which stays correct)."""
+        if self._ng is None:
+            # A Python-only node (recorded under config.override(
+            # native=False)) extending graphs that DO have native
+            # mirrors: those mirrors no longer see the whole topology.
+            for dep, _ in self.dependencies:
+                if dep._ng is not None:
+                    dep._ng.poisoned = True
+            return
+        foreign = [dep for dep, _ in self.dependencies if dep._ng is not self._ng]
+        if foreign:
+            self._ng.poisoned = True
+            for dep in foreign:
+                if dep._ng is not None:
+                    dep._ng.poisoned = True
+            return
+        for dep, idx in self.dependencies:
+            self._ng.add_dep(self._nid, dep._nid, idx)
+        for key in self.storages:
+            self._ng.add_storage(self._nid, key)
 
     # -- graph walks -----------------------------------------------------
 
@@ -396,7 +465,12 @@ class OpNode:
         node depends on the base's producer, not on the view node — and
         replays the stale pre-mutation value. The bidirectional walk
         reaches every alias-relative, restoring eager semantics (found by
-        the replay fuzzer, tests/test_fuzz_replay.py)."""
+        the replay fuzzer, tests/test_fuzz_replay.py).  Delegated to the
+        native engine as :meth:`build_call_stack` is."""
+        if self._ng is not None and not self._ng.poisoned:
+            found = self._ng.nodes_of([self._ng.last_in_place(self._nid)])
+            if found is not None:
+                return found[0]
         last = self
         seen = {id(self)}
         stack: List[OpNode] = [self]
@@ -422,7 +496,16 @@ class OpNode:
         input storage is clobbered by a later included in-place op (they
         must replay before the mutation or they can never replay
         correctly).
+
+        Delegates to the native engine when its library is loaded and
+        this node's graph is whole; the Python code below is the
+        reference.
         """
+        if self._ng is not None and not self._ng.poisoned:
+            stack = self._ng.nodes_of(self._ng.build_call_stack(self._nid))
+            if stack is not None:
+                return stack
+        _native.walks["python"] += 1
         last = self.last_in_place_node()
         included: Dict[int, OpNode] = {}
 
@@ -576,6 +659,13 @@ def record_op(func, args, kwargs, out, *, name: Optional[str] = None) -> None:
                 "deferred-init context (see the reference's identical "
                 "constraint, deferred_init.cc:821-832)."
             )
+        if ctx.node.loaded:
+            raise RuntimeError(
+                "A fake tensor from a loaded recording cannot be used in "
+                "new deferred-init ops: its alias-tracking keys are "
+                "file-local, so extensions would replay incorrectly. "
+                "Record additional ops before save_recording instead."
+            )
         idx = len(dependencies)
         seen_fakes[id(fake)] = idx
         dependencies.append((ctx.node, ctx.output_index))
@@ -619,7 +709,13 @@ def record_op(func, args, kwargs, out, *, name: Optional[str] = None) -> None:
     tensor_idx = 0
     for t in _iter_tensors(out):
         if is_fake(t):
-            skey = _storage_key(t._meta)
+            m = t._meta
+            if not _c_contig_spanning(m):
+                node.out_geom[tensor_idx] = (
+                    tuple(m.shape), tuple(m.stride()), m.storage_offset(),
+                    m.untyped_storage().nbytes() // m.element_size(),
+                )
+            skey = _storage_key(m)
             node.storages.add(skey)
             existing = get_fake_context(t, CONTEXT_KEY)
             if existing is not None:
@@ -635,6 +731,30 @@ def record_op(func, args, kwargs, out, *, name: Optional[str] = None) -> None:
             if base_ctx is not None and base_ctx is not ctx and ctx not in base_ctx.views:
                 base_ctx.views.append(ctx)
         tensor_idx += 1
+
+    node._native_sync_edges()
+
+
+def geom_is_c_contig_spanning(size, stride, offset, storage_numel) -> bool:
+    """C-contiguous from offset 0 AND spanning the whole storage: the
+    layout where logical value order equals storage order (the JAX
+    package's predicate of the same name, which decides when a saved
+    ``geom`` entry is needed)."""
+    if offset != 0:
+        return False
+    expect = 1
+    for s, st in zip(reversed(tuple(size)), reversed(tuple(stride))):
+        if s != 1 and st != expect:
+            return False
+        expect *= s
+    return expect == storage_numel
+
+
+def _c_contig_spanning(m: torch.Tensor) -> bool:
+    return geom_is_c_contig_spanning(
+        m.shape, m.stride(), m.storage_offset(),
+        m.untyped_storage().nbytes() // m.element_size(),
+    )
 
 
 
@@ -653,6 +773,10 @@ def _set_data_replay(base: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     out = base.detach()
     out.data = value
     return out
+
+
+# Stable names of the synthetic ops, for serialize.py.
+SYNTHETIC_OPS: Dict[str, Any] = {"tdx::set_data": _set_data_replay}
 
 
 def _record_set_data(fake: FakeTensor, new: torch.Tensor) -> None:
@@ -770,6 +894,8 @@ def replay_node(node: OpNode, target: ReplayTarget) -> None:
     out = node.op.replay(target, args, kwargs)
     node.outputs = flat_outputs(out)
     node.materialized = True
+    if node._ng is not None:
+        node._ng.set_materialized(node._nid, True)
     node.detach_dependencies()
 
 

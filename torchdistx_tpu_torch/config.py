@@ -1,6 +1,6 @@
-"""Runtime configuration (the port's own copy of the kernel-cache,
-registry, telemetry, serving, chaos, flight-recorder, reshard and
-logging knobs of
+"""Runtime configuration (the port's own copy of the native-engine,
+kernel-cache, registry, telemetry, live-telemetry, serving, chaos,
+flight-recorder, reshard and logging knobs of
 ``torchdistx_tpu/config.py``):
 resolved from environment variables once at import and overridable per
 scope::
@@ -13,6 +13,10 @@ scope::
 Environment variables (read at first import):
 
 ======================  ====================================================
+``TDX_NATIVE``          "0" forces the Python graph walks of deferred init
+                        (:mod:`torchdistx_tpu_torch._graph`); by default
+                        they run in the native graph engine whenever its
+                        library is loaded (:mod:`torchdistx_tpu_torch._native`).
 ``TDX_CACHE_DIR``       Local directory of the nvcc-built kernel libraries
                         (:mod:`torchdistx_tpu_torch.ops._build`), each
                         beside its CRC sidecar and nvcc's log ("" means
@@ -49,6 +53,17 @@ Environment variables (read at first import):
                         thread: when > 0, the counter registry (and the
                         serve SLO percentile gauges) are re-exported to
                         ``TDX_METRICS_PATH`` every interval (0 disables).
+``TDX_OBS_PORT``        Port of the live telemetry HTTP daemon
+                        (:mod:`torchdistx_tpu_torch.observe.httpd`:
+                        ``/metrics``, ``/healthz``, ``/readyz``, ``/slo``,
+                        ``/flight``, ``/requests``, ``/tail``), armed on
+                        the first telemetry emission; 0 binds an
+                        ephemeral port, unset disables.
+``TDX_OBS_BIND``        Address the daemon binds (default ``127.0.0.1``).
+``TDX_OBS_PORT_FILE``   File the bound port is written to (atomically);
+                        with ``TDX_OBS_PORT=0`` and no file,
+                        ``$TMPDIR/tdx-obs-<pid>.port``.  ``%h``/``%p``
+                        expand like ``TDX_METRICS_PATH``.
 ``TDX_FAULT_PLAN``      Deterministic fault-injection plan
                         (:mod:`torchdistx_tpu_torch.chaos`), e.g.
                         ``"serve@4=raise;compile@1=raise"`` ("" disables).
@@ -98,17 +113,21 @@ import threading
 from dataclasses import dataclass, replace
 from typing import Iterator, Optional
 
-__all__ = ["Config", "bind", "expand_path", "get", "override"]
+__all__ = ["Config", "bind", "expand_path", "get", "override", "set_flags"]
 
 
 @dataclass(frozen=True)
 class Config:
+    native: bool = True
     cache_dir: Optional[str] = None
     registry_dir: Optional[str] = None
     trace_dir: Optional[str] = None
     metrics_path: Optional[str] = None
     flight_dir: Optional[str] = None
     metrics_export_s: float = 0.0
+    obs_port: Optional[int] = None
+    obs_bind: str = "127.0.0.1"
+    obs_port_file: Optional[str] = None
     fault_plan: Optional[str] = None
     prefill_chunk: int = 0
     spec_decode: bool = True
@@ -121,12 +140,19 @@ class Config:
 
 def _from_env() -> Config:
     return Config(
+        native=os.environ.get("TDX_NATIVE", "1") != "0",
         cache_dir=os.environ.get("TDX_CACHE_DIR", "") or None,
         registry_dir=os.environ.get("TDX_REGISTRY_DIR", "") or None,
         trace_dir=os.environ.get("TDX_TRACE_DIR", "") or None,
         metrics_path=os.environ.get("TDX_METRICS_PATH", "") or None,
         flight_dir=os.environ.get("TDX_FLIGHT_DIR", "") or None,
         metrics_export_s=float(os.environ.get("TDX_METRICS_EXPORT_S", "0")),
+        obs_port=(
+            int(os.environ["TDX_OBS_PORT"])
+            if os.environ.get("TDX_OBS_PORT", "") != "" else None
+        ),
+        obs_bind=os.environ.get("TDX_OBS_BIND", "") or "127.0.0.1",
+        obs_port_file=os.environ.get("TDX_OBS_PORT_FILE", "") or None,
         fault_plan=os.environ.get("TDX_FAULT_PLAN", "") or None,
         prefill_chunk=int(os.environ.get("TDX_PREFILL_CHUNK", "0")),
         spec_decode=os.environ.get("TDX_SPEC_DECODE", "1") != "0",
@@ -138,8 +164,19 @@ def _from_env() -> Config:
     )
 
 
+_lock = threading.Lock()
 _base = _from_env()
 _tls = threading.local()
+
+
+def set_flags(**kw) -> Config:
+    """Permanently update the process-wide base config: what every
+    thread sees outside an :func:`override` (the telemetry daemon's
+    handler threads, a fleet's replica threads)."""
+    global _base
+    with _lock:
+        _base = replace(_base, **kw)
+        return _base
 
 
 def expand_path(path: Optional[str]) -> Optional[str]:

@@ -32,6 +32,14 @@ weights are one entry.
 Under a :class:`..parallel.sharding.StageShardingPlan` a pipeline stage
 materializes only the block layers it owns (and the entries every stage
 holds): the other stages' layers are never drawn or allocated on it.
+
+With telemetry on, each call is one ``materialize`` span carrying the
+bytes kept on this rank and their rate (``bytes``, ``gbps``, after a
+device synchronize), the counter ``tdx.cuda.bytes_materialized``, the
+gauge ``tdx.cuda.materialize_gbps``, and, when the host→device link
+probe (:func:`..observe.costmodel.link_bandwidth_gbps`) has already run,
+``link_utilization`` = gbps over the link's rate (read cached-only:
+nothing is probed inside the timed window).
 """
 
 from __future__ import annotations
@@ -39,14 +47,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import _graph
+from .. import _graph, observe
 from .._device import resolve_device
 from .._graph import CONTEXT_KEY, ReplayTarget, flat_outputs
-from ..fake import get_fake_context, is_fake
+from ..fake import get_fake_context, is_fake, is_param_like
 from ..parallel.mesh import VirtualMesh
 from ..parallel.sharding import (
     PartitionSpec,
@@ -262,17 +271,50 @@ def materialize_params_cuda(
     ``seed`` and the op's ``key_nr``, so gathered shards equal the
     unsharded values bit for bit on any mesh of the same device type.
 
-    ``param_dtype`` casts floating ``nn.Parameter`` entries; buffers
-    (float or otherwise) keep their recorded dtype.  ``device`` defaults to
-    the GPU (``"cpu"`` must be asked for); with a ``DeviceMesh`` it is the
-    mesh's."""
-    cast = {n for n, f in fakes.items() if isinstance(f, torch.nn.Parameter)}
+    ``param_dtype`` casts floating ``nn.Parameter`` entries (a loaded
+    recording's parameters too); buffers (float or otherwise) keep their
+    recorded dtype.  ``device`` defaults to the GPU (``"cpu"`` must be
+    asked for); with a ``DeviceMesh`` it is the mesh's."""
+    cast = {n for n, f in fakes.items() if is_param_like(f)}
     return _materialize(fakes, cast, mesh, plan, seed, param_dtype, device)
 
 
 def _materialize(fakes, cast, mesh, plan, seed, param_dtype, device):
     """The shared body of the entry points: ``cast`` names the entries
     ``param_dtype`` applies to."""
+    t0 = time.perf_counter()
+    with observe.span("materialize", category="cuda",
+                      entries=len(fakes)) as sp:
+        values = _materialize_values(fakes, cast, mesh, plan, seed,
+                                     param_dtype, device)
+        if observe.enabled():
+            _account(values, t0, sp)
+    return values
+
+
+def _account(values: Dict[str, torch.Tensor], t0: float, sp) -> None:
+    """The materialize span's bytes and rate, and the link utilization
+    where the link probe has run."""
+    from torch.distributed.tensor import DTensor
+
+    local = [v.to_local() if isinstance(v, DTensor) else v
+             for v in values.values()]
+    devices = {t.device for t in local if t.device.type == "cuda"}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    n_bytes = sum(t.numel() * t.element_size() for t in local)
+    gbps = n_bytes / (time.perf_counter() - t0) / 1e9
+    sp.set(bytes=n_bytes, gbps=gbps)
+    observe.counter("tdx.cuda.bytes_materialized").inc(n_bytes)
+    observe.gauge("tdx.cuda.materialize_gbps").set(gbps)
+    lbw = observe.costmodel.link_bandwidth_gbps(cached_only=True)
+    if lbw:
+        util = gbps / lbw
+        sp.set(link_bandwidth_gbps=round(lbw, 3), link_utilization=util)
+        observe.gauge("tdx.cuda.link_utilization").set(util)
+
+
+def _materialize_values(fakes, cast, mesh, plan, seed, param_dtype, device):
     dev = _place(mesh, device)
     specs, owned = {}, set()
     if mesh is not None:

@@ -4,10 +4,15 @@ The port's own copy of ``torchdistx_tpu/fake.py`` (the JAX package's
 torch frontend), kept in this package so the port imports nothing of the
 JAX package.  The one deliberate difference: the JAX package renames
 torch's ``privateuse1`` backend to ``tpu`` so its fakes can claim TPU
-devices; this copy does not.  Its fakes claim ``cuda`` or ``cpu`` (on a
-CUDA build of torch, ``cuda`` needs no allocation to be claimed), and a
-second rename would clash with the JAX package's when both are imported
-in one process.
+devices; this copy does not (a second rename would clash with the JAX
+package's when both are imported in one process).  Its fakes claim
+``cuda`` or ``cpu``, and claim ``cuda`` with no CUDA runtime, as the JAX
+package's claim ``tpu`` with no TPU: a login host with no GPU (a
+CPU-only torch, or a CUDA build that sees no device) records a model
+for the card.  Torch's argument parser initializes a device type's
+runtime before any dispatch mode sees a factory call that names it;
+while fake mode or deferred init is on and no CUDA device exists, the
+CUDA runtime's lazy init is a no-op (see :func:`_claims_begin`).
 
 The design, as in the reference torchdistx (``fake.cc``):
 
@@ -565,6 +570,40 @@ class FakeMode(TorchDispatchMode):
         return _fake_handler(func, args, kwargs or {})
 
 
+# -- claiming cuda with no CUDA device ------------------------------------
+
+_real_cuda_lazy_init = None
+
+
+def _cuda_lazy_init_or_claim():
+    """Stands in for ``torch.cuda._lazy_init`` once a claim region ran on
+    a host with no CUDA device: inside a region on this thread it does
+    nothing (a factory call that names ``cuda`` makes a fake there, which
+    needs no runtime), elsewhere it is the real init."""
+    if getattr(_tls, "claim_depth", 0) > 0 and not torch.cuda.is_available():
+        return None
+    return _real_cuda_lazy_init()
+
+
+def _claims_begin() -> None:
+    """Enter a claim region (fake mode or deferred init) on this thread.
+
+    Only where no CUDA device exists is the lazy init replaced: torch
+    remembers a successful init per device type, so a stand-in must
+    never run where the real init has to happen.  On such a host, once
+    a recording named ``cuda``, a later real CUDA call outside a region
+    fails in dispatch instead of in the init (it fails either way)."""
+    global _real_cuda_lazy_init
+    _tls.claim_depth = getattr(_tls, "claim_depth", 0) + 1
+    if _real_cuda_lazy_init is None and not torch.cuda.is_available():
+        _real_cuda_lazy_init = torch.cuda._lazy_init
+        torch.cuda._lazy_init = _cuda_lazy_init_or_claim
+
+
+def _claims_end() -> None:
+    _tls.claim_depth -= 1
+
+
 class ModeToggle:
     """Re-entrant thread-local enable/disable of a dispatch mode.
 
@@ -592,10 +631,12 @@ class ModeToggle:
             mode = self._mode_cls()
             stack.append(mode)
             mode.__enter__()
+            _claims_begin()
         else:
             if not stack:
                 raise RuntimeError(f"{self._name} is not enabled.")
             stack.pop().__exit__(None, None, None)
+            _claims_end()
             if not stack and self._on_last_disable is not None:
                 self._on_last_disable()
 

@@ -39,8 +39,8 @@ timelines and the queue / prefill / decode / guardrail split),
 ``TDX_METRICS_EXPORT_S``) and :mod:`.health` (bring-up states).
 
 The trace files read like the JAX package's, so ``tools/tdx_trace.py``
-summarizes them too.  The HTTP daemon that serves the probes live is not
-ported yet.
+summarizes them too.  :mod:`.httpd` serves the same state live
+(``TDX_OBS_PORT``), armed on the first emission like the exporter.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import os
 import threading
 from typing import Optional
 
-from . import costmodel, flightrec, health, reqledger, slo, tracectx
+from . import costmodel, flightrec, health, httpd, reqledger, slo, tracectx
 from .metrics import Counter, Counters, Gauge, Histogram
 from .spans import Span, Tracer, _NOOP_SPAN, set_drop_hook, set_flight_feed
 from .step import StepMeter, peak_tflops_for
@@ -75,6 +75,7 @@ __all__ = [
     "gauge",
     "health",
     "histogram",
+    "httpd",
     "instant",
     "peak_tflops_for",
     "reqledger",
@@ -274,13 +275,19 @@ def _arm_autoflush() -> None:
     # The periodic exporter (no-op unless TDX_METRICS_EXPORT_S > 0;
     # ServeEngine re-calls it to attach its SLO windows).
     slo.ensure_exporter()
+    # The live HTTP plane, armed the same lazy way (no-op unless
+    # TDX_OBS_PORT is set).
+    httpd.ensure_httpd()
 
 
 def stop_background() -> None:
-    """Stop and join the periodic exporter and de-latch the arming flag
-    so the NEXT emission can re-arm it (tests, orderly shutdown)."""
+    """Stop and join every background thread the observe layer armed
+    (the periodic exporter, the telemetry daemon) and de-latch the
+    arming flag so the NEXT emission can re-arm them (tests, orderly
+    shutdown)."""
     global _autoflush_armed
     slo.stop_exporter()
+    httpd.stop_httpd()
     _autoflush_armed = False
 
 

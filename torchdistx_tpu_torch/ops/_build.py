@@ -24,12 +24,21 @@ nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside the library as ``.log`` and travels with it through the registry.
 A failed build raises with nvcc's output.
 
-``counts`` holds this process's ``builds`` (nvcc runs), ``local_hits``,
+One host library goes the same way: the native graph engine
+(``torchdistx_tpu_torch/csrc/tdx_graph.cc``, :mod:`.._native`) is compiled
+by the host C++ compiler (``CXX``, else ``c++``) with the Makefile's
+``NATIVE_CXXFLAGS`` and no CUDA; its key composes the compiler's version
+line, the platform and libc instead of nvcc and the card, so a host with
+no GPU shares it with one that has a card.  A failed compile raises with
+the compiler's output.
+
+``counts`` holds this process's ``builds`` (compiler runs), ``local_hits``,
 ``fetches`` and ``quarantined`` files; ``outcomes`` each source's
 ``hit`` (no build) or ``miss`` (built here) and ``seconds`` the seconds
 its lookup took.  The ``cache`` chaos site fires before each local
-lookup (the 1-based number of the source in :data:`SOURCES`), with the
-cache directory as the target of a ``corrupt``.
+lookup (the 1-based number of the source in :data:`SOURCES`, followed by
+:data:`HOST_SOURCES`: the native engine is group 3), with the cache
+directory as the target of a ``corrupt``.
 """
 
 from __future__ import annotations
@@ -49,13 +58,21 @@ from typing import Dict, List
 from .. import chaos, observe
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+HOST_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# The Makefile's NATIVE_CXXFLAGS, and -shared.
+NATIVE_CXXFLAGS = [
+    "-std=c++17", "-O2", "-fPIC", "-fvisibility=hidden", "-Wall", "-Wextra",
+    "-fstack-protector-strong", "-shared",
+]
 # The kernel sources; a source's chaos group number is its position + 1.
 SOURCES = ("flash_attention.cu", "paged_decode.cu")
+# The host-compiled sources (under HOST_CSRC), numbered after SOURCES.
+HOST_SOURCES = ("tdx_graph.cc",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -68,6 +85,49 @@ seconds: Dict[str, float] = {}
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+def is_host(source: str) -> bool:
+    return source in HOST_SOURCES
+
+
+def source_path(source: str) -> Path:
+    return (HOST_CSRC if is_host(source) else CSRC) / source
+
+
+def group(source: str) -> int:
+    """The ``cache`` chaos site's group number of ``source``."""
+    if is_host(source):
+        return len(SOURCES) + HOST_SOURCES.index(source) + 1
+    return SOURCES.index(source) + 1
+
+
+def flags(source: str) -> List[str]:
+    return NATIVE_CXXFLAGS if is_host(source) else NVCC_FLAGS
+
+
+def cxx_path() -> str:
+    cxx = os.environ.get("CXX") or "c++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(
+            f"no C++ compiler ({cxx!r}) on PATH; the native graph engine is "
+            f"built from source at first use (set CXX)")
+    return found
+
+
+_cxx_version: Dict[str, str] = {}
+
+
+def cxx_version() -> str:
+    """The host compiler's version line (run once a process)."""
+    cxx = cxx_path()
+    v = _cxx_version.get(cxx)
+    if v is None:
+        proc = subprocess.run([cxx, "--version"], capture_output=True,
+                              text=True)
+        v = _cxx_version[cxx] = (proc.stdout.splitlines() or ["unknown"])[0]
+    return v
 
 
 def nvcc_path() -> str:
@@ -92,17 +152,24 @@ def cache_dir() -> Path:
 
 
 def program_fp(source: str) -> str:
-    """The hash of ``csrc/<source>`` and the flags it is built with."""
-    h = hashlib.sha256((CSRC / source).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    """The hash of ``csrc/<source>`` and the flags it is built with (for
+    a host source also its header and the compiler's version line)."""
+    h = hashlib.sha256(source_path(source).read_bytes())
+    h.update(" ".join(flags(source)).encode())
+    if is_host(source):
+        for header in sorted((HOST_CSRC / "include").glob("*.h")):
+            h.update(header.read_bytes())
+        h.update(cxx_version().encode())
     return h.hexdigest()
 
 
 def library_key(source: str) -> str:
     """The registry key of ``csrc/<source>``'s library in this build
     environment."""
-    from ..registry.store import registry_key
+    from ..registry.store import host_registry_key, registry_key
 
+    if is_host(source):
+        return host_registry_key(program_fp(source))
     return registry_key(program_fp(source))
 
 
@@ -155,15 +222,19 @@ def _registry():
     return ArtifactRegistry(root)
 
 
-def _nvcc(source: str, so: Path) -> None:
+def _compile(source: str, so: Path) -> None:
+    """nvcc for a kernel source, the host compiler for a host source."""
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd: List[str] = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    compiler = cxx_path() if is_host(source) else nvcc_path()
+    cmd: List[str] = [compiler, *flags(source), "-o", str(tmp),
+                      str(source_path(source))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
+        name = Path(compiler).name
         raise RuntimeError(
-            f"nvcc failed to build {source} (exit {proc.returncode}):\n"
+            f"{name} failed to build {source} (exit {proc.returncode}):\n"
             f"{proc.stderr[-4000:]}"
         )
     data = tmp.read_bytes()
@@ -176,7 +247,7 @@ def build(source: str) -> Path:
     against its sidecar: the local cache's copy, else the registry's
     (installed), else nvcc's (published)."""
     so = library_path(source)
-    gno = SOURCES.index(source) + 1
+    gno = group(source)
     t0 = time.perf_counter()
     with observe.span("build.library", category="build",
                       source=source) as sp:
@@ -193,7 +264,7 @@ def build(source: str) -> Path:
             if reg is not None and _fetch(reg, key, so, gno):
                 counts["fetches"] += 1
             else:
-                _nvcc(source, so)
+                _compile(source, so)
                 counts["builds"] += 1
                 outcome = "miss"
         if reg is not None:

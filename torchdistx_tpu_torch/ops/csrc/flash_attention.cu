@@ -360,6 +360,7 @@ struct Params {
   float* lse;         // [B*H, S] (fwd)
   float* o32;         // [B*H, S, D] f32 copy of o (fwd), or null
   int B, H, KV, Hb, S, T, D, causal;
+  int warps;  // requested W of the bf16 forward / dq; 0: the default rule
   float scale;
 };
 
@@ -1885,17 +1886,24 @@ int run_fq(int which, const Params& p, cudaStream_t stream, int* shape) {
                 C::bytes(2, bias), p, stream, shape);
 }
 
-// Four warps a CTA, two CTAs an SM, except at D = 128 with a bias: there
-// the bias tiles of a two-stage ring leave room for one 4-warp CTA only,
-// so one CTA of 8 warps (128 rows) takes the SM instead.
+// The default rule (p.warps == 0): four warps a CTA, two CTAs an SM,
+// except at D = 128 with a bias: there the bias tiles of a two-stage ring
+// leave room for one 4-warp CTA only, so one CTA of 8 warps (128 rows)
+// takes the SM instead.  A requested W must be a built instantiation:
+// W = 4 at every D, W = 8 at D = 128 (with or without a bias); any other
+// request is cudaErrorInvalidValue.
 int run_fq_bf16(int which, const Params& p, cudaStream_t stream, int* shape) {
+  const int w = p.warps;
+  if (w != 0 && w != 4 && !(w == 8 && p.D == 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (p.D) {
     case 16: return run_fq<16, 4>(which, p, stream, shape);
     case 32: return run_fq<32, 4>(which, p, stream, shape);
     case 64: return run_fq<64, 4>(which, p, stream, shape);
     default:
-      return p.bias != nullptr ? run_fq<128, 8>(which, p, stream, shape)
-                               : run_fq<128, 4>(which, p, stream, shape);
+      return w == 8 || (w == 0 && p.bias != nullptr)
+                 ? run_fq<128, 8>(which, p, stream, shape)
+                 : run_fq<128, 4>(which, p, stream, shape);
   }
 }
 
@@ -1955,6 +1963,8 @@ int dispatch(int which, Params p, int dtype, void* stream,
       (which == 3 && p.bias == nullptr && shape == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && p.warps != 0)  // the f32 kernels have fixed tiles
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return run_f32(which, p, s, shape);
   if (dtype == 1) return run_bf16(which, p, s, shape);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1993,14 +2003,17 @@ extern "C" {
 
 // out_f32: null, or an f32 [B*H, S, D] copy of the output before its
 // rounding to q's dtype (the backward's delta = rowsum(do * o) is taken
-// from it: see ops/flash_attention.py).
+// from it: see ops/flash_attention.py).  warps: the forward's and dq's
+// launch shape, W warps of 16 query rows (0: the default rule; see
+// run_fq_bf16), bf16 only.
 int tdx_flash_fwd(const void* q, const void* k, const void* v,
                   const float* bias, const int* qseg, const int* kseg,
                   void* out, float* lse, float* out_f32, int B, int H, int KV,
                   int Hb, int S, int T, int D, int causal, int dtype,
-                  float scale, void* stream) {
+                  int warps, float scale, void* stream) {
   Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
                          causal, scale);
+  p.warps = warps;
   p.out = out;
   p.lse = lse;
   p.o32 = out_f32;
@@ -2011,9 +2024,11 @@ int tdx_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const float* bias, const int* qseg, const int* kseg,
                      void* dq, int B, int H, int KV, int Hb, int S, int T,
-                     int D, int causal, int dtype, float scale, void* stream) {
+                     int D, int causal, int dtype, int warps, float scale,
+                     void* stream) {
   Params p = make_params(q, k, v, bias, qseg, kseg, B, H, KV, Hb, S, T, D,
                          causal, scale);
+  p.warps = warps;
   p.dout = dout;
   p.lse_in = lse;
   p.delta = delta;

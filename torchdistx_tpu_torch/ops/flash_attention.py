@@ -41,6 +41,18 @@ on the current stream, or raise; CPU tensors run the plain versions
 because they lie on the CPU.  Nothing falls back from one to the other.
 Each kernel launch adds one to its entry of :data:`launches`, and a
 launch with a bias also to its entry of :data:`bias_launches`.
+
+Launch shapes (the JAX package's ``block_q`` / ``block_k``): the bf16
+forward and dq kernels run W warps a CTA, 16 query rows each, over
+64-key tiles, so a block is ``(16·W, 64)``; :func:`built_blocks` lists
+the shapes the library has (W = 4 at every head dim, W = 8 at D = 128).
+``None`` or the JAX default 1024 keeps the default rule (W = 4, W = 8
+at D = 128 with a bias).  Any other shape raises :class:`BlockConfigError`
+naming the built ones, as does a launch the card refuses at a requested
+shape; nothing falls back to another shape.  The dk/dv and d(bias)
+kernels and the f32 kernels have fixed shapes (an explicit block on f32
+operands raises).  On CPU tensors blocks mean nothing and are ignored.
+:mod:`.autotune` picks a block by timing the built ones.
 """
 
 from __future__ import annotations
@@ -67,6 +79,44 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
 bias_launches = dict(launches)
 
 Segments = Optional[Tuple[torch.Tensor, torch.Tensor]]  # ([B, S], [B, T])
+
+
+class BlockConfigError(RuntimeError):
+    """A launch shape the library does not build, or that the card
+    refused (shared memory, registers) at this call's operands."""
+
+
+_DEFAULT_BLOCK = 1024  # the JAX package's default: keep the default rule
+_BLOCK_K = 64  # the key tile of the bf16 forward / dq kernels
+
+
+def built_blocks(dtype, head_dim: int) -> Tuple[Tuple[int, int], ...]:
+    """The ``(block_q, block_k)`` launch shapes the library builds for
+    the forward and dq kernels at ``dtype`` and ``head_dim``."""
+    if dtype != torch.bfloat16 or head_dim not in _HEAD_DIMS:
+        return ()
+    warps = (4, 8) if head_dim == 128 else (4,)
+    return tuple((16 * w, _BLOCK_K) for w in warps)
+
+
+def launch_warps(block_q, block_k, dtype, head_dim: int) -> int:
+    """W for a requested block (0: the default rule); raises
+    :class:`BlockConfigError` for a shape the library does not build."""
+    default_q = block_q in (None, _DEFAULT_BLOCK)
+    default_k = block_k in (None, _DEFAULT_BLOCK)
+    if default_q and default_k:
+        return 0
+    built = built_blocks(dtype, head_dim)
+    want = (block_q, _BLOCK_K if default_k else block_k)
+    if default_q and want[1] == _BLOCK_K and built:
+        return 0
+    if want not in built:
+        raise BlockConfigError(
+            f"block (block_q={block_q}, block_k={block_k}) is not built for "
+            f"{dtype} at head_dim {head_dim}; the built blocks are "
+            f"{list(built) or 'none (fixed tiles)'}, or None / "
+            f"{_DEFAULT_BLOCK} for the default rule")
+    return want[0] // 16
 
 
 def reset_launches() -> None:
@@ -263,7 +313,10 @@ def _kernel(name: str):
         fn = getattr(lib, f"tdx_{name}")
         n_ptr = {"flash_fwd": 9, "flash_bwd_dq": 10, "flash_bwd_dkv": 11,
                  "flash_dbias": 10}[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
+        # B, H, KV, Hb, S, T, D, causal, dtype (and warps for the two
+        # kernels with a launch-shape choice).
+        n_int = 10 if name in ("flash_fwd", "flash_bwd_dq") else 9
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tdx_cuda_error_string.argtypes = [ctypes.c_int]
@@ -278,24 +331,35 @@ def _extra_ptrs(bias, seg: Segments):
     return [_opt_ptr(bias), *segs]
 
 
+# cudaErrorInvalidValue (a shared-memory request over the card's limit),
+# cudaErrorInvalidConfiguration, cudaErrorLaunchOutOfResources (registers).
+_REFUSED = (1, 9, 701)
+
+
 def _launch(name: str, ptrs, q, k, seg: Segments, causal: bool, bias,
-            heads) -> None:
+            heads, warps: int = 0) -> None:
     """Launch kernel ``name`` on the current stream with its operand
     pointers ``ptrs`` (in the C signature's order) and raise on a refused
-    launch."""
+    launch (:class:`BlockConfigError` where a requested ``warps`` was
+    refused)."""
     B, H, KV = _dims(q, k, seg, _heads(bias, heads))
     S, D = q.shape[1], q.shape[2]
     T = k.shape[1]
     Hb = 0 if bias is None else bias.shape[0]
     fn = _kernel(name)
+    shape = (warps,) if name in ("flash_fwd", "flash_bwd_dq") else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*ptrs, B, H, KV, Hb, S, T, D, int(causal),
-                 _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D), stream)
+                 _DTYPE_CODE[q.dtype], *shape, 1.0 / math.sqrt(D), stream)
     if err != 0:
-        msg = _build.load(_SOURCE).tdx_cuda_error_string(err)
+        msg = _build.load(_SOURCE).tdx_cuda_error_string(err).decode()
+        if warps and err in _REFUSED:
+            raise BlockConfigError(
+                f"{name} refused the launch shape of {warps} warps "
+                f"(block_q={16 * warps}): CUDA error {err} ({msg})")
         raise RuntimeError(
-            f"{name} launch failed: CUDA error {err} ({msg.decode()})")
+            f"{name} launch failed: CUDA error {err} ({msg})")
     launches[name] += 1
     if bias is not None:
         bias_launches[name] += 1
@@ -308,18 +372,19 @@ def _cuda_segments(seg: Segments) -> Segments:
 
 
 def flash_forward(q, k, v, *, causal: bool = True, segment_ids: Segments = None,
-                  bias=None, heads=None):
+                  bias=None, heads=None, block_q=None, block_k=None):
     """``(out [BH, S, D], lse [BH, S] f32)`` at the raw layout;
     ``segment_ids`` is ``None`` or a ``(q_seg [B, S], kv_seg [B, T])``
     pair; ``bias`` is ``None`` or f32 [H or 1, S, T] with ``heads`` = H
-    (taken from a per-head bias when omitted)."""
+    (taken from a per-head bias when omitted); ``block_q`` / ``block_k``
+    a built launch shape (module docstring)."""
     out, lse, _ = _flash_forward(q, k, v, causal, segment_ids, bias, heads,
-                                 False)
+                                 False, block_q, block_k)
     return out, lse
 
 
 def _flash_forward(q, k, v, causal, segment_ids: Segments, bias, heads,
-                   want_f32: bool):
+                   want_f32: bool, block_q=None, block_k=None):
     """:func:`flash_forward`'s ``(out, lse)`` and, with ``want_f32``, the
     output before its rounding to q's dtype (``out`` itself for f32 q),
     else ``None``: the backward's delta is taken from it."""
@@ -329,6 +394,7 @@ def _flash_forward(q, k, v, causal, segment_ids: Segments, bias, heads,
         return wide.to(q.dtype), lse, wide if want_f32 else None
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    warps = launch_warps(block_q, block_k, q.dtype, q.shape[-1])
     seg = _cuda_segments(segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
@@ -339,7 +405,7 @@ def _flash_forward(q, k, v, causal, segment_ids: Segments, bias, heads,
     _launch("flash_fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           *_extra_ptrs(bias, seg), out.data_ptr(),
                           lse.data_ptr(), _opt_ptr(out32)],
-            q, k, seg, causal, bias, heads)
+            q, k, seg, causal, bias, heads, warps)
     if not want_f32:
         return out, lse, None
     return out, lse, out if out32 is None else out32
@@ -368,15 +434,18 @@ def _backward_operands(q, k, v, do, lse, delta, segment_ids: Segments, bias,
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, causal: bool = True,
-                      segment_ids: Segments = None, bias=None, heads=None):
-    """The dq kernel alone, on CUDA tensors."""
+                      segment_ids: Segments = None, bias=None, heads=None,
+                      block_q=None, block_k=None):
+    """The dq kernel alone, on CUDA tensors, at the launch shape
+    ``block_q`` / ``block_k``."""
     seg = _backward_operands(q, k, v, do, lse, delta, segment_ids, bias, heads)
+    warps = launch_warps(block_q, block_k, q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq",
             [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), *_extra_ptrs(bias, seg),
              dq.data_ptr()],
-            q, k, seg, causal, bias, heads)
+            q, k, seg, causal, bias, heads, warps)
     return dq
 
 
@@ -410,11 +479,12 @@ def flash_backward_dbias(q, k, v, do, lse, delta, bias, *, causal: bool = True,
 
 def flash_backward(q, k, v, do, lse, delta, *, causal: bool = True,
                    segment_ids: Segments = None, bias=None, heads=None,
-                   want_dbias: bool = False):
+                   want_dbias: bool = False, block_q=None, block_k=None):
     """``(dq, dk, dv)`` at the raw layout from the forward's ``lse`` and
     ``delta = rowsum(do * out)`` (both [BH, S] f32), recomputing the
     probabilities with ``bias`` when one is given; with ``want_dbias``
-    also the bias's gradient, f32 [Hb, S, T]."""
+    also the bias's gradient, f32 [Hb, S, T].  ``block_q`` / ``block_k``
+    set the dq kernel's launch shape."""
     if want_dbias and bias is None:
         raise ValueError("want_dbias needs the bias")
     if q.device.type == "cpu":
@@ -423,7 +493,8 @@ def flash_backward(q, k, v, do, lse, delta, *, causal: bool = True,
                                          segment_ids, bias, heads)
         return grads if want_dbias else grads[:3]
     kw = dict(causal=causal, segment_ids=segment_ids, bias=bias, heads=heads)
-    grads = (flash_backward_dq(q, k, v, do, lse, delta, **kw),
+    grads = (flash_backward_dq(q, k, v, do, lse, delta, block_q=block_q,
+                               block_k=block_k, **kw),
              *flash_backward_dkv(q, k, v, do, lse, delta, **kw))
     if not want_dbias:
         return grads
@@ -438,14 +509,15 @@ def flash_backward(q, k, v, do, lse, delta, *, causal: bool = True,
 @torch.library.custom_op(
     "tdx_torch::flash_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor? q_seg, "
-           "Tensor? kv_seg, bool causal, int? heads, bool want_f32) "
-           "-> (Tensor, Tensor, Tensor)")
-def _fwd_op(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32):
+           "Tensor? kv_seg, bool causal, int? heads, bool want_f32, "
+           "int? block_q=None, int? block_k=None) -> (Tensor, Tensor, Tensor)")
+def _fwd_op(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32,
+            block_q=None, block_k=None):
     """:func:`_flash_forward`; the f32 output is empty where it would be
     the output itself (an op's outputs may not alias)."""
     seg = None if q_seg is None else (q_seg, kv_seg)
     out, lse, out32 = _flash_forward(q, k, v, causal, seg, bias, heads,
-                                     want_f32)
+                                     want_f32, block_q, block_k)
     if out32 is None or out32 is out:
         out32 = q.new_empty(0, dtype=torch.float32)
     return out, lse, out32
@@ -455,15 +527,16 @@ def _fwd_op(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32):
     "tdx_torch::flash_bwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
            "Tensor delta, Tensor? bias, Tensor? q_seg, Tensor? kv_seg, "
-           "bool causal, int? heads, bool want_dbias) "
-           "-> (Tensor, Tensor, Tensor, Tensor)")
+           "bool causal, int? heads, bool want_dbias, int? block_q=None, "
+           "int? block_k=None) -> (Tensor, Tensor, Tensor, Tensor)")
 def _bwd_op(q, k, v, do, lse, delta, bias, q_seg, kv_seg, causal, heads,
-            want_dbias):
+            want_dbias, block_q=None, block_k=None):
     """:func:`flash_backward`; d(bias) is empty unless asked for."""
     seg = None if q_seg is None else (q_seg, kv_seg)
     grads = flash_backward(q, k, v, do, lse, delta, causal=causal,
                            segment_ids=seg, bias=bias, heads=heads,
-                           want_dbias=want_dbias)
+                           want_dbias=want_dbias, block_q=block_q,
+                           block_k=block_k)
     dbias = grads[3] if want_dbias else q.new_empty(0, dtype=torch.float32)
     return (*grads[:3], dbias)
 
@@ -490,14 +563,14 @@ def visible_pairs(q, k, causal: bool, q_seg=None, kv_seg=None) -> int:
 # each).  The backward kernels' recomputation of QKᵀ (and of dP in dk/dv)
 # is not model work and is not counted, as MFU's convention has it.
 @register_flop_formula(torch.ops.tdx_torch.flash_fwd, get_raw=True)
-def _fwd_flops(q, k, v, bias, q_seg, kv_seg, causal, heads, want_f32, *,
-               out_val=None, **kwargs) -> int:
+def _fwd_flops(q, k, v, bias, q_seg, kv_seg, causal, *_, out_val=None,
+               **kwargs) -> int:
     return 4 * q.shape[2] * visible_pairs(q, k, causal, q_seg, kv_seg)
 
 
 @register_flop_formula(torch.ops.tdx_torch.flash_bwd, get_raw=True)
-def _bwd_flops(q, k, v, do, lse, delta, bias, q_seg, kv_seg, causal, heads,
-               want_dbias, *, out_val=None, **kwargs) -> int:
+def _bwd_flops(q, k, v, do, lse, delta, bias, q_seg, kv_seg, causal, *_,
+               out_val=None, **kwargs) -> int:
     return 8 * q.shape[2] * visible_pairs(q, k, causal, q_seg, kv_seg)
 
 
@@ -510,14 +583,15 @@ class _FlashCore(torch.autograd.Function):
     (returned in the bias's dtype).  The kernels read the bias in f32."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, bias, causal, heads, q_seg, kv_seg):
+    def forward(ctx, qh, kh, vh, bias, causal, heads, q_seg, kv_seg,
+                blocks=(None, None)):
         b32 = None if bias is None else bias.float().contiguous()
         out, lse, out32 = _fwd_op(qh, kh, vh, b32, q_seg, kv_seg, causal,
-                                  heads, True)
+                                  heads, True, *blocks)
         if out32.numel() == 0:
             out32 = out
         ctx.save_for_backward(qh, kh, vh, b32, out32, lse, q_seg, kv_seg)
-        ctx.causal, ctx.heads = causal, heads
+        ctx.causal, ctx.heads, ctx.blocks = causal, heads, blocks
         ctx.bias_dtype = None if bias is None else bias.dtype
         return out
 
@@ -528,9 +602,9 @@ class _FlashCore(torch.autograd.Function):
         want_dbias = b32 is not None and ctx.needs_input_grad[3]
         dq, dk, dv, dbias = _bwd_op(qh, kh, vh, do.contiguous(), lse, delta,
                                     b32, q_seg, kv_seg, ctx.causal,
-                                    ctx.heads, want_dbias)
+                                    ctx.heads, want_dbias, *ctx.blocks)
         dbias = dbias.to(ctx.bias_dtype) if want_dbias else None
-        return dq, dk, dv, dbias, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -546,8 +620,8 @@ def flash_attention(
     causal: bool = True,
     bias: Optional[torch.Tensor] = None,
     segment_ids=None,  # [B, S] or ([B, S], [B, T]): packed sequences
-    block_q: int = 1024,
-    block_k: int = 1024,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention with the model ``AttnFn`` signature (GQA-aware,
     differentiable through the backward kernels).
@@ -559,9 +633,10 @@ def flash_attention(
     plane before the kernels (autograd sums its gradient back), which
     costs that plane in device memory; T5 passes the full plane.
 
-    ``block_q`` / ``block_k`` are accepted for the JAX signature's sake;
-    the CUDA kernels choose their own tiles."""
-    del block_q, block_k
+    ``block_q`` / ``block_k`` pick the forward's and dq's launch shape on
+    CUDA operands: a built shape (:func:`built_blocks`), or ``None`` /
+    1024 for the default rule; any other raises :class:`BlockConfigError`
+    (module docstring).  On CPU operands they are ignored."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     if H % KV:
@@ -582,12 +657,15 @@ def flash_attention(
     qh = q.transpose(1, 2).reshape(B * H, S, D).contiguous()
     kh = k.transpose(1, 2).reshape(B * KV, T, D).contiguous()
     vh = v.transpose(1, 2).reshape(B * KV, T, D).contiguous()
-    out = _FlashCore.apply(qh, kh, vh, bias, causal, H, q_seg, kv_seg)
+    out = _FlashCore.apply(qh, kh, vh, bias, causal, H, q_seg, kv_seg,
+                           (block_q, block_k))
     return out.reshape(B, H, S, D).transpose(1, 2)
 
 
-def make_flash_attention(*, block_q: int = 1024, block_k: int = 1024):
-    """An ``AttnFn`` for model constructors."""
+def make_flash_attention(*, block_q: Optional[int] = None,
+                         block_k: Optional[int] = None):
+    """An ``AttnFn`` for model constructors, at the launch shape
+    ``block_q`` / ``block_k`` (:func:`flash_attention`)."""
 
     def attn_fn(q, k, v, *, causal=True, bias=None, segment_ids=None):
         return flash_attention(

@@ -41,11 +41,12 @@ __all__ = [
     "warm_sharded",
 ]
 
-# The kernel libraries each path of the port launches: training runs the
-# flash kernels; serving runs paged decode (its prefill attends through
-# plain attention, so it loads no flash library).
+# The libraries each path of the port loads: training runs the flash
+# kernels and records its model through the native graph engine; serving
+# runs paged decode (its prefill attends through plain attention, so it
+# loads no flash library).
 _PATH_SOURCES = {
-    "train": ("flash_attention.cu",),
+    "train": ("flash_attention.cu", "tdx_graph.cc"),
     "serve": ("paged_decode.cu",),
 }
 
@@ -129,14 +130,13 @@ def library_specs(sources: Sequence[str],
     from pathlib import Path
 
     from ..ops import _build
-    from .store import registry_key
 
     out = []
     for source in sources:
-        fp = _build.program_fp(source)
-        out.append(ProgramSpec(Path(source).stem, source,
-                               tuple(_build.NVCC_FLAGS), fp,
-                               registry_key(fp) if registry_dir else None))
+        out.append(ProgramSpec(
+            Path(source).stem, source, tuple(_build.flags(source)),
+            _build.program_fp(source),
+            _build.library_key(source) if registry_dir else None))
     return out
 
 

@@ -163,6 +163,19 @@ def registry_key(program_fp: str) -> str:
     return h.hexdigest()
 
 
+def host_registry_key(program_fp: str) -> str:
+    """The content address of a host-compiled library (the native graph
+    engine): ``sha1(program_fp ‖ platform ‖ libc)``.  Its program_fp
+    already holds the compiler's version line; nvcc, torch and the card
+    do not enter, so hosts with and without a GPU share it."""
+    h = hashlib.sha1(b"tdx-registry-host-key-v1")
+    h.update(program_fp.encode())
+    h.update(f"{platform.system()}-{platform.machine()}".encode())
+    h.update(("-".join(v for v in platform.libc_ver() if v)
+              or "unknown").encode())
+    return h.hexdigest()
+
+
 def _safe_name(name: str) -> bool:
     """Whether a manifest-listed payload filename is safe to create under
     a cache directory (no separators, no dot-prefixed specials)."""

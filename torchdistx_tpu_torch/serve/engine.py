@@ -484,14 +484,25 @@ class ServeEngine:
                 f"release_kv with {len(self.active)} active lanes; "
                 f"drain first"
             )
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._programs.clear()
-        self._graph_pool = None
+        self.drop_graphs()
         self.k_pages = self.v_pages = None
         self.kv = PagedKVCache(self.scfg.kv_config(self.cfg))
         self.prefix = PrefixCache(self.kv)
         self._gauges()
+
+    def drop_graphs(self) -> None:
+        """Destroy the programs' captured graphs now, on this thread (a
+        fleet calls it under its device lock): a graph destroyed while
+        another thread captures in global mode invalidates that capture,
+        and one left to die with its engine dies wherever the last
+        reference goes.  The engine can no longer serve."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for prog in self._programs.values():
+            if prog.graph is not None:
+                prog.graph.reset()
+        self._programs.clear()
+        self._graph_pool = None
 
     def outstanding_tokens(self) -> int:
         """Remaining token budget across waiting + active requests: the

@@ -1172,6 +1172,16 @@ class ServeFleet:
             h.error = e
             h.set_state("preempted" if isinstance(e, chaos.ReplicaPreempted)
                         else "failed")
+            # The dead replica's graphs go now, under the device lock, not
+            # with its handle on whatever thread drops it: destroyed during
+            # another replica's capture they would invalidate it (C16).
+            # Its pool stays until the handle is dropped.
+            if h.engine is not None:
+                try:
+                    with self.device_lock:
+                        h.engine.drop_graphs()
+                except Exception:  # noqa: BLE001 — a broken device: the
+                    pass           # death above is what is reported
         finally:
             self._wake.set()
 

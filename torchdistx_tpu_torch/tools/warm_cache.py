@@ -2,12 +2,14 @@
 kernel libraries a path launches (the port's counterpart of the JAX
 package's ``tools/warm_cache.py``).
 
-The port's only compiled artifacts are its nvcc-built kernel libraries
+The port's compiled artifacts are its nvcc-built kernel libraries and
+the host-compiled native graph engine
 (:mod:`torchdistx_tpu_torch.ops._build`): the training path launches the
-flash kernels, the serving path paged decode.  A login host (or the
-first host of a fleet) builds them into ``--cache-dir`` and publishes
-them to ``--registry-dir``; a replica or trainer started later with
-``TDX_CACHE_DIR`` / ``TDX_REGISTRY_DIR`` then runs nvcc zero times.
+flash kernels and records through the native engine, the serving path
+launches paged decode.  A login host (or the first host of a fleet)
+builds them into ``--cache-dir`` and publishes them to
+``--registry-dir``; a replica or trainer started later with
+``TDX_CACHE_DIR`` / ``TDX_REGISTRY_DIR`` then runs no compiler.
 
 **Sharded warm** (``--hosts N --host-id i --registry-dir R``): run one
 invocation per host against a shared registry directory and each host
@@ -32,10 +34,12 @@ Usage::
 
 ``--model`` names a zoo preset (its family picks nothing else: every
 model of a path launches the same libraries); by default every library
-is warmed (training launches the flash kernels, serving paged decode),
-``--decode`` warms the serving path's alone.  The registry key
-composes the build environment (torch, CUDA, nvcc, flags, the device),
-so warm on the kind of card and toolchain the consumers run.
+is warmed (training launches the flash kernels and loads the native
+engine, serving paged decode), ``--decode`` warms the serving path's
+alone.  A kernel's registry key composes the build environment (torch,
+CUDA, nvcc, flags, the device), so warm on the kind of card and
+toolchain the consumers run; the native engine's composes the host
+compiler's version, the platform and libc.
 """
 
 from __future__ import annotations
