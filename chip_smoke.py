@@ -144,8 +144,17 @@ user calls, and checks what comes out.  One JSON object per line:
    yardstick (``scaled_dot_product_attention(attn_mask=bias)`` forward
    and its autograd backward with the bias's gradient, backend named)
    and the bound;
+9b. the keyed draws' kernel (``keyed_rng_kernel``) against its plain
+   version on the card: in f32, bf16 and f16, uniform bit for bit and
+   normal within 2 ulp over a full [4, 1000, 1037] tensor, five regions
+   of it (unaligned starts, the whole, a contiguous slab, one element,
+   whole rows) bit for bit their slices of the kernel's full draw; at
+   Mixtral 8x7B's expert stack ([8, 4096, 14336] f32) both kinds checked
+   the same way and timed: kernel, plain version, ``Tensor.normal_`` /
+   ``uniform_`` with torch's CUDA generator (a yardstick the port never
+   calls) and the bound;
 10. a warm bring-up from the artifact registry (``registry_warm``): the
-   port's ``warm_cache`` tool publishes the build phase's two kernel
+   port's ``warm_cache`` tool publishes the build phase's three kernel
    libraries and the native graph engine from its cache into a fresh
    registry (the env fingerprint printed); a
    fresh child with an empty ``TDX_CACHE_DIR`` and that registry takes
@@ -155,9 +164,9 @@ user calls, and checks what comes out.  One JSON object per line:
    ``scale_up``: every bring-up warm, 8 requests equal to the oracle,
    paged decode launched layers x plain ticks) with 0 nvcc builds and
    the fetched log's ptxas lines spill-free; a second child under
-   ``cache@1=corrupt`` quarantines both damaged libraries before any
-   ``dlopen``, fetches them again and computes the first child's flash
-   and paged-decode results bit for bit; each library's fetch s beside
+   ``cache@1=corrupt`` quarantines the three damaged kernel libraries
+   before any ``dlopen``, fetches them again and computes the first
+   child's flash, paged-decode and keyed-draw results bit for bit; each library's fetch s beside
    its cold ``build_s`` and the first child's s from launch to its
    first loss;
 11. float32 T5 at T5-11B width, 2 + 2 layers, B = 2, enc 512, dec 114:
@@ -182,8 +191,16 @@ user calls, and checks what comes out.  One JSON object per line:
     ones' std within 2 %; on virtual ``{fsdp: 2, tp: 4}`` meshes under
     ``decoder_lm_plan`` and ``gspmd_2d_plan`` and ``{fsdp: 8}`` under
     ``fsdp_plan``, each of the 8 coordinates' shards, materialized on
-    their own, equal to their slices of the unsharded values bit for
-    bit and covering them; a real one-rank ``DeviceMesh`` (NCCL, world
+    their own (every entry replayed on its shard's shape: the count
+    printed), equal to their slices of the unsharded values bit for
+    bit and covering them, each coordinate's ``max_memory_allocated``
+    growth at most its local bytes plus twice its largest local shard
+    at the recorded dtype; the fault and resume leg: under
+    ``execute@3=raise`` with no retries a ``MaterializationError`` with
+    groups 1 and 2 committed under ``TDX_MATERIALIZE_RESUME_DIR``, a
+    flipped payload recomputed and the rest resumed bitwise equal to the
+    clean run, the directory swept, ``execute@2=raise x2`` with 2
+    retries survived bitwise; a real one-rank ``DeviceMesh`` (NCCL, world
     size 1, an in-memory store) equal to ``mesh=None``; the recording
     still fake afterwards; recorded again under
     ``config.override(native=False)`` (its walks in Python) and
@@ -198,7 +215,9 @@ user calls, and checks what comes out.  One JSON object per line:
     from ``deferred_init`` to every value resident, bytes, GB/s, host
     RSS growth (below a quarter of the bytes) and device-memory growth
     (at most the bytes plus twice the largest entry at its recorded
-    dtype), beside the eager route's cold bring-up from phase 4; after
+    dtype), the keyed draws' launches (at least one per drawing entry)
+    and the entries by path, beside the eager route's cold bring-up from
+    phase 4; after
     the timed region, the login host's full-depth recording loaded: its
     names, shapes, dtypes and key_nrs those of this recording, the
     embedding, a q projection and the final norm materialized from it
@@ -234,6 +253,10 @@ user calls, and checks what comes out.  One JSON object per line:
     step, the loss within 1e-3 relative of ``mesh=None``'s, one
     ``train.step`` span per instrumented step, the ``tdx.train.mfu``
     gauge and the counted FLOPs within 1 % of ``train_step_flops``;
+    ``initialize_multihost`` on the one process (a no-op, then
+    idempotent with the group up) and a one-rank hybrid mesh ``{dp: 1}
+    x {fsdp: 1, tp: 1}`` (``make_hybrid_mesh``): its keyed values and
+    first loss bit for bit the flat mesh's;
 19. Mixtral 8x7B width, 2 layers, bf16 compute on f32 parameters, [2,
     2048], on the flash kernels: deferred_init -> materialize on the
     card -> ``make_train_step``, 5 steps on one batch (losses finite and
@@ -251,10 +274,12 @@ user calls, and checks what comes out.  One JSON object per line:
     ``{ep: 1, fsdp: 1, tp: 1}`` mesh equal to ``mesh=None``;
 21. full-depth Mixtral 8x7B (46.70 B parameters, more than the card
     holds in bf16) recorded as fakes and coordinate ep = 0 of a virtual
-    ``{ep: 8}`` materialized in bf16 in a fresh process: seconds,
-    GB/s, host RSS growth (below a quarter of the local bytes) and
-    device-memory growth (at most the local bytes plus twice the largest
-    entry at its recorded dtype);
+    ``{ep: 8}`` materialized in bf16 in a fresh process, every entry on
+    its shard's shape: seconds, GB/s, host RSS growth (below a quarter
+    of the local bytes) and device-memory growth (at most the local
+    bytes plus twice the largest entry at its recorded dtype, and at
+    most the local bytes plus twice the largest LOCAL shard at its
+    recorded dtype);
 22. the sharded flow for 2-layer Mixtral width on a one-rank ``{ep: 1,
     fsdp: 1, tp: 1}`` mesh in a fresh process: the first loss within
     1e-3 of ``mesh=None``'s, counted FLOPs within 1 % of
@@ -371,7 +396,9 @@ user calls, and checks what comes out.  One JSON object per line:
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
-    cut to the lanes' own pages);
+    cut to the lanes' own pages; the keyed draws with their launches on
+    the full-depth llama3-8b materialization and on Mixtral's ep = 0
+    shard, timed at the expert stack);
 31. last: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when CUDA is unavailable, when run
@@ -410,7 +437,7 @@ from torchdistx_tpu_torch import _graph, _native, chaos, deferred_init, is_fake,
 from torchdistx_tpu_torch import config as tdx_config
 from torchdistx_tpu_torch import observe
 from torchdistx_tpu_torch.observe import costmodel, httpd
-from torchdistx_tpu_torch.ops import autotune
+from torchdistx_tpu_torch.ops import autotune, keyed_rng
 from torchdistx_tpu_torch.serialize import load_recording, save_recording
 from torchdistx_tpu_torch.utils import profiling
 from torchdistx_tpu_torch.cuda_bridge import (
@@ -475,7 +502,12 @@ from torchdistx_tpu_torch.parallel import (
     stage_layers,
     train_elastic,
 )
+from torchdistx_tpu_torch.parallel.mesh import (
+    initialize_multihost,
+    make_hybrid_mesh,
+)
 from torchdistx_tpu_torch.parallel.sharding import spec_str
+from torchdistx_tpu_torch.cuda_bridge import materialize as cuda_mat
 from torchdistx_tpu_torch.parallel.train import (
     H100_PEAK_FLOPS,
     default_optimizer,
@@ -522,7 +554,7 @@ LSE_RTOL = 1e-5
 # relative at most); a wrong tile, mask or fragment gives errors of
 # order 1.
 BF16_NORM_RTOL = 1e-2
-SOURCES = ("paged_decode.cu", "flash_attention.cu")
+SOURCES = ("paged_decode.cu", "flash_attention.cu", "keyed_rng.cu")
 # The native graph engine: host-compiled, built beside the kernels.
 NATIVE_SOURCE = _native.SOURCE
 KERNEL_SOURCE = "torchdistx_tpu_torch/ops/csrc/paged_decode.cu"
@@ -576,10 +608,10 @@ class L2Flush:
         self.buf.zero_()
 
 
-def time_ms(fn, flush: L2Flush, iters: int = 20) -> float:
+def time_ms(fn, flush: L2Flush, iters: int = 20, warm: int = 3) -> float:
     """Median device time of ``fn`` over ``iters`` launches (CUDA events,
-    cold L2)."""
-    for _ in range(3):
+    cold L2) after ``warm`` untimed ones."""
+    for _ in range(warm):
         fn()
     pairs = []
     for _ in range(iters):
@@ -1923,6 +1955,129 @@ REGISTRY_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=48,
 REGISTRY_HEAL_PLAN = "cache@1=corrupt:flip"
 
 
+# ---------------------------------------------------------------------------
+# the keyed, counter-based draws against their plain version
+# ---------------------------------------------------------------------------
+
+KEYED_SOURCE = "torchdistx_tpu_torch/ops/csrc/keyed_rng.cu"
+KEYED_REPLACES = ("torchdistx_tpu/__init__.py:38 (no Pallas kernel: the "
+                  "partitionable threefry XLA generates for the JAX bridge)")
+# Mixtral 8x7B's expert stack (w_gate, w_up), f32: what mesh=None draws
+# whole (1.88 GB).
+KEYED_SHAPE = (8, 4096, 14336)
+# Regions of one full shape: unaligned starts and partial rows, the whole,
+# a slab contiguous in the full tensor, one element, whole rows.
+KEYED_FULL = (4, 1000, 1037)
+KEYED_REGIONS = (((1, 3, 5), (2, 500, 1000)), ((0, 0, 0), KEYED_FULL),
+                 ((2, 0, 0), (1, 1000, 1037)), ((3, 999, 1036), (1, 1, 1)),
+                 ((0, 7, 0), (4, 13, 1037)))
+KEYED_KEY = 0x5DEECE66D
+# normal: within 2 ulp of the plain version in its dtype (both take
+# logf, sinf, cosf in f32; nvcc's and torch's may differ in the last
+# bit); uniform: bit for bit.
+KEYED_ULPS = 2
+# f32 operations per element outside the tensor cores (uniform: a product
+# and a sum; normal: its share of a pair's log, sqrt, two products and
+# its sine or cosine, then a product and a sum), over the f32 rate.
+KEYED_OPS_PER_ELEMENT = {"uniform": 2, "normal": 8}
+F32_PEAK_FLOPS = 67e12
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units in the last place of ``want`` in
+    its dtype (2**(e - 1) * eps for |want| in [2**(e - 1), 2**e))."""
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.full_like(want, torch.finfo(want.dtype).eps,
+                                      dtype=torch.float32), e - 1)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def keyed_bound(shape, dtype, kind: str) -> tuple:
+    n = math.prod(shape)
+    t_bytes = n * dtype.itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = n * KEYED_OPS_PER_ELEMENT[kind] / F32_PEAK_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def keyed_check(got, plain, kind: str, what: str) -> dict:
+    if kind == "uniform":
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{what}: uniform draws differ from plain")
+        err = 0.0
+    else:
+        err = ulps(got, plain)
+        if not err <= KEYED_ULPS:
+            raise AssertionError(f"{what}: {err} ulp from plain")
+    return {"max_ulps": err,
+            "max_abs_err": float((got.float() - plain.float()).abs().max())}
+
+
+def phase_keyed_rng_kernel(dev, flush) -> dict:
+    """The keyed draws' kernel against its plain version on the card: in
+    f32, bf16 and f16, uniform bit for bit and normal within 2 ulp over a
+    full tensor, and every region of ``KEYED_REGIONS`` bit for bit its
+    slice of the kernel's full draw; then at Mixtral's expert stack (f32)
+    both kinds checked the same way and timed: kernel, plain version,
+    ``Tensor.normal_`` / ``uniform_`` on the same shape with torch's CUDA
+    generator (a yardstick the port never calls), and the bound."""
+    cases = {}
+    for dtype in keyed_rng.DTYPES:
+        for kind, a, b in (("uniform", -0.95, 0.95), ("normal", 0.0, 0.02)):
+            what = f"{kind} {str(dtype)[6:]}"
+            full = keyed_rng.keyed_fill_(torch.empty(KEYED_FULL, dtype=dtype,
+                                                     device=dev),
+                                         kind, a, b, KEYED_KEY)
+            plain = keyed_rng.keyed_draw_reference(
+                KEYED_FULL, dtype, kind, a, b, KEYED_KEY, device=dev)
+            row = keyed_check(full, plain, kind, what)
+            for start, shape in KEYED_REGIONS:
+                part = keyed_rng.keyed_fill_(
+                    torch.empty(shape, dtype=dtype, device=dev), kind, a, b,
+                    KEYED_KEY, KEYED_FULL, start)
+                sl = tuple(slice(s0, s0 + n) for s0, n in zip(start, shape))
+                if not torch.equal(part, full[sl]):
+                    raise AssertionError(f"{what}: region {start} + {shape} "
+                                         f"is not its slice of the full draw")
+            cases[what] = {**row, "regions_bitwise": len(KEYED_REGIONS)}
+            del full, plain
+    out = torch.empty(KEYED_SHAPE, dtype=torch.float32, device=dev)
+    timing = {}
+    for kind, a, b in (("normal", 0.0, 0.02), ("uniform", -0.95, 0.95)):
+        def kernel():
+            keyed_rng.keyed_fill_(out, kind, a, b, KEYED_KEY)
+
+        def plain():
+            return keyed_rng.keyed_draw_reference(
+                KEYED_SHAPE, torch.float32, kind, a, b, KEYED_KEY, device=dev)
+
+        kernel()
+        row = keyed_check(out, plain(), kind, f"{kind} {KEYED_SHAPE}")
+        torch.cuda.empty_cache()
+        bound, by = keyed_bound(KEYED_SHAPE, torch.float32, kind)
+        library = ((lambda: out.normal_(a, b)) if kind == "normal"
+                   else (lambda: out.uniform_(a, b)))
+        timing[kind] = {
+            **row, "ms": time_ms(kernel, flush),
+            "plain_ms": time_ms(plain, flush, iters=1, warm=0),
+            "library_ms": time_ms(library, flush),
+            "library": f"Tensor.{kind}_ with torch's CUDA generator (a "
+                       f"yardstick the port never calls)",
+            "bound_ms": bound, "bound_by": by,
+            "bytes": math.prod(KEYED_SHAPE) * 4}
+        torch.cuda.empty_cache()
+    del out
+    torch.cuda.empty_cache()
+    row = {"phase": "keyed_rng_kernel", "kernel": "keyed_rng",
+           "card": nvidia_smi(), "cases": cases,
+           "limits": {"uniform": "bitwise", "normal": f"{KEYED_ULPS} ulp",
+                      "regions": "bitwise their slice of the full draw"},
+           "full_shape": KEYED_FULL, "regions": KEYED_REGIONS,
+           "shape": {"shape": KEYED_SHAPE, "dtype": "float32"},
+           "timing": timing}
+    emit(row)
+    return row
+
+
 def warm_tool(*args: str) -> dict:
     """``python -m torchdistx_tpu_torch.tools.warm_cache`` with ``args``:
     its JSON summary, after checking it exited 0."""
@@ -1937,8 +2092,9 @@ def warm_tool(*args: str) -> dict:
 
 
 def heal_cases(dev) -> dict:
-    """A flash forward and backward and a paged-decode call at small
-    shapes: what the damaged-and-refetched libraries must reproduce."""
+    """A flash forward and backward, a paged-decode call and a keyed draw
+    at small shapes: what the damaged-and-refetched libraries must
+    reproduce."""
     q, k, v, do = flash_case(5, B=1, S=256, H=4, D=64, dtype=torch.bfloat16,
                              dev=dev)
     out, lse = flash_forward(q, k, v, causal=True)
@@ -1948,9 +2104,11 @@ def heal_cases(dev) -> dict:
     paged = paged_attention(*decode_shape(
         dev, H=12, KV=12, D=64, page=16, lengths=[1, 100, 257, 1024],
         dtype=torch.float32))
+    keyed = keyed_rng.keyed_fill_(torch.empty(3, 1000, dtype=torch.bfloat16,
+                                              device=dev), "normal", 0.0, 1.0, 9)
     return {name: t.cpu() for name, t in (("out", out), ("lse", lse),
                                           ("dq", dq), ("dk", dk), ("dv", dv),
-                                          ("paged", paged))}
+                                          ("paged", paged), ("keyed", keyed))}
 
 
 def registry_fleet(dev) -> dict:
@@ -3821,6 +3979,14 @@ def draws(fake) -> bool:
     return any(_graph._is_rng_op(n.op.func) for n in ctx.node.build_call_stack())
 
 
+def draws_keyed(fake) -> bool:
+    """Whether the recording behind ``fake`` draws through the keyed
+    kernel (a ``uniform_`` / ``normal_``)."""
+    ctx = get_fake_context(fake, _graph.CONTEXT_KEY)
+    return any(cuda_mat._keyed_draw(n) is not None
+               for n in ctx.node.build_call_stack())
+
+
 def shard_region(shape, spec, axes: dict, coord: dict) -> tuple:
     """The slices of the full tensor that the device at ``coord`` holds
     under ``spec`` (a dim over several axes: the first named is the major
@@ -3862,6 +4028,7 @@ def phase_materialize_invariance(dev) -> dict:
     a = materialize_module_cuda(model, seed=0, device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
+    whole_stats = cuda_mat.last_run_stats()
     b = materialize_module_cuda(model, seed=0, device=dev)
     c = materialize_module_cuda(model, seed=1, device=dev)
     for n in a:
@@ -3905,14 +4072,30 @@ def phase_materialize_invariance(dev) -> dict:
             covered = {n: torch.zeros(v.shape, dtype=torch.int32, device=dev)
                        for n, v in a.items()}
             coords = list(itertools.product(*(range(k) for k in shape.values())))
-            local_bytes = []
+            local_bytes, growths, shard_local = [], [], []
             for coord in coords:
                 where = dict(zip(shape, coord))
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 local = materialize_module_cuda(
                     model, mesh=VirtualMesh(axes, where), plan=plan,
                     seed=0, device=dev)
-                local_bytes.append(sum(v.numel() * v.element_size()
-                                       for v in local.values()))
+                torch.cuda.synchronize()
+                growth = torch.cuda.max_memory_allocated() - base
+                shard_local.append(cuda_mat.last_run_stats()["local_entries"])
+                nbytes = sum(v.numel() * v.element_size()
+                             for v in local.values())
+                largest = max(v.numel() * fakes[n].element_size()
+                              for n, v in local.items())
+                if not growth <= nbytes + 2 * largest:
+                    raise AssertionError(
+                        f"{plan_name} {where}: device memory grew {growth} "
+                        f"bytes for {nbytes} local bytes, largest local "
+                        f"shard {largest}")
+                local_bytes.append(nbytes)
+                growths.append({"growth_bytes": growth,
+                                "limit_bytes": nbytes + 2 * largest})
                 for n, v in local.items():
                     region = shard_region(a[n].shape, specs[n], shape, where)
                     if not torch.equal(v, a[n][region]):
@@ -3926,7 +4109,9 @@ def phase_materialize_invariance(dev) -> dict:
                 "axes": axes, "coordinates": len(coords),
                 "sharded_entries": sum(1 for s in specs.values() if any(s)),
                 "entries": len(specs),
+                "shard_local_entries_per_coordinate": shard_local,
                 "local_bytes_max": max(local_bytes),
+                "max_memory_allocated_growth": growths,
                 "gathered_equals_unsharded": True}
             del covered
     one_rank_group()
@@ -3946,10 +4131,12 @@ def phase_materialize_invariance(dev) -> dict:
     if not all(is_fake(f) for f in named_fake_tensors(model).values()):
         raise AssertionError("the recording was consumed")
     native_vs_python = walk_engines(model, a, cfg, dev)
+    resume = materialize_resume(model, a, dev)
     param_bytes = sum(v.numel() * v.element_size() for v in a.values())
     row = {"phase": "materialize_invariance", "model": "gpt2-125m",
            "dtype": "float32", "entries": len(a), "random_entries": len(random),
            "param_bytes": param_bytes, "materialize_s_warm": seconds,
+           "engine": whole_stats, "materialize_resume": resume,
            "same_seed_bitwise": True, "seed_1_moves_every_random_entry": True,
            "eager_names_shapes_dtypes": True,
            "eager_rng_free_bitwise": len(a) - len(random),
@@ -3962,6 +4149,89 @@ def phase_materialize_invariance(dev) -> dict:
     del a
     torch.cuda.empty_cache()
     return row
+
+
+RESUME_FAULT = "execute@3=raise"
+RETRIED_FAULT = "execute@2=raise x2"
+
+
+def materialize_resume(model, clean: dict, dev) -> dict:
+    """The materializer's fault and resume leg on gpt2-125m (f32, the
+    module of ``materialize_invariance``, ``clean`` its fault-free
+    values): under ``execute@3=raise`` with no retries a
+    ``MaterializationError`` with groups 1 and 2 committed under
+    ``TDX_MATERIALIZE_RESUME_DIR``; one byte of the first committed
+    payload flipped; the rerun recomputes that group, loads the others
+    and is bitwise the clean run, and sweeps the directory; then
+    ``execute@2=raise x2`` with 2 retries survived, bitwise."""
+    root = tempfile.mkdtemp(prefix="tdx_resume_")
+    out = {"fault": RESUME_FAULT, "retries": 0}
+    try:
+        chaos.install(RESUME_FAULT)
+        t = time.perf_counter()
+        try:
+            with tdx_config.override(materialize_resume_dir=root,
+                                     materialize_retries=0):
+                materialize_module_cuda(model, seed=0, device=dev)
+            raise AssertionError(f"{RESUME_FAULT} raised nothing")
+        except cuda_mat.MaterializationError as e:
+            err = e
+        finally:
+            chaos.clear()
+        out["interrupted_s"] = time.perf_counter() - t
+        if not ({0, 1} <= set(err.completed_groups)
+                and err.failed_groups == [2] and err.resumable):
+            raise AssertionError(f"interrupted run: completed "
+                                 f"{err.completed_groups}, failed "
+                                 f"{err.failed_groups}")
+        cdir = os.path.join(root, "whole")
+        with open(os.path.join(cdir, "MATERIALIZE_PROGRESS.json")) as f:
+            manifest = json.load(f)
+        fp, rec = next(iter(manifest["groups"].items()))
+        victim = os.path.join(cdir, fp, rec["outputs"][0]["file"])
+        data = bytearray(open(victim, "rb").read())
+        data[len(data) // 2] ^= 0xFF
+        open(victim, "wb").write(bytes(data))
+        payload = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(cdir) for f in fs)
+        t = time.perf_counter()
+        with tdx_config.override(materialize_resume_dir=root):
+            got = materialize_module_cuda(model, seed=0, device=dev)
+        torch.cuda.synchronize()
+        out["resumed_s"] = time.perf_counter() - t
+        stats = cuda_mat.last_run_stats()
+        if stats["resumed"] != len(err.completed_groups) - 1:
+            raise AssertionError(f"resumed {stats['resumed']} groups of "
+                                 f"{len(err.completed_groups)} committed, "
+                                 f"one flipped")
+        unequal = [n for n in clean if not torch.equal(got[n], clean[n])]
+        if unequal or os.path.exists(cdir):
+            raise AssertionError(f"resumed run: unequal {unequal[:4]}, "
+                                 f"swept {not os.path.exists(cdir)}")
+        del got
+        chaos.install(RETRIED_FAULT)
+        try:
+            with tdx_config.override(materialize_retries=2):
+                got = materialize_module_cuda(model, seed=0, device=dev)
+        finally:
+            chaos.clear()
+        retried = cuda_mat.last_run_stats()
+        unequal = [n for n in clean if not torch.equal(got[n], clean[n])]
+        if unequal or retried["retries"] != 2 or retried["fallback"]:
+            raise AssertionError(f"{RETRIED_FAULT}: unequal {unequal[:4]}, "
+                                 f"{retried}")
+        del got
+    finally:
+        chaos.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {**out, "groups": stats["n_groups"],
+            "completed_groups": err.completed_groups,
+            "failed_groups": err.failed_groups, "payload_bytes": payload,
+            "flipped_group_recomputed": True, "resumed_groups":
+            stats["resumed"], "resumed_bitwise": True, "swept": True,
+            "retried_fault": RETRIED_FAULT, "retried": retried["retries"],
+            "retried_bitwise": True}
 
 
 def walk_seconds(fakes: dict) -> float:
@@ -4020,11 +4290,14 @@ def materialize_llama3_8b(rec_dir=None) -> None:
             t0 = time.perf_counter()
             model = deferred_init(make_llama, LLAMA3_8B, device=dev)
             recorded = time.perf_counter() - t0
+            keyed_rng.launches = 0
             values = materialize_module_cuda(
                 model, mesh=mesh, plan=decoder_lm_plan(LLAMA3_8B), seed=0,
                 param_dtype=torch.bfloat16)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+        keyed_launches = keyed_rng.launches
+        engine = cuda_mat.last_run_stats()
         peak = torch.cuda.max_memory_allocated() - base
         fakes = named_fake_tensors(model)
         largest = max(f.numel() * f.element_size() for f in fakes.values())
@@ -4037,6 +4310,10 @@ def materialize_llama3_8b(rec_dir=None) -> None:
         if not peak <= nbytes + 2 * largest:
             raise AssertionError(f"device memory grew {peak} bytes for {nbytes} "
                                  f"bytes, largest entry {largest}")
+        draws = sum(1 for f in fakes.values() if draws_keyed(f))
+        if keyed_launches < draws or not engine["local_entries"]:
+            raise AssertionError(f"{keyed_launches} keyed-draw launches for "
+                                 f"{draws} drawing entries; {engine}")
         for n, v in local.items():
             want = torch.bfloat16 if isinstance(fakes[n], nn.Parameter) \
                 else fakes[n].dtype
@@ -4063,6 +4340,7 @@ def materialize_llama3_8b(rec_dir=None) -> None:
           "max_memory_allocated_growth_bytes": peak,
           "device_limit_bytes": nbytes + 2 * largest,
           "largest_entry_bytes": largest, "walks": dict(_native.walks),
+          "keyed_rng_launches": keyed_launches, "engine": engine,
           "login_host_recording": travel, "card": nvidia_smi()})
 
 
@@ -4447,6 +4725,48 @@ def step_figures(step_s, flops, peak_bytes) -> dict:
             "max_memory_allocated_bytes": peak_bytes}
 
 
+HYBRID_DCN, HYBRID_ICI = {"dp": 1}, {"fsdp": 1, "tp": 1}
+
+
+def hybrid_leg(cfg, mesh, batch_np, first_loss: float, dev) -> dict:
+    """The one-rank hybrid mesh ``{dp 1} x {fsdp 1, tp 1}``
+    (``make_hybrid_mesh``, after ``initialize_multihost`` returned this
+    rank with the group up): the keyed values bitwise those of the flat
+    ``mesh``, and the first step's loss bitwise ``first_loss``."""
+    t = time.perf_counter()
+    if initialize_multihost() != dist.get_rank():
+        raise AssertionError("initialize_multihost is not idempotent")
+    hybrid = make_hybrid_mesh(HYBRID_DCN, HYBRID_ICI)
+    model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
+                          device=dev)
+    values = materialize_module_cuda(model, mesh=hybrid,
+                                     plan=decoder_lm_plan(cfg), seed=0,
+                                     param_dtype=torch.bfloat16)
+    flat = materialize_module_cuda(model, mesh=mesh, plan=decoder_lm_plan(cfg),
+                                   seed=0, param_dtype=torch.bfloat16)
+    unequal = [n for n in flat
+               if not torch.equal(local_of(values[n]), local_of(flat[n]))]
+    del flat
+    if unequal:
+        raise AssertionError(f"hybrid mesh values differ: {unequal[:4]}")
+    bind_values(model, values)
+    del values
+    init_state, train_step, shard_batch = make_train_step(
+        model, cfg, device=dev, mesh=hybrid)
+    state = init_state(model)
+    state, metrics = train_step(state, shard_batch(batch_np))
+    loss = float(metrics["loss"])
+    del state, model, metrics
+    torch.cuda.empty_cache()
+    if loss != first_loss:
+        raise AssertionError(f"hybrid mesh first loss {loss} != {first_loss}")
+    return {"dcn": HYBRID_DCN, "ici": HYBRID_ICI,
+            "mesh_dims": list(hybrid.mesh_dim_names),
+            "values_bitwise_flat_mesh": True, "first_loss": loss,
+            "first_loss_bitwise_flat_mesh": True,
+            "seconds": time.perf_counter() - t}
+
+
 def first_step_sharded() -> None:
     """The sharded training main path as the first model work of a fresh
     process (after its CUDA context and its one-rank NCCL group):
@@ -4462,6 +4782,10 @@ def first_step_sharded() -> None:
 
     dev = torch.device("cuda", 0)
     ctx = cuda_context(dev)
+    # One process: the multi-host bootstrap starts nothing (the launcher's
+    # WORLD_SIZE is unset), and returns this rank.
+    if initialize_multihost() != 0:
+        raise AssertionError("initialize_multihost on one process")
     mesh = mesh_group_up(dev)
     cfg = TRAIN_CFG
     batch_np = train_batch()
@@ -4532,6 +4856,8 @@ def first_step_sharded() -> None:
         p_profile = profile_step("llama3-8b unsharded",
                                  lambda: p_step(p_state, p_batch))
         del p_state, plain
+        torch.cuda.empty_cache()
+        hybrid = hybrid_leg(cfg, mesh, batch_np, first_loss, dev)
     finally:
         dist.destroy_process_group()
     all_losses = [first_loss] + losses + tele_losses
@@ -4572,6 +4898,7 @@ def first_step_sharded() -> None:
           "sharded": step_figures(step_s, flops, peak),
           "unsharded": step_figures(p_step_s[1:], flops, p_peak),
           "profile_sharded": profile, "profile_unsharded": p_profile,
+          "hybrid_mesh": hybrid,
           "telemetry": {
               "train_step_spans": [
                   {k: v for k, v in sp["args"].items()
@@ -4875,15 +5202,20 @@ def mixtral_8x7b_expert_shard() -> None:
         t0 = time.perf_counter()
         model = deferred_init(make_mixtral, cfg, device=dev)
         recorded = time.perf_counter() - t0
+        keyed_rng.launches = 0
         values = materialize_module_cuda(
             model, mesh=VirtualMesh(axes, where), plan=decoder_lm_plan(cfg),
             seed=0, param_dtype=torch.bfloat16, device=dev)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+    keyed_launches = keyed_rng.launches
+    engine = cuda_mat.last_run_stats()
     peak = torch.cuda.max_memory_allocated() - base
     fakes = named_fake_tensors(model)
     n_full = sum(f.numel() for f in fakes.values())
     largest = max(f.numel() * f.element_size() for f in fakes.values())
+    largest_local = max(v.numel() * fakes[n].element_size()
+                        for n, v in values.items())
     nbytes = sum(v.numel() * v.element_size() for v in values.values())
     growth = rss.peak - rss0
     if not growth < nbytes / 4:
@@ -4892,6 +5224,13 @@ def mixtral_8x7b_expert_shard() -> None:
     if not peak <= nbytes + 2 * largest:
         raise AssertionError(f"device memory grew {peak} bytes for {nbytes} "
                              f"bytes, largest entry {largest}")
+    # Shard-local replay: nothing beyond the local bytes and two of the
+    # largest local shard at its recorded dtype.
+    if not peak <= nbytes + 2 * largest_local:
+        raise AssertionError(f"device memory grew {peak} bytes for {nbytes} "
+                             f"bytes, largest local shard {largest_local}")
+    if engine["local_entries"] != len(values):
+        raise AssertionError(f"shard-local entries: {engine}")
     for n, v in values.items():
         f = fakes[n]
         want = list(f.shape)
@@ -4915,7 +5254,10 @@ def mixtral_8x7b_expert_shard() -> None:
           "host_rss_limit_bytes": nbytes / 4,
           "max_memory_allocated_growth_bytes": peak,
           "device_limit_bytes": nbytes + 2 * largest,
-          "largest_entry_bytes": largest})
+          "largest_entry_bytes": largest,
+          "device_limit_bytes_shard_local": nbytes + 2 * largest_local,
+          "largest_local_shard_bytes": largest_local,
+          "keyed_rng_launches": keyed_launches, "engine": engine})
 
 
 def phase_mixtral_8x7b_expert_shard() -> dict:
@@ -7941,6 +8283,7 @@ def main() -> int:
                      builds.get("flash_attention.cu", {}))
     run("flash_tune", phase_flash_tune, dev, flush)
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
+    keyed_row = run("keyed_rng_kernel", phase_keyed_rng_kernel, dev, flush)
     registry_row = run("registry_warm", phase_registry_warm, dev, builds)
     run("serve_f32_exact", phase_exact_f32, dev)
     run("serve_features_f32", phase_features_f32, dev)
@@ -7958,8 +8301,8 @@ def main() -> int:
     run("materialize_invariance", phase_materialize_invariance, dev)
     rec_dir = run("login_host", phase_login_host, login)
     try:
-        run("materialize_llama3_8b", phase_materialize_llama3_8b, main_row,
-            rec_dir)
+        mat_row = run("materialize_llama3_8b", phase_materialize_llama3_8b,
+                      main_row, rec_dir)
         run("first_step_materialized", phase_first_step_materialized,
             rec_dir)
     finally:
@@ -7969,7 +8312,8 @@ def main() -> int:
     mixtral_row = run("mixtral_train_bf16", phase_mixtral_train_bf16, dev)
     run("mixtral_materialize_invariance", phase_mixtral_materialize_invariance,
         dev)
-    run("mixtral_8x7b_expert_shard", phase_mixtral_8x7b_expert_shard)
+    expert_row = run("mixtral_8x7b_expert_shard",
+                     phase_mixtral_8x7b_expert_shard)
     run("mixtral_first_step_sharded", phase_mixtral_first_step_sharded)
     remat_row = run("remat_70b", phase_remat_70b, dev)
     vit_row = run("vit_train", phase_vit_train, dev)
@@ -8100,6 +8444,21 @@ def main() -> int:
             for leg, row in train_pp_mesh_row["legs"].items()},
         **numbers(t5_flash["kernels"]["flash_dbias"]),
         "library_backend": t5_flash["library_backend"], "shape": t5_shape,
+    })
+    # The keyed draws: launches on the materializer's main path (full-depth
+    # llama3-8b), times at Mixtral's expert stack.
+    keyed = keyed_row["timing"]["normal"]
+    kernels.append({
+        "name": "keyed_rng", "route": "cuda", "source": KEYED_SOURCE,
+        "replaces": KEYED_REPLACES,
+        "launches": mat_row["keyed_rng_launches"],
+        "launches_mixtral_expert_shard_path": expert_row["keyed_rng_launches"],
+        "max_abs_err": keyed["max_abs_err"], "max_ulps": keyed["max_ulps"],
+        "ms": keyed["ms"], "kernel_ms": keyed["ms"],
+        "plain_ms": keyed["plain_ms"], "bound_ms": keyed["bound_ms"],
+        "bound_by": keyed["bound_by"], "library_ms": keyed["library_ms"],
+        "library": keyed["library"], "shape": keyed_row["shape"],
+        "kind": "normal", "uniform": keyed_row["timing"]["uniform"],
     })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

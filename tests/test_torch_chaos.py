@@ -13,10 +13,9 @@
   ``set_cancel_event``; ``corrupt`` flips the byte the JAX executor flips
   in a checkpoint's largest payload file at ``save`` / ``restore``, in
   every registry entry's payload at ``registry`` and in every installed
-  kernel library (the JAX cache's entries) at ``cache``, touches no file
-  at ``reshard`` (the engine damages its chunk) and raises
-  ``NotImplementedError`` naming the ROADMAP item that ports its target
-  at the compile sites;
+  kernel library (the JAX cache's entries) at ``cache`` and at the
+  materializer's compile sites, and touches no file at ``reshard`` (the
+  engine damages its chunk);
 * activation: an installed plan before the config's ``fault_plan``, the
   config's parse cached per text, ``maybe_inject`` a no-op without one.
 """
@@ -172,16 +171,12 @@ def test_corrupt_names_the_unported_target(site, item, tmp_path):
     the checkpoint's largest payload file, byte for byte as the JAX
     executor damages it (flip), at ``reshard`` nothing on disk (the
     engine flips its in-flight chunk); at ``registry`` every complete
-    entry's payload and at ``cache`` every installed kernel library, the
-    bytes the JAX executor leaves in its registry and its compile
-    cache's entries; elsewhere it names the ROADMAP item that ports its
-    target."""
+    entry's payload and at ``cache`` and the materializer's ``compile``
+    site (the ROADMAP item that ported each target is the case's id)
+    every installed kernel library, the bytes the JAX executor leaves in
+    its registry and its compile cache's entries."""
     fault = chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0]
     jax_fault = jax_chaos.parse_plan(f"{site}@1=corrupt:flip").faults[0]
-    if item == "A13":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            chaos.execute(fault)
-        return
     if site == "registry":
         ours, theirs = _registry(tmp_path / "a"), _registry(tmp_path / "b")
         chaos.execute(fault, path=str(ours))
@@ -197,7 +192,7 @@ def test_corrupt_names_the_unported_target(site, item, tmp_path):
         with pytest.raises(ValueError, match="target path"):
             chaos.execute(fault)
         return
-    if site == "cache":
+    if site in ("cache", "compile"):
         (tmp_path / "a").mkdir()
         (tmp_path / "b").mkdir()
         payloads = {"flash": bytes(range(256)) * 7, "paged": b"\x01" * 300}

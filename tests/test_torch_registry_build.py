@@ -93,6 +93,10 @@ def _env(tmp_path) -> dict:
             "PYTHONPATH": ROOT}
 
 
+# The kernel libraries: flash attention, paged decode, the keyed draws.
+N_SOURCES = len(_build.SOURCES)
+
+
 def _lookup(cache, reg, sources=_build.SOURCES) -> dict:
     with config.override(cache_dir=str(cache),
                          registry_dir=str(reg) if reg else None):
@@ -120,8 +124,8 @@ def _manifest_crcs(reg) -> dict:
 def test_cold_build_then_fresh_cache_is_warm(stub, tmp_path, monkeypatch):
     reg = tmp_path / "reg"
     cold = _lookup(tmp_path / "a", reg)
-    assert _build.counts == {"builds": 2, "local_hits": 0, "fetches": 0,
-                             "quarantined": 0}
+    assert _build.counts == {"builds": N_SOURCES, "local_hits": 0,
+                             "fetches": 0, "quarantined": 0}
     assert set(_build.outcomes.values()) == {"miss"}
     keys = ArtifactRegistry(str(reg)).keys()
     assert sorted(keys) == sorted(_build.library_key(s) for s in _build.SOURCES)
@@ -131,8 +135,8 @@ def test_cold_build_then_fresh_cache_is_warm(stub, tmp_path, monkeypatch):
         == set(_build.SOURCES)
     stub()
     warm = _lookup(tmp_path / "b", reg)
-    assert _build.counts == {"builds": 0, "local_hits": 0, "fetches": 2,
-                             "quarantined": 0}
+    assert _build.counts == {"builds": 0, "local_hits": 0,
+                             "fetches": N_SOURCES, "quarantined": 0}
     for s in _build.SOURCES:
         assert warm[s].name == cold[s].name
         assert warm[s].read_bytes() == cold[s].read_bytes()
@@ -148,7 +152,8 @@ def test_cold_build_then_fresh_cache_is_warm(stub, tmp_path, monkeypatch):
             s: "hit" for s in _build.SOURCES}
         assert _build.bring_up(_build.SOURCES) == {
             s: "hit" for s in _build.SOURCES}
-    assert _build.counts["local_hits"] == 2 and _build.counts["builds"] == 0
+    assert _build.counts["local_hits"] == N_SOURCES
+    assert _build.counts["builds"] == 0
     crcs = _manifest_crcs(reg)
     assert [n for n, _ in rec.seen] == [warm[s].name for s in _build.SOURCES]
     for name, data in rec.seen:
@@ -186,15 +191,15 @@ def test_cache_corrupt_never_reaches_dlopen(stub, tmp_path, monkeypatch,
                          registry_dir=str(reg) if reg else None):
         for s in _build.SOURCES:
             _build.load(s)
-    assert _build.counts["quarantined"] == 2
-    assert _build.counts["fetches" if with_registry else "builds"] == 2
+    assert _build.counts["quarantined"] == N_SOURCES
+    assert _build.counts["fetches" if with_registry else "builds"] == N_SOURCES
     assert _build.counts["builds" if with_registry else "fetches"] == 0
-    assert len(rec.seen) == 2
+    assert len(rec.seen) == N_SOURCES
     for (_name, data), s in zip(rec.seen, _build.SOURCES):
         assert data == good[s]
     corrupt = sorted(n for n in os.listdir(tmp_path / "a")
                      if n.endswith(".so.corrupt"))
-    assert len(corrupt) == 2
+    assert len(corrupt) == N_SOURCES
     for n in corrupt:
         assert (tmp_path / "a" / n).read_bytes() not in good.values()
 
@@ -203,15 +208,16 @@ def test_warm_sharded_outcomes_and_a_steal(stub, tmp_path):
     reg = str(tmp_path / "reg")
     sources = _build.SOURCES
     first = warm_sharded(sources, str(tmp_path / "a"), registry_dir=reg)
-    assert first["outcomes"] == {"published": 2} and first["unwarmed"] == []
-    assert first["cache_entries"] == 2
+    assert first["outcomes"] == {"published": N_SOURCES}
+    assert first["unwarmed"] == []
+    assert first["cache_entries"] == N_SOURCES
     stub()
     second = warm_sharded(sources, str(tmp_path / "b"), registry_dir=reg)
-    assert second["outcomes"] == {"fetched": 2}
+    assert second["outcomes"] == {"fetched": N_SOURCES}
     again = warm_sharded(sources, str(tmp_path / "b"), registry_dir=reg)
-    assert again["outcomes"] == {"cached": 2}
+    assert again["outcomes"] == {"cached": N_SOURCES}
     local = warm_sharded(sources, str(tmp_path / "c"))
-    assert local["outcomes"] == {"compiled": 2}
+    assert local["outcomes"] == {"compiled": N_SOURCES}
     # Two hosts, this one waiting on a library the other never publishes.
     spec = library_specs(["flash_attention.cu"], str(tmp_path / "r2"))[0]
     other = shard_owner(spec.registry_key, 2)
@@ -233,13 +239,13 @@ def test_warm_cache_tool_reports_and_exit_status(stub, tmp_path, capsys,
                      str(tmp_path / "a"), "--registry-dir", reg])
     cap = capsys.readouterr()
     summary = json.loads(cap.out.strip().splitlines()[-1])
-    # The two kernel libraries and the host-compiled native graph engine.
-    assert summary["outcomes"] == {"published": 3}
+    # The three kernel libraries and the host-compiled native graph engine.
+    assert summary["outcomes"] == {"published": 4}
     assert summary["env"]["nvcc"].endswith("stub")
     assert summary["model"] == "gpt2-125m" and summary["path"] == "all"
     lines = [ln for ln in cap.err.splitlines() if ln.startswith("warm: ")]
     assert [ln.split()[1] for ln in lines] == [
-        "program=flash_attention", "program=tdx_graph",
+        "program=flash_attention", "program=tdx_graph", "program=keyed_rng",
         "program=paged_decode"]
     assert all("outcome=published" in ln for ln in lines)
     stub()
@@ -247,15 +253,15 @@ def test_warm_cache_tool_reports_and_exit_status(stub, tmp_path, capsys,
                      "--registry-dir", reg])
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert [r["program"] for r in summary["program_reports"]] == \
-        ["paged_decode"]
-    assert summary["outcomes"] == {"fetched": 1}
+        ["paged_decode", "keyed_rng"]
+    assert summary["outcomes"] == {"fetched": 2}
     stub()
     monkeypatch.setenv("STUB_NVCC_FAIL", "1")
     with pytest.raises(SystemExit) as exc:
         warm_cache.main(["--decode", "--cache-dir", str(tmp_path / "c")])
     assert exc.value.code == 1
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert summary["unwarmed"] == ["paged_decode"]
+    assert summary["unwarmed"] == ["paged_decode", "keyed_rng"]
     with pytest.raises(SystemExit):
         warm_cache.main(["--model", "no-such-model", "--cache-dir",
                          str(tmp_path / "d")])
@@ -281,7 +287,7 @@ def test_two_process_sharded_warm_then_cold_start(stub, tmp_path):
              for d in shards]
     assert not built[0] & built[1]
     assert built[0] | built[1] == {"flash_attention", "paged_decode",
-                                   "tdx_graph"}
+                                   "tdx_graph", "keyed_rng"}
     for d in shards:
         for r in d["program_reports"]:
             assert (r["outcome"] == "published") == (r["owner"] == d["host_id"])
@@ -295,7 +301,7 @@ def test_two_process_sharded_warm_then_cold_start(stub, tmp_path):
              "TDX_REGISTRY_DIR": reg})
     assert cold.returncode == 0, cold.stderr[-2000:]
     assert json.loads(cold.stdout.strip().splitlines()[-1]) == {
-        "builds": 0, "local_hits": 0, "fetches": 2, "quarantined": 0}
+        "builds": 0, "local_hits": 0, "fetches": N_SOURCES, "quarantined": 0}
 
 
 def test_registry_key_composes_the_build_environment(monkeypatch):

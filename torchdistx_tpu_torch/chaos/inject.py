@@ -22,12 +22,11 @@ as at the ``fleet`` site, it raises ``ValueError`` as the JAX executor
 does); at ``reshard`` the engine's in-flight chunk buffer (the engine
 flips it when it sees the fault fire); at ``registry`` the payload of
 every complete entry of the artifact registry
-(:func:`corrupt_registry_dir`), and at ``cache`` every kernel library
-installed in the local cache (:func:`corrupt_cache_dir`), each given
-its directory.  The materializer's compile ladder it would damage at
-``lower`` / ``compile`` / ``execute`` is not in the port yet: there it
-raises ``NotImplementedError`` naming the ROADMAP item that brings the
-target, never silently doing nothing.
+(:func:`corrupt_registry_dir`), and at ``cache`` and at the
+materializer's ``lower`` / ``compile`` / ``execute`` sites every kernel
+library installed in the local cache (:func:`corrupt_cache_dir`, the
+JAX executor's compile cache), each given its directory; the CRC check
+quarantines a damaged library before it is loaded.
 
 At the ``fleet`` site :func:`execute_replica_fault` runs a fault inside a
 replica thread: ``preempt`` raises :class:`ReplicaPreempted`, which ends
@@ -54,13 +53,8 @@ _CORRUPT_MODES = ("truncate", "flip")
 # Sites where ``corrupt`` damages a checkpoint directory (at ``rollover``
 # the checkpoint a roll fetches; ``fleet`` is given none).
 _CHECKPOINT_SITES = ("step", "save", "restore", "rollover", "fleet")
-
-# The ROADMAP item that ports what a ``corrupt`` fault at each other site
-# damages: the materializer's compile ladder (A13).
-_CORRUPT_TARGETS = {
-    "lower": ("compile cache", "A13"), "compile": ("compile cache", "A13"),
-    "execute": ("compile cache", "A13"),
-}
+# Sites where ``corrupt`` damages the local kernel-library cache.
+_CACHE_SITES = ("cache", "lower", "compile", "execute")
 
 _log = logging.getLogger("torchdistx_tpu_torch")
 
@@ -143,26 +137,24 @@ def execute(fault: Fault, *, path: Optional[str] = None) -> None:
             # bitwise verify stage catches it, and no file — least of all
             # the source checkpoint — is ever touched).  Nothing to do.
             return
-        if fault.site in (*_CHECKPOINT_SITES, "registry", "cache"):
+        if fault.site in (*_CHECKPOINT_SITES, "registry", *_CACHE_SITES):
             if path is None:
                 raise ValueError(
                     f"corrupt fault needs a target path (the checkpoint "
                     f"dir, the registry dir at the registry site, the "
-                    f"kernel cache dir at the cache site): {fault.spec()}")
-            damage = {"registry": corrupt_registry_dir,
-                      "cache": corrupt_cache_dir}.get(fault.site,
-                                                      corrupt_checkpoint)
+                    f"kernel cache dir at the cache and materializer "
+                    f"sites): {fault.spec()}")
+            if fault.site == "registry":
+                damage = corrupt_registry_dir
+            elif fault.site in _CACHE_SITES:
+                damage = corrupt_cache_dir
+            else:
+                damage = corrupt_checkpoint
             damage(path, mode=fault.arg or "truncate")
             return
-        target = _CORRUPT_TARGETS.get(fault.site)
-        if target is None:
-            raise ValueError(
-                f"corrupt fault has no target at site {fault.site!r}: "
-                f"{fault.spec()}")
-        what, item = target
-        raise NotImplementedError(
-            f"chaos: {fault.spec()} would damage the {what}, which the "
-            f"port does not have yet (ROADMAP {item})")
+        raise ValueError(
+            f"corrupt fault has no target at site {fault.site!r}: "
+            f"{fault.spec()}")
     raise AssertionError(f"unreachable fault kind {fault.kind!r}")
 
 

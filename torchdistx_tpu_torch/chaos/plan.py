@@ -27,9 +27,12 @@ either package means the same entries to both.  The port fires:
   speculative verify tick; ``flap`` / ``slow`` / ``hang`` as below;
 * ``lower``, ``cache`` and ``compile`` (group 1) at each lazy build of a
   serving program, before its CUDA graph capture opens;
-* ``cache`` before each kernel library's local lookup (group = the
-  source's number in ``ops._build.SOURCES``) and ``registry`` at each
-  publish to and fetch from the artifact registry.
+* ``cache`` before each kernel library's local lookup (group =
+  ``ops._build.group(source)``) and ``registry`` at each publish to and
+  fetch from the artifact registry;
+* ``lower``, ``compile`` and ``execute`` before each stage of each group
+  of the keyed materializer (:mod:`..cuda_bridge.materialize`; group =
+  the 1-based group number, the whole recording's last rung group 1).
 
 Each entry fires ``count`` times (default 1) and is then spent.  The one
 exception is ``flap``: an INTERMITTENT, RECURRING fault.  Its arg is a

@@ -1,6 +1,6 @@
 """Runtime configuration (the port's own copy of the native-engine,
 kernel-cache, registry, telemetry, live-telemetry, serving, chaos,
-flight-recorder, reshard and logging knobs of
+flight-recorder, reshard, materializer-engine and logging knobs of
 ``torchdistx_tpu/config.py``):
 resolved from environment variables once at import and overridable per
 scope::
@@ -99,6 +99,37 @@ Environment variables (read at first import):
                         (:mod:`torchdistx_tpu_torch.reshard`): a shard
                         block over it is read in slabs of at most this
                         many bytes.
+``TDX_MATERIALIZE_PIPELINE``
+                        ``auto`` (default) splits the keyed materializer's
+                        recording into structural groups
+                        (:mod:`torchdistx_tpu_torch.cuda_bridge.groups`),
+                        each the unit of the retry ladder and of resume;
+                        ``off`` replays it as one group.
+``TDX_MATERIALIZE_RETRIES``
+                        Retries of each stage of a group (default 2), with
+                        exponential backoff; after them the whole recording
+                        is replayed once more before the run fails.  0
+                        retries nothing, the last rung included.
+``TDX_COMPILE_DEADLINE_S``
+                        Watchdog deadline (seconds) of a group's plan
+                        (``lower``) and its kernel-library lookup
+                        (``compile``): a stage past it is abandoned on its
+                        thread and retried (0, the default, disables).
+``TDX_MATERIALIZE_RESUME_DIR``
+                        Directory of the materializer's progress: each rank
+                        commits its completed groups' local shards under a
+                        subdirectory named by its mesh coordinate, a rerun
+                        loads the ones that match, and the directory is
+                        swept on completion ("" disables).
+``TDX_MATERIALIZE_OVERLAP_DEPTH``
+                        Groups whose commit (device→host copy and write)
+                        may be in flight on the writer thread while the
+                        next group replays (default 2).
+``TDX_MATERIALIZE_INIT_DTYPE``
+                        Storage dtype of the parameters the materializer
+                        delivers wider (e.g. ``bf16``): exact where the
+                        contract dtype is already the init dtype, rounded
+                        through it otherwise ("" disables).
 ``TDX_LOG_LEVEL``       Level of the framework logger
                         (:func:`torchdistx_tpu_torch.utils.get_logger`),
                         default ``INFO``.
@@ -135,6 +166,12 @@ class Config:
     request_ledger: bool = True
     ledger_events: int = 128
     reshard_chunk_mb: float = 64.0
+    materialize_pipeline: str = "auto"
+    materialize_retries: int = 2
+    compile_deadline_s: float = 0.0
+    materialize_resume_dir: Optional[str] = None
+    materialize_overlap_depth: int = 2
+    materialize_init_dtype: Optional[str] = None
     log_level: str = "INFO"
 
 
@@ -160,6 +197,15 @@ def _from_env() -> Config:
         request_ledger=os.environ.get("TDX_REQUEST_LEDGER", "1") != "0",
         ledger_events=int(os.environ.get("TDX_LEDGER_EVENTS", "128")),
         reshard_chunk_mb=float(os.environ.get("TDX_RESHARD_CHUNK_MB", "64")),
+        materialize_pipeline=os.environ.get("TDX_MATERIALIZE_PIPELINE", "auto"),
+        materialize_retries=int(os.environ.get("TDX_MATERIALIZE_RETRIES", "2")),
+        compile_deadline_s=float(os.environ.get("TDX_COMPILE_DEADLINE_S", "0")),
+        materialize_resume_dir=(
+            os.environ.get("TDX_MATERIALIZE_RESUME_DIR", "") or None),
+        materialize_overlap_depth=int(
+            os.environ.get("TDX_MATERIALIZE_OVERLAP_DEPTH", "2")),
+        materialize_init_dtype=(
+            os.environ.get("TDX_MATERIALIZE_INIT_DTYPE", "") or None),
         log_level=os.environ.get("TDX_LOG_LEVEL", "INFO"),
     )
 

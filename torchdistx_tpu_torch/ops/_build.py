@@ -36,9 +36,9 @@ the compiler's output.
 ``fetches`` and ``quarantined`` files; ``outcomes`` each source's
 ``hit`` (no build) or ``miss`` (built here) and ``seconds`` the seconds
 its lookup took.  The ``cache`` chaos site fires before each local
-lookup (the 1-based number of the source in :data:`SOURCES`, followed by
-:data:`HOST_SOURCES`: the native engine is group 3), with the cache
-directory as the target of a ``corrupt``.
+lookup (the source's 1-based number in the order the port added them:
+flash attention 1, paged decode 2, the native engine 3, the keyed draws
+4), with the cache directory as the target of a ``corrupt``.
 """
 
 from __future__ import annotations
@@ -69,10 +69,15 @@ NATIVE_CXXFLAGS = [
     "-std=c++17", "-O2", "-fPIC", "-fvisibility=hidden", "-Wall", "-Wextra",
     "-fstack-protector-strong", "-shared",
 ]
-# The kernel sources; a source's chaos group number is its position + 1.
-SOURCES = ("flash_attention.cu", "paged_decode.cu")
-# The host-compiled sources (under HOST_CSRC), numbered after SOURCES.
+# The kernel sources.
+SOURCES = ("flash_attention.cu", "paged_decode.cu", "keyed_rng.cu")
+# The host-compiled sources (under HOST_CSRC).
 HOST_SOURCES = ("tdx_graph.cc",)
+# The ``cache`` chaos site's group numbers: a source's position + 1, in
+# the order the sources were added to the port (so a plan written for an
+# earlier tree names the same library).
+_GROUP_ORDER = ("flash_attention.cu", "paged_decode.cu", "tdx_graph.cc",
+                "keyed_rng.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -97,9 +102,7 @@ def source_path(source: str) -> Path:
 
 def group(source: str) -> int:
     """The ``cache`` chaos site's group number of ``source``."""
-    if is_host(source):
-        return len(SOURCES) + HOST_SOURCES.index(source) + 1
-    return SOURCES.index(source) + 1
+    return _GROUP_ORDER.index(source) + 1
 
 
 def flags(source: str) -> List[str]:

@@ -6,7 +6,14 @@ PartitionSpec plans the materializer places shards by, and the
 sequence-parallel attentions (ring-flash, the dense ring and Ulysses)
 over a mesh's ``sp`` axis."""
 
-from .mesh import DEFAULT_AXIS_ORDER, VirtualMesh, make_mesh, single_device_mesh
+from .mesh import (
+    DEFAULT_AXIS_ORDER,
+    VirtualMesh,
+    initialize_multihost,
+    make_hybrid_mesh,
+    make_mesh,
+    single_device_mesh,
+)
 from .pipeline import (
     pipeline_plan_overrides,
     pipeline_train_1f1b,
@@ -43,8 +50,10 @@ __all__ = [
     "VirtualMesh",
     "fsdp_plan",
     "gspmd_2d_plan",
+    "initialize_multihost",
     "lm_cross_entropy",
     "local_shard",
+    "make_hybrid_mesh",
     "make_mesh",
     "make_ring_attention",
     "make_ring_flash_attention",

@@ -390,16 +390,17 @@ def placements_for(spec: PartitionSpec, mesh) -> tuple:
     return tuple(out)
 
 
-def local_shard(full: torch.Tensor, spec: PartitionSpec,
-                mesh: Mapping[str, int], coordinate: Sequence[int]) -> torch.Tensor:
-    """The slice of ``full`` that the device at ``coordinate`` (one index
-    per mesh dim, in ``mesh``'s order) holds under ``spec`` — a view.  A
-    dim over several axes is split with the first-named axis major.  Every
-    sharded dim must be divisible by its axes' sizes (a resolved spec's
-    are)."""
+def shard_region(full_shape: Sequence[int], spec: PartitionSpec,
+                 mesh: Mapping[str, int],
+                 coordinate: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    """``(start, length)`` per dim of the box of a tensor of
+    ``full_shape`` that the device at ``coordinate`` (one index per mesh
+    dim, in ``mesh``'s order) holds under ``spec``.  A dim over several
+    axes is split with the first-named axis major.  Every sharded dim must
+    be divisible by its axes' sizes (a resolved spec's are)."""
     shape = mesh_shape(mesh)
     where = dict(zip(shape, coordinate))
-    out = full
+    region = [(0, int(size)) for size in full_shape]
     for dim, axes in enumerate(_dim_axes(spec)):
         if not axes:
             continue
@@ -407,10 +408,22 @@ def local_shard(full: torch.Tensor, spec: PartitionSpec,
         for a in axes:
             n *= shape[a]
             idx = idx * shape[a] + where[a]
-        size = full.shape[dim]
+        size = full_shape[dim]
         if size % n:
             raise ValueError(f"dim {dim} of size {size} does not divide over "
                              f"{axes} ({n} shards)")
         chunk = size // n
-        out = out.narrow(dim, idx * chunk, chunk)
+        region[dim] = (idx * chunk, chunk)
+    return tuple(region)
+
+
+def local_shard(full: torch.Tensor, spec: PartitionSpec,
+                mesh: Mapping[str, int], coordinate: Sequence[int]) -> torch.Tensor:
+    """The slice of ``full`` that the device at ``coordinate`` holds under
+    ``spec`` — a view of :func:`shard_region`'s box."""
+    out = full
+    for dim, (start, length) in enumerate(
+            shard_region(tuple(full.shape), spec, mesh, coordinate)):
+        if length != full.shape[dim]:
+            out = out.narrow(dim, start, length)
     return out

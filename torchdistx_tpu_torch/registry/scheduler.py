@@ -44,18 +44,20 @@ __all__ = [
 # The libraries each path of the port loads: training runs the flash
 # kernels and records its model through the native graph engine; serving
 # runs paged decode (its prefill attends through plain attention, so it
-# loads no flash library).
+# loads no flash library); both materialize their parameters through the
+# keyed draws.
 _PATH_SOURCES = {
-    "train": ("flash_attention.cu", "tdx_graph.cc"),
-    "serve": ("paged_decode.cu",),
+    "train": ("flash_attention.cu", "tdx_graph.cc", "keyed_rng.cu"),
+    "serve": ("paged_decode.cu", "keyed_rng.cu"),
 }
 
 
 def path_sources(path: str) -> Tuple[str, ...]:
     """The kernel sources ``path`` (``train``, ``serve`` or ``all``)
-    loads."""
+    loads, each once."""
     if path == "all":
-        return tuple(s for p in ("train", "serve") for s in _PATH_SOURCES[p])
+        return tuple(dict.fromkeys(
+            s for p in ("train", "serve") for s in _PATH_SOURCES[p]))
     try:
         return _PATH_SOURCES[path]
     except KeyError:

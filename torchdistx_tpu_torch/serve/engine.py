@@ -272,8 +272,7 @@ class ServeEngine:
             if self.k_pages is None:
                 raise RuntimeError("release_kv() dropped this engine's pool")
             for site in ("lower", "cache", "compile"):
-                chaos.maybe_inject(site, 1, path=str(_build.cache_dir())
-                                   if site == "cache" else None)
+                chaos.maybe_inject(site, 1, path=str(_build.cache_dir()))
             spec = self._specs[name]
             prog = ServeProgram(spec, self._fns[spec.kind],
                                 (self.k_pages, self.v_pages))
