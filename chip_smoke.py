@@ -37,7 +37,9 @@ user calls, and checks what comes out.  One JSON object per line:
    gathered up to the longest lane, which the port never calls) and the
    bandwidth bound;
 3. token-exact float32 serving of gpt2-125m (full size) and a 2-layer
-   llama3-8b (full width) against the port's unbatched no-cache oracle,
+   llama3-8b (full width), each replica's parameters bitwise the keyed
+   materializer's values of its recording and seed (and its keyed-draw
+   launches), against the port's unbatched no-cache oracle,
    through a pool small enough to force preemption, every serving
    program a captured CUDA graph, prefix caching and speculation on;
    then the same two models through a request mix that forces every
@@ -52,9 +54,11 @@ user calls, and checks what comes out.  One JSON object per line:
    decode ticks (a verify tick attends through the plain
    ``paged_prefill_attention``; a graph replay adds the calls its
    capture recorded);
-4. full-depth llama3-8b bf16 serving: bring-up seconds and host RSS
-   growth while the 16 GB of parameters are materialized on the card,
-   both in a fresh process (cold) and in this one (warm), the seconds
+4. full-depth llama3-8b bf16 serving: bring-up seconds, keyed-draw
+   launches and host RSS growth while the keyed materializer draws the
+   16 GB of parameters on the card, both in a fresh process (cold) and
+   in this one (warm, where every entry is then held bitwise against
+   the materializer's values of the same recording and seed), the seconds
    to capture its 20 programs and the graph pool's bytes; with
    speculation off, decode tokens/s and tick ms on the captured
    programs and on the same replica's eager ones, and the kernel's
@@ -145,10 +149,17 @@ user calls, and checks what comes out.  One JSON object per line:
    and its autograd backward with the bias's gradient, backend named)
    and the bound;
 9b. the keyed draws' kernel (``keyed_rng_kernel``) against its plain
-   version on the card: in f32, bf16 and f16, uniform bit for bit and
-   normal within 2 ulp over a full [4, 1000, 1037] tensor, five regions
-   of it (unaligned starts, the whole, a contiguous slab, one element,
-   whole rows) bit for bit their slices of the kernel's full draw; at
+   version on the card: the 12 instantiations' ptxas lines (registers,
+   stack frame; 0 spill bytes or the phase fails) and CTAs per SM;
+   sincosf bit for bit sinf and cosf at all 2**24 arguments the normal
+   draws form; in f32, bf16 and f16, uniform bit for bit and normal
+   within 2 ulp over a full [4, 1000, 1037] tensor (the normal draws'
+   ulps printed), eight regions of it (unaligned starts, the whole, a
+   contiguous slab, one element, whole rows, and three whose global base
+   is not a multiple of 4, one of them a single run) bit for bit their
+   slices of the kernel's full draw, those three and a [1, 2**20] region
+   of a [2, 2**34] tensor (block indices past 2**32: the 64-bit path)
+   bit for bit the plain version's draw of the region; at
    Mixtral 8x7B's expert stack ([8, 4096, 14336] f32) both kinds checked
    the same way and timed: kernel, plain version, ``Tensor.normal_`` /
    ``uniform_`` with torch's CUDA generator (a yardstick the port never
@@ -469,6 +480,7 @@ from torchdistx_tpu_torch.models.plans import decoder_lm_plan
 from torchdistx_tpu_torch.observe import flightrec, health, reqledger
 from torchdistx_tpu_torch.models.t5 import _relative_buckets
 from torchdistx_tpu_torch.ops import _build
+from torchdistx_tpu_torch.ops.ptxas import ptxas_table
 from torchdistx_tpu_torch.ops import make_flash_attention
 from torchdistx_tpu_torch.ops import paged_attention, paged_attention_reference
 from torchdistx_tpu_torch.ops.paged_attention import kernel_plan, split_plan
@@ -522,6 +534,7 @@ from torchdistx_tpu_torch.serve import (
     oracle_generate,
     spin_up_replica,
 )
+from torchdistx_tpu_torch.serve import engine as serve_engine
 from torchdistx_tpu_torch.reshard import (
     MeshSpec,
     last_transfer_peak_bytes,
@@ -1373,24 +1386,13 @@ def bf16_build(build: dict) -> dict:
     (the same for d(bias), which always has one).  Fails on any spill: the design keeps the
     accumulators and the score fragments in registers, and a spill moves
     them to local memory."""
-    rows, fn = {}, None
-    for ln in build.get("ptxas", []):
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
+    rows = {}
+    for fn, row in ptxas_table(build.get("ptxas", [])).items():
+        m = re.search(r"(flash_(?:fwd|dq|dkv|dbias)_bf16_kernel)((?:ILi\d+E)"
+                      r"(?:Li\d+E)?)", fn)
         if m:
-            fn = m.group(1)
-            continue
-        m = fn and re.search(r"(flash_(?:fwd|dq|dkv|dbias)_bf16_kernel)((?:ILi\d+E)"
-                             r"(?:Li\d+E)?)", fn)
-        if not m:
-            continue
-        inst = "-".join(re.findall(r"\d+", m.group(2)))
-        row = rows.setdefault(m.group(1), {}).setdefault(inst, {})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m:
-            row["spill_stores"], row["spill_loads"] = int(m[1]), int(m[2])
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            row["registers"] = int(m[1])
+            inst = "-".join(re.findall(r"\d+", m.group(2)))
+            rows.setdefault(m.group(1), {})[inst] = row
     out = {}
     for name, (which, insts) in BF16_KERNELS.items():
         got = rows.get(name, {})
@@ -1966,11 +1968,19 @@ KEYED_REPLACES = ("torchdistx_tpu/__init__.py:38 (no Pallas kernel: the "
 # whole (1.88 GB).
 KEYED_SHAPE = (8, 4096, 14336)
 # Regions of one full shape: unaligned starts and partial rows, the whole,
-# a slab contiguous in the full tensor, one element, whole rows.
+# a slab contiguous in the full tensor, one element, whole rows; then
+# global bases that are not a multiple of 4: rows of stride 1037 from
+# lane 1 (every run starts at another lane), one run of whole rows from
+# lane 1, one partial row from lane 3.
 KEYED_FULL = (4, 1000, 1037)
+KEYED_UNALIGNED = (((0, 0, 1), (4, 1000, 1036)), ((2, 5, 0), (1, 995, 1037)),
+                   ((3, 0, 7), (1, 1, 1000)))
 KEYED_REGIONS = (((1, 3, 5), (2, 500, 1000)), ((0, 0, 0), KEYED_FULL),
                  ((2, 0, 0), (1, 1000, 1037)), ((3, 999, 1036), (1, 1, 1)),
-                 ((0, 7, 0), (4, 13, 1037)))
+                 ((0, 7, 0), (4, 13, 1037))) + KEYED_UNALIGNED
+# A region of a full tensor of 2**35 elements, of which only the region
+# is allocated: block indices past 2**32, the kernel's 64-bit path.
+KEYED_WIDE = ((2, 2 ** 34), (1, 2 ** 33 - 3), (1, 2 ** 20))
 KEYED_KEY = 0x5DEECE66D
 # normal: within 2 ulp of the plain version in its dtype (both take
 # logf, sinf, cosf in f32; nvcc's and torch's may differ in the last
@@ -2012,14 +2022,84 @@ def keyed_check(got, plain, kind: str, what: str) -> dict:
             "max_abs_err": float((got.float() - plain.float()).abs().max())}
 
 
-def phase_keyed_rng_kernel(dev, flush) -> dict:
-    """The keyed draws' kernel against its plain version on the card: in
-    f32, bf16 and f16, uniform bit for bit and normal within 2 ulp over a
-    full tensor, and every region of ``KEYED_REGIONS`` bit for bit its
-    slice of the kernel's full draw; then at Mixtral's expert stack (f32)
-    both kinds checked the same way and timed: kernel, plain version,
-    ``Tensor.normal_`` / ``uniform_`` on the same shape with torch's CUDA
-    generator (a yardstick the port never calls), and the bound."""
+# The kernel's instantiations, keyed_rng_kernel<DT, KIND, WIDE>: ptxas
+# must report each.
+KEYED_DTYPES = {0: "float32", 1: "bfloat16", 2: "float16"}
+KEYED_KINDS = {0: "uniform", 1: "normal"}
+
+
+def keyed_build(build: dict) -> dict:
+    """Registers, stack frame and spills (ptxas's lines of the build) of
+    each of the 12 instantiations of ``keyed_rng_kernel`` (3 dtypes x 2
+    kinds x the 32- and 64-bit paths), and the CTAs per SM the launch
+    takes (the occupancy calculator's).  Fails on any spill.  The stack
+    frame is printed, not held: the 64-bit normal instantiations keep one,
+    the local array of the precise sincosf's reduction of huge arguments,
+    which no t in [0, 2pi) reaches."""
+    rows = {}
+    for fn, row in ptxas_table(build.get("ptxas", [])).items():
+        m = re.search(r"keyed_rng_kernelILi(\d)ELi(\d)ELi(\d)E", fn)
+        if m:
+            rows[f"{KEYED_DTYPES[int(m[1])]}-{KEYED_KINDS[int(m[2])]}-"
+                 f"{'64' if int(m[3]) else '32'}bit"] = dict(row)
+    want = sorted(f"{d}-{k}-{w}" for d in KEYED_DTYPES.values()
+                  for k in KEYED_KINDS.values() for w in ("32bit", "64bit"))
+    if sorted(rows) != want:
+        raise AssertionError(f"ptxas lines for keyed_rng_kernel at "
+                             f"{sorted(rows)}, not {want}")
+    for name, row in rows.items():
+        if row.get("spill_stores", 1) or row.get("spill_loads", 1):
+            raise AssertionError(f"keyed_rng_kernel<{name}> spills: {row}")
+    lib = _build.load("keyed_rng.cu")
+    fn = lib.tdx_keyed_launch_shape
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name, row in rows.items():
+        dt, kind, wide = name.split("-")
+        shape = (ctypes.c_int * 3)()
+        err = fn({v: k for k, v in KEYED_DTYPES.items()}[dt],
+                 {v: k for k, v in KEYED_KINDS.items()}[kind],
+                 int(wide == "64bit"), shape)
+        if err:
+            raise RuntimeError(f"tdx_keyed_launch_shape({name}): error {err}")
+        row.update(ctas_per_sm=shape[0], threads=shape[1],
+                   blocks_per_thread=shape[2])
+    return {"instances": {k: rows[k] for k in want}}
+
+
+def sincos_mismatches(dev) -> int:
+    """Of the 2**24 arguments t = f32(2pi) * u2 the normal draws can form,
+    the number where the kernel library's sincosf differs in any bit from
+    its sinf and cosf (``tdx_keyed_sincos_mismatches``)."""
+    fn = _build.load("keyed_rng.cu").tdx_keyed_sincos_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = fn(count.data_ptr(), 0, 0,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"tdx_keyed_sincos_mismatches: error {err}")
+    return int(count.item())
+
+
+def phase_keyed_rng_kernel(dev, flush, build: dict) -> dict:
+    """The keyed draws' kernel against its plain version on the card: its
+    build (``keyed_build``: 0 spills) and sincosf against sinf and cosf
+    at every t the normal draws form; in f32, bf16 and f16, uniform bit
+    for bit and normal within 2 ulp over a full tensor, every region of
+    ``KEYED_REGIONS`` bit for bit its slice of the kernel's full draw,
+    and the unaligned regions and ``KEYED_WIDE`` (the 64-bit path) bit
+    for bit the plain version's draw of the region; then at Mixtral's
+    expert stack (f32) both kinds checked the same way and timed: kernel,
+    plain version, ``Tensor.normal_`` / ``uniform_`` on the same shape
+    with torch's CUDA generator (a yardstick the port never calls), and
+    the bound."""
+    ptxas = keyed_build(build)
+    trig = sincos_mismatches(dev)
+    if trig:
+        raise AssertionError(f"sincosf differs from sinf/cosf at {trig} of "
+                             f"the 2**24 arguments")
     cases = {}
     for dtype in keyed_rng.DTYPES:
         for kind, a, b in (("uniform", -0.95, 0.95), ("normal", 0.0, 0.02)):
@@ -2038,7 +2118,22 @@ def phase_keyed_rng_kernel(dev, flush) -> dict:
                 if not torch.equal(part, full[sl]):
                     raise AssertionError(f"{what}: region {start} + {shape} "
                                          f"is not its slice of the full draw")
-            cases[what] = {**row, "regions_bitwise": len(KEYED_REGIONS)}
+            for full_shape, (start, shape) in (
+                    [(KEYED_FULL, r) for r in KEYED_UNALIGNED]
+                    + [(KEYED_WIDE[0], KEYED_WIDE[1:])]):
+                part = keyed_rng.keyed_fill_(
+                    torch.empty(shape, dtype=dtype, device=dev), kind, a, b,
+                    KEYED_KEY, full_shape, start)
+                want = keyed_rng.keyed_draw_reference(
+                    shape, dtype, kind, a, b, KEYED_KEY, full_shape, start,
+                    device=dev)
+                if not torch.equal(part, want):
+                    raise AssertionError(
+                        f"{what}: region {start} + {shape} of {full_shape} "
+                        f"differs from the plain version by "
+                        f"{ulps(part, want)} ulp")
+            cases[what] = {**row, "regions_bitwise": len(KEYED_REGIONS),
+                           "regions_bitwise_plain": len(KEYED_UNALIGNED) + 1}
             del full, plain
     out = torch.empty(KEYED_SHAPE, dtype=torch.float32, device=dev)
     timing = {}
@@ -2068,10 +2163,17 @@ def phase_keyed_rng_kernel(dev, flush) -> dict:
     del out
     torch.cuda.empty_cache()
     row = {"phase": "keyed_rng_kernel", "kernel": "keyed_rng",
-           "card": nvidia_smi(), "cases": cases,
+           "card": nvidia_smi(), "build": ptxas,
+           "build_s": build.get("build_s"),
+           "sincos_mismatches_of_2_24": trig, "cases": cases,
+           "max_ulps_normal": max(c["max_ulps"] for w, c in cases.items()
+                                  if w.startswith("normal")),
            "limits": {"uniform": "bitwise", "normal": f"{KEYED_ULPS} ulp",
-                      "regions": "bitwise their slice of the full draw"},
+                      "regions": "bitwise their slice of the full draw",
+                      "unaligned and wide regions":
+                          "bitwise the plain version's draw"},
            "full_shape": KEYED_FULL, "regions": KEYED_REGIONS,
+           "wide_region": KEYED_WIDE,
            "shape": {"shape": KEYED_SHAPE, "dtype": "float32"},
            "timing": timing}
     emit(row)
@@ -2292,6 +2394,52 @@ def check_plain_launches(name, launches, cfg, eng) -> None:
             f"ticks)")
 
 
+def keyed_spin_up(**kw):
+    """``spin_up_replica(**kw)``, keeping the recording it hands the keyed
+    materializer (its fakes, taken before ``bind_values`` swaps them for
+    the values) and the materializer's arguments: the engine and
+    ``(fakes, kwargs)``."""
+    kept = {}
+    real = serve_engine.materialize_module_cuda
+
+    def keep(module, **kwargs):
+        kept["fakes"] = (named_fake_tensors(module), kwargs)
+        return real(module, **kwargs)
+
+    serve_engine.materialize_module_cuda = keep
+    try:
+        eng = spin_up_replica(**kw)
+    finally:
+        serve_engine.materialize_module_cuda = real
+    return eng, kept["fakes"]
+
+
+def replica_is_keyed(name: str, eng, kept, seed: int, dev) -> dict:
+    """The replica's parameters and buffers against
+    ``materialize_params_cuda`` of the recording it was brought up from
+    (``kept``, as ``keyed_spin_up`` returns it), the same seed and the
+    same ``param_dtype``, on the card: every entry bitwise, in its dtype.
+    Fails otherwise."""
+    t0 = time.perf_counter()
+    fakes, kwargs = kept
+    want = materialize_params_cuda(fakes, seed=seed,
+                                   param_dtype=kwargs.get("param_dtype"),
+                                   device=dev)
+    got = dict(eng.model.named_parameters())
+    got.update(eng.model.named_buffers())
+    for key, value in want.items():
+        have = got.get(key)
+        if have is None or have.dtype != value.dtype or not torch.equal(
+                have.detach(), value):
+            raise AssertionError(f"{name}: replica entry {key} is not the "
+                                 f"keyed value of its recording and seed")
+    entries = len(want)
+    del want
+    torch.cuda.empty_cache()
+    return {"entries_bitwise_keyed": entries,
+            "keyed_check_s": time.perf_counter() - t0}
+
+
 def phase_exact_f32(dev) -> list:
     """Token-exact float32 serving against the unbatched no-cache oracle,
     with a pool too small for all lanes at once, on the captured
@@ -2304,8 +2452,13 @@ def phase_exact_f32(dev) -> list:
     )
     scfg = ServeConfig(max_batch=4, page_size=16, n_pages=5)
     for name, family, cfg in runs:
-        eng = spin_up_replica(cfg, family=family, serve_cfg=scfg, seed=0,
-                              param_dtype=torch.float32, device=dev)
+        keyed_rng.launches = 0
+        eng, kept = keyed_spin_up(model=cfg, family=family, serve_cfg=scfg,
+                                  seed=0, param_dtype=torch.float32,
+                                  device=dev)
+        keyed = {"keyed_rng_launches": keyed_rng.launches,
+                 **replica_is_keyed(name, eng, kept, 0, dev)}
+        del kept
         reqs = staggered_requests(cfg.vocab_size, seed=11)
         paged_attention.launches = 0
         out = eng.run(reqs)
@@ -2333,7 +2486,7 @@ def phase_exact_f32(dev) -> list:
                "paged_decode_launches": launches,
                "graphs": captured(eng),
                "bring_up_s": eng.bring_up_seconds,
-               "capture_s": eng.capture_seconds}
+               "capture_s": eng.capture_seconds, **keyed}
         emit(row)
         rows.append(row)
         del eng
@@ -2561,14 +2714,23 @@ BF16_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=64,
                          spec_decode=False)
 
 
-def bring_up_bf16(dev):
-    """Full-depth llama3-8b in bf16: fakes → materialize on the card.
-    Returns the engine and its bring-up seconds and host RSS figures;
-    fails if the RSS grew by a quarter of the parameter bytes or more."""
+def bring_up_bf16(dev, check_keyed: bool = False):
+    """Full-depth llama3-8b in bf16: fakes → the keyed materializer on the
+    card.  Returns the engine and its bring-up seconds, host RSS figures
+    and keyed-draw launches; fails if the RSS grew by a quarter of the
+    parameter bytes or more.  ``check_keyed`` also holds every entry
+    bitwise against ``materialize_params_cuda`` of the same recording,
+    seed and ``param_dtype`` (``replica_is_keyed``), after the timed
+    bring-up."""
     rss0 = _rss_bytes()
+    keyed_rng.launches = 0
     with RssSampler() as rss:
-        eng = spin_up_replica("llama3-8b", param_dtype=torch.bfloat16,
-                              serve_cfg=BF16_SERVE, seed=0, device=dev)
+        eng, kept = keyed_spin_up(model="llama3-8b",
+                                  param_dtype=torch.bfloat16,
+                                  serve_cfg=BF16_SERVE, seed=0, device=dev)
+    launches = keyed_rng.launches
+    if launches < 1:
+        raise AssertionError("the bring-up launched no keyed draw")
     param_bytes = sum(p.numel() * p.element_size()
                       for p in eng.model.parameters())
     growth = rss.peak - rss0
@@ -2576,11 +2738,15 @@ def bring_up_bf16(dev):
         raise AssertionError(
             f"host RSS grew {growth} bytes while materializing "
             f"{param_bytes} bytes of parameters")
+    keyed = (replica_is_keyed("llama3-8b bf16", eng, kept, 0, dev)
+             if check_keyed else {})
+    del kept
     return eng, {"param_bytes": param_bytes,
                  "bring_up_s": eng.bring_up_seconds,
                  "capture_s": eng.capture_seconds,
                  "host_rss_peak_bytes": rss.peak,
-                 "host_rss_growth_bytes": growth}
+                 "host_rss_growth_bytes": growth,
+                 "keyed_rng_launches": launches, **keyed}
 
 
 def cold_bring_up() -> None:
@@ -2689,7 +2855,7 @@ def phase_bf16_full(dev):
     replica's graphs, the same through the same replica's eager programs,
     and, with speculation on, a repeated prompt through graphs."""
     cold = run_child("cold_bring_up")
-    eng, warm = bring_up_bf16(dev)
+    eng, warm = bring_up_bf16(dev, check_keyed=True)
     scfg = BF16_SERVE
     cfg = eng.cfg
     reqs = bf16_requests(cfg.vocab_size)
@@ -2746,6 +2912,10 @@ def phase_bf16_full(dev):
            "host_rss_growth_bytes_cold": cold["host_rss_growth_bytes"],
            "bring_up_s_warm": warm["bring_up_s"],
            "capture_s_warm": warm["capture_s"],
+           "keyed_rng_launches_cold": cold["keyed_rng_launches"],
+           "keyed_rng_launches_warm": warm["keyed_rng_launches"],
+           "entries_bitwise_keyed": warm["entries_bitwise_keyed"],
+           "keyed_check_s": warm["keyed_check_s"],
            "graphs": captured(eng),
            "graph_pool_bytes": eng.graph_pool_bytes(),
            "host_rss_peak_bytes_warm": warm["host_rss_peak_bytes"],
@@ -4344,12 +4514,12 @@ def materialize_llama3_8b(rec_dir=None) -> None:
           "login_host_recording": travel, "card": nvidia_smi()})
 
 
-def phase_materialize_llama3_8b(eager_row, rec_dir) -> dict:
+def phase_materialize_llama3_8b(serve_row, rec_dir) -> dict:
     torch.cuda.empty_cache()
     row = run_child("materialize_llama3_8b", rec_dir)
     if rec_dir and not row["login_host_recording"]:
         raise AssertionError("the login host's recording was not checked")
-    row["eager_bring_up_s_cold"] = (eager_row or {}).get("bring_up_s_cold")
+    row["serve_bring_up_s_cold"] = (serve_row or {}).get("bring_up_s_cold")
     emit(row)
     return row
 
@@ -8283,7 +8453,8 @@ def main() -> int:
                      builds.get("flash_attention.cu", {}))
     run("flash_tune", phase_flash_tune, dev, flush)
     bias_rows = run("flash_bias_kernel", phase_flash_bias_kernel, dev, flush)
-    keyed_row = run("keyed_rng_kernel", phase_keyed_rng_kernel, dev, flush)
+    keyed_row = run("keyed_rng_kernel", phase_keyed_rng_kernel, dev, flush,
+                    builds.get("keyed_rng.cu", {}))
     registry_row = run("registry_warm", phase_registry_warm, dev, builds)
     run("serve_f32_exact", phase_exact_f32, dev)
     run("serve_features_f32", phase_features_f32, dev)
@@ -8453,6 +8624,7 @@ def main() -> int:
         "replaces": KEYED_REPLACES,
         "launches": mat_row["keyed_rng_launches"],
         "launches_mixtral_expert_shard_path": expert_row["keyed_rng_launches"],
+        "launches_serve_bf16_path": main_row["keyed_rng_launches_warm"],
         "max_abs_err": keyed["max_abs_err"], "max_ulps": keyed["max_ulps"],
         "ms": keyed["ms"], "kernel_ms": keyed["ms"],
         "plain_ms": keyed["plain_ms"], "bound_ms": keyed["bound_ms"],

@@ -116,16 +116,17 @@ def test_no_silent_cpu_fallback():
 
 
 def test_spin_up_replica_records_with_zero_storage(monkeypatch):
-    """spin_up_replica hands materialize_module a recording whose every
-    parameter is a fake (no storage), then serves from real ones."""
+    """spin_up_replica hands the keyed materializer
+    (materialize_module_cuda) a recording whose every parameter is a fake
+    (no storage), then serves from real ones."""
     seen = {}
 
     def spy(module, **kw):
         seen["fakes"] = [is_fake(p) for p in module.parameters()]
         return real_materialize(module, **kw)
 
-    real_materialize = serve_engine.materialize_module
-    monkeypatch.setattr(serve_engine, "materialize_module", spy)
+    real_materialize = serve_engine.materialize_module_cuda
+    monkeypatch.setattr(serve_engine, "materialize_module_cuda", spy)
     eng = spin_up_replica("tiny", device="cpu")
     assert seen["fakes"] and all(seen["fakes"])
     assert not any(is_fake(p) for p in eng.model.parameters())

@@ -242,8 +242,8 @@ def test_rejection_paths_typed_and_counted(telemetry):
 
 def test_concurrent_spin_ups_hold_equal_parameters():
     """Two replicas of one seed spun up at once on two threads: their
-    parameters are bitwise equal (materialization is serialized over the
-    global generator)."""
+    parameters are bitwise equal (the keyed materializer's values are a
+    function of the seed and the recording alone)."""
     engines, errors = [None, None], []
 
     def up(i):

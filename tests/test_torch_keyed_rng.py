@@ -94,6 +94,98 @@ def test_a_region_equals_its_slice_of_the_full_draw(data):
     assert keyed_rng.launches == before  # CPU tensors never launch
 
 
+def plan_writes(plan):
+    """The (local index, global index) pairs that a launch of ``plan``
+    writes, enumerated in numpy with the kernel's arithmetic
+    (``locate`` in ``csrc/keyed_rng.cu``): slot -> (run, block), the run's
+    start split into whole blocks and lanes, lanes masked to the run; on
+    the narrow path in uint32, wrapping as the kernel's registers do."""
+    it = np.uint32 if plan.narrow else np.uint64
+    slot = np.arange(plan.slots, dtype=np.uint64).astype(it)
+    lens = [it(x) for x in plan.lens]
+    nd = len(lens)
+    S = it(plan.slots_per_run)
+    r, s = (slot // S, slot % S) if nd > 1 else (np.zeros_like(slot), slot)
+    b = np.full_like(slot, plan.base >> 2)
+    low = np.full(slot.shape, plan.base & 3, dtype=np.uint32)
+    q = r
+    for d in range(nd - 2, -1, -1):
+        idx = q
+        if d > 0:
+            idx, q = q % lens[d], q // lens[d]
+        sq, sr = it(plan.strides[d] >> 2), it(plan.strides[d] & 3)
+        b = b + idx * sq + (idx >> it(2)) * sr
+        low = low + (idx & it(3)).astype(np.uint32) * np.uint32(sr)
+    blk = b + (low >> np.uint32(2)).astype(it) + s
+    j0 = it(4) * s - (low & np.uint32(3)).astype(it)
+    row0 = r * it(plan.run_len)
+    local, glob = [], []
+    for lane in range(4):
+        j = j0 + it(lane)
+        keep = j < it(plan.run_len)
+        local.append((row0 + j)[keep].astype(np.int64))
+        glob.append(blk[keep].astype(np.int64) * 4 + lane)
+    return np.concatenate(local), np.concatenate(glob)
+
+
+def assert_writes_region(plan, full, start, shape):
+    """Every element of the region written once, with its global index
+    (row-major in ``full``, int64: the full shapes here stay below
+    2**63 elements)."""
+    local, glob = plan_writes(plan)
+    order = np.argsort(local, kind="stable")
+    assert np.array_equal(local[order], np.arange(plan.n))
+    coords = np.unravel_index(np.arange(plan.n), shape)
+    want = np.zeros(plan.n, dtype=np.int64)
+    for c, s0, st in zip(coords, start, np.cumprod(
+            (list(full[1:]) + [1])[::-1])[::-1]):
+        want += (c + s0).astype(np.int64) * int(st)
+    assert np.array_equal(glob[order], want)
+
+
+@settings(max_examples=200, deadline=None)
+@given(data=st.data())
+def test_launch_plan_writes_every_element_once_at_its_global_index(data):
+    """Enumerated in numpy, the plan's slots write every element of the
+    region exactly once, each with its own global index; the 32-bit path
+    is taken exactly when the full tensor has fewer than 2**34 elements
+    (the regions here are small), and each run is given no more than one
+    block beyond what its own start lane needs."""
+    ndim = data.draw(st.integers(1, 4))
+    big = data.draw(st.booleans())
+    top = 1 << (15 if big else 3)
+    full = [data.draw(st.integers(1, top)) for _ in range(ndim)]
+    start = [data.draw(st.integers(0, f - 1)) for f in full]
+    shape = [data.draw(st.integers(1, min(f - s0, 6)))
+             for f, s0 in zip(full, start)]
+    plan = keyed_rng.launch_plan(full, start, shape)
+    assert plan.narrow == (math.prod(full) < 2 ** 34)
+    assert plan.n == math.prod(shape) == plan.runs * plan.run_len
+    assert plan.slots == plan.runs * plan.slots_per_run
+    assert plan.slots_per_run <= (plan.run_len + 6) // 4
+    assert_writes_region(plan, full, start, shape)
+
+
+@pytest.mark.parametrize("full,start,shape,narrow,head", [
+    ((8, 4096, 14336), (0, 0, 0), (8, 4096, 14336), True, 0),
+    ((8, 4096, 14336), (1, 0, 0), (1, 4096, 14336), True, 0),
+    ((4, 1000, 1037), (1, 3, 5), (2, 500, 1000), True, -1),
+    ((2, 2 ** 34), (1, 2 ** 33 - 3), (1, 2 ** 20), False, 1),
+    ((3, 2 ** 33 - 1), (0, 0), (3, 2 ** 33 - 1), False, 0),
+])
+def test_launch_plan_at_main_path_shapes(full, start, shape, narrow, head):
+    """Mixtral's expert stack (whole and one expert: one run from lane 0,
+    no division), an unaligned box of many runs, a region past 2**34
+    elements of its full tensor (the 64-bit path) and a whole tensor of
+    more than 2**31 elements (one run, 64-bit too)."""
+    plan = keyed_rng.launch_plan(full, start, shape)
+    assert (plan.narrow, plan.head) == (narrow, head)
+    if plan.runs == 1:
+        assert plan.slots == (plan.head % 4 + plan.n + 3) // 4
+    if plan.n < 2 ** 21:
+        assert_writes_region(plan, full, start, shape)
+
+
 @pytest.mark.parametrize("kind,a,b", [("uniform", -2.0, 3.0),
                                       ("normal", 0.5, 0.02)])
 def test_moments(kind, a, b):

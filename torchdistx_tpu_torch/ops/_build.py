@@ -21,7 +21,8 @@ a damaged library (``ctypes.CDLL`` on one can crash the process instead
 of raising) is quarantined (``<lib>.so.corrupt``) and fetched again, or
 else rebuilt.  Registry trouble of any kind degrades to a local build.
 nvcc's output (``-Xptxas -v``: registers, shared memory, spills) is kept
-beside the library as ``.log`` and travels with it through the registry.
+beside the library as ``.log`` and travels with it through the registry
+(:func:`.ptxas.ptxas_table` reads it per kernel).
 A failed build raises with nvcc's output.
 
 One host library goes the same way: the native graph engine

@@ -36,6 +36,13 @@ SIMD code and a tensor's tail through scalar libm, whose last bits
 differ, and an element's value must not depend on where it sits in the
 tensor it is drawn into.
 
+The kernel's launch comes from :func:`launch_plan`, a plain function of
+the region: its merged dims, the number of runs (rows of the last merged
+dim, each contiguous in the full tensor), the Philox blocks given to
+each run (one thread each), and whether 32-bit index arithmetic covers
+it (a full tensor below 2**34 elements, so every block index is below
+2**32, and fewer than 2**31 local elements).
+
 ``launches`` counts the kernel's launches (one per call on a CUDA
 tensor).
 """
@@ -43,6 +50,7 @@ tensor).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -51,13 +59,17 @@ import torch
 
 from . import _build
 
-__all__ = ["DTYPES", "keyed_draw_reference", "keyed_fill_", "launches",
-           "merge_region", "philox4x32", "SOURCE"]
+__all__ = ["DTYPES", "LaunchPlan", "keyed_draw_reference", "keyed_fill_",
+           "launch_plan", "launches", "merge_region", "philox4x32", "SOURCE"]
 
 SOURCE = "keyed_rng.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 KINDS = {"uniform": 0, "normal": 1}
 _MAX_DIMS = 8  # kMaxDims in csrc/keyed_rng.cu
+# The 32-bit path: block indices below 2**32, and local indices and slot
+# numbers (at most 7/4 of the elements) below kNarrowSlots.
+_NARROW_FULL = 1 << 34
+_NARROW_LOCAL = 1 << 31
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -133,6 +145,49 @@ def merge_region(full_shape: Sequence[int], start: Sequence[int],
     if not lens:  # a 0-d tensor: one element
         lens, strides = [1], [1]
     return tuple(lens), tuple(strides), base
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """What one kernel launch needs for a region (:func:`launch_plan`).
+
+    A *slot* is one thread's Philox block: run ``r`` owns slots
+    ``r * slots_per_run`` to ``(r + 1) * slots_per_run - 1``, the blocks
+    from the one holding the run's first element on; a slot past the
+    run's last block writes nothing, and a block's lanes outside the run
+    are masked."""
+
+    lens: Tuple[int, ...]     # merged dims (merge_region)
+    strides: Tuple[int, ...]  # the full tensor's stride per merged dim
+    base: int                 # global index of the region's first element
+    n: int                    # elements in the region
+    runs: int                 # rows of the last merged dim
+    run_len: int              # elements in each run
+    head: int                 # the lane each run starts at, -1 if they differ
+    slots_per_run: int
+    slots: int                # runs * slots_per_run
+    narrow: bool              # 32-bit index arithmetic
+
+
+def launch_plan(full_shape: Sequence[int], start: Sequence[int],
+                shape: Sequence[int]) -> LaunchPlan:
+    """The kernel's launch for the region at ``start`` of ``full_shape``
+    with ``shape``.  Every run starts at the same lane when each merged
+    dim that varies (length > 1) strides by a multiple of 4, and then
+    takes ``ceil((head + run_len) / 4)`` blocks; otherwise each run is
+    given the most any start lane needs, ``(run_len + 6) // 4``."""
+    lens, strides, base = merge_region(full_shape, start, shape)
+    n = math.prod(int(x) for x in shape)
+    runs = math.prod(lens[:-1])
+    run_len = lens[-1]
+    same = all(st % 4 == 0 for ln, st in zip(lens[:-1], strides[:-1])
+               if ln > 1)
+    head = base % 4 if same else -1
+    per_run = (head + run_len + 3) // 4 if same else (run_len + 6) // 4
+    narrow = (math.prod(int(x) for x in full_shape) < _NARROW_FULL
+              and n < _NARROW_LOCAL)
+    return LaunchPlan(lens, strides, base, n, runs, run_len, head, per_run,
+                      runs * per_run, narrow)
 
 
 def _run_starts(lens, strides, base, device) -> torch.Tensor:
@@ -242,10 +297,12 @@ def _kernel():
         lib = _build.load(SOURCE)
         fn = lib.tdx_keyed_rng
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_longlong),
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint,
+                       ctypes.c_uint, ctypes.c_float, ctypes.c_float,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.tdx_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tdx_cuda_error_string.restype = ctypes.c_char_p
@@ -285,22 +342,23 @@ def keyed_fill_(out: torch.Tensor, kind: str, a: float, b: float, key: int,
         return out
     if out.device.type != "cuda":
         raise ValueError(f"keyed draws run on cuda or cpu, not {out.device}")
-    lens, strides, base = merge_region(full_shape, start, shape)
-    if len(lens) > _MAX_DIMS:
-        raise ValueError(f"a region of {len(lens)} merged dims; the kernel "
-                         f"takes at most {_MAX_DIMS}")
+    plan = launch_plan(full_shape, start, shape)
+    if len(plan.lens) > _MAX_DIMS:
+        raise ValueError(f"a region of {len(plan.lens)} merged dims; the "
+                         f"kernel takes at most {_MAX_DIMS}")
     target = out if out.is_contiguous() else torch.empty(
         shape, dtype=out.dtype, device=out.device)
-    n = target.numel()
-    if n:
+    if plan.n:
         fn = _kernel()
         pa, pb = _params(kind, a, b)
-        arr = ctypes.c_longlong * len(lens)
+        arr = ctypes.c_longlong * len(plan.lens)
         with torch.cuda.device(out.device):
             stream = torch.cuda.current_stream(out.device).cuda_stream
             err = fn(target.data_ptr(), DTYPES[out.dtype], KINDS[kind],
-                     len(lens), arr(*lens), arr(*strides), base, n,
-                     key & _MASK32, (key >> 32) & _MASK32, pa, pb, stream)
+                     int(not plan.narrow), len(plan.lens), arr(*plan.lens),
+                     arr(*plan.strides), plan.base, plan.slots_per_run,
+                     plan.slots, key & _MASK32, (key >> 32) & _MASK32, pa,
+                     pb, stream)
         if err != 0:
             msg = _build.load(SOURCE).tdx_cuda_error_string(err)
             raise RuntimeError(f"keyed_rng launch failed: CUDA error {err} "

@@ -65,7 +65,7 @@ sequence-parallel ``attn_fn``.
 The JAX package's ``executor`` knob (``TDX_PP_EXECUTOR``) picks between
 two compiled programs of a schedule; eager torch runs the segments'
 ticks as they come and has nothing to pick, so the port has no such
-knob (ROADMAP C6).
+knob (ROADMAP C7).
 """
 
 from __future__ import annotations

@@ -63,10 +63,13 @@ propagates.
 
 **Replica bring-up** (:func:`spin_up_replica`) is the deferred-init story
 end to end: the port's :func:`~..deferred_init.deferred_init` records the
-model as fakes (zero storage), and
-:func:`~..deferred_init.materialize_module` replays the recording
-straight onto the device; then :meth:`ServeEngine.warmup` captures every
-program.
+model as fakes (zero storage), the keyed materializer
+(:func:`~..cuda_bridge.materialize.materialize_module_cuda`) replays the
+recording straight onto the device with its groups, retry ladder, init
+dtype and ``materialize`` span, drawing every ``uniform_`` / ``normal_``
+through the keyed kernel, so a replica's weights are the same function of
+(seed, recording) as every other materialization and no global generator
+changes; then :meth:`ServeEngine.warmup` captures every program.
 
 Telemetry through the port's :mod:`..observe`, under the JAX package's
 names: ``tdx.serve.*`` counters (``prefills``, ``prefill_tokens``,
@@ -92,7 +95,6 @@ component through ``spin_up`` -> ``warming`` -> ``serving``.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -103,8 +105,12 @@ import torch
 
 from .. import chaos, observe
 from .._device import resolve_device
-from ..cuda_bridge.materialize import _retryable_errors
-from ..deferred_init import deferred_init, materialize_module
+from ..cuda_bridge.materialize import (
+    _retryable_errors,
+    bind_values,
+    materialize_module_cuda,
+)
+from ..deferred_init import deferred_init
 from ..models import PRESETS, TransformerConfig
 from ..observe import reqledger
 from ..observe import slo as _slo
@@ -1137,13 +1143,6 @@ def _resolve_model(model, family):
     return model, family or "llama"
 
 
-# One replica's recording and parameters at a time: materialization
-# draws from the global generator that ``torch.manual_seed`` seeds, so
-# two replicas brought up at once on two threads would interleave their
-# draws and come up with different weights.
-_SPIN_UP_LOCK = threading.Lock()
-
-
 def spin_up_replica(
     model: "str | TransformerConfig" = "tiny",
     *,
@@ -1162,19 +1161,25 @@ def spin_up_replica(
 ) -> ServeEngine:
     """Bring up one serving replica on ``device``: ``deferred_init`` the
     model (fakes claiming ``device``, zero storage) -> materialize the
-    parameters straight onto the device under ``torch.manual_seed(seed)``
-    -> capture every serving program (:meth:`ServeEngine.warmup`).
+    parameters straight onto the device with the keyed materializer
+    (:func:`~..cuda_bridge.materialize.materialize_module_cuda` of
+    ``seed``, then :func:`~..cuda_bridge.materialize.bind_values`) ->
+    capture every serving program (:meth:`ServeEngine.warmup`).
     ``bring_up_seconds`` covers the first two, ``capture_seconds`` the
-    last.  Concurrent bring-ups materialize one at a time, so replicas
-    of one seed come up with equal weights whatever thread spins them.
+    last.  The values are a function of ``seed`` and the recording
+    alone: the global generator is neither read nor reseeded, and
+    replicas of one seed come up with equal weights whatever thread
+    spins them, concurrently or not.
     On the card ``bring_up_outcomes`` holds each kernel library's
     outcome (:func:`..ops._build.bring_up`): ``hit`` where it came from
     the local cache or the registry, ``miss`` where nvcc built it.
 
     ``model`` is a preset name (family inferred from it) or a
     :class:`TransformerConfig` (then pass ``family``).  ``param_dtype``
-    is the dtype the parameters are stored in (default: the config's);
-    compute runs in the config's ``dtype``.  ``on_token`` /
+    is the dtype every floating parameter is stored in, norm scales
+    included, as the JAX package's replica casts its params (default:
+    the config's, which keeps norms in float32); compute runs in the
+    config's ``dtype``.  ``on_token`` /
     ``on_complete`` / ``on_cancel`` are the engine's hooks (a fleet's
     replica passes its own).  ``sample_len`` is the JAX signature's
     sample input length for tracing the init program; the port records
@@ -1192,18 +1197,22 @@ def spin_up_replica(
     with observe.span("serve.spin_up", category="serve",
                       family=family) as sp:
         t0 = time.perf_counter()
-        with _SPIN_UP_LOCK:
-            fake = deferred_init(make_model, family, cfg, dev)
-            torch.manual_seed(seed)
-            net = materialize_module(fake, device=dev).eval()
+        # The libraries first: once the materializer has loaded the keyed
+        # draws' library, a build of it would read as a hit.
+        outcomes = {}
+        if dev.type == "cuda":
+            outcomes = _build.bring_up(path_sources("serve"))
+            build_kernel()
+        net = deferred_init(make_model, family, cfg, dev)
+        bind_values(net, materialize_module_cuda(
+            net, seed=seed, param_dtype=param_dtype, device=dev))
+        net.eval()
         engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg,
                              device=dev, on_token=on_token,
                              on_complete=on_complete, on_cancel=on_cancel,
                              slo_name=slo_name)
+        engine.bring_up_outcomes = outcomes
         if dev.type == "cuda":
-            engine.bring_up_outcomes = _build.bring_up(
-                path_sources("serve"))
-            build_kernel()
             torch.cuda.synchronize(dev)
         engine.bring_up_seconds = time.perf_counter() - t0
         observe.health.set_state(health_component, "warming")

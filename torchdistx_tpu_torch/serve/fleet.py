@@ -52,8 +52,8 @@ graph capture forbids other threads' unsafe CUDA calls while it records
 current (default) stream, where its work would serialize anyway.  So a
 fleet on one card interleaves its replicas' ticks; the host-side
 routing, queueing and bookkeeping run beside them.  Replicas of one seed
-come up with equal weights (:func:`~.engine.spin_up_replica` serializes
-materialization).
+come up with equal weights: :func:`~.engine.spin_up_replica` takes them
+from the keyed materializer, a function of the seed and the recording.
 
 **Warm bring-up.**  A replica's only compiled artifacts are its kernel
 libraries; ``bring_up_warm`` is True when its bring-up built none with
