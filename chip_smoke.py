@@ -88,7 +88,14 @@ user calls, and checks what comes out.  One JSON object per line:
    run, the
    health states ``spin_up_replica`` walked, the decode tick ms and
    tokens/s with telemetry off and on (ledger and SLO windows), and one
-   ``flight_dump``'s ms and bytes;
+   ``flight_dump``'s ms and bytes; then serving over a mesh
+   (``serve_tp``): the same full-depth bf16 replica on a one-rank NCCL
+   ``{tp 1}`` mesh, every program captured with its tensor-parallel
+   all-reduces and all-gather, the same 4 requests: tokens equal and
+   final logits bitwise those of item 4's ``mesh=None`` replica (a token
+   digest of each printed), every entry bitwise the keyed values, 32
+   paged-decode launches per plain tick with their merges, bring-up and
+   capture s, decode tokens/s;
 6. the flash kernels (forward, dq, dk/dv) against
    ``flash_forward_reference`` / ``flash_backward_reference`` on the
    card: every bias-free case of ``tests/test_ops.py`` and ragged cases
@@ -326,7 +333,7 @@ user calls, and checks what comes out.  One JSON object per line:
     mesh; with T5-11B's encoder bias (H 128, S 2048, f32 bias rows [128,
     512, 2048] a rank, non-causal), d(bias) included, 4 launches of each
     kernel a rank; Ulysses with the flash kernels inside at the llama
-    geometry; the train step at 2-layer llama3-8b width, bf16 parameters,
+    geometry; the train step at 1-layer llama3-8b width, bf16 parameters,
     [1, 8192] over sp 2: 2 losses falling, each within 1e-3 of the same
     model and sequence whole in one process, the launches per rank and
     step, the C3 check against plain attention on a fresh sequence
@@ -350,26 +357,35 @@ user calls, and checks what comes out.  One JSON object per line:
     and step 2 replayed bitwise, and loaded whole into a ``mesh=None``
     state in this process (every leaf's CRC the stage's); then
     each schedule on a one-rank NCCL ``{pp: 1}`` mesh (2 layers) with its
-    step ms beside ``train_bf16_full``'s;
+    step ms beside ``train_bf16_full``'s; the same 2 ranks then serve as a
+    ``{tp 2}`` replica (``serve_tp_pair``, printed after ``train_pp``):
+    llama3-8b width at 2 layers in bf16, each rank holding 16 query and
+    4 kv heads, eager over gloo, against the same replica on
+    ``mesh=None``: the logits within 3e-2 normwise at every step whose
+    history is the reference's, the tokens equal or first different at a
+    near-tie (3e-2, relative above magnitude 1), both ranks
+    identical, each rank's paged kernel at its local shape within two
+    bf16 ulps of its plain version on its last decode call's operands;
 27. checkpoints and the elastic loop (``train_elastic``) on the sharded
     main path at 1 layer (llama3-8b width, bf16 parameters, a one-rank NCCL
     ``{fsdp: 1}`` mesh) under one temporary directory (its disk usage
-    printed first, removed at the end), in fresh processes: a checkpoint
+    printed first, removed at the end), in this process: a checkpoint
     every 2 steps, 2 kept; the step-2 save damaged after it committed,
     step 3 raising, a preemption notice at step 4: ``step_2``
     quarantined, one restart, a clean exit at step 4, a fresh process
     resuming to step 6, every step's loss bitwise an uninterrupted run's
     from the same keyed values, B1-B3 at 1 launch a step; the
-    checkpoint's bytes, a sync save's s and GB/s, its verify and an
-    in-place restore, the step ms while an async save is in flight and
-    without; then ``reshard``: the step-6 checkpoint offline to a
+    checkpoint's bytes, the sync save's s and GB/s (the drain's step-4
+    save), the step ms while the step-6 save is in flight
+    (``AsyncCheckpointSaver``) and without, its verify and an in-place
+    restore; then ``reshard``: the step-6 checkpoint offline to a
     device-free ``{fsdp: 2, tp: 2}`` under ``gspmd_2d_plan`` through
     ``python -m torchdistx_tpu_torch.tools.reshard_ctl apply`` and
     ``verify`` (exit 0) and back to
     ``{fsdp: 1}`` under ``decoder_lm_plan`` with a 256 MiB chunk budget
     (below the embedding), bitwise both ways, staging within the budget,
-    the round trip restored onto the card and its next 2 steps bitwise; a
-    checkpoint written by 2 spawned gloo ranks on the card (``{fsdp: 2}``)
+    the round trip restored onto the card in this process and its next 2
+    steps bitwise; a checkpoint written by 2 spawned gloo ranks on the card (``{fsdp: 2}``)
     with ``AsyncCheckpointSaver``
     resumed by one rank through ``needs_reshard`` -> ``restore_resharded``, its
     steps bitwise an uninterrupted one-rank run's from the same
@@ -391,7 +407,7 @@ user calls, and checks what comes out.  One JSON object per line:
     the daemon's ``/readyz`` (200, the serving count of the replicas),
     ``/metrics`` (the fleet counters), ``/slo`` and ``/requests``;
 29. a mixture of experts over the sp ring (``train_moe_sp``, printed
-    after ``train_pp_mesh``): Mixtral 8x7B width, 2 layers, bf16
+    after ``train_pp_mesh``): Mixtral 8x7B width, 1 layer, bf16
     parameters, [2, 2048] over 4 spawned gloo ranks ``{sp 2, ep 2}``
     with ring flash attention, 2 steps, against the same keyed values
     whole on one rank: losses equal on every rank and within 1e-3 of
@@ -403,7 +419,7 @@ user calls, and checks what comes out.  One JSON object per line:
     (the forward, dq and dk/dv also at the T5 encoder's shape with the
     bias and at ViT-L/16's, non-causal, with their launches on the
     Mixtral, 70B-remat, ViT, sp, pp, MoE-over-sp, registry-warm and elastic paths; paged
-    decode (with its launches on the fleet and registry-warm paths) at the serving
+    decode (with its launches on the fleet, registry-warm and tp paths) at the serving
     engine's batch, lengths and page table width, with its merge
     launches and CUDA launches per call counted on the serving main
     path, its time from CUDA-graph replay too, and its times at a table
@@ -422,6 +438,7 @@ import contextlib
 import ctypes
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -535,6 +552,7 @@ from torchdistx_tpu_torch.serve import (
     spin_up_replica,
 )
 from torchdistx_tpu_torch.serve import engine as serve_engine
+from torchdistx_tpu_torch.serve import programs as serve_programs
 from torchdistx_tpu_torch.reshard import (
     MeshSpec,
     last_transfer_peak_bytes,
@@ -2712,6 +2730,17 @@ def profile_decode_ticks(eng, reqs, mode: str, tick_ms: float,
 # (a verify tick runs the plain attention, not the paged-decode kernel).
 BF16_SERVE = ServeConfig(max_batch=4, page_size=16, n_pages=64,
                          spec_decode=False)
+# serve_bf16_full's tokens and final logits (its captured run), which
+# serve_tp's replica over a one-rank NCCL {tp 1} mesh must reproduce.
+BF16_REFERENCE: dict = {}
+# Serving over a mesh: the plan names only tp; the {tp 2} pair (2 gloo
+# ranks of spawn_sp_pp's spawn, eager: gloo's collectives cannot be
+# captured) at llama3-8b width cut to 2 layers, against the same
+# replica on mesh=None, bf16 logits within TP_PAIR_ATOL.
+TP_PLAN_KW = dict(fsdp=None, ep=None)
+TP_PAIR_CFG = LLAMA3_8B.replace(n_layers=2)
+TP_PAIR_ATOL = 3e-2  # normwise a step's row; a near-tie elementwise
+TP_PAIR_REF = "tp_pair_reference.pt"  # in spawn_sp_pp's directory
 
 
 def bring_up_bf16(dev, check_keyed: bool = False):
@@ -2826,6 +2855,30 @@ def decode_tokens_per_s(eng, reqs) -> dict:
             "merges": paged_attention.merge_launches}
 
 
+def token_digest(tokens: dict) -> str:
+    """A short digest of ``{rid: tokens}``, to compare runs by eye."""
+    return hashlib.sha256(json.dumps(sorted(tokens.items())).encode()
+                          ).hexdigest()[:16]
+
+
+def check_merges(name: str, launches: int, merges: int, eng, dev) -> int:
+    """The merge kernel runs with every call whose table takes several
+    splits (``split_plan`` at the engine's local head counts); returns
+    the splits."""
+    H, KV, D = eng.cfg.n_heads, eng.cfg.kv_heads, eng.cfg.head_size
+    if eng._tp is not None:
+        H, KV = H // eng._tp.size, KV // eng._tp.size
+    splits, _ = split_plan(eng.scfg.max_batch, H, KV,
+                           eng.scfg.max_pages_per_seq * eng.scfg.page_size,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    if merges != (launches if splits > 1 else 0):
+        raise AssertionError(
+            f"{name}: {merges} merge launches for {launches} calls at "
+            f"{splits} splits")
+    return splits
+
+
 def bf16_requests(vocab: int) -> list:
     rng = np.random.RandomState(13)
     # Prompt lengths equal to prefill buckets: the prefill then runs the
@@ -2864,14 +2917,10 @@ def phase_bf16_full(dev):
     check_plain_launches("llama3-8b bf16", launches, cfg, eng)
     # The engine's table takes several splits on an H100, so every call
     # must also have launched the merge kernel.
-    splits, _ = split_plan(eng.scfg.max_batch, cfg.n_heads, cfg.kv_heads,
-                           eng.scfg.max_pages_per_seq * scfg.page_size,
-                           torch.cuda.get_device_properties(dev)
-                           .multi_processor_count)
-    if merges != (launches if splits > 1 else 0):
-        raise AssertionError(
-            f"{merges} merge launches for {launches} calls at {splits} "
-            f"splits")
+    check_merges("llama3-8b bf16", launches, merges, eng, dev)
+    BF16_REFERENCE.update(
+        tokens={r.rid: list(eng.results[r.rid]) for r in reqs},
+        logits={r.rid: eng.final_logits[r.rid].copy() for r in reqs})
     check_first_tokens(eng, reqs)
     profiles = [profile_decode_ticks(eng, reqs, "graph", graph["tick_ms"])]
     # The same replica's programs run eagerly (its weights, a pool of its
@@ -2927,6 +2976,7 @@ def phase_bf16_full(dev):
            "decode_tokens_per_s_eager": eager["tokens_per_s"],
            "decode_tick_ms_eager": eager["tick_ms"],
            "graph_tokens_equal_eager": graph_tokens_equal_eager,
+           "tokens_digest": token_digest(BF16_REFERENCE["tokens"]),
            "paged_decode_launches": launches,
            "paged_merge_launches": merges,
            "paged_decode_launches_eager": eager["launches"],
@@ -2957,6 +3007,265 @@ def phase_bf16_full(dev):
     del eng, spec_eng
     torch.cuda.empty_cache()
     return row, main_args
+
+
+def phase_serve_tp(dev) -> dict:
+    """``serve_bf16_full``'s replica over a one-rank NCCL ``{tp 1}`` mesh
+    (``decoder_lm_plan`` naming tp only): full-depth llama3-8b in bf16 from
+    its keyed values, every program captured as a CUDA graph with the
+    tensor-parallel collectives in it (an all-reduce after the embedding's
+    masked lookup and after each attention output and MLP down
+    projection, an all-gather of the logits), the same 4 requests:
+    tokens equal to ``serve_bf16_full``'s (the ``mesh=None`` replica's),
+    final logits bit for bit (a one-rank all-reduce and all-gather copy),
+    every entry bitwise the keyed values of its recording, paged-decode
+    launches = layers x plain ticks with the merges ``split_plan`` gives,
+    >= 1 keyed launch; bring-up and capture s, decode tokens/s."""
+    if not BF16_REFERENCE:
+        raise RuntimeError("needs serve_bf16_full's tokens")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one_rank_group()
+    eng = None
+    try:
+        mesh = make_mesh({"tp": 1}, device_type="cuda")
+        keyed_rng.launches = 0
+        eng, kept = keyed_spin_up(
+            model="llama3-8b", param_dtype=torch.bfloat16,
+            serve_cfg=BF16_SERVE, seed=0, device=dev, mesh=mesh,
+            plan=decoder_lm_plan(LLAMA3_8B, **TP_PLAN_KW))
+        keyed = keyed_rng.launches
+        if keyed < 1:
+            raise AssertionError("the {tp 1} bring-up launched no keyed draw")
+        entries = replica_is_keyed("llama3-8b bf16 {tp 1}", eng, kept, 0, dev)
+        del kept
+        cfg = eng.cfg
+        if captured(eng) != len(eng._specs):
+            raise AssertionError(f"{captured(eng)} of {len(eng._specs)} "
+                                 f"programs captured")
+        reqs = bf16_requests(cfg.vocab_size)
+        graph = decode_tokens_per_s(eng, reqs)
+        launches, merges = graph["launches"], graph["merges"]
+        check_plain_launches("llama3-8b bf16 {tp 1}", launches, cfg, eng)
+        splits = check_merges("llama3-8b bf16 {tp 1}", launches, merges, eng,
+                              dev)
+        tokens = {r.rid: list(eng.results[r.rid]) for r in reqs}
+        if tokens != BF16_REFERENCE["tokens"]:
+            raise AssertionError(f"{{tp 1}} tokens {tokens} != mesh=None's "
+                                 f"{BF16_REFERENCE['tokens']}")
+        want = BF16_REFERENCE["logits"]
+        bitwise = all(np.array_equal(eng.final_logits[k], want[k])
+                      for k in want)
+        err = max(float(np.abs(eng.final_logits[k] - want[k]).max())
+                  for k in want)
+        if not err <= ATOL[torch.bfloat16]:
+            raise AssertionError(f"{{tp 1}} final logits {err} from "
+                                 f"mesh=None's")
+        row = {"phase": "serve_tp", "card": nvidia_smi(),
+               "model": "llama3-8b", "n_layers": cfg.n_layers,
+               "dtype": "bfloat16", "mesh": {"tp": 1}, "backend": "nccl",
+               "plan": "decoder_lm_plan(fsdp=None, ep=None)",
+               "local_heads": [cfg.n_heads, cfg.kv_heads],
+               "bring_up_s": eng.bring_up_seconds,
+               "capture_s": eng.capture_seconds, "graphs": captured(eng),
+               "graph_pool_bytes": eng.graph_pool_bytes(),
+               "keyed_rng_launches": keyed, **entries,
+               "decode_tokens_per_s": graph["tokens_per_s"],
+               "decode_tick_ms": graph["tick_ms"],
+               "decode_steps": graph["decode_steps"],
+               "paged_decode_launches": launches,
+               "paged_merge_launches": merges, "splits": splits,
+               "tokens_equal_mesh_none": True,
+               "final_logits_bitwise_mesh_none": bitwise,
+               "final_logits_max_abs_err": err,
+               "tokens_digest": token_digest(tokens),
+               "tokens_digest_mesh_none":
+                   token_digest(BF16_REFERENCE["tokens"]),
+               "seconds": time.perf_counter() - t0}
+    finally:
+        if eng is not None:
+            eng.drop_graphs()  # their collectives need the group alive
+        del eng
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def record_decode_operands(run):
+    """``run()`` with the serving programs' paged-attention calls
+    recorded: its result and the last call's operands (q, lengths and
+    page table cloned; the pools as they stand after the run)."""
+    real = serve_programs.paged_attention
+    last = {}
+
+    def recorded(q, k_pages, v_pages, lengths, table):
+        last["args"] = (q.clone(), k_pages, v_pages, lengths.clone(),
+                        table.clone())
+        return real(q, k_pages, v_pages, lengths, table)
+
+    serve_programs.paged_attention = recorded
+    try:
+        out = run()
+    finally:
+        serve_programs.paged_attention = real
+    return out, last["args"]
+
+
+def record_steps(eng) -> dict:
+    """``rid -> [(token, its step's logits row)]`` of every token the
+    engine emits from now on."""
+    steps: dict = {}
+    emit_token = eng._emit
+
+    def recorded(lane, token, logits):
+        steps.setdefault(lane.req.rid, []).append(
+            (token, np.array(logits, np.float32)))
+        return emit_token(lane, token, logits)
+
+    eng._emit = recorded
+    return steps
+
+
+def tp_pair_reference(dev) -> dict:
+    """The ``{tp 2}`` pair's reference: its replica on ``mesh=None``
+    (``TP_PAIR_CFG``, bf16, seed 0, captured), the same requests: tokens
+    and each step's logits."""
+    eng = spin_up_replica(TP_PAIR_CFG, family="llama",
+                          param_dtype=torch.bfloat16, serve_cfg=BF16_SERVE,
+                          seed=0, device=dev)
+    reqs = bf16_requests(TP_PAIR_CFG.vocab_size)
+    steps = record_steps(eng)
+    eng.run(reqs)
+    out = {"tokens": {r.rid: list(eng.results[r.rid]) for r in reqs},
+           "steps": steps}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def pair_band(ref: np.ndarray) -> np.ndarray:
+    """The pair's band at each logit: ``TP_PAIR_ATOL``, relative above
+    magnitude 1, as the bf16 flash cases are held (the head's outputs
+    are bf16, whose ulp at |logit| >= 4 is already 2**-5)."""
+    return TP_PAIR_ATOL * np.maximum(1.0, np.abs(ref))
+
+
+def same_history_logits(steps: list, ref_steps: list) -> dict:
+    """A run's tokens and logits against a reference's, step by step
+    while their histories are equal: the largest normwise difference of
+    a step's logits row (``|row - ref| / |ref|``) and the largest
+    elementwise one; where the tokens first differ, the reference's own
+    gap between its token's logit and the run's token's there, in units
+    of ``pair_band`` (a near-tie when at most 1)."""
+    err = norm = 0.0
+    first = None
+    for i, ((tok, row), (want, ref)) in enumerate(zip(steps, ref_steps)):
+        err = max(err, float(np.abs(row - ref).max()))
+        norm = max(norm, float(np.linalg.norm(row - ref)
+                               / np.linalg.norm(ref)))
+        if tok != want:
+            gap = float(ref[want] - ref[tok])
+            first = {"position": i, "token": tok, "reference_token": want,
+                     "reference_gap": gap, "reference_gap_in_band":
+                         gap / float(pair_band(ref)[want])}
+            break
+    return {"steps_compared": i + 1, "max_abs_err": err,
+            "max_normwise_err": norm, "first_difference": first}
+
+
+def serve_tp_rank(rank: int, world: int, dev, ref: dict) -> dict:
+    """One rank of the ``{tp 2}`` pair: ``spin_up_replica(mesh={tp 2})``
+    of ``TP_PAIR_CFG`` (its shard drawn by the keyed kernel; eager, since
+    its gloo collectives cannot be captured), the
+    pair reference's requests; its paged kernel at the local shape (H 16,
+    KV 4, D 128) held against its plain version on the last decode
+    call's operands; its tokens and each step's logits against ``ref``
+    (``same_history_logits``), a digest of its tokens and logits for the
+    other rank."""
+    mesh = make_mesh({"tp": world}, device_type="cuda")
+    keyed_rng.launches = 0
+    eng = spin_up_replica(TP_PAIR_CFG, family="llama",
+                          param_dtype=torch.bfloat16, serve_cfg=BF16_SERVE,
+                          seed=0, device=dev, mesh=mesh,
+                          plan=decoder_lm_plan(TP_PAIR_CFG, **TP_PLAN_KW))
+    keyed = keyed_rng.launches
+    paged_attention.launches = paged_attention.merge_launches = 0
+    reqs = bf16_requests(TP_PAIR_CFG.vocab_size)
+    steps = record_steps(eng)
+    t = time.perf_counter()
+    _, args = record_decode_operands(lambda: eng.run(reqs))
+    serve_s = time.perf_counter() - t
+    launches, merges = paged_attention.launches, paged_attention.merge_launches
+    check_plain_launches(f"{{tp 2}} rank {rank}", launches, TP_PAIR_CFG, eng)
+    splits = check_merges(f"{{tp 2}} rank {rank}", launches, merges, eng, dev)
+    q, k_pages = args[0], args[1]
+    shape = {"B": q.shape[0], "H": q.shape[1], "KV": k_pages.shape[2],
+             "D": q.shape[2], "page": k_pages.shape[1]}
+    if (shape["H"], shape["KV"], shape["D"]) != (
+            TP_PAIR_CFG.n_heads // world, TP_PAIR_CFG.kv_heads // world,
+            TP_PAIR_CFG.head_size):
+        raise AssertionError(f"rank {rank}: local decode shape {shape}")
+    kernel_err = check_kernel(args, f"paged_decode at {{tp 2}} rank {rank}'s "
+                                    f"local shape")
+    tokens = {r.rid: list(eng.results[r.rid]) for r in reqs}
+    digest = hashlib.sha256(json.dumps(sorted(tokens.items())).encode())
+    for r in reqs:
+        digest.update(eng.final_logits[r.rid].tobytes())
+    out = {"tokens": tokens,
+           "tokens_equal_mesh_none": tokens == ref["tokens"],
+           "vs_mesh_none": {r.rid: same_history_logits(
+               steps[r.rid], ref["steps"][r.rid]) for r in reqs},
+           "results_digest": digest.hexdigest()[:16],
+           "tokens_digest": token_digest(tokens),
+           "bring_up_s": eng.bring_up_seconds, "serve_s": serve_s,
+           "keyed_rng_launches": keyed, "paged_decode_launches": launches,
+           "paged_merge_launches": merges, "splits": splits,
+           "local_shape": shape, "kernel_max_abs_err": kernel_err,
+           "decode_steps": eng.decode_steps}
+    del eng, args, q, k_pages
+    return out
+
+
+def phase_serve_tp_pair(sp_pp) -> dict:
+    """The ``{tp 2}`` pair's ranks (run in ``spawn_sp_pp``'s spawn)
+    against its ``mesh=None`` reference, bf16's contract: at every step
+    whose history is the reference's the logits within ``TP_PAIR_ATOL``
+    normwise (as the suite holds bf16 results whose roundings differ;
+    elementwise, two bf16 layers summed in another order leave ~3e-2 at
+    |logit| ~ 1), and the tokens equal, or first different only where
+    the reference's own logits put the two tokens within ``pair_band``
+    (a near-tie:
+    the sums split over tp round otherwise, as batched decode and the
+    unbatched oracle do in ``check_first_tokens``); both ranks' tokens
+    and logits identical; each rank's paged kernel at its local shape
+    within two bf16 ulps of its plain version; launches = layers x
+    ticks; >= 1 keyed launch a rank."""
+    if sp_pp is None:
+        raise RuntimeError("needs the sp_pp_ranks spawn")
+    ranks, ref = sp_pp["tp_pair_ranks"], sp_pp["tp_pair_ref"]
+    for r, out in enumerate(ranks):
+        for rid, cmp in out["vs_mesh_none"].items():
+            if not cmp["max_normwise_err"] <= TP_PAIR_ATOL:
+                raise AssertionError(f"{{tp 2}} rank {r} {rid}: logits "
+                                     f"outside the band of mesh=None's: "
+                                     f"{cmp}")
+            first = cmp["first_difference"]
+            if first is not None and not first["reference_gap_in_band"] <= 1:
+                raise AssertionError(f"{{tp 2}} rank {r} {rid}: token "
+                                     f"{first} is no near-tie")
+        if out["keyed_rng_launches"] < 1:
+            raise AssertionError(f"{{tp 2}} rank {r} drew no keyed shard")
+    if ranks[0]["results_digest"] != ranks[1]["results_digest"]:
+        raise AssertionError("the {tp 2} ranks' tokens or logits differ")
+    row = {"phase": "serve_tp_pair", "card": nvidia_smi(),
+           "model": "llama3-8b", "n_layers": TP_PAIR_CFG.n_layers,
+           "dtype": "bfloat16", "mesh": {"tp": 2},
+           "backend": "gloo (spawned ranks on one card), eager",
+           "tokens_digest_mesh_none": token_digest(ref["tokens"]),
+           "ranks": ranks}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -5918,9 +6227,9 @@ SP_SMALL = dict(B=1, S=2048, H=32, KV=8, D=128)
 # T5-11B's encoder self-attention: 128 heads of 128, an f32 bias, 2048
 # tokens over sp 4 (the bias is [128, 512, 2048] a rank).
 SP_BIAS = dict(B=1, S=2048, H=128, KV=128, D=128)
-# The sp train step: llama3-8b width, 2 layers, bf16 parameters, one
-# [1, 8192] sequence over sp 2.
-TRAIN_SP_CFG = TRAIN_CFG
+# The sp train step: llama3-8b width, depth cut to 1 layer for the
+# script's time limit, bf16 parameters, one [1, 8192] sequence over sp 2.
+TRAIN_SP_CFG = LLAMA3_8B.replace(n_layers=1)
 TRAIN_SP_RANKS, TRAIN_SP_SEQ, TRAIN_SP_STEPS = 2, 8192, 2
 TRAIN_SP_MESH = {"fsdp": 1, "sp": 1}
 C3_LLAMA_LEAF = 1.739e-2  # llama's worst leaf in train_bf16_full, PERF.md §6
@@ -6483,12 +6792,17 @@ def phase_train_sp(dev, sp_pp) -> dict:
 
 
 def sp_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
-    """``train_sp``'s rank, then ``train_pp``'s, in one spawn (a spawn
-    costs ~16 s before its first step), the card freed between."""
+    """``train_sp``'s rank, then ``train_pp``'s, then the ``{tp 2}``
+    serving pair's, in one spawn (a spawn costs ~16 s before its first
+    step), the card freed between."""
     out = {"sp": train_sp_rank(rank, world, dev)}
     gc.collect()  # the recording's cycles hold the module's values
     torch.cuda.empty_cache()
     out["pp"] = train_pp_rank(rank, world, dev, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_tp"] = serve_tp_rank(
+        rank, world, dev, torch.load(f"{tmp}/{TP_PAIR_REF}", weights_only=False))
     return out
 
 
@@ -6503,9 +6817,13 @@ def spawn_sp_pp(dev) -> dict:
     torch.cuda.empty_cache()
     out = {"sp_whole": whole_sequence_losses(dev),
            "pp_whole": pp_whole_losses(dev),
+           "tp_pair_ref": tp_pair_reference(dev),
            "tmp": tempfile.mkdtemp(prefix="tdx_sp_pp_")}
     try:
         out["pp_f32"] = pp_f32_reference(dev, out["tmp"])
+        # A file, not a spawn argument: a large argument holds each
+        # rank's start until the one before has imported this module.
+        torch.save(out["tp_pair_ref"], f"{out['tmp']}/{TP_PAIR_REF}")
         t = time.perf_counter()
         ranks = sp_spawn("sp_pp_rank", TRAIN_SP_RANKS, out["tmp"])
     except BaseException:
@@ -6513,6 +6831,7 @@ def spawn_sp_pp(dev) -> dict:
         raise
     out.update(sp_ranks=[r["sp"] for r in ranks],
                pp_ranks=[r["pp"] for r in ranks],
+               tp_pair_ranks=[r["serve_tp"] for r in ranks],
                spawn_s=time.perf_counter() - t,
                seconds=time.perf_counter() - t0)
     emit({"phase": "sp_pp_ranks", "seconds": out["seconds"],
@@ -6762,11 +7081,11 @@ def train_pp_rank(rank: int, world: int, dev, tmp: str) -> dict:
     return out
 
 
-def pp_whole_losses(dev) -> list:
-    """The same model, batch and values in this process, whole, on the
-    flash kernels: each step the 4 microbatches' summed next-token NLLs
-    over the batch's count of targets, accumulated, then AdamW."""
-    cfg = TRAIN_PP_CFG
+def pp_whole_losses(dev, cfg=TRAIN_PP_CFG) -> list:
+    """The same model (train_pp's, or ``cfg``), batch and values in this
+    process, whole, on the flash kernels: each step the 4 microbatches'
+    summed next-token NLLs over the batch's count of targets,
+    accumulated, then AdamW."""
     model = deferred_init(make_llama, cfg, attn_fn=make_flash_attention(),
                           device=dev)
     bind_values(model, materialize_module_cuda(
@@ -6988,12 +7307,14 @@ def phase_train_pp(dev, train_row, sp_pp) -> dict:
 # ---------------------------------------------------------------------------
 
 # Each leg runs on 4 gloo ranks on the card, 1F1B: the llama legs
-# at train_pp's configuration (4-layer llama3-8b width, bf16 parameters,
-# [8, 2048] in 4 microbatches), the MoE leg at Mixtral 8x7B width, 2
-# layers, bf16 parameters, [4, 2048] in 2 microbatches.  Steps: 3, but 2
-# where gloo's collectives through the host take ~10 s a step on one
-# card (the stage's gradients summed over sp, FSDP2's gathers, and the
-# C3 check's 2 more), for the script's time limit.
+# at llama3-8b width cut to 2 layers, one a stage, bf16 parameters,
+# train_pp's [8, 2048] batch in 4 microbatches,
+# the MoE leg at Mixtral 8x7B width, 2 layers, bf16 parameters, [4,
+# 2048] in 2 microbatches.  Steps: 3, but 2 where gloo's collectives
+# through the host take ~10 s a step on one card (the stage's gradients
+# summed over sp, FSDP2's gathers, and the C3 check's 2 more), for the
+# script's time limit.
+PP_MESH_CFG = LLAMA3_8B.replace(n_layers=2)
 PP_MESH_LEGS = {"pp2-tp2": {"pp": 2, "tp": 2},
                 "pp2-fsdp2": {"pp": 2, "fsdp": 2},
                 "pp2-sp2": {"pp": 2, "sp": 2},
@@ -7031,7 +7352,7 @@ def pp_mesh_leg(leg: str):
     """(config, model factory, batch, microbatches) of a leg."""
     if "ep" in PP_MESH_LEGS[leg]:
         return PP_MOE_CFG, make_mixtral, pp_moe_batch(), PP_MOE_MB
-    return TRAIN_PP_CFG, make_llama, train_pp_batches()[0], TRAIN_PP_MB
+    return PP_MESH_CFG, make_llama, train_pp_batches()[0], TRAIN_PP_MB
 
 
 def pp_mesh_bytes(leg: str, free: int) -> dict:
@@ -7244,9 +7565,9 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
     """Pipeline stages laid out over a second mesh axis, the legs one after
     another in one spawn of 4 gloo ranks on the card, 1F1B
     (PP_MESH_STEPS): ``{pp 2, tp 2}``,
-    ``{pp 2, fsdp 2}`` and ``{pp 2, sp 2}`` (ring flash) at train_pp's
-    llama configuration, each within BF16_LOSS_RTOL of train_pp's whole
-    model (``pp_whole_losses``), and ``{pp 2, ep 2}`` at Mixtral 8x7B
+    ``{pp 2, fsdp 2}`` and ``{pp 2, sp 2}`` (ring flash) at
+    ``PP_MESH_CFG`` and train_pp's batch, each within BF16_LOSS_RTOL of
+    the same model whole in this process (``pp_whole_losses``), and ``{pp 2, ep 2}`` at Mixtral 8x7B
     width (2 layers, [4, 2048] in 2 microbatches) within it of the same
     model whole in this process with the same microbatches.  Each leg's
     bytes are reckoned against the card first.  Losses equal on every
@@ -7257,11 +7578,8 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
     assert SP_RANKS == PP_MESH_RANKS  # the sp attention ranks ride along
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    whole = {"llama": None if train_pp_row is None
-             else train_pp_row["whole_model_losses"]}
-    if whole["llama"] is None:
-        whole["llama"] = pp_whole_losses(dev)
-    whole["moe"] = pp_moe_whole_losses(dev)
+    whole = {"llama": pp_whole_losses(dev, PP_MESH_CFG),
+             "moe": pp_moe_whole_losses(dev)}
     gc.collect()
     torch.cuda.empty_cache()
     parent = torch.cuda.memory_allocated()
@@ -7337,12 +7655,12 @@ def phase_train_pp_mesh(dev, train_pp_row) -> dict:
 # train_moe_sp: a mixture of experts routed over the sp ring
 # ---------------------------------------------------------------------------
 
-# Mixtral 8x7B width, depth cut to 2 layers (as mixtral_train_bf16 and
-# train_pp_mesh's ep leg), bf16 parameters, the [2, 2048] batch on
+# Mixtral 8x7B width, depth cut to 1 layer for the script's time
+# limit, bf16 parameters, the [2, 2048] batch on
 # {sp 2, ep 2}: every rank holds chunk s of both rows and the experts of
 # its ep index; the routing (capacity, slots, router loss) is the whole
 # sequence's.
-MOE_SP_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=2)
+MOE_SP_CFG = PRESETS["mixtral-8x7b"].replace(n_layers=1)
 MOE_SP_MESH = {"sp": 2, "ep": 2}
 MOE_SP_BATCH, MOE_SP_SEQ, MOE_SP_STEPS = 2, 2048, 2
 
@@ -7951,10 +8269,35 @@ def launches_per_step(launches: dict, steps: int) -> None:
     check_launches(launches, want, f"{steps} elastic steps")
 
 
-def elastic_first(tmp: str) -> None:
-    """The uninterrupted reference (``ELASTIC_REF_STEPS`` steps), then ``train_elastic``
-    from the same keyed values under ``ELASTIC_PLAN`` until the plan's
-    preemption drains it; prints one JSON line."""
+@contextlib.contextmanager
+def timed_saves():
+    """The ``(path, seconds)`` of each ``save_checkpoint`` call made
+    within (``run_elastic`` imports it when it starts), appended to the
+    list yielded."""
+    from torchdistx_tpu_torch.utils import checkpoint as ckpt
+
+    real, saves = ckpt.save_checkpoint, []
+
+    def timed(path, *args, **kwargs):
+        t = time.perf_counter()
+        out = real(path, *args, **kwargs)
+        saves.append((str(path), time.perf_counter() - t))
+        return out
+
+    ckpt.save_checkpoint = timed
+    try:
+        yield saves
+    finally:
+        ckpt.save_checkpoint = real
+
+
+def elastic_first(tmp: str) -> dict:
+    """The uninterrupted reference (``ELASTIC_REF_STEPS`` steps), then
+    ``train_elastic`` from the same keyed values under ``ELASTIC_PLAN``
+    until the plan's preemption drains it (in this process: the loop
+    catches its SIGTERM on the main thread).  Its figures, with the
+    seconds of its last synchronous save (the drain's step) and that
+    checkpoint's bytes."""
     dev = torch.device("cuda", 0)
     mesh = mesh_group_up(dev, ELASTIC_MESH)
     batches = elastic_batches()
@@ -7980,28 +8323,36 @@ def elastic_first(tmp: str) -> None:
         chaos.install(ELASTIC_PLAN)
         t0 = time.perf_counter()
         try:
-            state, steps, restarts = train_elastic(
-                model, ELASTIC_CFG, batches[:ELASTIC_STEPS], mesh=mesh,
-                device=dev, checkpoint_dir=f"{tmp}/elastic",
-                on_metrics=on_metrics, **ELASTIC_OPTS)
+            with timed_saves() as saves:
+                state, steps, restarts = train_elastic(
+                    model, ELASTIC_CFG, batches[:ELASTIC_STEPS], mesh=mesh,
+                    device=dev, checkpoint_dir=f"{tmp}/elastic",
+                    on_metrics=on_metrics, **ELASTIC_OPTS)
         finally:
             chaos.clear()
         seconds = time.perf_counter() - t0
         launches = dict(flash_launches)
+        del model, state
+        gc.collect()  # the recording's cycles hold the module's values
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    emit({"reference_losses": ref, "losses": losses, "steps": steps,
-          "restarts": restarts, "executed_steps": executed,
-          "flash_launches": launches, "seconds": seconds,
-          "dirs": sorted(os.listdir(f"{tmp}/elastic"))})
+    last = f"{tmp}/elastic/step_{steps}"
+    return {"reference_losses": ref, "losses": losses, "steps": steps,
+            "restarts": restarts, "executed_steps": executed,
+            "flash_launches": launches, "seconds": seconds,
+            "dirs": sorted(os.listdir(f"{tmp}/elastic")),
+            "saves": len(saves), "save_s": saves[-1][1],
+            "save_path": saves[-1][0], "save_bytes": payload_bytes(last)}
 
 
 def elastic_resume(tmp: str) -> None:
     """A fresh process resumes the drained run (``resume=True``) on other
     values and runs its last 2 steps; then saves step 6 (the checkpoint
-    ``reshard`` takes), timed, and on it a verify and an in-place
-    restore; the step ms without and while an async save is in flight.
-    Prints one JSON line."""
+    ``reshard`` takes) with ``AsyncCheckpointSaver``, the step ms while
+    it is in flight, its commit, a verify and an in-place restore of it,
+    timed, and the step ms with no save in flight.  Prints one JSON
+    line."""
     dev = torch.device("cuda", 0)
     mesh = mesh_group_up(dev, ELASTIC_MESH)
     batches = elastic_batches()
@@ -8020,27 +8371,13 @@ def elastic_resume(tmp: str) -> None:
         out = {"losses": losses, "steps": steps, "restarts": restarts,
                "flash_launches": launches, "seconds": seconds}
         ck = f"{tmp}/elastic/step_{steps}"
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        save_checkpoint(ck, state)
-        save_s = time.perf_counter() - t
-        nbytes = payload_bytes(ck)
-        t = time.perf_counter()
-        ok, reason = verify_checkpoint(ck)
-        verify_s = time.perf_counter() - t
-        if not ok:
-            raise AssertionError(f"a fresh save failed verification: {reason}")
-        t = time.perf_counter()
-        restore_checkpoint(ck, target=state)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t
         _, train_step, shard_batch = make_train_step(
             model, ELASTIC_CFG, device=dev, mesh=mesh)
         batch = shard_batch(batches[-1])
-        state, plain_ms = timed_ms(state, train_step, batch, ASYNC_STEPS)
         saver = AsyncCheckpointSaver()
+        torch.cuda.synchronize()
         t = time.perf_counter()
-        saver.save(f"{tmp}/timing_async", state)
+        saver.save(ck, state)  # staged on the host before it returns
         stage_s = time.perf_counter() - t
         in_flight = []
         async_ms = []
@@ -8053,14 +8390,23 @@ def elastic_resume(tmp: str) -> None:
         saver.wait_until_finished()
         saver.close()
         commit_s = time.perf_counter() - t
-        ok, reason = verify_checkpoint(f"{tmp}/timing_async")
+        nbytes = payload_bytes(ck)
+        t = time.perf_counter()
+        ok, reason = verify_checkpoint(ck)
+        verify_s = time.perf_counter() - t
         if not ok:
             raise AssertionError(f"the async save failed verification: "
                                  f"{reason}")
-        shutil.rmtree(f"{tmp}/timing_async")
+        t = time.perf_counter()
+        restore_checkpoint(ck, target=state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if state["step"] != steps:
+            raise AssertionError(f"restored step {state['step']}, saved "
+                                 f"{steps}")
+        state, plain_ms = timed_ms(state, train_step, batch, ASYNC_STEPS)
         out.update({
-            "checkpoint_bytes": nbytes, "save_s": save_s,
-            "save_gb_per_s": nbytes / save_s / 1e9, "verify_s": verify_s,
+            "checkpoint_bytes": nbytes, "verify_s": verify_s,
             "verify_gb_per_s": nbytes / verify_s / 1e9, "restore_s": restore_s,
             "restore_gb_per_s": nbytes / restore_s / 1e9,
             "step_ms_no_save": plain_ms, "step_ms_async_save_in_flight":
@@ -8087,15 +8433,17 @@ def phase_train_elastic(dev, tmp: str) -> dict:
     """``train_elastic`` on the sharded main path (1-layer llama3-8b
     width, bf16 parameters, one-rank NCCL ``{fsdp: 1}``): every 2 steps a
     checkpoint (max 2 kept); the step-2 save damaged after it committed,
-    step 3 raising, the preemption notice at step 4 (``ELASTIC_PLAN``);
-    a fresh process resumes to step 6.  Quarantined ``step_2.corrupt``,
-    one restart, a clean exit at step 4, every step's loss bitwise the
-    uninterrupted run's from the same keyed values, B1-B3 at 1 launch
-    a step; the checkpoint's bytes, save / verify / restore s and GB/s,
-    and the step ms with and without an async save in flight."""
+    step 3 raising, the preemption notice at step 4 (``ELASTIC_PLAN``),
+    in this process; a fresh process resumes to step 6 and saves it
+    asynchronously.  Quarantined ``step_2.corrupt``, one restart, a clean
+    exit at step 4, every step's loss bitwise the uninterrupted run's
+    from the same keyed values, B1-B3 at 1 launch a step; the
+    checkpoint's bytes, the sync save's s and GB/s (the drain's step-4
+    save), verify / restore s and GB/s, and the step ms with and without
+    an async save in flight (the step-6 save)."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    first = run_child("elastic_first", tmp, timeout=CHILD_TIMEOUT_S)
+    first = elastic_first(tmp)
     with open(f"{tmp}/elastic/CLEAN_EXIT.json") as f:
         clean = json.load(f)["step"]
     second = run_child("elastic_resume", tmp, timeout=CHILD_TIMEOUT_S)
@@ -8130,8 +8478,11 @@ def phase_train_elastic(dev, tmp: str) -> dict:
            "flash_launches_first": first["flash_launches"],
            "flash_launches_resumed": second["flash_launches"],
            "elastic_s": first["seconds"], "resumed_s": second["seconds"],
+           "saves_first": first["saves"], "save_s": first["save_s"],
+           "save_step": first["steps"], "save_bytes": first["save_bytes"],
+           "save_gb_per_s": first["save_bytes"] / first["save_s"] / 1e9,
            **{k: second[k] for k in (
-               "checkpoint_bytes", "save_s", "save_gb_per_s", "verify_s",
+               "checkpoint_bytes", "verify_s",
                "verify_gb_per_s", "restore_s", "restore_gb_per_s",
                "step_ms_no_save", "step_ms_async_save_in_flight",
                "async_save_in_flight_after_step", "async_stage_s",
@@ -8163,14 +8514,13 @@ def elastic_writer_rank(rank: int, world: int, dev, tmp: str) -> dict:
             "async_save_s": time.perf_counter() - t0 - train_s}
 
 
-def reshard_resume(tmp: str) -> None:
-    """In a fresh process on the one-rank ``{fsdp: 1}`` mesh, from other
-    keyed values each time: the round-tripped checkpoint restored (the
-    route ``needs_reshard`` picks) and its next 2 steps; the 2-rank
-    checkpoint resumed by ``train_elastic(resume=True)``, which routes
-    it through ``needs_reshard`` -> ``restore_resharded``; then the same
-    resharded state's next steps, uninterrupted (``restore_resharded``
-    timed).  Prints one JSON line."""
+def reshard_resume(tmp: str) -> dict:
+    """On the one-rank ``{fsdp: 1}`` mesh, from other keyed values each
+    time: the round-tripped checkpoint restored (the route
+    ``needs_reshard`` picks) and its next 2 steps; the 2-rank checkpoint
+    resumed by ``train_elastic(resume=True)``, which routes it through
+    ``needs_reshard`` -> ``restore_resharded``; then the same resharded
+    state's next steps, uninterrupted (``restore_resharded`` timed)."""
     dev = torch.device("cuda", 0)
     mesh = mesh_group_up(dev, ELASTIC_MESH)
     batches = elastic_batches()
@@ -8237,9 +8587,12 @@ def reshard_resume(tmp: str) -> None:
             "peak_staging_bytes": peak,
             "elastic_peak_staging_bytes": elastic_peak,
             "mesh_axes": read_manifest(src)["topology"]["mesh_axes"]}
+        del model, state, metrics, init_state, train_step, shard_batch
+        gc.collect()  # the recording's cycles hold the module's values
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    emit(out)
+    return out
 
 
 def reshard_ctl(cmd: str, *args: str) -> subprocess.Popen:
@@ -8340,12 +8693,11 @@ def phase_reshard(dev, tmp: str, elastic_row) -> dict:
     (``reshard_checkpoint`` runs ``verify_reshard`` before it commits the
     destination), staging within the budget; meanwhile a checkpoint
     written by 2 spawned gloo ranks on the card with
-    ``AsyncCheckpointSaver``; then in one fresh
-    process the round trip restored onto the card, its next 2 steps
-    bitwise the uninterrupted run's, and the 2-rank checkpoint resumed by
-    one rank through ``needs_reshard`` -> ``restore_resharded``, its
-    steps bitwise an uninterrupted one-rank run's from the same
-    resharded state."""
+    ``AsyncCheckpointSaver``; then in this process, on other keyed values,
+    the round trip restored onto the card, its next 2 steps bitwise the
+    uninterrupted run's, and the 2-rank checkpoint resumed by one rank
+    through ``needs_reshard`` -> ``restore_resharded``, its steps bitwise
+    an uninterrupted one-rank run's from the same resharded state."""
     if elastic_row is None:
         raise RuntimeError("needs train_elastic's checkpoint")
     t0 = time.perf_counter()
@@ -8367,14 +8719,14 @@ def phase_reshard(dev, tmp: str, elastic_row) -> dict:
     if any(r["losses"] != ranks[0]["losses"] for r in ranks):
         raise AssertionError(f"ranks disagree: {[r['losses'] for r in ranks]}")
     two_bytes = payload_bytes(f"{tmp}/two_rank/step_{TWO_RANK_STEPS}")
-    resumed = run_child("reshard_resume", tmp, timeout=CHILD_TIMEOUT_S)
+    resumed = reshard_resume(tmp)
     trip, two = resumed["round_trip"], resumed["two_rank"]
     want = elastic_row["reference_losses"][ELASTIC_STEPS:]
     if trip["losses"] != want or trip["restored_step"] != ELASTIC_STEPS:
         raise AssertionError(f"round-tripped checkpoint (step "
                              f"{trip['restored_step']}) trained to "
                              f"{trip['losses']}, uninterrupted {want}")
-    got = [two["losses"][str(s)] for s in
+    got = [two["losses"][s] for s in
            range(TWO_RANK_STEPS + 1, TWO_RANK_STEPS + TWO_RANK_RESUMED + 1)]
     if two["elastic_reshards"] != 1 or got != two["reference_losses"]:
         raise AssertionError(f"2 -> 1 rank resume: {two['elastic_reshards']}"
@@ -8463,6 +8815,7 @@ def main() -> int:
     if res is not None:
         main_row, main_args = res
         run("serve_chaos_bf16", phase_serve_chaos_bf16, dev, main_row)
+    tp_row = run("serve_tp", phase_serve_tp, dev)
     fleet_row = run("fleet", phase_fleet, dev)
     run("train_f32_exact", phase_train_f32_exact, dev)
     train_row = run("train_bf16_full", phase_train_bf16_full, dev)
@@ -8491,6 +8844,7 @@ def main() -> int:
     sp_pp = run("sp_pp_ranks", spawn_sp_pp, dev)
     train_sp_row = run("train_sp", phase_train_sp, dev, sp_pp)
     train_pp_row = run("train_pp", phase_train_pp, dev, train_row, sp_pp)
+    tp_pair_row = run("serve_tp_pair", phase_serve_tp_pair, sp_pp)
     train_pp_mesh_row = run("train_pp_mesh", phase_train_pp_mesh, dev,
                             train_pp_row)
     moe_sp_row = run("train_moe_sp", phase_train_moe_sp, dev,
@@ -8531,6 +8885,13 @@ def main() -> int:
         "launches_fleet_path": fleet_row["paged_decode_launches"],
         "launches_registry_warm_path":
             registry_row["fleet"]["paged_decode_launches"],
+        "launches_serve_tp_path": {
+            "one_rank_nccl_tp1_captured": tp_row["paged_decode_launches"],
+            "tp2_pair_by_rank": [r["paged_decode_launches"]
+                                 for r in tp_pair_row["ranks"]],
+            "tp2_pair_local_shape": tp_pair_row["ranks"][0]["local_shape"],
+            "tp2_pair_kernel_max_abs_err_by_rank":
+                [r["kernel_max_abs_err"] for r in tp_pair_row["ranks"]]},
         "cuda_launches_per_call": (main_row["paged_decode_launches"]
                                    + main_row["paged_merge_launches"])
         / main_row["paged_decode_launches"],

@@ -25,6 +25,7 @@ import torch
 
 from torchdistx_tpu_torch import chaos, observe
 from torchdistx_tpu_torch.models import TransformerConfig, from_flax_params
+from torchdistx_tpu_torch.parallel.mesh import VirtualMesh
 from torchdistx_tpu_torch.serve import (
     FleetConfig,
     FleetRejected,
@@ -268,9 +269,11 @@ def test_concurrent_spin_ups_hold_equal_parameters():
 
 
 def test_mesh_is_a6_6():
-    with pytest.raises(NotImplementedError, match="A6.6"):
-        ServeFleet(LLAMA, family="llama", serve_cfg=SCFG, mesh=object(),
-                   device="cpu")
+    """A fleet takes a mesh this process holds alone (A6.6); over a mesh
+    of several processes it raises, naming what is left (A6.7)."""
+    with pytest.raises(NotImplementedError, match="A6.7"):
+        ServeFleet(LLAMA, family="llama", serve_cfg=SCFG,
+                   mesh=VirtualMesh({"tp": 2}, {"tp": 0}), device="cpu")
 
 
 def test_fleet_serves_jax_oracle_tokens():

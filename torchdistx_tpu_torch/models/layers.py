@@ -336,10 +336,15 @@ class MLP(nn.Module):
         self.w_up = _dense(cfg, cfg.d_model, cfg.d_ff, device)
         self.w_down = _dense(cfg, cfg.d_ff, cfg.d_model, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The activations ``w_down`` takes: [..., d_ff], or this rank's
+        ``d_ff/tp`` columns under tensor parallelism."""
         if self.activation == "silu":
-            return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
-        return self.w_down(F.gelu(self.w_up(x), approximate="tanh"))
+            return F.silu(self.w_gate(x)) * self.w_up(x)
+        return F.gelu(self.w_up(x), approximate="tanh")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w_down(self.hidden(x))
 
 
 def moe_capacity(moe, n_tokens: int) -> int:

@@ -90,11 +90,28 @@ published as ``tdx.serve.slo.*_p{50,95,99}_s``); a step fault or a
 page-exhaustion preemption dumps the flight recorder
 (``TDX_FLIGHT_DIR``); :func:`spin_up_replica` walks its health
 component through ``spin_up`` -> ``warming`` -> ``serving``.
+
+**Over a mesh** (``mesh=`` / ``plan=``, ROADMAP A6.6) a replica is one
+rank's share of a ``{tp t}`` layout: the engine takes a model whose
+parameters are DTensors placed by ``plan`` (as
+``bind_values(net, materialize_module_cuda(net, mesh=, plan=))`` leaves
+them), checks each against the plan and against the split its programs
+compute on, and keeps its local tensors; the programs write their
+collectives out (:class:`.programs.TensorParallel`).  Every rank runs the
+same host loop on the same requests: the next token comes from the
+gathered logits, the same bytes on every rank, and the two decisions that
+read a rank's own state, the serve faults due at a step and the
+wall-clock deadlines, are gathered over a host (gloo) group once a tick
+and taken as their union on every rank.  There, only the chaos error is
+retryable: an error on one rank mid-program (a CUDA out of memory) leaves
+the others inside a collective, so it propagates.  A mesh axis other than
+``tp`` of size > 1 is ROADMAP A6.7.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -112,10 +129,12 @@ from ..cuda_bridge.materialize import (
 )
 from ..deferred_init import deferred_init
 from ..models import PRESETS, TransformerConfig
+from ..models.plans import decoder_lm_plan
 from ..observe import reqledger
 from ..observe import slo as _slo
 from ..ops import _build
 from ..ops.paged_attention import build_kernel
+from ..parallel.sharding import local_shard, mesh_shape, placements_for
 from ..registry.scheduler import path_sources
 from .kv_cache import OutOfPages, PagedKVCache, init_pools
 from .prefix import NgramDrafter, PrefixCache
@@ -123,13 +142,15 @@ from .programs import (
     ResolvedServeConfig,
     ServeConfig,
     ServeProgram,
+    TensorParallel,
     build_serving_functions,
     make_model,
     model_family,
     serve_program_specs,
 )
 
-__all__ = ["Request", "ServeEngine", "oracle_generate", "spin_up_replica"]
+__all__ = ["Request", "ServeEngine", "check_serving_mesh", "oracle_generate",
+           "serve_plan", "spin_up_replica"]
 
 _log = logging.getLogger("torchdistx_tpu_torch")
 
@@ -177,7 +198,14 @@ class ServeEngine:
     them eagerly instead.  A capture or replay that fails raises; a
     retryable fault in a step requeues the step's lanes.  ``slo_name``
     names the engine's SLO windows (a fleet gives each replica its
-    own)."""
+    own).
+
+    ``mesh`` (a ``DeviceMesh``) and ``plan`` (default :func:`serve_plan`)
+    make it this rank's share of a replica over the mesh: ``model``'s
+    parameters are DTensors placed by ``plan``, which the engine replaces
+    by their local tensors (``ValueError`` naming a parameter placed
+    otherwise, or not split as the programs compute).  Each rank of the
+    mesh builds its engine and drives the same requests."""
 
     def __init__(
         self,
@@ -193,11 +221,27 @@ class ServeEngine:
                                        None]] = None,
         on_cancel: Optional[Callable[[str, List[int], bool], None]] = None,
         slo_name: str = "serve",
+        mesh=None,
+        plan=None,
     ):
         self.device = resolve_device(device)
         self.family = family
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        self.plan = plan
+        # Over a mesh: this rank's collectives, each parameter's (spec,
+        # placements, placement over tp) and the host group the ranks
+        # agree over.
+        self._tp: Optional[TensorParallel] = None
+        self._layout: Dict[str, tuple] = {}
+        self._host = None
+        if mesh is not None:
+            self.plan = plan or serve_plan(cfg, mesh)
+            self._tp, self._layout = _take_local_shards(model, cfg, mesh,
+                                                        self.plan)
+            if self._tp.size > 1:
+                self._host = _host_group(self._tp.group)
         # Weight-version stamp of the parameters served (install_params).
         self.weight_version: Optional[str] = None
         self.scfg: ResolvedServeConfig = (serve_cfg or ServeConfig()).resolve(cfg)
@@ -208,14 +252,19 @@ class ServeEngine:
         self.on_cancel = on_cancel
         self.cancelled: Dict[str, List[int]] = {}  # rid -> tokens at cancel
         self._draining = False
-        self.kv = PagedKVCache(self.scfg.kv_config(cfg))
+        self._kv_cfg = self.scfg.kv_config(
+            cfg, 1 if self._tp is None else self._tp.size)
+        self.kv = PagedKVCache(self._kv_cfg)
         self.prefix = PrefixCache(self.kv)
-        self.k_pages, self.v_pages = init_pools(
-            self.scfg.kv_config(cfg), cfg.dtype, self.device)
-        self._fns = build_serving_functions(model)
+        self.k_pages, self.v_pages = init_pools(self._kv_cfg, cfg.dtype,
+                                                self.device)
+        self._fns = build_serving_functions(model, self._tp)
         self._specs = {s.name: s for s in serve_program_specs(self.scfg)}
         self._programs: Dict[str, ServeProgram] = {}
-        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        # A gloo group's collectives run on the host, which a CUDA graph
+        # cannot capture: such a replica's programs run eagerly.
+        self.cuda_graphs = (cuda_graphs and self.device.type == "cuda"
+                            and not _gloo(self._tp))
         # One memory pool for every graph of the engine (programs never
         # run concurrently, so they may share intermediates) and one
         # side stream for the captures.
@@ -255,7 +304,10 @@ class ServeEngine:
         self.cow_copies = 0
         self.prefix_hits = 0
         self.prefix_tokens_reused = 0
-        self._retryable = _retryable_errors()
+        # On several ranks only the chaos error, whose firing the ranks
+        # agree on, is retryable (the module docstring says why).
+        self._retryable = (_retryable_errors() if self._host is None
+                           else (chaos.InjectedRuntimeError,))
         self.slo = _slo.ServeSLO(name=slo_name)
         # Live percentile export; no-op unless TDX_METRICS_EXPORT_S > 0
         # (the first engine's SLO wins the exporter slot).
@@ -440,11 +492,11 @@ class ServeEngine:
                 return []
         return None
 
-    def _expire_deadlines(self) -> None:
-        """Cancel every lane and waiting request past its end-to-end
-        deadline, freeing lane pages at once, and tell ``on_cancel``."""
+    def _doomed(self) -> List[str]:
+        """The rids of lanes and waiting requests past their end-to-end
+        deadline on this process's clock."""
         now = time.perf_counter()
-        doomed = [
+        return [
             lane.req.rid for lane in self.active.values()
             if getattr(lane.req, "_deadline_t", None) is not None
             and now > lane.req._deadline_t
@@ -453,7 +505,12 @@ class ServeEngine:
             if getattr(req, "_deadline_t", None) is not None
             and now > req._deadline_t
         ]
-        for rid in doomed:
+
+    def _expire_deadlines(self, doomed: Optional[List[str]] = None) -> None:
+        """Cancel every lane and waiting request past its end-to-end
+        deadline (``doomed``, default this process's :meth:`_doomed`),
+        freeing lane pages at once, and tell ``on_cancel``."""
+        for rid in self._doomed() if doomed is None else doomed:
             was_active = any(lane.req.rid == rid
                              for lane in self.active.values())
             toks = self.cancel(rid, reason="deadline")
@@ -477,8 +534,44 @@ class ServeEngine:
                 f"drain first"
             )
         self.prefix.clear()
+        if self.mesh is not None:
+            # This rank's shard of each entry, full or a DTensor.
+            params = {k: self._local_of(k, v) for k, v in params.items()}
         self.model.load_state_dict(params)
         self.weight_version = version
+
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The served weights whole, under the model's state-dict names:
+        the model's own state dict, or over a mesh each rank's shards
+        gathered over ``tp`` (a collective: every rank of the replica
+        calls it).  What :func:`oracle_generate` runs on, through
+        :func:`.fleet.params_model`."""
+        sd = self.model.state_dict()
+        if self._tp is None:
+            return sd
+        return {k: self._gather(k, v) for k, v in sd.items()}
+
+    def _gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import Shard
+
+        placement = self._layout[name][2] if name in self._layout else None
+        if not isinstance(placement, Shard) or self._tp.size == 1:
+            return local
+        parts = [torch.empty_like(local) for _ in range(self._tp.size)]
+        torch.distributed.all_gather(parts, local.contiguous(),
+                                     group=self._tp.group)
+        return torch.cat(parts, dim=placement.dim)
+
+    def _local_of(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        spec, placements, _ = self._layout[name]
+        if isinstance(value, DTensor):
+            if tuple(value.placements) == placements:
+                return value.to_local()
+            value = value.full_tensor()
+        return local_shard(value, spec, mesh_shape(self.mesh),
+                           self.mesh.get_coordinate())
 
     def release_kv(self) -> None:
         """Free the replica's KV pool and its programs' graphs (the end
@@ -491,7 +584,7 @@ class ServeEngine:
             )
         self.drop_graphs()
         self.k_pages = self.v_pages = None
-        self.kv = PagedKVCache(self.scfg.kv_config(self.cfg))
+        self.kv = PagedKVCache(self._kv_cfg)
         self.prefix = PrefixCache(self.kv)
         self._gauges()
 
@@ -539,8 +632,11 @@ class ServeEngine:
             active=len(self.active), waiting=len(self.waiting),
         ):
             try:
-                self._take_serve_faults()
-                self._expire_deadlines()
+                if self._host is None:
+                    self._take_serve_faults()
+                    self._expire_deadlines()
+                else:
+                    self._agree()
                 self._advance_prefill()
                 self._admit()
                 if self._pending_chunk_faults:
@@ -581,9 +677,36 @@ class ServeEngine:
         speculative verify tick (after drafts were taken and capacity
         extended); everything else executes now."""
         plan = chaos.active_plan()
-        if plan is None:
-            return
-        for fault in plan.take("serve", self._step_no):
+        if plan is not None:
+            self._dispatch_serve_faults(plan.take("serve", self._step_no))
+
+    def _agree(self) -> None:
+        """The serve site and the deadlines on a replica of several
+        ranks: each rank's faults due at this step and its doomed rids are
+        gathered over the host group, and every rank takes the union, in
+        rank order (a fault as many times as the rank that took it most
+        often), so all of them defer, raise, requeue and cancel alike."""
+        plan = chaos.active_plan()
+        mine = plan.take("serve", self._step_no) if plan is not None else []
+        peers = [None] * torch.distributed.get_world_size(self._host)
+        torch.distributed.all_gather_object(peers, (mine, self._doomed()),
+                                            group=self._host)
+        faults: List[chaos.Fault] = []
+        most: Dict[str, int] = {}
+        for taken, _ in peers:
+            seen: Dict[str, int] = {}
+            for fault in taken:
+                key = fault.spec()
+                seen[key] = seen.get(key, 0) + 1
+                if seen[key] > most.get(key, 0):
+                    most[key] = seen[key]
+                    faults.append(fault)
+        self._dispatch_serve_faults(faults)
+        self._expire_deadlines(list(dict.fromkeys(
+            rid for _, doomed in peers for rid in doomed)))
+
+    def _dispatch_serve_faults(self, faults: Sequence[chaos.Fault]) -> None:
+        for fault in faults:
             if fault.kind == "raise" and fault.arg == "chunk":
                 self._pending_chunk_faults.append(fault)
             elif fault.kind == "raise" and fault.arg == "verify":
@@ -1136,6 +1259,120 @@ class ServeEngine:
 # ---------------------------------------------------------------------------
 
 
+# The split the serving programs compute on over tp: these parameters
+# on the dim given, the vocabulary tables whole or on their rows, every
+# other one whole.
+_TP_SPLIT = ((re.compile(r".*attn\.w[qkv]\.(weight|bias)"), 0),
+             (re.compile(r".*attn\.wo\.weight"), 1),
+             (re.compile(r".*mlp\.w_(gate|up)\.(weight|bias)"), 0),
+             (re.compile(r".*mlp\.w_down\.weight"), 1))
+_TP_VOCAB = re.compile(r"(embed|wte|lm_head)\.weight")
+
+
+def serve_plan(cfg: TransformerConfig, mesh):
+    """The stock plan of a replica over ``mesh``: ``decoder_lm_plan``
+    naming only the mesh's own axes."""
+    axes = mesh_shape(mesh)
+    return decoder_lm_plan(cfg, fsdp="fsdp" if "fsdp" in axes else None,
+                           tp="tp" if "tp" in axes else None, ep=None)
+
+
+def check_serving_mesh(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a replica's mesh; ``NotImplementedError`` for
+    an axis other than ``tp`` of size > 1 (ROADMAP A6.7: the programs
+    split only over ``tp``, where the JAX engine lets GSPMD gather the
+    weights any other axis shards)."""
+    axes = mesh_shape(mesh)
+    other = {a: n for a, n in axes.items() if a != "tp" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"serving over mesh axes {other} is ROADMAP A6.7: a replica's "
+            f"programs split only over tp")
+    return axes
+
+
+def _mesh_desc(mesh) -> str:
+    if mesh is None:
+        return "none"
+    return repr(sorted((str(k), int(v)) for k, v in mesh_shape(mesh).items()))
+
+
+def _take_local_shards(model, cfg, mesh, plan):
+    """Hold each parameter of ``model`` against ``plan`` over ``mesh``
+    and against the split the programs compute on, then replace it (tied
+    ones once) by its local tensor: ``(TensorParallel, {name: (spec,
+    placements, placement over tp or None)})``.  ``ValueError`` names the first parameter that is
+    not a DTensor, is placed otherwise than ``plan`` gives, or is not
+    split over ``tp`` as the programs need (a ``tp`` that does not divide
+    a head count leaves its projection whole)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    names = list(check_serving_mesh(mesh))
+    tp_dim = names.index("tp") if "tp" in names else None
+    size = mesh_shape(mesh).get("tp", 1)
+    layout: Dict[str, tuple] = {}
+    local: Dict[int, torch.nn.Parameter] = {}
+    for name, p in model.named_parameters(remove_duplicate=False):
+        if not isinstance(p, DTensor):
+            raise ValueError(
+                f"`{name}` is a plain tensor: a replica over a mesh takes "
+                f"DTensor parameters placed by its plan (bind_values of "
+                f"materialize_module_cuda(mesh=, plan=))")
+        spec = plan.spec_for(name, tuple(p.shape), mesh)
+        want = placements_for(spec, mesh)
+        got = tuple(p.placements)
+        if got != want:
+            raise ValueError(f"`{name}` is placed {got}; the plan gives "
+                             f"{want}")
+        if tp_dim is not None and size > 1:
+            split = next((d for pat, d in _TP_SPLIT if pat.fullmatch(name)),
+                         None)
+            ok = ((Shard(split),) if split is not None
+                  else (Shard(0), Replicate()) if _TP_VOCAB.fullmatch(name)
+                  else (Replicate(),))
+            if got[tp_dim] not in ok:
+                raise ValueError(
+                    f"`{name}` is {got[tp_dim]} over tp (size {size}); "
+                    f"tensor-parallel serving needs {ok[0]}: tp must divide "
+                    f"the heads (H {cfg.n_heads}, KV {cfg.kv_heads}) and "
+                    f"d_ff {cfg.d_ff}")
+        layout[name] = (spec, got, None if tp_dim is None else got[tp_dim])
+        if id(p) not in local:
+            local[id(p)] = torch.nn.Parameter(p.to_local(),
+                                               requires_grad=p.requires_grad)
+    for mod in model.modules():
+        for k, t in mod._parameters.items():
+            if t is not None and id(t) in local:
+                mod._parameters[k] = local[id(t)]
+    if tp_dim is None:
+        return TensorParallel(None, 0, 1, vocab_embed=False,
+                              vocab_head=False), layout
+    table = "wte.weight" if "wte.weight" in layout else "embed.weight"
+    head = "lm_head.weight" if "lm_head.weight" in layout else table
+
+    def vocab_split(name: str) -> bool:
+        return layout[name][2] == Shard(0)
+
+    return TensorParallel(mesh.get_group("tp"), mesh.get_local_rank("tp"),
+                          size, vocab_embed=vocab_split(table),
+                          vocab_head=vocab_split(head)), layout
+
+
+def _gloo(tp: Optional[TensorParallel]) -> bool:
+    return (tp is not None and tp.group is not None
+            and torch.distributed.get_backend(tp.group) == "gloo")
+
+
+def _host_group(group):
+    """A gloo group over the ranks of ``group`` (``group`` itself when it
+    is one), made by those ranks alone."""
+    dist = torch.distributed
+    if dist.get_backend(group) == "gloo":
+        return group
+    return dist.new_group(dist.get_process_group_ranks(group),
+                          backend="gloo", use_local_synchronization=True)
+
+
 def _resolve_model(model, family):
     if isinstance(model, str):
         cfg = PRESETS[model]
@@ -1148,6 +1385,8 @@ def spin_up_replica(
     *,
     family: Optional[str] = None,
     serve_cfg: Optional[ServeConfig] = None,
+    mesh=None,
+    plan=None,
     seed: int = 0,
     param_dtype: Optional[torch.dtype] = None,
     sample_len: int = 8,
@@ -1185,17 +1424,26 @@ def spin_up_replica(
     sample input length for tracing the init program; the port records
     the module itself and needs none.
 
+    ``mesh`` and ``plan`` (default :func:`serve_plan`) bring up this
+    rank's share of a replica over the mesh: the keyed materializer
+    draws only this rank's shard of each entry (the keyed kernel runs on
+    every rank), and the engine serves on the local tensors; every rank
+    of the mesh calls this with the same arguments.
+
     ``health_component`` walks ``spin_up`` -> ``warming`` -> ``serving``
     in :mod:`..observe.health` (no router may send work before
     ``serving``); ``slo_name`` names the engine's SLO windows."""
     del sample_len
     dev = resolve_device(device)
     cfg, family = _resolve_model(model, family)
+    if mesh is not None:
+        check_serving_mesh(mesh)
+        plan = plan or serve_plan(cfg, mesh)
     if param_dtype is not None:
         cfg = cfg.replace(param_dtype=param_dtype)
     observe.health.set_state(health_component, "spin_up")
-    with observe.span("serve.spin_up", category="serve",
-                      family=family) as sp:
+    with observe.span("serve.spin_up", category="serve", family=family,
+                      mesh=_mesh_desc(mesh)) as sp:
         t0 = time.perf_counter()
         # The libraries first: once the materializer has loaded the keyed
         # draws' library, a build of it would read as a hit.
@@ -1205,12 +1453,13 @@ def spin_up_replica(
             build_kernel()
         net = deferred_init(make_model, family, cfg, dev)
         bind_values(net, materialize_module_cuda(
-            net, seed=seed, param_dtype=param_dtype, device=dev))
+            net, mesh=mesh, plan=plan, seed=seed, param_dtype=param_dtype,
+            device=dev))
         net.eval()
         engine = ServeEngine(family, cfg, net, serve_cfg=serve_cfg,
                              device=dev, on_token=on_token,
                              on_complete=on_complete, on_cancel=on_cancel,
-                             slo_name=slo_name)
+                             slo_name=slo_name, mesh=mesh, plan=plan)
         engine.bring_up_outcomes = outcomes
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -62,12 +62,20 @@ nvcc (each came from the local cache or the artifact registry,
 bring-up seconds (telemetry on).  It still records, materializes and
 captures its programs itself: the port compiles no init program.
 
-What the port does not have yet: a replica over a mesh (``mesh=`` /
-``plan=``: ROADMAP A6.6; the port's engine serves one device).
+**Over a mesh.**  ``ServeFleet(mesh=, plan=)`` passes both to each
+replica's :func:`~.engine.spin_up_replica`, as the JAX fleet does, for a
+mesh this process holds alone (on one card a ``{tp 1}``); the fleet's
+weights (``params``, ``version_params``) are each first replica's
+:meth:`~.engine.ServeEngine.full_state_dict`.  A mesh over several
+processes raises ``NotImplementedError`` (ROADMAP A6.7): the JAX fleet is
+one controller over a mesh it drives alone, while here every rank would
+run the fleet's replica threads, whose collectives nothing orders the
+same on every rank.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from collections import deque
@@ -81,6 +89,7 @@ from .. import chaos, observe
 from .. import config as tdx_config
 from ..models import PRESETS, TransformerConfig
 from ..observe import reqledger
+from ..parallel.sharding import mesh_shape
 from ..utils.logging import get_logger
 from .engine import Request, ServeEngine, oracle_generate, spin_up_replica
 from .guardrails import (
@@ -277,10 +286,12 @@ class ServeFleet:
         on_token: Optional[Callable[[str, int], None]] = None,
         device="cuda",
     ):
-        if mesh is not None or plan is not None:
+        procs = 1 if mesh is None else math.prod(mesh_shape(mesh).values())
+        if procs > 1:
             raise NotImplementedError(
-                "a fleet of replicas over a mesh (mesh=, plan=) is ROADMAP "
-                "A6.6: the port's engine serves one device")
+                f"a fleet over a mesh of {procs} processes is ROADMAP "
+                f"A6.7: each rank would run the replica threads, and nothing "
+                f"orders their collectives the same on every rank")
         if isinstance(model, str):
             cfg = PRESETS[model]
             if not isinstance(cfg, TransformerConfig):
@@ -292,6 +303,7 @@ class ServeFleet:
         self.model, self.family, self.cfg = model, family, cfg
         self.serve_cfg = serve_cfg
         self.fc = fleet_cfg or FleetConfig()
+        self.mesh, self.plan = mesh, plan
         self.device = device
         # Every piece of the fleet's device work holds this (the module
         # docstring says why).
@@ -1158,9 +1170,9 @@ class ServeFleet:
                     observe.gauge("tdx.fleet.spin_up_warm_s").set(
                         round(engine.bring_up_seconds, 3))
                 if self.params is None:
-                    self.params = engine.model.state_dict()
+                    self.params = engine.full_state_dict()
                 self.version_params.setdefault(h.weight_version,
-                                               engine.model.state_dict())
+                                               engine.full_state_dict())
                 if h.weight_version is not None and not h.reaped:
                     observe.health.set_info(h.component,
                                             version=h.weight_version)
@@ -1188,6 +1200,7 @@ class ServeFleet:
     def _spin_up(self, h: ReplicaHandle) -> ServeEngine:
         engine = spin_up_replica(
             self.model, family=self.family, serve_cfg=self.serve_cfg,
+            mesh=self.mesh, plan=self.plan,
             seed=self._seed, param_dtype=self._param_dtype,
             sample_len=self._sample_len, on_token=self._make_on_token(h),
             on_complete=lambda rid, toks, logits: (

@@ -36,6 +36,20 @@ The pools are updated IN PLACE (``index_put_``) where the JAX programs
 return new pools functionally (``kp.at[...].set``): no second copy of
 the cache ever exists.  Padded prompt positions and idle lanes write
 the reserved null page 0, which is never read.
+
+**Over a mesh** (:class:`TensorParallel`, ROADMAP A6.6) each rank runs
+the same programs on its own shards of a plan's Megatron layout:
+``H/tp`` query heads and ``KV/tp`` kv heads (so its pools hold ``KV/tp``
+heads and the paged kernel runs at that local shape), ``d_ff/tp`` MLP
+columns, and, where the plan splits the vocabulary, its rows of the
+embedding table and of the head.  The collectives are written out: an
+all-reduce over ``tp`` after the attention output projection and after
+the MLP's down projection, a masked local lookup then an all-reduce for
+the embedding, local logits then an all-gather, so every rank holds the
+same full logits row.  The JAX package lets GSPMD insert the same
+collectives; here they are plain c10d calls on the current stream, which
+a CUDA graph captures (NCCL), where DTensor's per-op dispatch is host
+work a replay would skip.
 """
 
 from __future__ import annotations
@@ -46,9 +60,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import config as tdx_config
 from ..models import GPT2Model, LlamaModel, TransformerConfig
+from ..models.decomposition import (
+    DecodeDecomposition,
+    apply_final_norm,
+    token_embed,
+)
 from ..models.layers import apply_rope, default_attention
 from ..ops import paged_attention
 from ..ops.paged_attention import paged_prefill_attention
@@ -59,6 +79,7 @@ __all__ = [
     "ServeConfig",
     "ServeProgram",
     "ServeProgramSpec",
+    "TensorParallel",
     "build_chunk_prefill_fn",
     "build_cow_fn",
     "build_decode_fn",
@@ -160,9 +181,11 @@ class ResolvedServeConfig:
     spec_decode: bool = True    # speculation armed (host-side knob)
     spec_k: int = 4             # max draft length (host-side knob)
 
-    def kv_config(self, cfg: TransformerConfig) -> KVCacheConfig:
+    def kv_config(self, cfg: TransformerConfig, tp: int = 1) -> KVCacheConfig:
+        """The pools' shape; on a rank of a ``{tp t}`` mesh it holds that
+        rank's ``KV/t`` kv heads."""
         return KVCacheConfig(
-            n_layers=cfg.n_layers, kv_heads=cfg.kv_heads,
+            n_layers=cfg.n_layers, kv_heads=cfg.kv_heads // tp,
             head_dim=cfg.head_size, page_size=self.page_size,
             n_pages=self.n_pages,
         )
@@ -209,11 +232,127 @@ def make_model(family: str, cfg: TransformerConfig, device=None):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: one rank's share of a replica over a mesh
+# ---------------------------------------------------------------------------
+
+
+class TensorParallel:
+    """The collectives of one rank's programs over the ``tp`` axis of a
+    replica's mesh: ``group`` (None: an axis-free mesh, nothing to
+    reduce), this rank's index ``rank`` and the axis ``size``;
+    ``vocab_embed`` / ``vocab_head`` say whether the embedding table and
+    the head hold this rank's rows of the vocabulary (``Shard(0)`` over
+    ``tp``) rather than all of it.
+
+    Every call is a c10d collective on the current stream, the same on
+    every rank in the same order, with no host read of a device value,
+    so a program that makes them is captured as a CUDA graph (NCCL).  A
+    row-parallel projection adds its bias on rank 0 only, inside the
+    matmul as the unsharded ``Linear`` does: on one rank the result is
+    the unsharded one bit for bit.  Over several ranks in a 16-bit
+    compute dtype each rank's partial product is kept in float32 and the
+    partials are summed in float32, then rounded once, as the unsharded
+    matmul rounds its float32 accumulator once (rounding each partial to
+    16 bits first would add two roundings to every element of the
+    residual stream)."""
+
+    def __init__(self, group, rank: int, size: int, *, vocab_embed: bool,
+                 vocab_head: bool):
+        self.group, self.rank, self.size = group, rank, size
+        self.vocab_embed, self.vocab_head = vocab_embed, vocab_head
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is not None:
+            torch.distributed.all_reduce(x, group=self.group)
+        return x
+
+    def row_parallel(self, lin, x: torch.Tensor) -> torch.Tensor:
+        """``lin(x)`` for a projection whose input dim is split over
+        ``tp`` (``attn.wo``, ``mlp.w_down``): the partial products
+        summed over the axis."""
+        dt = lin.compute_dtype
+        bias = (lin.bias.to(dt) if lin.bias is not None and self.rank == 0
+                else None)
+        if self.size == 1 or dt.itemsize > 2:
+            return self.all_reduce(F.linear(x.to(dt), lin.weight.to(dt), bias))
+        # 16-bit values are exact in float32, so are their products.
+        y = F.linear(x.to(dt).float(), lin.weight.to(dt).float(),
+                     None if bias is None else bias.float())
+        return self.all_reduce(y).to(dt)
+
+    def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """``F.embedding(ids, full_table)`` from this rank's rows: ids
+        outside them look up row 0 and are zeroed, and the axis's sum
+        leaves each id its one owner's row (adding zeros is exact)."""
+        if not self.vocab_embed:
+            return F.embedding(ids, table)
+        rows = table.shape[0]
+        local = ids - self.rank * rows
+        hit = (local >= 0) & (local < rows)
+        out = F.embedding(torch.where(hit, local, 0), table)
+        return self.all_reduce(out.masked_fill(~hit[..., None], 0))
+
+    def head(self, cfg, x: torch.Tensor, embed, lm_head) -> torch.Tensor:
+        """:func:`~..models.decomposition.decoder_head_logits` from this
+        rank's vocabulary rows: its logits columns, then an all-gather
+        in rank order, so every rank holds the same full f32 row."""
+        if cfg.tie_embeddings or lm_head is None:
+            dt = cfg.param_dtype
+            logits = (x.to(dt) @ embed.weight.to(dt).T).float()
+        else:
+            logits = lm_head(x).float()
+        if not self.vocab_head or self.group is None:
+            return logits
+        cols = logits.movedim(-1, 0).contiguous()
+        out = cols.new_empty((self.size * cols.shape[0], *cols.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, cols, group=self.group)
+        return out.movedim(0, -1)
+
+    def decomposition(self, model) -> DecodeDecomposition:
+        """``model.decode_decomposition()`` with the embedding and the
+        head through this rank's rows of the vocabulary (the family's
+        own reads ``embed.weight`` whole)."""
+        cfg, d = model.cfg, model.decode_decomposition()
+        table = model.wte if hasattr(model, "wte") else model.embed
+        wpe = getattr(model, "wpe", None)
+
+        def embed(tokens, positions):
+            x = self.lookup(table.weight, tokens).to(cfg.dtype)
+            if wpe is None:
+                return x
+            return x + token_embed(cfg, wpe.weight, positions)
+
+        def head(x):
+            x = apply_final_norm(model.final_norm, x)
+            return self.head(cfg, x, table, model.lm_head)
+
+        return DecodeDecomposition(embed, d.blocks, d.angles_at, head)
+
+
+def _attn_out_and_mlp(blk, x, attn, tp: Optional[TensorParallel]):
+    """The block's tail after its attention ``attn`` [B, S, H, D]: the
+    output projection and the MLP, each with its residual; over ``tp``
+    both projections are row-parallel (summed over the axis)."""
+    if tp is None:
+        x = x + blk.attn.out(attn)
+        return x + blk.mlp(blk.norm_1(x))
+    B, S = attn.shape[:2]
+    x = x + tp.row_parallel(blk.attn.wo, attn.reshape(B, S, -1))
+    return x + tp.row_parallel(blk.mlp.w_down, blk.mlp.hidden(blk.norm_1(x)))
+
+
+def _decomposition(model, tp: Optional[TensorParallel]):
+    return model.decode_decomposition() if tp is None else tp.decomposition(
+        model)
+
+
+# ---------------------------------------------------------------------------
 # decode-mode block forward (shared by prefill and decode)
 # ---------------------------------------------------------------------------
 
 
-def _decode_block(blk, x, kp, vp, *, angles, positions, lengths, page_table):
+def _decode_block(blk, x, kp, vp, *, angles, positions, lengths, page_table,
+                  tp=None):
     """One layer of the decode step: x [B, 1, d]; writes this token's
     K/V at (page, slot) in place and attends the whole context through
     the page table."""
@@ -229,11 +368,11 @@ def _decode_block(blk, x, kp, vp, *, angles, positions, lengths, page_table):
     kp.index_put_((page.long(), slot), k[:, 0])
     vp.index_put_((page.long(), slot), v[:, 0])
     attn = paged_attention(q[:, 0], kp, vp, lengths, page_table)
-    x = x + blk.attn.out(attn[:, None])
-    return x + blk.mlp(blk.norm_1(x))
+    return _attn_out_and_mlp(blk, x, attn[:, None], tp)
 
 
-def _prefill_block(blk, x, kp, vp, *, angles, positions, length, page_table):
+def _prefill_block(blk, x, kp, vp, *, angles, positions, length, page_table,
+                   tp=None):
     """One layer of prefill: x [B, S, d]; causal attention over the
     in-flight K/V (a fresh prompt attends only itself), every valid
     position's K/V written into its page in place; padded positions write
@@ -253,18 +392,18 @@ def _prefill_block(blk, x, kp, vp, *, angles, positions, length, page_table):
     vp.index_put_((page.long(), slot.long()), v)
     attn = default_attention(q, k, v, causal=True,
                              segment_ids=valid.to(torch.int32))
-    x = x + blk.attn.out(attn)
-    return x + blk.mlp(blk.norm_1(x))
+    return _attn_out_and_mlp(blk, x, attn, tp)
 
 
-def build_decode_fn(model) -> Callable:
+def build_decode_fn(model, tp: Optional[TensorParallel] = None) -> Callable:
     """The batched decode step:
     ``(k_pages, v_pages, tokens [B], positions [B], page_table [B, maxp])
     -> logits [B, vocab]``, updating the pools in place.  ``positions[b]``
     is the index the incoming token occupies; idle lanes carry position 0
     and a null page table (their writes land in the null page, their
-    logits are ignored)."""
-    decomp = model.decode_decomposition()
+    logits are ignored).  ``tp``: this rank's share of a replica over a
+    mesh (:class:`TensorParallel`)."""
+    decomp = _decomposition(model, tp)
 
     @torch.no_grad()
     def decode_fn(k_pages, v_pages, tokens, positions, page_table):
@@ -279,20 +418,21 @@ def build_decode_fn(model) -> Callable:
             x = _decode_block(
                 blk, x, k_pages[layer], v_pages[layer], angles=angles,
                 positions=positions, lengths=lengths, page_table=page_table,
+                tp=tp,
             )
         return decomp.head(x)[:, 0]  # [B, vocab]
 
     return decode_fn
 
 
-def build_prefill_fn(model) -> Callable:
+def build_prefill_fn(model, tp: Optional[TensorParallel] = None) -> Callable:
     """The single-sequence prefill:
     ``(k_pages, v_pages, tokens [1, bucket], length [1],
     page_table [1, maxp]) -> logits [vocab]``, updating the pools in
     place — logits are the LAST VALID position's (the first generated
     token).  One function serves every bucket; the bucket is the padded
     width of ``tokens``."""
-    decomp = model.decode_decomposition()
+    decomp = _decomposition(model, tp)
 
     @torch.no_grad()
     def prefill_fn(k_pages, v_pages, tokens, length, page_table):
@@ -305,6 +445,7 @@ def build_prefill_fn(model) -> Callable:
             x = _prefill_block(
                 blk, x, k_pages[layer], v_pages[layer], angles=angles,
                 positions=positions, length=length, page_table=page_table,
+                tp=tp,
             )
         last = torch.clamp(length - 1, 0, S - 1).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
@@ -313,7 +454,8 @@ def build_prefill_fn(model) -> Callable:
     return prefill_fn
 
 
-def _chunk_block(blk, x, kp, vp, *, angles, positions, end, page_table):
+def _chunk_block(blk, x, kp, vp, *, angles, positions, end, page_table,
+                 tp=None):
     """One layer of CHUNKED prefill: x [B, S, d] holds prompt positions
     ``[start, start+S)``; valid positions' K/V are written into their
     pages in place (the caller already copy-on-wrote any shared first
@@ -335,11 +477,11 @@ def _chunk_block(blk, x, kp, vp, *, angles, positions, end, page_table):
     kp.index_put_((page.long(), slot.long()), k)
     vp.index_put_((page.long(), slot.long()), v)
     attn = paged_prefill_attention(q, kp, vp, positions, end, page_table)
-    x = x + blk.attn.out(attn)
-    return x + blk.mlp(blk.norm_1(x))
+    return _attn_out_and_mlp(blk, x, attn, tp)
 
 
-def _chunk_forward(decomp, k_pages, v_pages, tokens, start, end, page_table):
+def _chunk_forward(decomp, k_pages, v_pages, tokens, start, end, page_table,
+                   tp=None):
     """The chunk/verify stack: tokens [B, S] at absolute positions
     ``start[b] + [0, S)`` -> final activations [B, S, d]."""
     S = tokens.shape[1]
@@ -350,12 +492,13 @@ def _chunk_forward(decomp, k_pages, v_pages, tokens, start, end, page_table):
     for layer, blk in enumerate(decomp.blocks):
         x = _chunk_block(
             blk, x, k_pages[layer], v_pages[layer], angles=angles,
-            positions=positions, end=end, page_table=page_table,
+            positions=positions, end=end, page_table=page_table, tp=tp,
         )
     return x
 
 
-def build_chunk_prefill_fn(model) -> Callable:
+def build_chunk_prefill_fn(model,
+                           tp: Optional[TensorParallel] = None) -> Callable:
     """The single-sequence CHUNK prefill:
     ``(k_pages, v_pages, tokens [1, bucket], start [1], end [1],
     page_table [1, maxp]) -> logits [vocab]``, updating the pools in
@@ -365,13 +508,13 @@ def build_chunk_prefill_fn(model) -> Callable:
     shared prefix costs only its own FLOPs.  Logits are the last valid
     position's: meaningful (the first generated token) only on the
     final chunk."""
-    decomp = model.decode_decomposition()
+    decomp = _decomposition(model, tp)
 
     @torch.no_grad()
     def chunk_fn(k_pages, v_pages, tokens, start, end, page_table):
         S = tokens.shape[1]
         x = _chunk_forward(decomp, k_pages, v_pages, tokens, start, end,
-                           page_table)
+                           page_table, tp)
         last = torch.clamp(end - 1 - start, 0, S - 1).long()
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
         return decomp.head(x_last)[0, 0]  # [vocab]
@@ -379,7 +522,7 @@ def build_chunk_prefill_fn(model) -> Callable:
     return chunk_fn
 
 
-def build_verify_fn(model) -> Callable:
+def build_verify_fn(model, tp: Optional[TensorParallel] = None) -> Callable:
     """The batched speculative verify:
     ``(k_pages, v_pages, tokens [B, k+1], start [B], end [B],
     page_table [B, maxp]) -> logits [B, k+1, vocab]``, updating the
@@ -392,12 +535,12 @@ def build_verify_fn(model) -> Callable:
     accept walks the rows left to right.  The batched sibling of
     :func:`build_chunk_prefill_fn`: the same per-layer write and ragged
     attention, every lane at once, the head at every position."""
-    decomp = model.decode_decomposition()
+    decomp = _decomposition(model, tp)
 
     @torch.no_grad()
     def verify_fn(k_pages, v_pages, tokens, start, end, page_table):
         x = _chunk_forward(decomp, k_pages, v_pages, tokens, start, end,
-                           page_table)
+                           page_table, tp)
         return decomp.head(x)  # [B, k+1, vocab]
 
     return verify_fn
@@ -454,13 +597,15 @@ def serve_program_specs(scfg: ResolvedServeConfig) -> List[ServeProgramSpec]:
     return specs
 
 
-def build_serving_functions(model) -> Dict[str, Callable]:
+def build_serving_functions(model, tp: Optional[TensorParallel] = None
+                            ) -> Dict[str, Callable]:
     """kind -> the forward every program of that kind runs (one function
-    serves every bucket: the bucket is its operands' width)."""
-    return {"decode": build_decode_fn(model),
-            "prefill": build_prefill_fn(model),
-            "chunk": build_chunk_prefill_fn(model),
-            "verify": build_verify_fn(model),
+    serves every bucket: the bucket is its operands' width); ``tp``: this
+    rank's share of a replica over a mesh."""
+    return {"decode": build_decode_fn(model, tp),
+            "prefill": build_prefill_fn(model, tp),
+            "chunk": build_chunk_prefill_fn(model, tp),
+            "verify": build_verify_fn(model, tp),
             "cow": build_cow_fn()}
 
 
